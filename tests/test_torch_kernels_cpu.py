@@ -1,0 +1,137 @@
+"""The kernel wrappers of xkv_tpu_torch on CPU tensors (their plain
+versions) against the JAX package.
+
+  * K1 ``flash_attention`` against ``flash_attention_fwd`` in interpret
+    mode, at the tiny shapes the JAX package's own tests use (fp32; 2e-4,
+    as there).
+  * K2 ``rankspace_decode_attention`` against
+    ``rankspace_decode_attention_xla`` and K3 ``lowrank_decode_attention``
+    against ``factored_decode_attention_xla``, the oracles the JAX tests
+    use (fp32 factors: 1e-4, the orders of the fp32 sums differ; int8
+    factors run in bf16 as the kernels do, against fp32 oracles: 1e-2 for
+    K2, 3e-2 for K3, which also rounds its rebuilt keys).
+
+The CUDA kernels themselves are held against these plain versions in
+``test_torch_kernels_gpu.py`` (on a card) and by ``chip_smoke.py``.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from xkv_tpu.compress.quant import quantize_k_factors, quantize_v_factors
+from xkv_tpu.ops.attention import (
+    factored_decode_attention_xla,
+    rankspace_decode_attention_xla,
+)
+from xkv_tpu.ops.pallas.flash_attention import flash_attention_fwd
+from xkv_tpu.ops.rope import apply_rope, rope_cos_sin
+from xkv_tpu_torch.ops.kernels import flash_attention as k1
+from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
+from xkv_tpu_torch.ops.kernels import rankspace_attention as k2
+
+
+def rnd(seed, *shape, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+def t(x):
+    return None if x is None else torch.as_tensor(np.array(x))
+
+
+def j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+@pytest.mark.parametrize("s,window", [(64, None), (96, None), (40, None), (96, 40)])
+def test_flash_plain_matches_pallas_interpret(s, window):
+    b, hq, hkv, hd = 2, 4, 2, 32
+    q, k, v = rnd(0, b, hq, s, hd), rnd(1, b, hkv, s, hd), rnd(2, b, hkv, s, hd)
+    scale = 1.0 / math.sqrt(hd)
+    want = flash_attention_fwd(j(q), j(k), j(v), scale=scale, causal=True, window=window,
+                               block_q=32, block_k=32, interpret=True)
+    before = k1.launches
+    got = k1.flash_attention(t(q), t(k), t(v), scale=scale, window=window)
+    assert k1.launches == before  # the plain version is not a launch
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+def test_wrappers_refuse_non_cpu_tensors_without_a_kernel():
+    """No silent fallback: a tensor that is neither on the CPU nor a valid
+    CUDA operand is refused, not sent to the plain version."""
+    q = torch.empty((1, 4, 8, 64), device="meta")
+    k = torch.empty((1, 2, 8, 64), device="meta")
+    with pytest.raises(ValueError):
+        k1.flash_attention(q, k, k, scale=0.1)
+    with pytest.raises(ValueError):
+        k2.rankspace_kernel(torch.empty((1, 4, 16), device="meta"),
+                            torch.empty((1, 8, 16), device="meta"),
+                            torch.empty((1, 8, 16), device="meta"))
+
+
+def _factors(seed, b, s_p, rk, rv, m, int8):
+    k_us, k_vt = rnd(seed, b, s_p, rk), rnd(seed + 1, b, rk, m, scale=0.3)
+    v_us, v_vt = rnd(seed + 2, b, s_p, rv), rnd(seed + 3, b, rv, m, scale=0.3)
+    if not int8:
+        return dict(k_us=k_us, k_vt=k_vt, v_us=v_us, v_vt=v_vt, k_scale=None, v_scale=None)
+    qk = quantize_k_factors(j(k_us), j(k_vt))
+    qv = quantize_v_factors(j(v_us), j(v_vt))
+    return dict(k_us=np.asarray(qk.us_q), k_vt=np.asarray(qk.vt_q),
+                k_scale=np.asarray(qk.out_scale), v_us=np.asarray(qv.us_q),
+                v_vt=np.asarray(qv.vt.astype(jnp.float32)),
+                v_scale=np.asarray(qv.rank_scale))
+
+
+DECODE_CASES = [(False, 1, None, None), (False, 3, [13, 24], [0, 5]),
+                (True, 1, None, None), (True, 2, [20, 17], [4, 0])]
+
+
+@pytest.mark.parametrize("int8,ql,lens,lo", DECODE_CASES)
+def test_rankspace_plain_matches_xla_oracle(int8, ql, lens, lo):
+    b, hq, hkv, hd, s_p, rk, rv = 2, 4, 2, 16, 24, 12, 10
+    f = _factors(10, b, s_p, rk, rv, hkv * hd, int8)
+    q = rnd(20, b, hq, ql, hd)
+    want = rankspace_decode_attention_xla(
+        j(q), j(f["k_us"]), j(f["k_vt"]), j(f["v_us"]), j(f["v_vt"]), 0.25, hkv,
+        k_scale_slice=j(f["k_scale"]), v_rank_scale=j(f["v_scale"]),
+        valid_len=j(lens), valid_lo=j(lo))
+    got_out, got_lse = k2.rankspace_decode_attention(
+        t(q), t(f["k_us"]), t(f["k_vt"]), t(f["v_us"]), t(f["v_vt"]), lengths=t(lens),
+        k_scale_slice=t(f["k_scale"]), v_rank_scale=t(f["v_scale"]), win_lo=t(lo),
+        scale=0.25, num_kv_heads=hkv)
+    # int8 factors run in bf16 (the query embeds and probabilities are
+    # rounded to bf16, as in the kernel); the XLA oracle keeps fp32.
+    tol = dict(rtol=1e-2, atol=1e-2) if int8 else dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(want.out), **tol)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want.lse), **tol)
+
+
+@pytest.mark.parametrize("int8,ql,lens,lo", DECODE_CASES)
+def test_lowrank_plain_matches_xla_oracle(int8, ql, lens, lo):
+    b, hq, hkv, hd, s_p, rk, rv = 2, 4, 2, 16, 24, 12, 10
+    f = _factors(30, b, s_p, rk, rv, hkv * hd, int8)
+    q_pre = rnd(40, b, hq, ql, hd)
+    cos_p, sin_p = rope_cos_sin(jnp.arange(s_p), hd, theta=10000.0)
+    cos_t, sin_t = rope_cos_sin(s_p + 3 + jnp.arange(ql)[None], hd, theta=10000.0)
+    q = apply_rope(j(q_pre), cos_t, sin_t)
+    want = factored_decode_attention_xla(
+        q, j(f["k_us"]), j(f["k_vt"]), j(f["v_us"]), j(f["v_vt"]), cos_p, sin_p, 0.25, hkv,
+        k_scale_slice=j(f["k_scale"]), v_rank_scale=j(f["v_scale"]),
+        valid_len=j(lens), valid_lo=j(lo))
+    got_out, got_lse = k3.lowrank_decode_attention(
+        t(q_pre), t(f["k_us"]), t(f["k_vt"]), t(f["v_us"]), t(f["v_vt"]),
+        t(cos_p), t(sin_p), t(cos_t), t(sin_t), lengths=t(lens),
+        k_scale_slice=t(f["k_scale"]), v_rank_scale=t(f["v_scale"]), win_lo=t(lo),
+        scale=0.25, num_kv_heads=hkv)
+    if int8:
+        # The int8 path rounds the rebuilt keys, the trig fields and the
+        # probabilities to bf16, as the kernel does; the XLA oracle keeps
+        # fp32 (its query is fp32): bf16 tolerance.
+        tol = dict(rtol=3e-2, atol=3e-2)
+    else:
+        tol = dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(want.out), **tol)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want.lse), **tol)

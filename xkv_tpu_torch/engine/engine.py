@@ -1,0 +1,143 @@
+"""Single-sequence/batch inference engine: prefill + compress + greedy decode.
+
+Port of the single-device Llama-family path of
+``xkv_tpu/engine/engine.py:InferenceEngine``.
+
+Modes:
+  * "factored": the cache holds factors (+ dense tail);
+  * "fake":     the dense lossy reconstruction is stored (reference parity);
+  * "none":     uncompressed baseline.
+
+There is no attention-implementation switch: on a CUDA device the kernels
+run, for CPU tensors their plain versions do. The greedy loop is a Python
+loop; a full tail is folded back into the factors (``refactorize``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from xkv_tpu_torch.cache import XKVCache
+from xkv_tpu_torch.configs import XKVConfig
+from xkv_tpu_torch.engine.compression import (
+    build_cache,
+    build_uncompressed_cache,
+    refactorize_cache,
+)
+from xkv_tpu_torch.models import llama
+from xkv_tpu_torch.models.config import ModelConfig
+from xkv_tpu_torch.ops.rope import rope_cos_sin
+
+
+class InferenceEngine:
+    def __init__(
+        self,
+        params,
+        cfg: ModelConfig,
+        xkv: Optional[XKVConfig] = None,
+        mode: str = "factored",
+        tail_max: int = 128,
+        cache_dtype: torch.dtype = torch.bfloat16,
+        factor_dtype=torch.bfloat16,
+        prefill_logits: str = "all",
+        device: str | torch.device = "cuda",
+    ):
+        if mode not in ("factored", "fake", "none"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if prefill_logits not in ("all", "last"):
+            raise ValueError(f"unknown prefill_logits {prefill_logits!r}")
+        if mode != "none" and xkv is None:
+            raise ValueError("xkv config required unless mode='none'")
+        if cfg.model_type != "llama" and cfg.model_type not in ("mistral", "qwen2"):
+            raise NotImplementedError(
+                f"model_type {cfg.model_type!r}: ROADMAP queue 1 item 14")
+        self.device = torch.device(device)
+        self.params = params
+        self.cfg = cfg
+        self.xkv = xkv
+        self.mode = mode
+        self.tail_max = tail_max
+        self.cache_dtype = cache_dtype
+        self.factor_dtype = factor_dtype
+        self.prefill_logits = prefill_logits
+        self._cos_sin: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def _prefill_cos_sin(self, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(s, hd) RoPE tables of the prefill positions, computed once per
+        length and kept on the device."""
+        if s not in self._cos_sin:
+            self._cos_sin[s] = rope_cos_sin(
+                torch.arange(s, device=self.device), self.cfg.head_dim,
+                self.cfg.rope_theta, self.cfg.rope_scaling)
+        return self._cos_sin[s]
+
+    # ------------------------------------------------------------ public API
+    @torch.no_grad()
+    def prefill(self, tokens) -> Tuple[torch.Tensor, XKVCache]:
+        """tokens (b, s) -> (logits (b, s, V) fp32, or (b, 1, V) with
+        prefill_logits="last"; cache)."""
+        tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+        s = tokens.shape[1]
+        logits, kvs = llama.prefill(
+            self.params, self.cfg, tokens,
+            logits_position=s - 1 if self.prefill_logits == "last" else None)
+        cos_p, sin_p = self._prefill_cos_sin(s)
+        if self.mode == "none":
+            cache = build_uncompressed_cache(
+                kvs, self.cfg, cos_p, sin_p, self.tail_max, cache_dtype=self.cache_dtype)
+        else:
+            cache = build_cache(
+                kvs, self.xkv, self.cfg, cos_p, sin_p, self.tail_max,
+                fake=self.mode == "fake", factor_dtype=self.factor_dtype,
+                cache_dtype=self.cache_dtype)
+        return logits, cache
+
+    @torch.no_grad()
+    def decode_step(self, cache: XKVCache, tokens, pos: int) -> Tuple[torch.Tensor, XKVCache]:
+        """One decode step; the cache's tail is updated in place."""
+        tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+        # The uncompressed cache has no groups, whatever merge plan is set.
+        xkv = None if self.mode == "none" else self.xkv
+        return llama.decode_step(
+            self.params, self.cfg, xkv, cache, tokens, int(pos),
+            self._prefill_cos_sin(cache.prefill_len))
+
+    @torch.no_grad()
+    def refactorize(self, cache: XKVCache) -> XKVCache:
+        """Fold a full decode tail into the factors (tail_len must equal
+        tail_max); returns a cache with an empty tail and prefill_len
+        extended by tail_max."""
+        if self.mode != "factored" or self.xkv is None:
+            raise ValueError("refactorize requires mode='factored'")
+        if cache.tail_len != cache.tail_max:
+            raise ValueError(f"tail holds {cache.tail_len} of {cache.tail_max} rows")
+        return refactorize_cache(cache, self.xkv, self.cfg, factor_dtype=self.factor_dtype)
+
+    @torch.no_grad()
+    def generate(self, tokens, max_new_tokens: int) -> torch.Tensor:
+        """Greedy generation. Returns (b, max_new_tokens) token ids."""
+        can_refactor = self.mode == "factored" and self.xkv is not None
+        if max_new_tokens > self.tail_max and not can_refactor:
+            raise ValueError(
+                f"max_new_tokens={max_new_tokens} exceeds tail_max={self.tail_max}")
+        tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+        logits, cache = self.prefill(tokens)
+        tok = logits[:, -1, :].argmax(dim=-1)
+        pieces: List[torch.Tensor] = [tok[:, None]]
+        pos = tokens.shape[1]
+        remaining = max_new_tokens - 1
+        while remaining > 0:
+            # Segments of tail capacity; a full tail is folded back into the
+            # factors (periodic refactorisation).
+            n = min(remaining, self.tail_max)
+            for _ in range(n):
+                logits, cache = self.decode_step(cache, tok[:, None], pos)
+                tok = logits[:, -1, :].argmax(dim=-1)
+                pieces.append(tok[:, None])
+                pos += 1
+            remaining -= n
+            if remaining > 0:
+                cache = self.refactorize(cache)
+        return torch.cat(pieces, dim=1)

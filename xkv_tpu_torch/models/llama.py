@@ -1,0 +1,285 @@
+"""Llama-family decoder (Llama 2/3, Mistral, Qwen2) on the factored cache.
+
+Port of the single-device, non-sparse path of ``xkv_tpu/models/llama.py``.
+Parameters are the JAX package's tree as plain dicts of tensors, in its
+(in, out) layout: every projection is ``x @ W``.
+
+The xKV contract:
+  * prefill attention uses the fresh, locally RoPE'd K, so compression never
+    changes prefill outputs;
+  * merged groups store pre-RoPE keys ("pre") or keys rotated before the
+    SVD ("post"); dense layers store post-RoPE keys;
+  * decode attention reads the factored segment (kernel K3 for "pre", K2
+    for "post") and the dense segments and tail (plain ops), merged by
+    log-sum-exp.
+
+Prefill attention runs kernel K1. Each kernel wrapper launches its CUDA
+kernel for CUDA tensors and its plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from xkv_tpu_torch.cache import XKVCache, layer_group_index, vt_layer_slice
+from xkv_tpu_torch.configs import XKVConfig
+from xkv_tpu_torch.models.config import ModelConfig
+from xkv_tpu_torch.ops.attention import (
+    PartialAttention,
+    dense_decode_attention_ref,
+    merge_partials,
+    reconstruct_group_heads,
+)
+from xkv_tpu_torch.ops.kernels.flash_attention import flash_attention
+from xkv_tpu_torch.ops.kernels.lowrank_attention import lowrank_decode_attention
+from xkv_tpu_torch.ops.kernels.rankspace_attention import rankspace_decode_attention
+from xkv_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+
+Params = Dict[str, Any]
+
+
+# ----------------------------------------------------------------- init
+def init_params(
+    cfg: ModelConfig,
+    generator: torch.Generator,
+    dtype: torch.dtype = torch.bfloat16,
+    device: str | torch.device = "cuda",
+) -> Params:
+    """Random parameters: normal(0, 0.02) projections and embeddings, unit
+    norms. Draws come from ``generator``, which must live on ``device``."""
+
+    def dense(*shape):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+        return (w * 0.02).to(dtype)
+
+    def ones(n):
+        return torch.ones((n,), dtype=dtype, device=device)
+
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    hq, hkv, hd = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+    layers = []
+    for _ in range(cfg.num_layers):
+        layer = {
+            "attn": {"wq": dense(d, hq * hd), "wk": dense(d, hkv * hd),
+                     "wv": dense(d, hkv * hd), "wo": dense(hq * hd, d)},
+            "mlp": {"w_gate": dense(d, f), "w_up": dense(d, f), "w_down": dense(f, d)},
+            "input_norm": ones(d),
+            "post_norm": ones(d),
+        }
+        if cfg.attention_bias:
+            for name, n in (("bq", hq * hd), ("bk", hkv * hd), ("bv", hkv * hd)):
+                layer["attn"][name] = torch.zeros((n,), dtype=dtype, device=device)
+        layers.append(layer)
+    params: Params = {"embed": dense(cfg.vocab_size, d), "layers": layers,
+                      "final_norm": ones(d)}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = dense(d, cfg.vocab_size)
+    return params
+
+
+# ----------------------------------------------------------------- blocks
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    normed = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return (normed * weight.to(torch.float32)).to(x.dtype)
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def qkv_proj(
+    p: Params, cfg: ModelConfig, x: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (b, s, d) -> q (b, hq, s, hd), k/v (b, hkv, s, hd) (views)."""
+    b, s, _ = x.shape
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, cfg.num_q_heads, cfg.head_dim).permute(0, 2, 1, 3)
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).permute(0, 2, 1, 3)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).permute(0, 2, 1, 3)
+    return q, k, v
+
+
+def unembed(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+    w = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
+    return (h @ w).to(torch.float32)
+
+
+# ----------------------------------------------------------------- prefill
+def _prefill_layer(
+    layer: Params,
+    cfg: ModelConfig,
+    h: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decoder layer of the causal prefill. Returns (h', k_pre_rope, v)."""
+    b, s = h.shape[0], h.shape[1]
+    resid = h
+    x = rms_norm(h, layer["input_norm"], cfg.rms_norm_eps)
+    q, k_pre, v = qkv_proj(layer["attn"], cfg, x)
+    q = apply_rope(q, cos, sin).contiguous()
+    k = apply_rope(k_pre, cos, sin).contiguous()
+    attn = flash_attention(q, k, v.contiguous(), scale=scale, window=cfg.sliding_window)
+    h = resid + attn.reshape(b, s, -1) @ layer["attn"]["wo"]
+    h = h + mlp(layer["mlp"], rms_norm(h, layer["post_norm"], cfg.rms_norm_eps))
+    return h, k_pre, v
+
+
+def prefill(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    logits_position: Optional[int] = None,
+) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Causal forward over a prompt. tokens (b, s) -> (logits (b, s, V)
+    fp32, or (b, 1, V) at ``logits_position``; [(k_pre_rope, v)] per layer,
+    each (b, hkv, s, hd))."""
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    h = params["embed"][tokens]
+    kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    for layer in params["layers"]:
+        h, k_pre, v = _prefill_layer(layer, cfg, h, cos, sin, scale)
+        kvs.append((k_pre, v))
+    if logits_position is not None:
+        h = h[:, logits_position:logits_position + 1]
+    return unembed(params, cfg, h), kvs
+
+
+# ----------------------------------------------------------------- decode
+def _post_rope_factored_part(
+    q: torch.Tensor,  # (b, hq, ql, hd) POST-RoPE queries
+    gf,
+    gpos: int,
+    cfg: ModelConfig,
+    scale: float,
+    k_scale_slice: Optional[torch.Tensor],
+    win_lo: Optional[torch.Tensor] = None,
+) -> PartialAttention:
+    """Attention over a POST-RoPE factored group in rank space (kernel K2):
+    no reconstruction and no trig."""
+    if gf.k_us4 is not None:
+        raise NotImplementedError("mixed int8+int4 factors: ROADMAP queue 1 item 11")
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    out, lse = rankspace_decode_attention(
+        q, gf.k_us, vt_layer_slice(gf.k_vt, gpos, hkv, hd),
+        gf.v_us, vt_layer_slice(gf.v_vt, gpos, hkv, hd),
+        k_scale_slice=k_scale_slice, v_rank_scale=gf.v_scale, win_lo=win_lo,
+        scale=scale, num_kv_heads=hkv,
+    )
+    return PartialAttention(out=out, lse=lse)
+
+
+def _dense_prefill_segment(q, gf, gpos, li, cache, cfg, cos_p, sin_p, rope_post):
+    """K and V of a layer's prefill segment when the group factors at most
+    one side: the factored side is reconstructed, the other read dense."""
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    if gf is not None and gf.k_us is not None:
+        k_scale = None if gf.k_scale is None else vt_layer_slice(gf.k_scale, gpos, hkv, hd)
+        k_rec = reconstruct_group_heads(
+            gf.k_us, vt_layer_slice(gf.k_vt, gpos, hkv, hd), hkv, out_scale=k_scale)
+        if not rope_post:
+            k_rec = apply_rope(k_rec, cos_p[None], sin_p[None])
+        k_prefill = k_rec.to(q.dtype)
+    else:
+        k_prefill = cache.dense_k[li]
+    if gf is not None and gf.v_us is not None:
+        v_prefill = reconstruct_group_heads(
+            gf.v_us, vt_layer_slice(gf.v_vt, gpos, hkv, hd), hkv,
+            rank_scale=gf.v_scale).to(q.dtype)
+    else:
+        v_prefill = cache.dense_v[li]
+    return k_prefill, v_prefill
+
+
+def decode_step(
+    params: Params,
+    cfg: ModelConfig,
+    xkv: Optional[XKVConfig],
+    cache: XKVCache,
+    tokens: torch.Tensor,
+    pos: int,
+    prefill_cos_sin: Tuple[torch.Tensor, torch.Tensor],
+) -> Tuple[torch.Tensor, XKVCache]:
+    """One decode step over the hybrid factored cache.
+
+    tokens: (b, ql) next token(s); pos: absolute position of tokens[:, 0];
+    prefill_cos_sin: (s_p, hd) RoPE tables of the prefill positions. The
+    tail is written in place. Returns (logits (b, ql, V) fp32, cache).
+    """
+    b, ql = tokens.shape
+    dev = tokens.device
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    positions = pos + torch.arange(ql, device=dev)[None, :]
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta, cfg.rope_scaling)
+    cos_p, sin_p = prefill_cos_sin
+    grp_index = layer_group_index(xkv) if xkv is not None else {}
+    rope_post = xkv is not None and xkv.rope_mode == "post"
+
+    # Sliding window: keys at positions > pos - window are live; tail row j
+    # sits at absolute position prefill_len + j.
+    win_lo = tail_lo = None
+    if cfg.sliding_window is not None:
+        if ql > 1:
+            raise ValueError("multi-token decode with sliding_window is not supported")
+        lo = max(pos - (cfg.sliding_window - 1), 0)
+        win_lo = torch.full((b,), lo, dtype=torch.int32, device=dev)
+        tail_lo = torch.full((b,), max(lo - cache.prefill_len, 0), dtype=torch.int32,
+                             device=dev)
+    tail_valid = (cache.tail_len + 1 + torch.arange(ql, dtype=torch.int32, device=dev))
+    tail_valid = tail_valid[None, :].expand(b, ql)
+
+    h = params["embed"][tokens]
+    for li, layer in enumerate(params["layers"]):
+        resid = h
+        x = rms_norm(h, layer["input_norm"], cfg.rms_norm_eps)
+        q_pre, k_new_pre, v_new = qkv_proj(layer["attn"], cfg, x)
+        q = apply_rope(q_pre, cos, sin)
+        cache.append_tail(li, apply_rope(k_new_pre, cos, sin), v_new)
+
+        parts: List[PartialAttention] = []
+        gf = gpos = None
+        if li in grp_index:
+            gi, gpos = grp_index[li]
+            gf = cache.groups[gi]
+        if gf is not None and gf.k_us is not None and gf.v_us is not None:
+            k_scale = None if gf.k_scale is None else vt_layer_slice(gf.k_scale, gpos, hkv, hd)
+            if rope_post:
+                parts.append(_post_rope_factored_part(q, gf, gpos, cfg, scale, k_scale, win_lo))
+            else:
+                out_f, lse_f = lowrank_decode_attention(
+                    q_pre, gf.k_us, vt_layer_slice(gf.k_vt, gpos, hkv, hd),
+                    gf.v_us, vt_layer_slice(gf.v_vt, gpos, hkv, hd),
+                    cos_p, sin_p, cos, sin,
+                    k_scale_slice=k_scale, v_rank_scale=gf.v_scale, win_lo=win_lo,
+                    scale=scale, num_kv_heads=hkv,
+                )
+                parts.append(PartialAttention(out=out_f, lse=lse_f))
+        else:
+            k_prefill, v_prefill = _dense_prefill_segment(
+                q, gf, gpos, li, cache, cfg, cos_p, sin_p, rope_post)
+            parts.append(dense_decode_attention_ref(
+                q, k_prefill, v_prefill, scale, valid_lo=win_lo))
+        # Decode tail, this step's token(s) included; causal within the
+        # new rows: query i sees tail rows < tail_len + i + 1.
+        parts.append(dense_decode_attention_ref(
+            q, cache.tail_k[li], cache.tail_v[li], scale, valid_len=tail_valid,
+            valid_lo=tail_lo))
+
+        attn = merge_partials(*parts).to(h.dtype)
+        attn = attn.permute(0, 2, 1, 3).reshape(b, ql, -1)
+        h = resid + attn @ layer["attn"]["wo"]
+        h = h + mlp(layer["mlp"], rms_norm(h, layer["post_norm"], cfg.rms_norm_eps))
+    return unembed(params, cfg, h), cache.advance(ql)

@@ -1,0 +1,244 @@
+"""K3: fused low-rank decode attention over PRE-RoPE factors
+(``csrc/lowrank_attention.cu``).
+
+Port of ``xkv_tpu/ops/pallas/lowrank_attention.py:lowrank_decode_attention``.
+The cache holds the factors ``K = k_us @ k_vt`` of pre-RoPE keys; every key
+block is rebuilt on chip and RoPE is applied in relative-angle form:
+
+    score_p = (q*c_t - q~*s_t) . (K_p*cos_p) + (q*s_t + q~*c_t) . (K_p*sin_p)
+
+with q~ = [q2, -q1]. ``_query_embeds`` (plain tensor code, as on the TPU)
+folds the query-position trig, the softmax scale and the int8 K column scale
+into the two embeds [qa | qb]; here they are stored compactly, one
+(2*hd)-wide row per query row for its own kv head, instead of the TPU's
+block-diagonal (2*hkv*hd)-wide rows. ``lowrank_kernel`` is the kernel: key
+rebuild, trig fields, scores, softmax, ``t = P @ v_us`` and the final
+``t @ v_vt`` per head. It launches the CUDA kernel for CUDA tensors and runs
+``lowrank_kernel_plain`` for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from xkv_tpu_torch.ops.kernels import _build
+from xkv_tpu_torch.ops.kernels.rankspace_attention import (
+    compute_dtype_for,
+    masked_softmax_stats,
+)
+
+# Launches of the CUDA kernel since the last reset (plain runs not counted).
+launches = 0
+
+
+def _query_embeds(
+    q_pre: torch.Tensor,  # (b, hq, ql, hd) PRE-RoPE queries
+    cos_t: torch.Tensor,  # (b|1, hd) or (b|1, ql, hd) query-position trig
+    sin_t: torch.Tensor,
+    num_kv_heads: int,
+    scale: float,
+    k_scale_slice: Optional[torch.Tensor],  # (b, 1, hkv*hd) int8 K scale
+) -> torch.Tensor:
+    """Compact query embeds (b, R, 2*hd) in q_pre's dtype, rows ordered
+    (ql, hq): [qa | qb] with qa = (q*c_t - q~*s_t) * fold and
+    qb = (q*s_t + q~*c_t) * fold, fold = scale * (the row's kv head's
+    K column scale)."""
+    b, hq, ql, hd = q_pre.shape
+    half = hd // 2
+    if cos_t.dim() == 2:
+        cos_t, sin_t = cos_t[:, None], sin_t[:, None]
+    q3 = q_pre.permute(0, 2, 1, 3).to(torch.float32)  # (b, ql, hq, hd)
+    qt3 = torch.cat([q3[..., half:], -q3[..., :half]], dim=-1)
+    c_t = cos_t[:, :, None, :].to(torch.float32)
+    s_t = sin_t[:, :, None, :].to(torch.float32)
+    qa = q3 * c_t - qt3 * s_t
+    qb = q3 * s_t + qt3 * c_t
+    fold = torch.full((1, 1, hq, hd), scale, dtype=torch.float32, device=q_pre.device)
+    if k_scale_slice is not None:
+        ks = k_scale_slice.to(torch.float32).reshape(b, 1, num_kv_heads, hd)
+        fold = fold * ks.repeat_interleave(hq // num_kv_heads, dim=2)
+    emb = torch.cat([qa * fold, qb * fold], dim=-1)  # (b, ql, hq, 2*hd)
+    return emb.reshape(b, ql * hq, 2 * hd).to(q_pre.dtype).contiguous()
+
+
+def lowrank_kernel_plain(
+    qab: torch.Tensor,  # (b, R, 2*hd)
+    k_us: torch.Tensor,  # (b, s_p, rk)
+    k_vt_slice: torch.Tensor,  # (b, rk, hkv*hd)
+    v_us: torch.Tensor,  # (b, s_p, rv)
+    v_vt_slice: torch.Tensor,  # (b, rv, hkv*hd)
+    cos_h: torch.Tensor,  # (s_p, hd/2) half position tables
+    sin_h: torch.Tensor,
+    v_scale: Optional[torch.Tensor],  # (b, 1, rv) fp32, int8 factors only
+    lengths: Optional[torch.Tensor],
+    win_lo: Optional[torch.Tensor],
+    *,
+    num_q_heads: int,
+    num_kv_heads: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain tensor code, with its numerics: the
+    rebuilt keys (fp32, or exact integer products for int8) rounded to the
+    compute dtype; trig fields multiplied in the compute dtype; fp32 scores
+    and softmax; probabilities rounded before P @ v_us; the normalised and
+    V-scaled t rounded before t @ v_vt. Returns (out (b, R, hd) in qab's
+    dtype, lse (b, R) fp32)."""
+    b, R, two_hd = qab.shape
+    hd = two_hd // 2
+    hq, hkv = num_q_heads, num_kv_heads
+    ql, gsz = R // hq, hq // hkv
+    s_p, rv = k_us.shape[1], v_us.shape[2]
+    cd = compute_dtype_for(k_us.dtype)
+    if k_us.dtype == torch.int8:
+        k_rec = torch.bmm(k_us.to(torch.float64), k_vt_slice.to(torch.float64))
+        k_rec = k_rec.to(torch.float32).to(cd)
+    else:
+        k_rec = torch.bmm(k_us.to(torch.float32), k_vt_slice.to(torch.float32)).to(cd)
+    k_rec = k_rec.reshape(b, s_p, hkv, hd)
+    cos_w = torch.cat([cos_h, cos_h], dim=-1).to(cd)[None, :, None, :]
+    sin_w = torch.cat([sin_h, sin_h], dim=-1).to(cd)[None, :, None, :]
+    k_cos = (k_rec * cos_w).to(torch.float32)
+    k_sin = (k_rec * sin_w).to(torch.float32)
+    q5 = qab.to(torch.float32).reshape(b, ql, hkv, gsz, two_hd)
+    scores = (torch.einsum("bqgnd,bsgd->bqgns", q5[..., :hd], k_cos)
+              + torch.einsum("bqgnd,bsgd->bqgns", q5[..., hd:], k_sin))
+    lens, los = _build.live_range(b, s_p, lengths, win_lo, k_us.device)
+    p, l_inv, lse = masked_softmax_stats(scores.reshape(b, R, s_p), lens, los)
+    t = p.to(cd).to(torch.float32) @ v_us.to(cd).to(torch.float32)
+    t = t * l_inv
+    if v_scale is not None:
+        t = t * v_scale.to(torch.float32)
+    t = t.to(cd).to(torch.float32).reshape(b, ql, hkv, gsz, rv)
+    vt = v_vt_slice.to(torch.float32).reshape(b, rv, hkv, hd)
+    out = torch.einsum("bqgnr,brgd->bqgnd", t, vt).reshape(b, R, hd)
+    return out.to(qab.dtype), lse
+
+
+def lowrank_kernel(
+    qab: torch.Tensor,
+    k_us: torch.Tensor,
+    k_vt_slice: torch.Tensor,
+    v_us: torch.Tensor,
+    v_vt_slice: torch.Tensor,
+    cos_h: torch.Tensor,
+    sin_h: torch.Tensor,
+    v_scale: Optional[torch.Tensor],
+    lengths: Optional[torch.Tensor],
+    win_lo: Optional[torch.Tensor],
+    *,
+    num_q_heads: int,
+    num_kv_heads: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode attention of the compact query embeds over one layer's
+    factored segment: (out (b, R, hd), lse (b, R) fp32). Live key columns
+    are [win_lo, lengths) per sequence."""
+    if k_us.device.type == "cpu":
+        return lowrank_kernel_plain(
+            qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale,
+            lengths, win_lo, num_q_heads=num_q_heads, num_kv_heads=num_kv_heads)
+    global launches
+    b, R, two_hd = qab.shape
+    hd = two_hd // 2
+    s_p, rk = k_us.shape[1], k_us.shape[2]
+    rv = v_us.shape[2]
+    fdt = (torch.bfloat16, torch.int8)
+    _build.require_cuda_tensor(qab, "qab", (torch.bfloat16,), 3)
+    _build.require_cuda_tensor(k_us, "k_us", fdt, 3)
+    _build.require_cuda_tensor(k_vt_slice, "k_vt_slice", (k_us.dtype,), 3)
+    _build.require_cuda_tensor(v_us, "v_us", (k_us.dtype,), 3)
+    _build.require_cuda_tensor(v_vt_slice, "v_vt_slice", (torch.bfloat16,), 3)
+    _build.require_cuda_tensor(cos_h, "cos_h", (torch.bfloat16,), 2)
+    _build.require_cuda_tensor(sin_h, "sin_h", (torch.bfloat16,), 2)
+    for name, t in (("qab", qab), ("k_us", k_us), ("v_us", v_us),
+                    ("cos_h", cos_h), ("sin_h", sin_h)):
+        _build.require(t.is_contiguous(), f"{name} must be contiguous")
+    m = num_kv_heads * hd
+    _build.require(hd == 128, f"head_dim {hd} != 128")
+    _build.require(num_q_heads % num_kv_heads == 0 and R % num_q_heads == 0,
+                   "rows must be ql * hq with hq a multiple of hkv")
+    _build.require(k_vt_slice.shape == (b, rk, m) and v_vt_slice.shape == (b, rv, m),
+                   "vt slices must be (b, rank, hkv*hd)")
+    _build.require(cos_h.shape == (s_p, hd // 2) and sin_h.shape == cos_h.shape,
+                   "half tables must be (s_p, hd/2)")
+    _build.require(rk % 64 == 0 and rv % 16 == 0 and rv <= 1024,
+                   f"ranks rk={rk} (multiple of 64), rv={rv} (multiple of 16, <= 1024)")
+    _build.require(k_vt_slice.stride(1) % 16 == 0 and v_vt_slice.stride(1) % 8 == 0,
+                   "vt row strides must keep 16-byte alignment")
+    quantized = k_us.dtype == torch.int8
+    if quantized:
+        _build.require_cuda_tensor(v_scale, "v_scale", (torch.float32,), 3)
+        _build.require(v_scale.shape == (b, 1, rv) and v_scale.is_contiguous(),
+                       "v_scale must be contiguous (b, 1, rv)")
+    else:
+        _build.require(v_scale is None, "v_scale applies to int8 factors only")
+    dev = k_us.device
+    lens, los = _build.live_range(b, s_p, lengths, win_lo, dev)
+    chunks = -(-R // 32)
+    nsplit = _build.num_splits(s_p, b * chunks, 1, dev)
+    part_t = torch.empty((b, nsplit, R, rv), dtype=torch.float32, device=dev)
+    part_m = torch.empty((b, nsplit, R), dtype=torch.float32, device=dev)
+    part_l = torch.empty((b, nsplit, R), dtype=torch.float32, device=dev)
+    out = torch.empty((b, R, hd), dtype=torch.bfloat16, device=dev)
+    lse = torch.empty((b, R), dtype=torch.float32, device=dev)
+    status = _build.load().xkv_lowrank_decode(
+        qab.data_ptr(), k_us.data_ptr(), k_vt_slice.data_ptr(),
+        k_vt_slice.stride(0), k_vt_slice.stride(1),
+        v_us.data_ptr(), v_vt_slice.data_ptr(),
+        v_vt_slice.stride(0), v_vt_slice.stride(1),
+        cos_h.data_ptr(), sin_h.data_ptr(),
+        v_scale.data_ptr() if quantized else None,
+        lens.data_ptr(), los.data_ptr(), part_t.data_ptr(), part_m.data_ptr(),
+        part_l.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        b, R, num_q_heads, num_kv_heads, hd, s_p, rk, rv, nsplit, int(quantized),
+        _build.stream_ptr(dev),
+    )
+    _build.check(status, "lowrank_kernel")
+    launches += 1
+    return out, lse
+
+
+def half_tables(cos_p: torch.Tensor, sin_p: torch.Tensor, factor_dtype: torch.dtype):
+    """(s_p, hd) position tables -> (s_p, hd/2) halves (the hd halves are
+    equal by construction), in bf16 unless the factors are fp32."""
+    half = cos_p.shape[-1] // 2
+    td = torch.float32 if factor_dtype == torch.float32 else torch.bfloat16
+    return (cos_p[:, :half].to(td).contiguous(), sin_p[:, :half].to(td).contiguous())
+
+
+def lowrank_decode_attention(
+    q_pre: torch.Tensor,  # (b, hq, ql, hd) PRE-RoPE decode queries
+    k_us: torch.Tensor,  # (b, s_p, rk)
+    k_vt_slice: torch.Tensor,  # (b, rk, hkv*hd) this layer's V^T columns
+    v_us: torch.Tensor,  # (b, s_p, rv)
+    v_vt_slice: torch.Tensor,  # (b, rv, hkv*hd)
+    cos_p: torch.Tensor,  # (s_p, hd) prefill-position tables
+    sin_p: torch.Tensor,
+    cos_t: torch.Tensor,  # (b|1, hd) or (b|1, ql, hd) query-position trig
+    sin_t: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,  # (b,) valid prefill length
+    k_scale_slice: Optional[torch.Tensor] = None,  # (b, 1, hkv*hd) int8 K scale
+    v_rank_scale: Optional[torch.Tensor] = None,  # (b, 1, rv) int8 V scale
+    win_lo: Optional[torch.Tensor] = None,  # (b,) sliding-window lower bound
+    *,
+    scale: float,
+    num_kv_heads: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused factored-cache decode attention for one layer. Takes PRE-RoPE
+    queries plus their positions' cos/sin rows; ``ql > 1`` runs every
+    (position, head) pair as its own row. Returns (out (b, hq, ql, hd),
+    lse (b, hq, ql)), a partial mergeable with the dense tail."""
+    b, hq, ql, hd = q_pre.shape
+    quantized = k_us.dtype == torch.int8
+    if quantized and (k_scale_slice is None or v_rank_scale is None):
+        raise ValueError("int8 factors need k_scale_slice and v_rank_scale")
+    if not quantized:
+        k_scale_slice = v_rank_scale = None
+    cos_h, sin_h = half_tables(cos_p, sin_p, k_us.dtype)
+    qab = _query_embeds(q_pre, cos_t, sin_t, num_kv_heads, scale, k_scale_slice)
+    v_scale = v_rank_scale.to(torch.float32).contiguous() if quantized else None
+    out, lse = lowrank_kernel(
+        qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale,
+        lengths, win_lo, num_q_heads=hq, num_kv_heads=num_kv_heads)
+    out = out.reshape(b, ql, hq, hd).permute(0, 2, 1, 3).to(q_pre.dtype)
+    return out, lse.reshape(b, ql, hq).permute(0, 2, 1)
