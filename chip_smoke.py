@@ -5,16 +5,20 @@
 
 Phases, each of which fails the run (non-zero exit) on any error:
   1. build   compile the CUDA kernels from ``xkv_tpu_torch/csrc``;
-  2. kernels hold K1 (prefill attention), K2 (rank-space decode) and K3
-             (low-rank decode) against their plain versions on the card, at
-             the Llama-3.1-8B xKV-4 shapes, and time kernel, plain version,
-             library call and bound;
+  2. kernels hold K1 (prefill attention), K2 (rank-space decode), K3
+             (low-rank decode), K4 (sparse rank-space decode), K5 (sparse
+             low-rank decode) and K6 (mixed int8+int4 rank-space decode)
+             against their plain versions on the card, at the Llama-3.1-8B
+             xKV-4 shapes, and time kernel, plain version, library call and
+             bound;
   3. main    serve Llama-3.1-8B (full width and depth, random bf16 weights
              from a seed) with an 8192-token prompt through
-             ``InferenceEngine.generate`` in every mode, checking launch
-             counts, factored-vs-fake logits and one refactorisation;
+             ``InferenceEngine.generate`` in every mode, sparse top-k and
+             int4 included, checking launch counts, factored-vs-fake and
+             all-chunks-sparse-vs-dense logits and refactorisations;
   4. anchor  teacher-force the golden tokens of the JAX engine on the
-             in-repo checkpoint and compare per-step logits.
+             in-repo checkpoint and compare per-step logits (pre, post,
+             sparse pre, sparse post, int4 post).
 Then it prints the card's name and power limit, one JSON line of kernel
 records, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -45,14 +49,32 @@ SEED = 0
 #  K2: fp32 t, whose only rounding is P to bf16 (2^-9 relative per
 #     probability, against another maximum): 2^-7 of the row's largest
 #     value.
+#  K4, K6: K2's arithmetic over selected chunks or over int8 + unpacked
+#     int4 values (exact in bf16): K2's limit. K5: K3's over selected
+#     chunks: K3's limit.
 #  lse: fp32 on both sides from the same maximum and sums in another
 #     order, so the error grows with the scores (``lse_err``).
-TOL = {"K1": 2.0 ** -6, "K2": 2.0 ** -7, "K3": 2.0 ** -6, "lse": 1e-5}
+TOL = {"K1": 2.0 ** -6, "K2": 2.0 ** -7, "K3": 2.0 ** -6, "K4": 2.0 ** -7,
+       "K5": 2.0 ** -6, "K6": 2.0 ** -7, "lse": 1e-5}
 # Logits of the main path and of the anchor (prefill step, decode steps):
 # twice the readings of these seeded runs on an H100, the same in every
 # call.
 TOL_FACTORED_VS_FAKE = 2 * 0.2603
+# Sparse decode over all 16 chunks against dense factored post decode,
+# first step: the kernels agree to 1e-6 of a row, and the bf16 roundings
+# that this flips are carried through 32 layers of random weights.
+TOL_SPARSE_ALL = 2 * 0.2188
 TOL_ANCHOR = {"prefill": 2 * 0.2073, "decode": 2 * 0.1148}
+# Golden runs anchored on the card: rope mode, engine options, the decode
+# kernel, and the limit of the decode steps (the prefill step is the same
+# in every run): twice the readings on an H100.
+ANCHOR_RUNS = {
+    "pre": ("pre", {}, "K3", TOL_ANCHOR["decode"]),
+    "post": ("post", {}, "K2", TOL_ANCHOR["decode"]),
+    "sparse_pre": ("pre", dict(sparse_topk=2, sparse_block=64), "K5", 2 * 0.1764),
+    "sparse_post": ("post", dict(sparse_topk=2, sparse_block=64), "K4", 2 * 0.1896),
+    "int4_post": ("post", dict(factor_dtype="int4"), "K6", 2 * 0.3977),
+}
 
 
 def log(msg: str) -> None:
@@ -189,9 +211,7 @@ def check_decode(gen, results):
     hq, hkv, hd, s_p, rk, rv = 32, 8, 128, 8192, 512, 768
     m = hkv * hd
     scale = 1.0 / math.sqrt(hd)
-    worst = {"K2": 0.0, "K3": 0.0}
-    worst_rel = {"K2": 0.0, "K3": 0.0}
-    worst_lse = {"K2": 0.0, "K3": 0.0}
+    worst = {key: {"abs": 0.0, "rel": 0.0, "lse": 0.0} for key in ("K2", "K3")}
     timing = {}
     cos_p, sin_p = rope_cos_sin(torch.arange(s_p, device="cuda"), hd, 500000.0)
     for dtype in ("bf16", "int8"):
@@ -219,18 +239,9 @@ def check_decode(gen, results):
             o3, l3 = k3.lowrank_kernel(*args, **kw)
             o3_ref, l3_ref = k3.lowrank_kernel_plain(*args, **kw)
             torch.cuda.synchronize()
-            errs = {"K2": (max_abs_err(t, t_ref), row_rel_err(t, t_ref), lse_err(lse, lse_ref)),
-                    "K3": (max_abs_err(o3, o3_ref), row_rel_err(o3, o3_ref), lse_err(l3, l3_ref))}
-            log(f"{dtype} ql={ql} valid_len={lens} win_lo={lo}: " + ", ".join(
-                f"{key} max_abs_err={a:.3e} max_rel_err={r:.3e} (limit {TOL[key]:.3e}) "
-                f"lse_err={e:.3e} (limit {TOL['lse']:.0e})" for key, (a, r, e) in errs.items()))
-            for key, (a, r, e) in errs.items():
-                if not (r <= TOL[key] and e <= TOL["lse"]):
-                    raise AssertionError(
-                        f"{key} disagrees with its plain version ({dtype}, ql={ql})")
-                worst[key] = max(worst[key], a)
-                worst_rel[key] = max(worst_rel[key], r)
-                worst_lse[key] = max(worst_lse[key], e)
+            label = f"{dtype} ql={ql} valid_len={lens} win_lo={lo}"
+            _hold("K2", label, t, t_ref, lse, lse_ref, worst["K2"])
+            _hold("K3", label, o3, o3_ref, l3, l3_ref, worst["K3"])
             if ql == 1 and lens is None and dtype == "bf16":
                 # The main path's shapes: bf16 factors, one query row per head.
                 live = s_p
@@ -257,28 +268,205 @@ def check_decode(gen, results):
         ("K3", "lowrank_decode_attention", "xkv_tpu_torch/csrc/lowrank_attention.cu",
          "xkv_tpu/ops/pallas/lowrank_attention.py:343"),
     ):
-        bnd, by = timing[key]["bound"]
-        results[key] = dict(name=name, route="cuda", source=src, replaces=rep,
-                            max_abs_err=worst[key], max_rel_err=worst_rel[key],
-                            max_lse_err=worst_lse[key],
-                            tol=f"{TOL[key]} of each row's max |ref|; lse {TOL['lse']} of max(1, |lse|)",
-                            ms=timing[key]["ms"],
-                            plain_ms=timing[key]["plain_ms"], bound_ms=bnd, bound_by=by,
-                            library_ms=None)
+        _report(results, key, name, src, rep, worst[key], timing[key])
+
+
+def bytes_per_row(*ts) -> int:
+    return sum(t.shape[-1] * t.element_size() for t in ts)
+
+
+def _report(results, key, name, src, rep, worst, timing):
+    bnd, by = timing["bound"]
+    results[key] = dict(name=name, route="cuda", source=src, replaces=rep,
+                        max_abs_err=worst["abs"], max_rel_err=worst["rel"],
+                        max_lse_err=worst["lse"],
+                        tol=f"{TOL[key]} of each row's max |ref|; lse {TOL['lse']} of max(1, |lse|)",
+                        ms=timing["ms"], plain_ms=timing["plain_ms"], bound_ms=bnd,
+                        bound_by=by, library_ms=None)
+
+
+def _hold(key, label, out, ref, lse, lse_ref, worst):
+    a, r, e = max_abs_err(out, ref), row_rel_err(out, ref), lse_err(lse, lse_ref)
+    log(f"{key} {label}: max_abs_err={a:.3e} max_rel_err={r:.3e} (limit {TOL[key]:.3e}) "
+        f"lse_err={e:.3e} (limit {TOL['lse']:.0e})")
+    if not (r <= TOL[key] and e <= TOL["lse"]):
+        raise AssertionError(f"{key} disagrees with its reference ({label})")
+    worst["abs"], worst["rel"] = max(worst["abs"], a), max(worst["rel"], r)
+    worst["lse"] = max(worst["lse"], e)
+
+
+def check_sparse_and_mixed(gen, results):
+    """K4 and K5 (top-k of 512-row chunks) and K6 (mixed int8+int4 at the
+    8B split 256 + 256 / 256 + 512) at the 8B xKV-4 shapes, layer 1 of a
+    4-layer group, one query row per head."""
+    import torch
+
+    from xkv_tpu_torch.cache import vt_layer_slice
+    from xkv_tpu_torch.compress.quant import (
+        quantize_k_factors_mixed4,
+        quantize_v_factors_mixed4,
+    )
+    from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
+    from xkv_tpu_torch.ops.kernels import rankspace_attention as k2
+    from xkv_tpu_torch.ops.rope import rope_cos_sin
+
+    hq, hkv, hd, s_p, rk, rv, block = 32, 8, 128, 8192, 512, 768, 512
+    m = hkv * hd
+    scale = 1.0 / math.sqrt(hd)
+    dev = "cuda"
+    worst = {key: {"abs": 0.0, "rel": 0.0, "lse": 0.0} for key in ("K4", "K5", "K6")}
+    timing = {}
+    cos_p, sin_p = rope_cos_sin(torch.arange(s_p, device=dev), hd, 500000.0)
+    cos_t, sin_t = rope_cos_sin(s_p + 5 + torch.arange(1, device=dev)[None], hd, 500000.0)
+    # (ids, valid_len, win_lo): the main path's top-4; a chunk wholly and
+    # one partly past valid_len; a window that cuts chunk 8 and drops
+    # chunk 2; the adaptive budget's low step (-1: no chunk).
+    cases = [([0, 5, 11, 15], None, None), ([15, 3, 14, 0], s_p - 600, None),
+             ([8, 2, 12, 15], None, 4100), ([3, 9, 15, 0, -1, -1, -1, -1], None, None)]
+    for dtype in ("bf16", "int8"):
+        f = _decode_inputs(gen, s_p, rk, rv, m, dtype)
+        vt_k = vt_layer_slice(f["k_vt"], 1, hkv, hd)
+        vt_v = vt_layer_slice(f["v_vt"], 1, hkv, hd)
+        k_scale = None if f["k_scale"] is None else vt_layer_slice(f["k_scale"], 1, hkv, hd)
+        q = torch.randn((1, hq, 1, hd), generator=gen, device=dev).to(torch.bfloat16)
+        q_emb = k2._project_q(q, vt_k, hkv, scale, k_scale, torch.bfloat16)
+        cos_h, sin_h = k3.half_tables(cos_p, sin_p, f["k_us"].dtype)
+        qab = k3._query_embeds(q, cos_t, sin_t, hkv, scale, k_scale)
+        kw = dict(num_q_heads=hq, num_kv_heads=hkv)
+        for ids_l, lens, lo in cases:
+            ids = torch.tensor([ids_l], dtype=torch.int32, device=dev)
+            lengths = None if lens is None else torch.tensor([lens], device=dev)
+            win_lo = None if lo is None else torch.tensor([lo], device=dev)
+            label = f"{dtype} ids={ids_l} valid_len={lens} win_lo={lo}"
+            a4 = (q_emb, f["k_us"], f["v_us"], ids, block, lengths, win_lo)
+            t4, l4 = k2.sparse_rankspace_kernel(*a4)
+            t4r, l4r = k2.sparse_rankspace_kernel_plain(*a4)
+            a5 = (qab, f["k_us"], vt_k, f["v_us"], vt_v, cos_h, sin_h, f["v_scale"], ids, block,
+                  lengths, win_lo)
+            o5, l5 = k3.sparse_lowrank_kernel(*a5, **kw)
+            o5r, l5r = k3.sparse_lowrank_kernel_plain(*a5, **kw)
+            torch.cuda.synchronize()
+            _hold("K4", label, t4, t4r, l4, l4r, worst["K4"])
+            _hold("K5", label, o5, o5r, l5, l5r, worst["K5"])
+            if dtype == "bf16" and ids_l == cases[0][0]:
+                # The main path's shapes: bf16 factors, top-4 chunks.
+                live = len(ids_l) * block
+                timing["K4"] = dict(
+                    ms=cuda_time_ms(lambda: k2.sparse_rankspace_kernel(*a4)),
+                    plain_ms=cuda_time_ms(lambda: k2.sparse_rankspace_kernel_plain(*a4)),
+                    bound=bound_ms(nbytes(q_emb, ids, t4, l4)
+                                   + live * bytes_per_row(f["k_us"], f["v_us"]),
+                                   2.0 * hq * live * (rk + rv) / BF16_OPS_PER_S))
+                recon = 2.0 * live * rk * m
+                rest = 2.0 * hq * live * (2 * hd + rv) + 2.0 * hq * rv * hd
+                timing["K5"] = dict(
+                    ms=cuda_time_ms(lambda: k3.sparse_lowrank_kernel(*a5, **kw)),
+                    plain_ms=cuda_time_ms(lambda: k3.sparse_lowrank_kernel_plain(*a5, **kw)),
+                    bound=bound_ms(nbytes(qab, ids, o5, l5) + (rk + rv) * m * 2
+                                   + live * bytes_per_row(f["k_us"], f["v_us"], cos_h, sin_h),
+                                   (recon + rest) / BF16_OPS_PER_S))
+        # Every chunk selected: K4 reads the rows K2 reads.
+        all_ids = torch.arange(s_p // block, dtype=torch.int32, device=dev).flip(0)[None]
+        t4, l4 = k2.sparse_rankspace_kernel(q_emb, f["k_us"], f["v_us"], all_ids, block)
+        t2, l2 = k2.rankspace_kernel(q_emb, f["k_us"], f["v_us"])
+        torch.cuda.synchronize()
+        _hold("K4", f"{dtype} all 16 chunks against K2", t4, t2, l4, l2, worst["K4"])
+
+    # K6: mixed factors at the 8B split.
+    us_k = torch.randn((1, s_p, rk), generator=gen, device=dev)
+    vt_kf = torch.randn((1, rk, 4 * m), generator=gen, device=dev) * 0.05
+    us_v = torch.randn((1, s_p, rv), generator=gen, device=dev)
+    vt_vf = torch.randn((1, rv, 4 * m), generator=gen, device=dev) * 0.05
+    qk = quantize_k_factors_mixed4(us_k, vt_kf, 256)
+    qv = quantize_v_factors_mixed4(us_v, vt_vf, 256)
+    sl = lambda x: vt_layer_slice(x, 1, hkv, hd)  # noqa: E731
+    for ql, lens, lo in ((1, None, None), (4, s_p - 300, 1000), (1, s_p - 37, 4100)):
+        lengths = None if lens is None else torch.tensor([lens], device=dev)
+        win_lo = None if lo is None else torch.tensor([lo], device=dev)
+        q = torch.randn((1, hq, ql, hd), generator=gen, device=dev).to(torch.bfloat16)
+        q_emb = torch.cat([k2._project_q(q, sl(qk.vt8), hkv, scale, sl(qk.out_scale),
+                                         torch.bfloat16),
+                           k2._project_q(q, sl(qk.vt4), hkv, scale, sl(qk.scale4),
+                                         torch.bfloat16)], dim=2)
+        a6 = (q_emb, qk.us8, qk.us4p, qv.us8, qv.us4p, lengths, win_lo)
+        t6, l6 = k2.mixed_rankspace_kernel(*a6)
+        t6r, l6r = k2.mixed_rankspace_kernel_plain(*a6)
+        torch.cuda.synchronize()
+        _hold("K6", f"ql={ql} valid_len={lens} win_lo={lo}", t6, t6r, l6, l6r, worst["K6"])
+        if ql == 1 and lens is None:
+            timing["K6"] = dict(
+                ms=cuda_time_ms(lambda: k2.mixed_rankspace_kernel(*a6)),
+                plain_ms=cuda_time_ms(lambda: k2.mixed_rankspace_kernel_plain(*a6)),
+                bound=bound_ms(nbytes(q_emb, qk.us8, qk.us4p, qv.us8, qv.us4p, t6, l6),
+                               2.0 * hq * s_p * (rk + rv) / BF16_OPS_PER_S))
+    rs = "xkv_tpu/ops/pallas/rankspace_attention.py"
+    for key, name, src, rep in (
+        ("K4", "sparse_rankspace_decode_attention",
+         "xkv_tpu_torch/csrc/rankspace_attention.cu", f"{rs}:423"),
+        ("K5", "sparse_lowrank_decode_attention", "xkv_tpu_torch/csrc/lowrank_attention.cu",
+         "xkv_tpu/ops/pallas/lowrank_attention.py:477"),
+        ("K6", "rankspace_decode_attention (mixed int8+int4)",
+         "xkv_tpu_torch/csrc/rankspace_attention.cu", f"{rs}:141"),
+    ):
+        _report(results, key, name, src, rep, worst[key], timing[key])
 
 
 # ---------------------------------------------------------------- main path
-def reset_counts():
-    from xkv_tpu_torch.ops.kernels import flash_attention, lowrank_attention, rankspace_attention
+# Launch counters of the kernels: (module, attribute) per kernel.
+COUNTERS = {"K1": ("flash_attention", "launches"), "K2": ("rankspace_attention", "launches"),
+            "K3": ("lowrank_attention", "launches"),
+            "K4": ("rankspace_attention", "sparse_launches"),
+            "K5": ("lowrank_attention", "sparse_launches"),
+            "K6": ("rankspace_attention", "mixed_launches")}
 
-    flash_attention.launches = lowrank_attention.launches = rankspace_attention.launches = 0
+
+def _counter_module(name):
+    import importlib
+
+    return importlib.import_module(f"xkv_tpu_torch.ops.kernels.{name}")
+
+
+def reset_counts():
+    for mod, attr in COUNTERS.values():
+        setattr(_counter_module(mod), attr, 0)
 
 
 def read_counts() -> dict:
-    from xkv_tpu_torch.ops.kernels import flash_attention, lowrank_attention, rankspace_attention
+    return {key: getattr(_counter_module(mod), attr) for key, (mod, attr) in COUNTERS.items()}
 
-    return {"K1": flash_attention.launches, "K2": rankspace_attention.launches,
-            "K3": lowrank_attention.launches}
+
+def main_runs(n_layers: int) -> list:
+    """(label, mode, rope, factor dtype, tail_max, new tokens, engine
+    options, kernel launches per decode step). The sparse runs take top-4
+    of 512-row chunks (the JAX package's bench.py sparse configuration);
+    "sparse-mixed" reads every 4th layer exactly (sparse_layers)."""
+    import torch
+
+    bf = torch.bfloat16
+    L = n_layers
+    top4 = dict(sparse_topk=4, sparse_block=512)
+    mixed = dict(top4, sparse_layers=[l for l in range(L) if (l + 1) % 4 != 0])
+    n_sp = len(mixed["sparse_layers"])
+    return [
+        ("none", "none", "pre", bf, 128, 32, {}, {}),
+        ("fake pre", "fake", "pre", bf, 128, 32, {}, {}),
+        ("factored pre bf16", "factored", "pre", bf, 128, 32, {}, {"K3": L}),
+        ("factored pre int8", "factored", "pre", "int8", 128, 32, {}, {"K3": L}),
+        ("factored post bf16", "factored", "post", bf, 128, 32, {}, {"K2": L}),
+        ("factored post int8", "factored", "post", "int8", 128, 32, {}, {"K2": L}),
+        ("factored pre bf16 refactorize", "factored", "pre", bf, 32, 48, {}, {"K3": L}),
+        ("factored post int4 refactorize", "factored", "post", "int4", 32, 48, {}, {"K6": L}),
+        ("factored post bf16 sparse top-4", "factored", "post", bf, 128, 32, top4, {"K4": L}),
+        ("factored pre bf16 sparse top-4 refactorize", "factored", "pre", bf, 32, 48, top4,
+         {"K5": L}),
+        ("factored post int8 sparse-mixed top-4", "factored", "post", "int8", 128, 32, mixed,
+         {"K4": n_sp, "K2": L - n_sp}),
+        # The 24 sparse layers run the reference's plain sparse x int4 path.
+        ("factored post int4 sparse-mixed top-4", "factored", "post", "int4", 128, 32, mixed,
+         {"K6": L - n_sp}),
+        ("factored post bf16 sparse top-4 max 8", "factored", "post", bf, 128, 32,
+         dict(top4, sparse_topk_max=8), {"K4": L}),
+    ]
 
 
 def main_path(results):
@@ -299,24 +487,19 @@ def main_path(results):
         f"in {time.time() - t0:.1f} s")
     s = 8192
     prompt = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device="cuda")
-    runs = [
-        ("none", "none", "pre", torch.bfloat16, 128, 32),
-        ("fake pre", "fake", "pre", torch.bfloat16, 128, 32),
-        ("factored pre bf16", "factored", "pre", torch.bfloat16, 128, 32),
-        ("factored pre int8", "factored", "pre", "int8", 128, 32),
-        ("factored post bf16", "factored", "post", torch.bfloat16, 128, 32),
-        ("factored post int8", "factored", "post", "int8", 128, 32),
-        ("factored pre bf16 refactorize", "factored", "pre", torch.bfloat16, 32, 48),
-    ]
-    totals = {"K1": 0, "K2": 0, "K3": 0}
+    totals = {key: 0 for key in COUNTERS}
     first_logits = {}
     rows = []
-    for label, mode, rope, fdt, tail_max, n_new in runs:
+
+    def engine(mode, rope, fdt, tail_max, **kw):
         xkv = generate_consecutive_xkv_config(
             group_size=4, rank_k=512, rank_v=768, num_layers=cfg.num_layers,
             end_layer=cfg.num_layers - 1, extra_kwargs={"rope_mode": rope})
-        eng = InferenceEngine(params, cfg, xkv, mode=mode, tail_max=tail_max,
-                              factor_dtype=fdt, prefill_logits="last", device="cuda")
+        return InferenceEngine(params, cfg, xkv, mode=mode, tail_max=tail_max,
+                               factor_dtype=fdt, prefill_logits="last", device="cuda", **kw)
+
+    for label, mode, rope, fdt, tail_max, n_new, kw, per_step in main_runs(cfg.num_layers):
+        eng = engine(mode, rope, fdt, tail_max, **kw)
         # Prefill alone (timed), then the first decode step's logits.
         torch.cuda.synchronize()
         t0 = time.time()
@@ -327,15 +510,25 @@ def main_path(results):
         tok = logits[:, -1].argmax(-1)
         step_logits, cache = eng.decode_step(cache, tok[:, None], s)
         first_logits[label] = step_logits[0, -1].float()
+        if "sparse_topk_max" in kw:
+            # The adaptive budget is picked on the device: a step that
+            # waits for the device raises here.
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                step_logits, cache = eng.decode_step(cache, tok[:, None], s + cache.tail_len)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            log(f"{label}: one decode step without a host sync")
         # Decode alone (timed): the rest of the tail's steps on this cache.
-        steps = min(n_new, tail_max) - 1
+        pos0 = s + cache.tail_len
+        steps = min(n_new, tail_max) - cache.tail_len
         torch.cuda.synchronize()
         t0 = time.time()
         for i in range(steps):
-            step_logits, cache = eng.decode_step(cache, tok[:, None], s + 1 + i)
+            step_logits, cache = eng.decode_step(cache, tok[:, None], pos0 + i)
         torch.cuda.synchronize()
         decode_ms = (time.time() - t0) * 1e3 / steps
-        profile = (profile_decode(eng, cache, tok[:, None], s + 1 + steps, decode_ms)
+        profile = (profile_decode(eng, cache, tok[:, None], pos0 + steps, decode_ms)
                    if label in PROFILED else None)
         del cache, logits, step_logits
         # The entry point a user calls, with the launch counts read around it.
@@ -344,9 +537,8 @@ def main_path(results):
         torch.cuda.synchronize()
         counts = read_counts()
         steps = n_new - 1
-        want = {"K1": cfg.num_layers, "K2": 0, "K3": 0}
-        if mode == "factored":
-            want["K3" if rope == "pre" else "K2"] = cfg.num_layers * steps
+        want = {key: per_step.get(key, 0) * steps for key in COUNTERS}
+        want["K1"] = cfg.num_layers
         if counts != want:
             raise AssertionError(f"{label}: launches {counts}, expected {want}")
         if tuple(out.shape) != (1, n_new) or not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
@@ -374,11 +566,31 @@ def main_path(results):
         f"max |logit| {ref.abs().max().item():.4e}); none vs fake: {trunc:.4e}")
     if not diff <= tol:
         raise AssertionError("factored and fake first-step logits disagree")
+    # All 16 chunks selected: K4 reads every row K2 reads, in another
+    # order, so the first step equals dense factored post decode up to the
+    # order of the sums.
+    eng = engine("factored", "post", torch.bfloat16, 128, sparse_topk=16, sparse_block=512)
+    logits, cache = eng.prefill(prompt)
+    step_logits, _ = eng.decode_step(cache, logits[:, -1].argmax(-1)[:, None], s)
+    dense = first_logits["factored post bf16"]
+    diff = (step_logits[0, -1].float() - dense).abs().max().item()
+    log(f"sparse all 16 chunks vs dense factored post first-step logits: "
+        f"max_abs_diff={diff:.4e} (limit {TOL_SPARSE_ALL:.4e}; "
+        f"max |logit| {dense.abs().max().item():.4e})")
+    if not diff <= TOL_SPARSE_ALL:
+        raise AssertionError("sparse decode over every chunk disagrees with dense decode")
+    del eng, cache, logits, step_logits
+    torch.cuda.empty_cache()
+    i4 = (first_logits["factored post int4 refactorize"]
+          - first_logits["factored post int8"]).abs().max().item()
+    log(f"int4 vs int8 factors (post) first-step logits: max_abs_diff={i4:.4e} (for scale)")
     results["main_runs"] = rows
     return totals
 
 
-PROFILED = ("none", "factored pre bf16", "factored post bf16")
+PROFILED = ("none", "factored pre bf16", "factored post bf16", "factored post bf16 sparse top-4",
+            "factored post int8 sparse-mixed top-4", "factored post int4 sparse-mixed top-4",
+            "factored post bf16 sparse top-4 max 8")
 
 
 def profile_decode(eng, cache, tok, pos, step_ms: float, steps: int = 4) -> dict:
@@ -431,15 +643,16 @@ def anchor():
     params, cfg = load_checkpoint(os.path.join(ROOT, "results", "production_model"),
                                   dtype=torch.bfloat16, device="cuda")
     prompt = torch.as_tensor(gold["prompt"], device="cuda")
-    for rope in ("pre", "post"):
+    for run, (rope, kw, kernel, tol_decode) in ANCHOR_RUNS.items():
         xkv = generate_consecutive_xkv_config(
             group_size=int(gold["group_size"]), rank_k=int(gold["rank_k"]),
             rank_v=int(gold["rank_v"]), num_layers=cfg.num_layers,
             end_layer=cfg.num_layers - 1,
             extra_kwargs={"svd_method": "exact", "rope_mode": rope})
-        eng = InferenceEngine(params, cfg, xkv, mode="factored", tail_max=64, device="cuda")
-        toks = gold[f"tokens_{rope}"]
-        want = gold[f"logits_{rope}"]
+        eng = InferenceEngine(params, cfg, xkv, mode="factored", tail_max=64, device="cuda",
+                              **kw)
+        toks = gold[f"tokens_{run}"]
+        want = gold[f"logits_{run}"]
         reset_counts()
         logits, cache = eng.prefill(prompt)
         got = [logits[0, -1].float().cpu().numpy()]
@@ -450,16 +663,19 @@ def anchor():
             got.append(step[0, -1].float().cpu().numpy())
         step_err = np.abs(np.stack(got) - want).max(axis=-1)
         err = {"prefill": float(step_err[0]), "decode": float(step_err[1:].max())}
+        tol = {"prefill": TOL_ANCHOR["prefill"], "decode": tol_decode}
         counts = read_counts()
-        log(f"anchor {rope}: {len(toks)} steps, max_abs_err prefill step {err['prefill']:.4e} "
-            f"(limit {TOL_ANCHOR['prefill']:.4e}), decode steps {err['decode']:.4e} "
-            f"(limit {TOL_ANCHOR['decode']:.4e}); max |logit| {np.abs(want).max():.4e}; "
+        log(f"anchor {run}: {len(toks)} steps, max_abs_err prefill step {err['prefill']:.4e} "
+            f"(limit {tol['prefill']:.4e}), decode steps {err['decode']:.4e} "
+            f"(limit {tol['decode']:.4e}); max |logit| {np.abs(want).max():.4e}; "
             f"launches {counts}")
-        if not all(err[k] <= TOL_ANCHOR[k] for k in err):
-            raise AssertionError(f"anchor {rope}: logits disagree with the JAX golden")
-        kernel = "K3" if rope == "pre" else "K2"
-        if counts[kernel] != cfg.num_layers * (len(toks) - 1) or counts["K1"] != cfg.num_layers:
-            raise AssertionError(f"anchor {rope}: launches {counts}")
+        if not all(err[k] <= tol[k] for k in err):
+            raise AssertionError(f"anchor {run}: logits disagree with the JAX golden")
+        want_counts = {key: 0 for key in COUNTERS}
+        want_counts["K1"] = cfg.num_layers
+        want_counts[kernel] = cfg.num_layers * (len(toks) - 1)
+        if counts != want_counts:
+            raise AssertionError(f"anchor {run}: launches {counts}, expected {want_counts}")
 
 
 def main() -> int:
@@ -490,6 +706,7 @@ def main() -> int:
     gen.manual_seed(SEED)
     check_flash(gen, results)
     check_decode(gen, results)
+    check_sparse_and_mixed(gen, results)
     totals = main_path(results)
     anchor()
 
@@ -499,7 +716,7 @@ def main() -> int:
     log(f"total {time.time() - t_start:.1f} s")
     log(smi)
     kernels = []
-    for key in ("K1", "K2", "K3"):
+    for key in COUNTERS:
         rec = dict(results[key])
         rec["launches"] = totals[key]
         kernels.append(rec)

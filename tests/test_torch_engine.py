@@ -12,9 +12,11 @@ framework rounds to bf16 at other points.
 
 ``python tests/test_torch_engine.py`` regenerates the golden file
 ``xkv_tpu_torch/testdata/production_model_golden.npz`` from the JAX engine:
-the prompt, and for rope_mode pre and post the greedy tokens and the
-logits that chose them (prefill's last position, then one row per decode
-step). ``chip_smoke.py`` holds the port on the card against it.
+the prompt, and for each run of ``GOLDEN_RUNS`` (rope_mode pre and post;
+sparse top-2 of 64-row chunks in pre and post; int4 post) the greedy
+tokens and the logits that chose them (prefill's last position, then one
+row per decode step). ``chip_smoke.py`` holds the port on the card
+against it.
 """
 
 import os
@@ -37,6 +39,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "results", "production_model")
 GOLDEN = os.path.join(ROOT, "xkv_tpu_torch", "testdata", "production_model_golden.npz")
 GOLDEN_SPEC = dict(group_size=4, rank_k=64, rank_v=96, prompt_len=256, steps=8)
+# Golden runs: rope mode and engine options (fp32 weights and cache).
+GOLDEN_RUNS = {
+    "pre": ("pre", {}),
+    "post": ("post", {}),
+    "sparse_pre": ("pre", dict(sparse_topk=2, sparse_block=64)),
+    "sparse_post": ("post", dict(sparse_topk=2, sparse_block=64)),
+    "int4_post": ("post", dict(factor_dtype="int4")),
+}
 
 
 @pytest.fixture(scope="module")
@@ -186,14 +196,14 @@ def golden_run(run_step, prefill, prompt, steps):
     return np.asarray(toks, np.int32), np.stack(rows)
 
 
-def jax_golden(np_params, cfg, rope, prompt):
+def jax_golden(np_params, cfg, rope, prompt, **engine_kw):
     spec = GOLDEN_SPEC
     jx = jax_xkv(group_size=spec["group_size"], rank_k=spec["rank_k"],
                  rank_v=spec["rank_v"], num_layers=4, end_layer=3,
                  extra_kwargs={"svd_method": "exact", "rope_mode": rope})
+    engine_kw.setdefault("factor_dtype", jnp.float32)
     eng = JaxEngine(jax.tree.map(jnp.asarray, np_params), cfg, jx, mode="factored",
-                    tail_max=spec["steps"], cache_dtype=jnp.float32,
-                    factor_dtype=jnp.float32)
+                    tail_max=spec["steps"], cache_dtype=jnp.float32, **engine_kw)
     return golden_run(jax_step(eng), eng.prefill, prompt, spec["steps"])
 
 
@@ -221,11 +231,13 @@ def write_golden():
     np_params, cfg = jax_load(CKPT)
     prompt = prompt_tokens(GOLDEN_SPEC["prompt_len"], cfg.vocab_size, seed=7)
     out = dict(prompt=prompt, **{k: np.int32(v) for k, v in GOLDEN_SPEC.items()})
-    for rope in ("pre", "post"):
-        out[f"tokens_{rope}"], out[f"logits_{rope}"] = jax_golden(np_params, cfg, rope, prompt)
+    for run, (rope, kw) in GOLDEN_RUNS.items():
+        out[f"tokens_{run}"], out[f"logits_{run}"] = jax_golden(np_params, cfg, rope, prompt,
+                                                                **kw)
+        print(f"{run}: tokens {out[f'tokens_{run}']}")
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
     np.savez_compressed(GOLDEN, **out)
-    print(f"wrote {GOLDEN}: tokens pre {out['tokens_pre']}, post {out['tokens_post']}")
+    print(f"wrote {GOLDEN}")
 
 
 if __name__ == "__main__":

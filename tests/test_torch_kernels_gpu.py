@@ -1,4 +1,4 @@
-"""The CUDA kernels K1, K2 and K3 against their plain versions, on a card.
+"""The CUDA kernels K1-K6 against their plain versions, on a card.
 
 Marked ``gpu``: each test skips without a CUDA device. This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only the
@@ -10,14 +10,20 @@ Tolerances: each output row is held against its own largest value, since
 a row that averages many keys has small values. K1 and K3 round P to bf16
 against another maximum than the plain version and round their bf16
 output once: 2^-6 (two units in bf16's last place). K2's fp32 t only
-carries the rounding of P: 2^-7. The fp32 lse, whose error grows with
+carries the rounding of P: 2^-7; so do K6's (mixed int8+int4, whose
+unpacked values are exact in bf16) and K4's (K2 over selected chunks).
+K5 (K3 over selected chunks) as K3. The fp32 lse, whose error grows with
 the scores: 1e-5 of max(1, |lse|).
 """
 
 import pytest
 import torch
 
-from xkv_tpu_torch.compress.quant import quantize_k_factors, quantize_v_factors
+from xkv_tpu_torch.compress.quant import (
+    pack_int4_pairs,
+    quantize_k_factors,
+    quantize_v_factors,
+)
 from xkv_tpu_torch.ops.kernels import flash_attention as k1
 from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
 from xkv_tpu_torch.ops.kernels import rankspace_attention as k2
@@ -99,3 +105,82 @@ def test_decode_kernels_match_plain(cuda, int8, ql, lens, lo):
     o3, l3 = k3.lowrank_kernel(*args, num_q_heads=hq, num_kv_heads=hkv)
     o3r, l3r = k3.lowrank_kernel_plain(*args, num_q_heads=hq, num_kv_heads=hkv)
     assert _row_rel_err(o3, o3r) <= TOL_BF16_OUT and _lse_err(l3, l3r) <= TOL_LSE
+
+
+def _half_tables(cuda, s_p):
+    theta = torch.arange(s_p, device=cuda)[:, None] * 0.01 * torch.arange(
+        1, 65, device=cuda)[None]
+    return theta.cos().to(torch.bfloat16), theta.sin().to(torch.bfloat16)
+
+
+# ids over 4 chunks of 64 rows of a 200-row segment (chunk 3 is ragged);
+# -1 selects nothing.
+SPARSE_CASES = [(False, [[3, 0]], None, None), (False, [[2, -1, 0]], 150, 20),
+                (True, [[0, 3, 1]], None, 70), (True, [[1, 2]], 190, None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8,ids,lens,lo", SPARSE_CASES)
+def test_sparse_kernels_match_plain(cuda, int8, ids, lens, lo):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    s_p, rk, rv, hq, hkv, block = 200, 64, 96, 8, 2, 64
+    k_us, k_vt, v_us, v_vt, v_scale = _factors(gen, cuda, s_p, rk, rv, hkv * 128, int8)
+    ids = torch.tensor(ids, device=cuda, dtype=torch.int32)
+    lengths = None if lens is None else torch.tensor([lens], device=cuda)
+    win_lo = None if lo is None else torch.tensor([lo], device=cuda)
+    q_emb = torch.randn((1, hq, rk), generator=gen, device=cuda).to(torch.bfloat16) * 0.1
+    before = k2.sparse_launches
+    t4, l4 = k2.sparse_rankspace_kernel(q_emb, k_us, v_us, ids, block, lengths, win_lo)
+    assert k2.sparse_launches == before + 1
+    t4r, l4r = k2.sparse_rankspace_kernel_plain(q_emb, k_us, v_us, ids, block, lengths, win_lo)
+    assert _row_rel_err(t4, t4r) <= TOL_T and _lse_err(l4, l4r) <= TOL_LSE
+    cos_h, sin_h = _half_tables(cuda, s_p)
+    qab = torch.randn((1, hq, 256), generator=gen, device=cuda).to(torch.bfloat16) * 0.1
+    args = (qab, k_us, k_vt, v_us, v_vt, cos_h, sin_h, v_scale, ids, block, lengths, win_lo)
+    before = k3.sparse_launches
+    o5, l5 = k3.sparse_lowrank_kernel(*args, num_q_heads=hq, num_kv_heads=hkv)
+    assert k3.sparse_launches == before + 1
+    o5r, l5r = k3.sparse_lowrank_kernel_plain(*args, num_q_heads=hq, num_kv_heads=hkv)
+    assert _row_rel_err(o5, o5r) <= TOL_BF16_OUT and _lse_err(l5, l5r) <= TOL_LSE
+
+
+@pytest.mark.gpu
+def test_sparse_all_chunks_matches_dense_kernel(cuda):
+    """Every chunk selected, in another order: K4 reads the rows K2 reads."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    s_p, rk, rv, hq = 200, 64, 96, 8
+    k_us, _, v_us, _, _ = _factors(gen, cuda, s_p, rk, rv, 256, False)
+    q_emb = torch.randn((1, hq, rk), generator=gen, device=cuda).to(torch.bfloat16) * 0.1
+    ids = torch.tensor([[2, 0, 3, 1]], device=cuda, dtype=torch.int32)
+    t4, l4 = k2.sparse_rankspace_kernel(q_emb, k_us, v_us, ids, 64)
+    t2, l2 = k2.rankspace_kernel(q_emb, k_us, v_us)
+    assert _row_rel_err(t4, t2) <= TOL_T and _lse_err(l4, l2) <= TOL_LSE
+
+
+def _mixed(gen, cuda, s_p, r8, r4):
+    us8 = torch.randint(-127, 128, (1, s_p, r8), generator=gen, device=cuda).to(torch.int8)
+    q4 = torch.randint(-7, 8, (1, s_p, r4), generator=gen, device=cuda)
+    return us8, pack_int4_pairs(q4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r8k,r4k,r8v,r4v,lens,lo", [(16, 48, 24, 72, None, None),
+                                                     (16, 48, 24, 72, 150, 30),
+                                                     (256, 256, 256, 512, None, 10)])
+def test_mixed_kernel_matches_plain(cuda, r8k, r4k, r8v, r4v, lens, lo):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    s_p, hq = 200, 8
+    k8, k4 = _mixed(gen, cuda, s_p, r8k, r4k)
+    v8, v4 = _mixed(gen, cuda, s_p, r8v, r4v)
+    lengths = None if lens is None else torch.tensor([lens], device=cuda)
+    win_lo = None if lo is None else torch.tensor([lo], device=cuda)
+    q_emb = (torch.randn((1, hq, r8k + r4k), generator=gen, device=cuda) * 0.01).to(
+        torch.bfloat16)
+    before = k2.mixed_launches
+    t6, l6 = k2.mixed_rankspace_kernel(q_emb, k8, k4, v8, v4, lengths, win_lo)
+    assert k2.mixed_launches == before + 1
+    t6r, l6r = k2.mixed_rankspace_kernel_plain(q_emb, k8, k4, v8, v4, lengths, win_lo)
+    assert _row_rel_err(t6, t6r) <= TOL_T and _lse_err(l6, l6r) <= TOL_LSE

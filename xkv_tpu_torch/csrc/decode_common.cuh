@@ -1,11 +1,13 @@
-// Split-sequence (flash-decoding) machinery shared by the two decode
-// kernels, K2 (rankspace_attention.cu) and K3 (lowrank_attention.cu).
+// Split-sequence (flash-decoding) machinery shared by the decode kernels:
+// K2, K4, K6 (rankspace_attention.cu) and K3, K5 (lowrank_attention.cu).
 //
 // A decode step has b = 1 on the main path, so one CTA per sequence would
-// use one SM of 132. The live key range [win_lo, valid_len) of each
-// sequence is cut into blocks of kBS keys, and the blocks are dealt out in
-// contiguous runs to `nsplit` CTAs. Each CTA keeps, for up to kRows query
-// rows, an fp32 online softmax (m, l) and the rank-space value accumulator
+// use one SM of 132. The key blocks of each sequence (kBS keys each) are
+// dealt out in contiguous runs to `nsplit` CTAs: for the dense kernels the
+// blocks covering the live range [win_lo, valid_len), for the sparse ones
+// (K4, K5) the blocks of the selected chunks, which each CTA looks up in
+// the chunk ids itself. Each CTA keeps, for up to kRows query rows, an
+// fp32 online softmax (m, l) and the rank-space value accumulator
 // t = sum_blocks P @ v_us in registers, and writes the unnormalised
 // partial (t, m, l). A second pass merges the splits by log-sum-exp.
 #pragma once
@@ -18,23 +20,49 @@ constexpr int kBS = 64;        // keys per block
 constexpr int kRows = 32;      // query rows per CTA
 constexpr int kThreads = 256;  // 8 warps
 
-// Blocks [blk_begin, blk_end) of this CTA and the live column range.
-struct SplitRange {
-  int lo, hi, blk_begin, blk_end;
+// The key blocks of one CTA: entries [begin, end) of its sequence's block
+// list, and the live column range [lo, hi). Dense: entry v is the block at
+// key v * kBS. Sparse: the list holds the selected chunks' blocks in turn,
+// entry v being sub-block v % per of chunk ids[v / per] (per = chunk / kBS);
+// an id < 0 selects nothing.
+struct BlockWalk {
+  int lo, hi, begin, end, chunk;
+  const int* ids;  // this sequence's chunk ids, or null (dense)
+
+  // First key of entry v, or -1 when its block holds no live key (a chunk
+  // not selected, a block past the segment or outside [lo, hi)). Uniform
+  // over the CTA.
+  __device__ __forceinline__ int key0(int v) const {
+    if (ids == nullptr) return v * kBS;
+    const int per = chunk / kBS;
+    const int id = ids[v / per];
+    if (id < 0) return -1;
+    const int k0 = id * chunk + (v % per) * kBS;
+    return (k0 >= hi || k0 + kBS <= lo) ? -1 : k0;
+  }
 };
 
-__device__ __forceinline__ SplitRange split_range(const int* lens, const int* los,
-                                                  int bi, int s_p, int split,
-                                                  int nsplit) {
-  SplitRange r;
-  r.hi = min(lens[bi], s_p);
-  r.lo = max(los[bi], 0);
-  const int first = r.lo / kBS;
-  const int last = r.hi > r.lo ? (r.hi + kBS - 1) / kBS : first;
+__device__ __forceinline__ BlockWalk block_walk(const int* lens, const int* los,
+                                                const int* ids, int n_sel, int chunk,
+                                                int bi, int s_p, int split, int nsplit) {
+  BlockWalk w;
+  w.hi = min(lens[bi], s_p);
+  w.lo = max(los[bi], 0);
+  w.chunk = chunk;
+  int first, last;
+  if (ids != nullptr) {
+    w.ids = ids + (size_t)bi * n_sel;
+    first = 0;
+    last = n_sel * (chunk / kBS);
+  } else {
+    w.ids = nullptr;
+    first = w.lo / kBS;
+    last = w.hi > w.lo ? (w.hi + kBS - 1) / kBS : first;
+  }
   const int per = (last - first + nsplit - 1) / nsplit;
-  r.blk_begin = min(first + split * per, last);
-  r.blk_end = min(r.blk_begin + per, last);
-  return r;
+  w.begin = min(first + split * per, last);
+  w.end = min(w.begin + per, last);
+  return w;
 }
 
 // Shared state of the online softmax for kRows rows.
@@ -79,11 +107,12 @@ __device__ __forceinline__ void softmax_block(SoftmaxSmem& sm, int rows, int key
   __syncthreads();
 }
 
-// t[r][c] = alpha[r] * t[r][c] + sum_k pT[k][r] * v[k][j_c], j_c =
-// threadIdx.x + c * kThreads. v points at the block's first key row.
-template <typename T, int NC>
-__device__ __forceinline__ void pv_block(float (&acc)[kRows][NC], const SoftmaxSmem& sm,
-                                         const T* __restrict__ v, int rv, int nkeys) {
+// t[r][c] = alpha[r] * t[r][c] + sum_k pT[k][r] * v(k, j_c), j_c =
+// threadIdx.x + c * kThreads, where load(k, j) reads value rank j of the
+// block's key row k.
+template <int NC, typename Load>
+__device__ __forceinline__ void pv_block_with(float (&acc)[kRows][NC], const SoftmaxSmem& sm,
+                                              int rv, int nkeys, Load load) {
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const float a = sm.alpha[r];
@@ -95,7 +124,7 @@ __device__ __forceinline__ void pv_block(float (&acc)[kRows][NC], const SoftmaxS
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int j = threadIdx.x + c * kThreads;
-      vv[c] = j < rv ? to_float(v[(size_t)kk * rv + j]) : 0.f;
+      vv[c] = j < rv ? load(kk, j) : 0.f;
     }
     const float4* pr = reinterpret_cast<const float4*>(sm.pT[kk]);
 #pragma unroll
@@ -110,6 +139,14 @@ __device__ __forceinline__ void pv_block(float (&acc)[kRows][NC], const SoftmaxS
       }
     }
   }
+}
+
+// pv_block_with over rv-wide rows of T; v points at the block's first row.
+template <typename T, int NC>
+__device__ __forceinline__ void pv_block(float (&acc)[kRows][NC], const SoftmaxSmem& sm,
+                                         const T* __restrict__ v, int rv, int nkeys) {
+  pv_block_with<NC>(acc, sm, rv, nkeys,
+                    [=](int kk, int j) { return to_float(v[(size_t)kk * rv + j]); });
 }
 
 // Write this CTA's partial (t, m, l) for rows [row0, row0 + rows).

@@ -1,18 +1,27 @@
-// K3: fused low-rank decode attention over PRE-RoPE factors, for sm_90a.
+// K3 and K5: fused low-rank decode attention over PRE-RoPE factors, for
+// sm_90a.
 //
-// Replaces: xkv_tpu/ops/pallas/lowrank_attention.py,
-// lowrank_decode_attention (Pallas body _lowrank_kernel /
-// _lowrank_block_body). The query embeds (_query_embeds) stay plain tensor
-// code outside the kernel, as there.
+// Replaces, in xkv_tpu/ops/pallas/lowrank_attention.py:
+//   K3  lowrank_decode_attention (Pallas body _lowrank_kernel /
+//       _lowrank_block_body);
+//   K5  sparse_lowrank_decode_attention (body _lowrank_sparse_kernel), K3
+//       over the Quest-selected chunks only.
+// The query embeds (_query_embeds) stay plain tensor code outside the
+// kernel, as there.
 //
-// Bound on the H100: operations. Per layer and step the kernel rebuilds
-// every key block K = k_us @ k_vt on chip (2 * s_p * rk * m operations,
-// ~8.6 GFLOP at s_p = 8192, rk 512, m = hkv*hd = 1024) while the bytes it
-// must read are ~21 MB of factors, ~400 FLOP/byte, above the ridge.
+// Bound on the H100: operations. Per layer and step K3 rebuilds every key
+// block K = k_us @ k_vt on chip (2 * s_p * rk * m operations, ~8.6 GFLOP at
+// s_p = 8192, rk 512, m = hkv*hd = 1024) while the bytes it must read are
+// ~21 MB of factors, ~400 FLOP/byte, above the ridge. K5 rebuilds only the
+// n_sel * chunk selected rows (2.1 GFLOP at top-4 of 512-row chunks) and
+// reads those rows plus this layer's k_vt and v_vt (~7.9 MB in bf16), so
+// its operations and bytes take about the same time.
 //
-// Design: flash-decoding, like K2 (decode_common.cuh): the live columns
-// [win_lo, valid_len) are cut into 64-key blocks dealt out to `nsplit` CTAs
-// per (32-row chunk, sequence). Per block a CTA keeps the k_us rows in
+// Design: flash-decoding, like K2 (decode_common.cuh): the 64-key blocks
+// of the live columns [win_lo, valid_len) (K3), or of the selected chunks
+// (K5, each CTA reading the chunk ids itself, the position-table rows read
+// at the rows' absolute positions), are dealt out to `nsplit` CTAs per
+// (32-row chunk, sequence). Per block a CTA keeps the k_us rows in
 // shared memory and, for each kv head, rebuilds that head's (64 x hd) key
 // block on mma.sync tensor cores: bf16 x bf16 -> fp32, or int8 x int8 ->
 // int32, then rounds it to bf16 as the TPU kernel does. k_vt (rk x m,
@@ -51,7 +60,8 @@ __global__ void __launch_bounds__(kThreads) lowrank_split_kernel(
     const bf16* __restrict__ qab, const T* __restrict__ k_us, const T* __restrict__ k_vt,
     const T* __restrict__ v_us, const bf16* __restrict__ cos_h,
     const bf16* __restrict__ sin_h, const int* __restrict__ lens,
-    const int* __restrict__ los, float* __restrict__ part_t, float* __restrict__ part_m,
+    const int* __restrict__ los, const int* __restrict__ ids, int n_sel, int chunk,
+    float* __restrict__ part_t, float* __restrict__ part_m,
     float* __restrict__ part_l, int R, int hq, int hkv, int s_p, int rk, int rv,
     long long sb_kvt, long long ld_kvt, int nsplit) {
   constexpr int KC = kChunkB / (int)sizeof(T);  // ranks per staged tile
@@ -69,7 +79,7 @@ __global__ void __launch_bounds__(kThreads) lowrank_split_kernel(
   const int row0 = blockIdx.y * kRows;
   const int rows = min(kRows, R - row0);
   const int gsz = hq / hkv;
-  const SplitRange range = split_range(lens, los, bi, s_p, split, nsplit);
+  const BlockWalk walk = block_walk(lens, los, ids, n_sel, chunk, bi, s_p, split, nsplit);
 
   for (int i = threadIdx.x; i < kRows * 2 * kHD; i += kThreads) {
     const int r = i / (2 * kHD);
@@ -89,8 +99,9 @@ __global__ void __launch_bounds__(kThreads) lowrank_split_kernel(
   const T* kvt_b = k_vt + (size_t)bi * sb_kvt;
   const int us_row_bytes = rk * (int)sizeof(T);
 
-  for (int blk = range.blk_begin; blk < range.blk_end; ++blk) {
-    const int key0 = blk * kBS;
+  for (int v = walk.begin; v < walk.end; ++v) {
+    const int key0 = walk.key0(v);
+    if (key0 < 0) continue;  // uniform over the CTA
     const int nkeys = min(kBS, s_p - key0);
     __syncthreads();
     {  // stage the block's k_us rows (raw bytes, zero past s_p)
@@ -186,7 +197,7 @@ __global__ void __launch_bounds__(kThreads) lowrank_split_kernel(
       }
     }
     __syncthreads();
-    softmax_block(sm, rows, key0, range.lo, range.hi);
+    softmax_block(sm, rows, key0, walk.lo, walk.hi);
     pv_block<T, NC>(acc, sm, v_us + ((size_t)bi * s_p + key0) * rv, rv, nkeys);
   }
   __syncthreads();
@@ -231,7 +242,8 @@ __global__ void __launch_bounds__(kThreads) lowrank_merge_kernel(
 template <typename T, int NC>
 int launch_split(dim3 grid, size_t smem, cudaStream_t st, const void* qab, const void* k_us,
                  const void* k_vt, const void* v_us, const void* cos_h, const void* sin_h,
-                 const int* lens, const int* los, void* part_t, void* part_m,
+                 const int* lens, const int* los, const int* ids, int n_sel, int chunk,
+                 void* part_t, void* part_m,
                  void* part_l, int R, int hq, int hkv, int s_p, int rk, int rv,
                  long long sb_kvt, long long ld_kvt, int nsplit) {
   auto kern = lowrank_split_kernel<T, NC>;
@@ -240,19 +252,21 @@ int launch_split(dim3 grid, size_t smem, cudaStream_t st, const void* qab, const
   if (e != cudaSuccess) return (int)e;
   kern<<<grid, kThreads, smem, st>>>(
       (const bf16*)qab, (const T*)k_us, (const T*)k_vt, (const T*)v_us,
-      (const bf16*)cos_h, (const bf16*)sin_h, lens, los, (float*)part_t, (float*)part_m,
+      (const bf16*)cos_h, (const bf16*)sin_h, lens, los, ids, n_sel, chunk, (float*)part_t,
+      (float*)part_m,
       (float*)part_l, R, hq, hkv, s_p, rk, rv, sb_kvt, ld_kvt, nsplit);
   return (int)cudaGetLastError();
 }
 
 #define XKV_LOWRANK_ARGS                                                              \
-  grid, smem, st, qab, k_us, k_vt, v_us, cos_h, sin_h, lens, los, part_t, part_m, part_l, \
-      R, hq, hkv, s_p, rk, rv, sb_kvt, ld_kvt, nsplit
+  grid, smem, st, qab, k_us, k_vt, v_us, cos_h, sin_h, lens, los, ids, n_sel, chunk, part_t, \
+      part_m, part_l, R, hq, hkv, s_p, rk, rv, sb_kvt, ld_kvt, nsplit
 
 template <typename T>
 int dispatch_nc(int nc, dim3 grid, size_t smem, cudaStream_t st, const void* qab,
                 const void* k_us, const void* k_vt, const void* v_us, const void* cos_h,
-                const void* sin_h, const int* lens, const int* los, void* part_t,
+                const void* sin_h, const int* lens, const int* los, const int* ids,
+                int n_sel, int chunk, void* part_t,
                 void* part_m, void* part_l, int R, int hq, int hkv, int s_p, int rk,
                 int rv, long long sb_kvt, long long ld_kvt, int nsplit) {
   switch (nc) {
@@ -264,9 +278,40 @@ int dispatch_nc(int nc, dim3 grid, size_t smem, cudaStream_t st, const void* qab
   }
 }
 
+// Split kernel for the launch's value width, then the merge (K3 with
+// ids == null, K5 otherwise).
+int run(const void* qab, const void* k_us, const void* k_vt, long long sb_kvt,
+        long long ld_kvt, const void* v_us, const void* v_vt, long long sb_vvt,
+        long long ld_vvt, const void* cos_h, const void* sin_h, const void* v_scale,
+        const int* ids, int n_sel, int chunk, const int* lens, const int* los, void* part_t,
+        void* part_m, void* part_l, void* out, void* lse, int b, int R, int hq, int hkv,
+        int hd, int s_p, int rk, int rv, int nsplit, int is_int8, void* stream) {
+  if (hd != kHD || rk % kChunkB != 0 || rv > 4 * kThreads || nsplit < 1 || hq % hkv != 0)
+    return (int)cudaErrorInvalidValue;
+  if (ids != nullptr && (chunk <= 0 || chunk % kBS != 0 || n_sel < 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int nc = (rv + kThreads - 1) / kThreads;
+  const size_t tsz = is_int8 ? 1 : 2;
+  const size_t smem = sizeof(SoftmaxSmem) + (size_t)kRows * 2 * kHD * sizeof(float) +
+                      2 * (size_t)kBS * (kHD + 2) * sizeof(bf16) +
+                      (size_t)kBS * (rk * tsz + 16) + (size_t)kHD * kVtStride;
+  dim3 grid(nsplit, (R + kRows - 1) / kRows, b);
+  int err = is_int8
+      ? dispatch_nc<int8_t>(nc, grid, smem, st, qab, k_us, k_vt, v_us, cos_h, sin_h, lens, los, ids, n_sel, chunk, part_t, part_m, part_l, R, hq, hkv, s_p, rk, rv, sb_kvt, ld_kvt, nsplit)
+      : dispatch_nc<bf16>(nc, grid, smem, st, qab, k_us, k_vt, v_us, cos_h, sin_h, lens, los, ids, n_sel, chunk, part_t, part_m, part_l, R, hq, hkv, s_p, rk, rv, sb_kvt, ld_kvt, nsplit);
+  if (err != 0) return err;
+  const size_t msmem = (8 + kThreads + (size_t)rv + nsplit) * sizeof(float);
+  lowrank_merge_kernel<<<dim3(R, b), kThreads, msmem, st>>>(
+      (const float*)part_t, (const float*)part_m, (const float*)part_l, (const bf16*)v_vt,
+      sb_vvt, ld_vvt, (const float*)v_scale, (bf16*)out, (float*)lse, R, hq, hkv, rv,
+      nsplit);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// qab (b, R, 2*hd) bf16 compact query embeds ([qa | qb] of each row's own
+// K3. qab (b, R, 2*hd) bf16 compact query embeds ([qa | qb] of each row's own
 // head); k_us (b, s_p, rk), v_us (b, s_p, rv) bf16 or int8 contiguous;
 // k_vt (b, rk, .) with batch stride sb_kvt and row stride ld_kvt, this
 // layer's columns starting at the pointer; v_vt (b, rv, .) bf16 likewise;
@@ -280,23 +325,22 @@ extern "C" int xkv_lowrank_decode(
     const int* lens, const int* los, void* part_t, void* part_m, void* part_l, void* out,
     void* lse, int b, int R, int hq, int hkv, int hd, int s_p, int rk, int rv, int nsplit,
     int is_int8, void* stream) {
-  if (hd != kHD || rk % kChunkB != 0 || rv > 4 * kThreads || nsplit < 1 || hq % hkv != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int nc = (rv + kThreads - 1) / kThreads;
-  const size_t tsz = is_int8 ? 1 : 2;
-  const size_t smem = sizeof(SoftmaxSmem) + (size_t)kRows * 2 * kHD * sizeof(float) +
-                      2 * (size_t)kBS * (kHD + 2) * sizeof(bf16) +
-                      (size_t)kBS * (rk * tsz + 16) + (size_t)kHD * kVtStride;
-  dim3 grid(nsplit, (R + kRows - 1) / kRows, b);
-  int err = is_int8
-      ? dispatch_nc<int8_t>(nc, grid, smem, st, qab, k_us, k_vt, v_us, cos_h, sin_h, lens, los, part_t, part_m, part_l, R, hq, hkv, s_p, rk, rv, sb_kvt, ld_kvt, nsplit)
-      : dispatch_nc<bf16>(nc, grid, smem, st, qab, k_us, k_vt, v_us, cos_h, sin_h, lens, los, part_t, part_m, part_l, R, hq, hkv, s_p, rk, rv, sb_kvt, ld_kvt, nsplit);
-  if (err != 0) return err;
-  const size_t msmem = (8 + kThreads + (size_t)rv + nsplit) * sizeof(float);
-  lowrank_merge_kernel<<<dim3(R, b), kThreads, msmem, st>>>(
-      (const float*)part_t, (const float*)part_m, (const float*)part_l, (const bf16*)v_vt,
-      sb_vvt, ld_vvt, (const float*)v_scale, (bf16*)out, (float*)lse, R, hq, hkv, rv,
-      nsplit);
-  return (int)cudaGetLastError();
+  return run(qab, k_us, k_vt, sb_kvt, ld_kvt, v_us, v_vt, sb_vvt, ld_vvt, cos_h, sin_h,
+             v_scale, nullptr, 0, 0, lens, los, part_t, part_m, part_l, out, lse, b, R, hq,
+             hkv, hd, s_p, rk, rv, nsplit, is_int8, stream);
+}
+
+// K5. As K3, over the rows of the selected chunks: ids (b, n_sel) int32,
+// chunk id i covering rows [i * chunk, (i + 1) * chunk) (chunk a multiple
+// of 64); an id < 0 selects nothing.
+extern "C" int xkv_sparse_lowrank_decode(
+    const void* qab, const void* k_us, const void* k_vt, long long sb_kvt,
+    long long ld_kvt, const void* v_us, const void* v_vt, long long sb_vvt,
+    long long ld_vvt, const void* cos_h, const void* sin_h, const void* v_scale,
+    const int* ids, const int* lens, const int* los, void* part_t, void* part_m,
+    void* part_l, void* out, void* lse, int b, int R, int hq, int hkv, int hd, int s_p,
+    int rk, int rv, int n_sel, int chunk, int nsplit, int is_int8, void* stream) {
+  return run(qab, k_us, k_vt, sb_kvt, ld_kvt, v_us, v_vt, sb_vvt, ld_vvt, cos_h, sin_h,
+             v_scale, ids, n_sel, chunk, lens, los, part_t, part_m, part_l, out, lse, b, R,
+             hq, hkv, hd, s_p, rk, rv, nsplit, is_int8, stream);
 }

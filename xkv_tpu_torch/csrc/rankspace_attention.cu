@@ -1,53 +1,102 @@
-// K2: rank-space decode attention over POST-RoPE factors, for sm_90a.
+// K2, K4 and K6: rank-space decode attention over POST-RoPE factors, for
+// sm_90a.
 //
-// Replaces: xkv_tpu/ops/pallas/rankspace_attention.py,
-// rankspace_decode_attention (Pallas body _rankspace_kernel /
-// _rankspace_block_body). As there, the q -> rank-space projection
-// (_project_q) and the final t @ v_vt projection (_project_out) stay plain
-// tensor code outside the kernel.
+// Replaces, in xkv_tpu/ops/pallas/rankspace_attention.py:
+//   K2  rankspace_decode_attention (Pallas body _rankspace_kernel /
+//       _rankspace_block_body), bf16 or int8 factors;
+//   K6  the same with mixed int8 + packed int4 factors (k_us4/v_us4, body
+//       _rankspace_mixed_kernel);
+//   K4  sparse_rankspace_decode_attention (body _rankspace_sparse_kernel),
+//       K2 over the Quest-selected chunks only.
+// As there, the q -> rank-space projection (_project_q) and the final
+// t @ v_vt projection (_project_out) stay plain tensor code outside.
 //
-// Bound on the H100: bytes. Per layer and step the kernel streams the
-// factor rows k_us (s_p x rk) and v_us (s_p x rv) once: ~21 MB at
-// s_p = 8192, rk 512, rv 768 in bf16 (half in int8), against
-// ~2 * R * s_p * (rk + rv) operations with R = 32 query rows, about 32
-// FLOP/byte, far below the ~295 FLOP/byte ridge.
+// Bound on the H100: bytes. Per layer and step K2 streams the factor rows
+// k_us (s_p x rk) and v_us (s_p x rv) once: ~21 MB at s_p = 8192, rk 512,
+// rv 768 in bf16 (half in int8), against ~2 * R * s_p * (rk + rv)
+// operations with R = 32 query rows, about 32 FLOP/byte, far below the
+// ~295 FLOP/byte ridge. K6 streams 256 + 128 + 256 + 256 bytes per row at
+// the 8B split (7.3 MB); K4 reads only the n_sel * chunk selected rows
+// (5.2 MB in bf16 at top-4 of 512-row chunks).
 //
-// Design: flash-decoding. The live columns [win_lo, valid_len) are cut
-// into 64-key blocks dealt out to `nsplit` CTAs per (32-row chunk,
-// sequence), so a b = 1 step fills the card. Per block a CTA stages the
-// key rows in shared memory (int8 upcast to bf16, as the TPU kernel does),
-// computes the (32 x 64) scores q_emb . k_us^T on mma.sync bf16 tensor
-// cores, runs the fp32 online softmax, and accumulates t += P @ v_us with
-// each thread owning rank columns of t in registers, so every v_us byte is
-// read from device memory once. A second kernel merges the splits by
-// log-sum-exp and writes the normalised t and lse. Masked scores are the
-// finite NEG_INF, masked probabilities are exactly 0, and a row with no
-// live key gets t = 0.
+// Design: flash-decoding (decode_common.cuh). The key blocks of 64 are
+// dealt out to `nsplit` CTAs per (32-row chunk, sequence), so a b = 1 step
+// fills the card: for K2 and K6 the blocks covering [win_lo, valid_len),
+// for K4 the blocks of the selected chunks, each CTA reading the chunk ids
+// itself and masking by absolute column (id * chunk + j); a block past the
+// segment or outside the live range is never read, and the ragged last
+// chunk is masked in the kernel with no padding copy. Per block a CTA
+// stages the key rows in shared memory as bf16 (int8 upcast, int4 nibbles
+// unpacked to [hi | evens | odds] with the shifts of the Pallas
+// _unpack_nibbles; int8 and int4 values are exact in bf16), computes the
+// (32 x 64) scores q_emb . k_us^T on mma.sync bf16 tensor cores, runs the
+// fp32 online softmax, and accumulates t += P @ v_us with each thread
+// owning rank columns of t in registers, reading every v_us byte from
+// device memory once (int4 pairs unpacked in the same loop). A second
+// kernel merges the splits by log-sum-exp and writes the normalised t and
+// lse. Masked scores are the finite NEG_INF, masked probabilities are
+// exactly 0, and a row with no live key gets t = 0.
 #include "decode_common.cuh"
 
 using namespace xkv;
 
 namespace {
 
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads) rankspace_split_kernel(
-    const bf16* __restrict__ q_emb, const T* __restrict__ k_us,
-    const T* __restrict__ v_us, const int* __restrict__ lens,
-    const int* __restrict__ los, float* __restrict__ part_t,
-    float* __restrict__ part_m, float* __restrict__ part_l, int R, int s_p, int rk,
-    int rv, int nsplit) {
+// Operands of one launch. Ranks: rk/rv are the totals (the widths of q_emb
+// and t); for mixed factors r8k/r8v int8 ranks and h4k/h4v packed bytes
+// per row, so rk = r8k + 2 * h4k and rv = r8v + 2 * h4v.
+struct RankspaceArgs {
+  const bf16* q_emb;
+  const void* k_us;
+  const int8_t* k_us4;
+  const void* v_us;
+  const int8_t* v_us4;
+  const int* lens;
+  const int* los;
+  const int* ids;  // (b, n_sel) chunk ids, or null
+  int n_sel, chunk;
+  float* part_t;
+  float* part_m;
+  float* part_l;
+  int R, s_p, rk, rv, r8k, h4k, r8v, h4v, nsplit;
+};
+
+// Stage `valid` key rows of mixed factors (r8 int8 ranks, h4 packed int4
+// bytes) as bf16 rows [hi | evens | odds]; rows at or past `valid` are 0.
+__device__ __forceinline__ void stage_mixed(bf16* dst, int ld, const int8_t* k8,
+                                            const int8_t* k4, int r8, int h4, int valid) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int row = warp; row < kBS; row += kThreads / 32) {
+    const bool ok = row < valid;
+    bf16* d = dst + row * ld;
+    for (int c = lane; c < r8; c += 32)
+      d[c] = __float2bfloat16_rn(ok ? (float)k8[(size_t)row * r8 + c] : 0.f);
+    for (int c = lane; c < h4; c += 32) {
+      const int x = ok ? (int)k4[(size_t)row * h4 + c] : 0;
+      d[r8 + c] = __float2bfloat16_rn((float)(x >> 4));
+      d[r8 + h4 + c] = __float2bfloat16_rn((float)(((x & 0xF) ^ 8) - 8));
+    }
+  }
+}
+
+template <typename T, int NC, bool kMixed>
+__global__ void __launch_bounds__(kThreads) rankspace_split_kernel(const RankspaceArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   SoftmaxSmem& sm = *reinterpret_cast<SoftmaxSmem*>(smem);
+  const int rk = a.rk, rv = a.rv, s_p = a.s_p;
   const int ld = rk + 8;
   bf16* qs = reinterpret_cast<bf16*>(smem + sizeof(SoftmaxSmem));
   bf16* ks = qs + kRows * ld;
 
   const int split = blockIdx.x, bi = blockIdx.z;
   const int row0 = blockIdx.y * kRows;
-  const int rows = min(kRows, R - row0);
-  const SplitRange range = split_range(lens, los, bi, s_p, split, nsplit);
+  const int rows = min(kRows, a.R - row0);
+  const BlockWalk walk =
+      block_walk(a.lens, a.los, a.ids, a.n_sel, a.chunk, bi, s_p, split, a.nsplit);
+  const T* k_us = reinterpret_cast<const T*>(a.k_us);
+  const T* v_us = reinterpret_cast<const T*>(a.v_us);
 
-  stage_as_bf16<bf16>(qs, ld, q_emb + ((size_t)bi * R + row0) * rk, rk, kRows, rk, rows);
+  stage_as_bf16<bf16>(qs, ld, a.q_emb + ((size_t)bi * a.R + row0) * rk, rk, kRows, rk, rows);
   softmax_init(sm);
   float acc[kRows][NC];
 #pragma unroll
@@ -59,25 +108,32 @@ __global__ void __launch_bounds__(kThreads) rankspace_split_kernel(
   const int g = lane >> 2, tq = lane & 3;
   const int mt = warp & 1, nt0 = (warp >> 1) * 2;
 
-  for (int blk = range.blk_begin; blk < range.blk_end; ++blk) {
-    const int key0 = blk * kBS;
+  for (int v = walk.begin; v < walk.end; ++v) {
+    const int key0 = walk.key0(v);
+    if (key0 < 0) continue;  // uniform over the CTA
     const int nkeys = min(kBS, s_p - key0);
+    const size_t row_base = (size_t)bi * s_p + key0;
     __syncthreads();
-    stage_as_bf16<T>(ks, ld, k_us + ((size_t)bi * s_p + key0) * rk, rk, kBS, rk, nkeys);
+    if constexpr (kMixed) {
+      stage_mixed(ks, ld, reinterpret_cast<const int8_t*>(a.k_us) + row_base * a.r8k,
+                  a.k_us4 + row_base * a.h4k, a.r8k, a.h4k, nkeys);
+    } else {
+      stage_as_bf16<T>(ks, ld, k_us + row_base * rk, rk, kBS, rk, nkeys);
+    }
     __syncthreads();
 
     float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
     const bf16* qa = qs + (mt * 16 + g) * ld + tq * 2;
     for (int kk = 0; kk < rk / 16; ++kk) {
       const bf16* qk = qa + kk * 16;
-      const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(qk),
-                             *reinterpret_cast<const uint32_t*>(qk + 8 * ld),
-                             *reinterpret_cast<const uint32_t*>(qk + 8),
-                             *reinterpret_cast<const uint32_t*>(qk + 8 * ld + 8)};
+      const uint32_t af[4] = {*reinterpret_cast<const uint32_t*>(qk),
+                              *reinterpret_cast<const uint32_t*>(qk + 8 * ld),
+                              *reinterpret_cast<const uint32_t*>(qk + 8),
+                              *reinterpret_cast<const uint32_t*>(qk + 8 * ld + 8)};
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const bf16* kr = ks + ((nt0 + j) * 8 + g) * ld + kk * 16 + tq * 2;
-        mma_bf16_16816(c[j], a, *reinterpret_cast<const uint32_t*>(kr),
+        mma_bf16_16816(c[j], af, *reinterpret_cast<const uint32_t*>(kr),
                        *reinterpret_cast<const uint32_t*>(kr + 8));
       }
     }
@@ -90,11 +146,24 @@ __global__ void __launch_bounds__(kThreads) rankspace_split_kernel(
       sm.sc[mt * 16 + g + 8][col + 1] = c[j][3];
     }
     __syncthreads();
-    softmax_block(sm, rows, key0, range.lo, range.hi);
-    pv_block<T, NC>(acc, sm, v_us + ((size_t)bi * s_p + key0) * rv, rv, nkeys);
+    softmax_block(sm, rows, key0, walk.lo, walk.hi);
+    if constexpr (kMixed) {
+      const int r8 = a.r8v, h4 = a.h4v;
+      const int8_t* v8 = reinterpret_cast<const int8_t*>(a.v_us) + row_base * r8;
+      const int8_t* v4 = a.v_us4 + row_base * h4;
+      pv_block_with<NC>(acc, sm, rv, nkeys, [=](int kk, int j) -> float {
+        if (j < r8) return (float)v8[(size_t)kk * r8 + j];
+        j -= r8;
+        const int x = (int)v4[(size_t)kk * h4 + (j < h4 ? j : j - h4)];
+        return (float)(j < h4 ? (x >> 4) : (((x & 0xF) ^ 8) - 8));
+      });
+    } else {
+      pv_block<T, NC>(acc, sm, v_us + row_base * rv, rv, nkeys);
+    }
   }
   __syncthreads();
-  write_partial<NC>(acc, sm, part_t, part_m, part_l, bi, split, nsplit, R, row0, rows, rv);
+  write_partial<NC>(acc, sm, a.part_t, a.part_m, a.part_l, bi, split, a.nsplit, a.R, row0,
+                    rows, rv);
 }
 
 __global__ void __launch_bounds__(kThreads) rankspace_merge_kernel(
@@ -110,58 +179,114 @@ __global__ void __launch_bounds__(kThreads) rankspace_merge_kernel(
   if (threadIdx.x == 0) lse_out[(size_t)bi * R + r] = lse;
 }
 
-template <typename T, int NC>
-int launch_split(dim3 grid, size_t smem, cudaStream_t st, const void* q_emb,
-                 const void* k_us, const void* v_us, const int* lens, const int* los,
-                 void* part_t, void* part_m, void* part_l, int R, int s_p, int rk, int rv,
-                 int nsplit) {
-  auto kern = rankspace_split_kernel<T, NC>;
+template <typename T, int NC, bool kMixed>
+int launch_split(dim3 grid, size_t smem, cudaStream_t st, const RankspaceArgs& a) {
+  auto kern = rankspace_split_kernel<T, NC, kMixed>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<grid, kThreads, smem, st>>>((const bf16*)q_emb, (const T*)k_us, (const T*)v_us,
-                                     lens, los, (float*)part_t, (float*)part_m,
-                                     (float*)part_l, R, s_p, rk, rv, nsplit);
+  kern<<<grid, kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_nc(int nc, dim3 grid, size_t smem, cudaStream_t st, const void* q_emb,
-                const void* k_us, const void* v_us, const int* lens, const int* los,
-                void* part_t, void* part_m, void* part_l, int R, int s_p, int rk, int rv,
-                int nsplit) {
-  switch (nc) {
-    case 1: return launch_split<T, 1>(grid, smem, st, q_emb, k_us, v_us, lens, los, part_t, part_m, part_l, R, s_p, rk, rv, nsplit);
-    case 2: return launch_split<T, 2>(grid, smem, st, q_emb, k_us, v_us, lens, los, part_t, part_m, part_l, R, s_p, rk, rv, nsplit);
-    case 3: return launch_split<T, 3>(grid, smem, st, q_emb, k_us, v_us, lens, los, part_t, part_m, part_l, R, s_p, rk, rv, nsplit);
-    case 4: return launch_split<T, 4>(grid, smem, st, q_emb, k_us, v_us, lens, los, part_t, part_m, part_l, R, s_p, rk, rv, nsplit);
+// Split kernel for the launch's value width, then the merge.
+template <typename T, bool kMixed>
+int run(const RankspaceArgs& a, int b, void* t_out, void* lse_out, void* stream) {
+  if (a.rk % 16 != 0 || a.rv > 4 * kThreads || a.nsplit < 1) return (int)cudaErrorInvalidValue;
+  if (a.ids != nullptr && (a.chunk % kBS != 0 || a.chunk <= 0 || a.n_sel < 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const size_t smem = sizeof(SoftmaxSmem) + (size_t)(kRows + kBS) * (a.rk + 8) * sizeof(bf16);
+  const dim3 grid(a.nsplit, (a.R + kRows - 1) / kRows, b);
+  int err;
+  switch ((a.rv + kThreads - 1) / kThreads) {
+    case 1: err = launch_split<T, 1, kMixed>(grid, smem, st, a); break;
+    case 2: err = launch_split<T, 2, kMixed>(grid, smem, st, a); break;
+    case 3: err = launch_split<T, 3, kMixed>(grid, smem, st, a); break;
+    case 4: err = launch_split<T, 4, kMixed>(grid, smem, st, a); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  if (err != 0) return err;
+  const size_t msmem = (8 + (size_t)a.nsplit) * sizeof(float);
+  rankspace_merge_kernel<<<dim3(a.R, b), kThreads, msmem, st>>>(
+      a.part_t, a.part_m, a.part_l, (float*)t_out, (float*)lse_out, a.R, a.rv, a.nsplit);
+  return (int)cudaGetLastError();
+}
+
+RankspaceArgs base_args(const void* q_emb, const void* k_us, const void* v_us,
+                        const int* lens, const int* los, void* part_t, void* part_m,
+                        void* part_l, int R, int s_p, int rk, int rv, int nsplit) {
+  RankspaceArgs a{};
+  a.q_emb = (const bf16*)q_emb;
+  a.k_us = k_us;
+  a.v_us = v_us;
+  a.lens = lens;
+  a.los = los;
+  a.part_t = (float*)part_t;
+  a.part_m = (float*)part_m;
+  a.part_l = (float*)part_l;
+  a.R = R;
+  a.s_p = s_p;
+  a.rk = a.r8k = rk;
+  a.rv = a.r8v = rv;
+  a.nsplit = nsplit;
+  return a;
 }
 
 }  // namespace
 
-// q_emb (b, R, rk) bf16; k_us (b, s_p, rk), v_us (b, s_p, rv) bf16 or int8,
-// contiguous; lens/los (b,) int32 live range [los, lens). Scratch part_t
-// (b, nsplit, R, rv), part_m/part_l (b, nsplit, R) fp32. Writes t_out
-// (b, R, rv) and lse_out (b, R) fp32. Returns cudaGetLastError().
+// K2. q_emb (b, R, rk) bf16; k_us (b, s_p, rk), v_us (b, s_p, rv) bf16 or
+// int8, contiguous; lens/los (b,) int32 live range [los, lens). Scratch
+// part_t (b, nsplit, R, rv), part_m/part_l (b, nsplit, R) fp32. Writes
+// t_out (b, R, rv) and lse_out (b, R) fp32. Returns cudaGetLastError().
 extern "C" int xkv_rankspace_decode(const void* q_emb, const void* k_us, const void* v_us,
                                     const int* lens, const int* los, void* part_t,
                                     void* part_m, void* part_l, void* t_out, void* lse_out,
                                     int b, int R, int s_p, int rk, int rv, int nsplit,
                                     int is_int8, void* stream) {
-  if (rk % 16 != 0 || rv > 4 * kThreads || nsplit < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int nc = (rv + kThreads - 1) / kThreads;
-  const size_t smem = sizeof(SoftmaxSmem) + (size_t)(kRows + kBS) * (rk + 8) * sizeof(bf16);
-  dim3 grid(nsplit, (R + kRows - 1) / kRows, b);
-  int err = is_int8
-      ? dispatch_nc<int8_t>(nc, grid, smem, st, q_emb, k_us, v_us, lens, los, part_t, part_m, part_l, R, s_p, rk, rv, nsplit)
-      : dispatch_nc<bf16>(nc, grid, smem, st, q_emb, k_us, v_us, lens, los, part_t, part_m, part_l, R, s_p, rk, rv, nsplit);
-  if (err != 0) return err;
-  const size_t msmem = (8 + (size_t)nsplit) * sizeof(float);
-  rankspace_merge_kernel<<<dim3(R, b), kThreads, msmem, st>>>(
-      (const float*)part_t, (const float*)part_m, (const float*)part_l, (float*)t_out,
-      (float*)lse_out, R, rv, nsplit);
-  return (int)cudaGetLastError();
+  const RankspaceArgs a =
+      base_args(q_emb, k_us, v_us, lens, los, part_t, part_m, part_l, R, s_p, rk, rv, nsplit);
+  return is_int8 ? run<int8_t, false>(a, b, t_out, lse_out, stream)
+                 : run<bf16, false>(a, b, t_out, lse_out, stream);
+}
+
+// K4. As K2, over the rows of the selected chunks: ids (b, n_sel) int32,
+// chunk id i covering rows [i * chunk, (i + 1) * chunk) (chunk a multiple
+// of 64); an id < 0 selects nothing.
+extern "C" int xkv_sparse_rankspace_decode(const void* q_emb, const void* k_us,
+                                           const void* v_us, const int* ids, const int* lens,
+                                           const int* los, void* part_t, void* part_m,
+                                           void* part_l, void* t_out, void* lse_out, int b,
+                                           int R, int s_p, int rk, int rv, int n_sel,
+                                           int chunk, int nsplit, int is_int8,
+                                           void* stream) {
+  RankspaceArgs a =
+      base_args(q_emb, k_us, v_us, lens, los, part_t, part_m, part_l, R, s_p, rk, rv, nsplit);
+  a.ids = ids;
+  a.n_sel = n_sel;
+  a.chunk = chunk;
+  return is_int8 ? run<int8_t, false>(a, b, t_out, lse_out, stream)
+                 : run<bf16, false>(a, b, t_out, lse_out, stream);
+}
+
+// K6. q_emb (b, R, r8k + 2 * h4k) bf16 in [hi | lo-eo] column order;
+// k_us8 (b, s_p, r8k), k_us4 (b, s_p, h4k), v_us8 (b, s_p, r8v), v_us4
+// (b, s_p, h4v) int8 contiguous, the *4 streams packed int4 pairs. Writes
+// t_out (b, R, r8v + 2 * h4v) in [hi | lo-eo] order and lse_out (b, R).
+extern "C" int xkv_mixed_rankspace_decode(const void* q_emb, const void* k_us8,
+                                          const void* k_us4, const void* v_us8,
+                                          const void* v_us4, const int* lens, const int* los,
+                                          void* part_t, void* part_m, void* part_l,
+                                          void* t_out, void* lse_out, int b, int R, int s_p,
+                                          int r8k, int h4k, int r8v, int h4v, int nsplit,
+                                          void* stream) {
+  RankspaceArgs a = base_args(q_emb, k_us8, v_us8, lens, los, part_t, part_m, part_l, R, s_p,
+                              r8k + 2 * h4k, r8v + 2 * h4v, nsplit);
+  a.k_us4 = (const int8_t*)k_us4;
+  a.v_us4 = (const int8_t*)v_us4;
+  a.r8k = r8k;
+  a.h4k = h4k;
+  a.r8v = r8v;
+  a.h4v = h4v;
+  return run<int8_t, true>(a, b, t_out, lse_out, stream);
 }

@@ -6,24 +6,33 @@
   * ``fake=True``: factors are multiplied straight back and stored dense
     (the reference's semantics, used for parity).
 
-Factors are bf16, fp32 or int8 (``factor_dtype="int8"`` or ``torch.int8``),
-with keys factored pre-RoPE (``rope_mode="pre"``) or post-RoPE ("post").
+Factors are bf16, fp32, int8 (``factor_dtype="int8"`` or ``torch.int8``)
+or mixed int8+int4 (``factor_dtype="int4"``, post-RoPE only), with keys
+factored pre-RoPE (``rope_mode="pre"``) or post-RoPE ("post"). With
+``sparse_block`` set, each factored K side also stores the Quest-style
+per-chunk (min, max) bounds of its post-RoPE keys for sparse top-k decode.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from xkv_tpu_torch.cache import GroupFactors, XKVCache, init_tail
 from xkv_tpu_torch.compress.quant import (
     QuantizedKFactors,
+    QuantizedKFactorsMixed4,
     QuantizedVFactors,
+    QuantizedVFactorsMixed4,
     dequantize_k,
+    dequantize_k_mixed4,
     dequantize_v,
+    dequantize_v_mixed4,
     quantize_k_factors,
+    quantize_k_factors_mixed4,
     quantize_v_factors,
+    quantize_v_factors_mixed4,
 )
 from xkv_tpu_torch.compress.svd import (
     LowRankFactors,
@@ -50,10 +59,62 @@ def _split_group_matrix(mat: torch.Tensor, g: int, hkv: int) -> List[torch.Tenso
 
 
 def _is_int8(factor_dtype) -> bool:
-    if factor_dtype == "int4":
-        raise NotImplementedError(
-            "mixed int8+int4 factors: ROADMAP queue 1 item 11")
     return factor_dtype in ("int8", torch.int8)
+
+
+def int4_rank_hi(rank: int, frac: float) -> int:
+    """Rank split of mixed int8+int4 factors: the top ``r_hi`` ranks stay
+    int8, the tail drops to packed int4. At rank >= 512 the tail rounds
+    down to a multiple of 256 (toward more int8), and a requested tail
+    below 256 ranks there is refused rather than moving ranks the caller
+    asked to keep in int8; smaller ranks just keep an even tail."""
+    hi = max(2, int(rank * frac))
+    lo = rank - hi
+    if rank >= 512:
+        lo = (lo // 256) * 256
+        if lo == 0:
+            raise ValueError(
+                f"int4_rank_frac={frac} leaves an int4 tail of "
+                f"{rank - hi} ranks at rank {rank}, below the 256-rank "
+                "lane-alignment tile; use factor_dtype='int8' or "
+                f"int4_rank_frac <= {(rank - 256) / rank:.3f}"
+            )
+    else:
+        lo -= lo % 2
+    return rank - lo
+
+
+def chunk_bounds(
+    k_mat: torch.Tensor,  # (b, s, n_heads*hd) group/layer key matrix
+    cos: Optional[torch.Tensor],  # (s, hd) RoPE tables, None: keys are rotated
+    sin: Optional[torch.Tensor],
+    block: int,
+    n_heads: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quest-style per-chunk elementwise (min, max) of the POST-RoPE keys,
+    each (b, nc, n_heads*hd) fp32, nc = ceil(s / block).
+
+    ``U_c = qpos . kmax + qneg . kmin`` then bounds every q . k in chunk c
+    from above (Quest, arXiv:2406.10774). The keys are rotated and reduced
+    one chunk at a time, so no rotated fp32 copy of the whole matrix
+    exists; rows past ``s`` belong to no chunk.
+    """
+    b, s, m = k_mat.shape
+    hd = m // n_heads
+    nc = -(-s // block)
+    kmin = torch.empty((b, nc, m), dtype=torch.float32, device=k_mat.device)
+    kmax = torch.empty_like(kmin)
+    for c in range(nc):
+        x = k_mat[:, c * block:(c + 1) * block].to(torch.float32)
+        if cos is not None:
+            rows = x.shape[1]
+            heads = x.reshape(b, rows, n_heads, hd).permute(0, 2, 1, 3)
+            heads = apply_rope(heads, cos[None, c * block:c * block + rows],
+                               sin[None, c * block:c * block + rows])
+            x = heads.permute(0, 2, 1, 3).reshape(b, rows, m)
+        kmin[:, c] = x.amin(dim=1)
+        kmax[:, c] = x.amax(dim=1)
+    return kmin, kmax
 
 
 def _svd_kw(xkv: XKVConfig) -> dict:
@@ -68,14 +129,22 @@ def _check_scheme(xkv: XKVConfig, cfg: ModelConfig) -> None:
         raise NotImplementedError("DeepSeek MLA: ROADMAP queue 1 item 14")
 
 
-def _store_k(fac: LowRankFactors, factor_dtype) -> dict:
+def _store_k(fac: LowRankFactors, factor_dtype, r_hi: Optional[int] = None) -> dict:
+    """Stored K factors; ``r_hi`` is the int8 rank count of mixed factors."""
+    if factor_dtype == "int4":
+        q4 = quantize_k_factors_mixed4(fac.us, fac.vt, r_hi)
+        return dict(k_us=q4.us8, k_us4=q4.us4p, k_vt=q4.vt8, k_vt4=q4.vt4,
+                    k_scale=q4.out_scale, k_scale4=q4.scale4)
     if _is_int8(factor_dtype):
         qk = quantize_k_factors(fac.us, fac.vt)
         return dict(k_us=qk.us_q, k_vt=qk.vt_q, k_scale=qk.out_scale)
     return dict(k_us=fac.us.to(factor_dtype), k_vt=fac.vt.to(factor_dtype))
 
 
-def _store_v(fac: LowRankFactors, factor_dtype) -> dict:
+def _store_v(fac: LowRankFactors, factor_dtype, r_hi: Optional[int] = None) -> dict:
+    if factor_dtype == "int4":
+        q4 = quantize_v_factors_mixed4(fac.us, fac.vt, r_hi)
+        return dict(v_us=q4.us8, v_us4=q4.us4p, v_scale=q4.rank_scale, v_vt=q4.vt)
     if _is_int8(factor_dtype):
         qv = quantize_v_factors(fac.us, fac.vt)
         return dict(v_us=qv.us_q, v_vt=qv.vt, v_scale=qv.rank_scale)
@@ -93,12 +162,15 @@ def compress_svd_group(
     fake: bool = False,
     factor_dtype=torch.bfloat16,
     cache_dtype: torch.dtype = torch.bfloat16,
+    sparse_block: Optional[int] = None,
 ) -> Tuple[GroupFactors, Dict[int, torch.Tensor], Dict[int, torch.Tensor]]:
     """Compress ONE svd layer group's K/V.
 
     ks/vs: per layer of the group, each (b, hkv, s, hd), keys PRE-RoPE.
     Returns (GroupFactors, dense_k, dense_v); the dense dicts, keyed by
     ``grp.layers``, carry the unmerged side(s) and the fake reconstructions.
+    ``sparse_block``: also store the chunk bounds (``chunk_bounds``) of
+    the exact prefill keys, in ``cache_dtype``.
     """
     svd_kw = _svd_kw(xkv)
     hkv = cfg.num_kv_heads
@@ -106,6 +178,13 @@ def compress_svd_group(
     dense_k: Dict[int, torch.Tensor] = {}
     dense_v: Dict[int, torch.Tensor] = {}
     rope_post = xkv.rope_mode == "post"
+    if factor_dtype == "int4" and not rope_post:
+        raise ValueError(
+            "factor_dtype='int4' (mixed int8+int4) requires rope_mode='post' "
+            "(the rank-space decode path)")
+
+    def r_hi(rank):
+        return int4_rank_hi(rank, xkv.int4_rank_frac) if factor_dtype == "int4" else None
 
     def rope_dense_k(k_pre):
         return apply_rope(k_pre, cos_p[None], sin_p[None]).to(cache_dtype)
@@ -123,7 +202,14 @@ def compress_svd_group(
                 # Post mode: the reconstruction is already rotated.
                 dense_k[l] = kr.to(cache_dtype) if rope_post else rope_dense_k(kr)
         else:
-            gf_kwargs.update(_store_k(fac_k, factor_dtype))
+            gf_kwargs.update(_store_k(fac_k, factor_dtype, r_hi(grp.rank_k)))
+        if sparse_block is not None and not fake:
+            # Bounds from the exact prefill keys (post mode: already rotated).
+            cmin, cmax = chunk_bounds(
+                k_mat, None if rope_post else cos_p, sin_p, sparse_block,
+                len(layers) * hkv)
+            gf_kwargs["k_cmin"] = cmin.to(cache_dtype)
+            gf_kwargs["k_cmax"] = cmax.to(cache_dtype)
     else:
         for l, k in zip(layers, ks):
             dense_k[l] = rope_dense_k(k)
@@ -136,7 +222,7 @@ def compress_svd_group(
             for l, vr in zip(layers, v_rec):
                 dense_v[l] = vr.to(cache_dtype)
         else:
-            gf_kwargs.update(_store_v(fac_v, factor_dtype))
+            gf_kwargs.update(_store_v(fac_v, factor_dtype, r_hi(grp.rank_v)))
     else:
         for l, v in zip(layers, vs):
             dense_v[l] = v.to(cache_dtype)
@@ -153,13 +239,15 @@ def build_cache(
     fake: bool = False,
     factor_dtype=torch.bfloat16,
     cache_dtype: torch.dtype = torch.bfloat16,
+    sparse_block: Optional[int] = None,
 ) -> XKVCache:
     """Compress prefill K/V into the hybrid cache.
 
     kvs: per layer (k_pre_rope, v), each (b, hkv, s, hd). cos_p/sin_p:
     (s, hd) RoPE tables of the prefill positions, applied to the keys of
     dense-stored layers. ``fake``: store dense reconstructions instead of
-    factors.
+    factors. ``sparse_block``: also store per-chunk key bounds for sparse
+    top-k decode.
     """
     _check_scheme(xkv, cfg)
     groups: List[GroupFactors] = []
@@ -172,6 +260,7 @@ def build_cache(
             [kvs[l][0] for l in grp.layers], [kvs[l][1] for l in grp.layers],
             grp, xkv, cfg, cos_p, sin_p, fake=fake,
             factor_dtype=factor_dtype, cache_dtype=cache_dtype,
+            sparse_block=sparse_block,
         )
         dense_k.update(dk)
         dense_v.update(dv)
@@ -210,13 +299,15 @@ def refactorize_cache(
     xkv: XKVConfig,
     cfg: ModelConfig,
     factor_dtype=torch.bfloat16,
+    sparse_block: Optional[int] = None,
 ) -> XKVCache:
     """Fold a FULL decode tail back into the compressed cache: re-run the
     merge over [reconstructed prefill ; tail] per group.
 
     Caller contract: ``tail_len == tail_max``. The tail stores post-RoPE
     keys; in "pre" mode they are un-rotated (RoPE by -theta is exact) before
-    joining the pre-RoPE factors.
+    joining the pre-RoPE factors. Groups that hold chunk bounds get them
+    recomputed over the extended keys in ``sparse_block``-row chunks.
     """
     _check_scheme(xkv, cfg)
     s_p = cache.prefill_len
@@ -229,6 +320,15 @@ def refactorize_cache(
     svd_kw = _svd_kw(xkv)
     quantized = any(g.k_scale is not None or g.v_scale is not None for g in cache.groups)
     store_dtype = "int8" if quantized else factor_dtype
+    # Chunk bounds are recomputed over [prefill ; tail]; pre mode rotates
+    # the reconstructed keys at every position.
+    cos_f = sin_f = None
+    bounded = any(g.k_cmin is not None for g in cache.groups)
+    if bounded and sparse_block is None:
+        raise ValueError("the cache holds chunk bounds: pass sparse_block")
+    if bounded and not rope_post:
+        cos_f, sin_f = rope_cos_sin(torch.arange(s_p + t, device=device), cfg.head_dim,
+                                    cfg.rope_theta, cfg.rope_scaling)
 
     def unrope(k):
         return k if rope_post else apply_rope(k, cos_t[None], -sin_t[None])
@@ -238,23 +338,42 @@ def refactorize_cache(
         layers = grp.layers
         kw = {}
         if gf.k_us is not None:
-            if gf.k_scale is not None:
+            if gf.k_us4 is not None:
+                k_mat = dequantize_k_mixed4(QuantizedKFactorsMixed4(
+                    gf.k_us, gf.k_us4, gf.k_vt, gf.k_vt4, gf.k_scale, gf.k_scale4))
+            elif gf.k_scale is not None:
                 k_mat = dequantize_k(QuantizedKFactors(gf.k_us, gf.k_vt, gf.k_scale))
             else:
                 k_mat = reconstruct(LowRankFactors(gf.k_us, gf.k_vt))
             tail_pre = _stack_group_matrix(
                 [unrope(cache.tail_k[l].to(torch.float32)) for l in layers])
             k_ext = torch.cat([k_mat, tail_pre], dim=1)
-            kw.update(_store_k(factorize(k_ext, grp.rank_k, **svd_kw), store_dtype))
+            # Mixed factors keep their rank split.
+            mixed = gf.k_us4 is not None
+            kw.update(_store_k(factorize(k_ext, grp.rank_k, **svd_kw),
+                               "int4" if mixed else store_dtype, gf.k_us.shape[2]))
+            if gf.k_cmin is not None:
+                # The JAX package derives the chunk width from the stored
+                # chunk count, ceil(s_p / nc), which differs from
+                # sparse_block once s_p is not a multiple of it.
+                cmin, cmax = chunk_bounds(k_ext, cos_f, sin_f, sparse_block,
+                                          len(layers) * cfg.num_kv_heads)
+                kw["k_cmin"] = cmin.to(gf.k_cmin.dtype)
+                kw["k_cmax"] = cmax.to(gf.k_cmax.dtype)
         if gf.v_us is not None:
-            if gf.v_scale is not None:
+            if gf.v_us4 is not None:
+                v_mat = dequantize_v_mixed4(QuantizedVFactorsMixed4(
+                    gf.v_us, gf.v_us4, gf.v_scale, gf.v_vt))
+            elif gf.v_scale is not None:
                 v_mat = dequantize_v(QuantizedVFactors(gf.v_us, gf.v_scale, gf.v_vt))
             else:
                 v_mat = reconstruct(LowRankFactors(gf.v_us, gf.v_vt))
             tail_v = _stack_group_matrix(
                 [cache.tail_v[l].to(torch.float32) for l in layers])
             v_ext = torch.cat([v_mat, tail_v], dim=1)
-            kw.update(_store_v(factorize(v_ext, grp.rank_v, **svd_kw), store_dtype))
+            mixed = gf.v_us4 is not None
+            kw.update(_store_v(factorize(v_ext, grp.rank_v, **svd_kw),
+                               "int4" if mixed else store_dtype, gf.v_us.shape[2]))
         new_groups.append(GroupFactors(**kw))
 
     # Dense segments: concat the (already post-RoPE) tail.

@@ -11,6 +11,14 @@ Modes:
 There is no attention-implementation switch: on a CUDA device the kernels
 run, for CPU tensors their plain versions do. The greedy loop is a Python
 loop; a full tail is folded back into the factors (``refactorize``).
+
+Sparse top-k decode (``sparse_topk``): each decode step attends to the
+``sparse_topk`` highest-bounded ``sparse_block``-row chunks of every
+factored segment (Quest selection; the sink and recency chunks always
+kept, the dense tail exact), in the layers of ``sparse_layers`` (all when
+None). ``sparse_topk_max``: a second, larger budget for steps with many
+near-maximal chunks (``sparse_adaptive_band``), in post mode.
+``factor_dtype="int4"``: mixed int8 + packed int4 factors, post mode only.
 """
 
 from __future__ import annotations
@@ -43,11 +51,27 @@ class InferenceEngine:
         factor_dtype=torch.bfloat16,
         prefill_logits: str = "all",
         device: str | torch.device = "cuda",
+        sparse_topk: Optional[int] = None,
+        sparse_block: int = 512,
+        sparse_layers=None,
+        sparse_topk_max: Optional[int] = None,
+        sparse_adaptive_band: float = 0.5,
     ):
         if mode not in ("factored", "fake", "none"):
             raise ValueError(f"unknown mode {mode!r}")
         if prefill_logits not in ("all", "last"):
             raise ValueError(f"unknown prefill_logits {prefill_logits!r}")
+        if sparse_topk is not None and mode != "factored":
+            raise ValueError("sparse_topk requires mode='factored'")
+        if factor_dtype == "int4" and xkv is not None and mode == "factored" \
+                and xkv.rope_mode != "post":
+            raise ValueError("factor_dtype='int4' requires rope_mode='post' "
+                             "(the rank-space decode path)")
+        if sparse_topk_max is not None:
+            if sparse_topk is None:
+                raise ValueError("sparse_topk_max requires sparse_topk")
+            if sparse_topk_max <= sparse_topk:
+                raise ValueError("sparse_topk_max must exceed sparse_topk")
         if mode != "none" and xkv is None:
             raise ValueError("xkv config required unless mode='none'")
         if cfg.model_type != "llama" and cfg.model_type not in ("mistral", "qwen2"):
@@ -62,6 +86,12 @@ class InferenceEngine:
         self.cache_dtype = cache_dtype
         self.factor_dtype = factor_dtype
         self.prefill_logits = prefill_logits
+        # Chunk width of the key bounds the cache stores (none unless sparse).
+        self._bound_block = None if sparse_topk is None else sparse_block
+        self._sparse_kw = {} if sparse_topk is None else dict(
+            sparse_select=sparse_topk, sparse_block=sparse_block,
+            sparse_layers=None if sparse_layers is None else frozenset(sparse_layers),
+            sparse_select_max=sparse_topk_max, sparse_adaptive_band=sparse_adaptive_band)
         self._cos_sin: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def _prefill_cos_sin(self, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -91,7 +121,8 @@ class InferenceEngine:
             cache = build_cache(
                 kvs, self.xkv, self.cfg, cos_p, sin_p, self.tail_max,
                 fake=self.mode == "fake", factor_dtype=self.factor_dtype,
-                cache_dtype=self.cache_dtype)
+                cache_dtype=self.cache_dtype,
+                sparse_block=self._bound_block)
         return logits, cache
 
     @torch.no_grad()
@@ -102,7 +133,7 @@ class InferenceEngine:
         xkv = None if self.mode == "none" else self.xkv
         return llama.decode_step(
             self.params, self.cfg, xkv, cache, tokens, int(pos),
-            self._prefill_cos_sin(cache.prefill_len))
+            self._prefill_cos_sin(cache.prefill_len), **self._sparse_kw)
 
     @torch.no_grad()
     def refactorize(self, cache: XKVCache) -> XKVCache:
@@ -113,7 +144,9 @@ class InferenceEngine:
             raise ValueError("refactorize requires mode='factored'")
         if cache.tail_len != cache.tail_max:
             raise ValueError(f"tail holds {cache.tail_len} of {cache.tail_max} rows")
-        return refactorize_cache(cache, self.xkv, self.cfg, factor_dtype=self.factor_dtype)
+        return refactorize_cache(
+            cache, self.xkv, self.cfg, factor_dtype=self.factor_dtype,
+            sparse_block=self._bound_block)
 
     @torch.no_grad()
     def generate(self, tokens, max_new_tokens: int) -> torch.Tensor:

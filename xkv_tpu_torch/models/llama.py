@@ -1,6 +1,6 @@
 """Llama-family decoder (Llama 2/3, Mistral, Qwen2) on the factored cache.
 
-Port of the single-device, non-sparse path of ``xkv_tpu/models/llama.py``.
+Port of the single-device path of ``xkv_tpu/models/llama.py``.
 Parameters are the JAX package's tree as plain dicts of tensors, in its
 (in, out) layout: every projection is ``x @ W``.
 
@@ -10,8 +10,10 @@ The xKV contract:
   * merged groups store pre-RoPE keys ("pre") or keys rotated before the
     SVD ("post"); dense layers store post-RoPE keys;
   * decode attention reads the factored segment (kernel K3 for "pre", K2
-    for "post") and the dense segments and tail (plain ops), merged by
-    log-sum-exp.
+    for "post", K6 for mixed int8+int4 factors) and the dense segments and
+    tail (plain ops), merged by log-sum-exp;
+  * sparse top-k decode (``sparse_select``) reads only the Quest-selected
+    chunks of the factored segment (K5 for "pre", K4 for "post").
 
 Prefill attention runs kernel K1. Each kernel wrapper launches its CUDA
 kernel for CUDA tensors and its plain version for CPU tensors.
@@ -26,17 +28,34 @@ import torch
 import torch.nn.functional as F
 
 from xkv_tpu_torch.cache import XKVCache, layer_group_index, vt_layer_slice
+from xkv_tpu_torch.compress.quant import (
+    QuantizedKFactorsMixed4,
+    QuantizedVFactorsMixed4,
+    dequantize_k_mixed4,
+    dequantize_v_mixed4,
+)
 from xkv_tpu_torch.configs import XKVConfig
 from xkv_tpu_torch.models.config import ModelConfig
 from xkv_tpu_torch.ops.attention import (
     PartialAttention,
+    adaptive_hot_chunks,
+    chunk_bound_scores,
     dense_decode_attention_ref,
     merge_partials,
     reconstruct_group_heads,
+    select_topk_chunks,
+    sparse_rankspace_decode_attention_ref,
+    topk_ids,
 )
 from xkv_tpu_torch.ops.kernels.flash_attention import flash_attention
-from xkv_tpu_torch.ops.kernels.lowrank_attention import lowrank_decode_attention
-from xkv_tpu_torch.ops.kernels.rankspace_attention import rankspace_decode_attention
+from xkv_tpu_torch.ops.kernels.lowrank_attention import (
+    lowrank_decode_attention,
+    sparse_lowrank_decode_attention,
+)
+from xkv_tpu_torch.ops.kernels.rankspace_attention import (
+    rankspace_decode_attention,
+    sparse_rankspace_decode_attention,
+)
 from xkv_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
 Params = Dict[str, Any]
@@ -158,6 +177,14 @@ def prefill(
 
 
 # ----------------------------------------------------------------- decode
+def _chunk_count(gf, block: int) -> int:
+    """Chunks of the group's stored bounds; they must be ``block`` rows."""
+    nc = gf.k_cmin.shape[1]
+    if nc != -(-gf.k_us.shape[1] // block):
+        raise ValueError("k_cmin chunk count does not match sparse_block")
+    return nc
+
+
 def _post_rope_factored_part(
     q: torch.Tensor,  # (b, hq, ql, hd) POST-RoPE queries
     gf,
@@ -166,15 +193,63 @@ def _post_rope_factored_part(
     scale: float,
     k_scale_slice: Optional[torch.Tensor],
     win_lo: Optional[torch.Tensor] = None,
+    sparse_ok: bool = False,
+    sparse_select: Optional[int] = None,
+    sparse_block: int = 512,
+    sparse_select_max: Optional[int] = None,
+    sparse_adaptive_band: float = 0.5,
 ) -> PartialAttention:
-    """Attention over a POST-RoPE factored group in rank space (kernel K2):
-    no reconstruction and no trig."""
-    if gf.k_us4 is not None:
-        raise NotImplementedError("mixed int8+int4 factors: ROADMAP queue 1 item 11")
+    """Attention over a POST-RoPE factored group in rank space: no
+    reconstruction and no trig. K2 reads the whole segment, K6 mixed
+    int8+int4 factors, K4 the Quest-selected chunks when ``sparse_ok``."""
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    vt_k = vt_layer_slice(gf.k_vt, gpos, hkv, hd)
+    vt_v = vt_layer_slice(gf.v_vt, gpos, hkv, hd)
+    if sparse_ok:
+        nc = _chunk_count(gf, sparse_block)
+        cmin_sl = vt_layer_slice(gf.k_cmin, gpos, hkv, hd)
+        cmax_sl = vt_layer_slice(gf.k_cmax, gpos, hkv, hd)
+        n_sel = min(sparse_select, nc)
+    if gf.k_us4 is not None:
+        kw4 = dict(k_us4=gf.k_us4, k_vt4_slice=vt_layer_slice(gf.k_vt4, gpos, hkv, hd),
+                   k_scale4_slice=vt_layer_slice(gf.k_scale4, gpos, hkv, hd),
+                   v_us4=gf.v_us4)
+        if sparse_ok:
+            # Sparse x int4: Quest selection, then rank-space attention over
+            # the gathered int8 + packed-int4 rows. The JAX package runs this
+            # composition as plain XLA on the TPU too (it has no kernel for
+            # it), so this is the reference's own path, not a fallback.
+            ids = select_topk_chunks(q, cmin_sl, cmax_sl, n_select=n_sel, num_kv_heads=hkv,
+                                     block=sparse_block, win_lo=win_lo)
+            return sparse_rankspace_decode_attention_ref(
+                q, gf.k_us, vt_k, gf.v_us, vt_v, ids, scale, hkv, block=sparse_block,
+                k_scale_slice=k_scale_slice, v_rank_scale=gf.v_scale, valid_lo=win_lo,
+                **kw4)
+        out, lse = rankspace_decode_attention(
+            q, gf.k_us, vt_k, gf.v_us, vt_v, k_scale_slice=k_scale_slice,
+            v_rank_scale=gf.v_scale, win_lo=win_lo, scale=scale, num_kv_heads=hkv, **kw4)
+        return PartialAttention(out=out, lse=lse)
+    if sparse_ok:
+        sc, live, sc_raw = chunk_bound_scores(q, cmin_sl, cmax_sl, hkv, block=sparse_block,
+                                              win_lo=win_lo)
+        n_hi = min(sparse_select_max, nc) if sparse_select_max else n_sel
+        ids = topk_ids(sc, max(n_hi, n_sel))
+        if n_hi > n_sel:
+            # Adaptive budget: the high budget when any sequence's step has
+            # more hot chunks than the low one. Decided on the device: the
+            # low budget's step passes the same ids with those past n_sel
+            # set to -1, which the kernel skips; the first n_sel ids of the
+            # stable descending order are the low budget's selection.
+            use_hi = (adaptive_hot_chunks(sc_raw, live, band=sparse_adaptive_band)
+                      > n_sel).any()
+            ids[:, n_sel:] = torch.where(use_hi, ids[:, n_sel:], -1)
+        out, lse = sparse_rankspace_decode_attention(
+            q, gf.k_us, vt_k, gf.v_us, vt_v, ids, k_scale_slice=k_scale_slice,
+            v_rank_scale=gf.v_scale, win_lo=win_lo, scale=scale, num_kv_heads=hkv,
+            block=sparse_block)
+        return PartialAttention(out=out, lse=lse)
     out, lse = rankspace_decode_attention(
-        q, gf.k_us, vt_layer_slice(gf.k_vt, gpos, hkv, hd),
-        gf.v_us, vt_layer_slice(gf.v_vt, gpos, hkv, hd),
+        q, gf.k_us, vt_k, gf.v_us, vt_v,
         k_scale_slice=k_scale_slice, v_rank_scale=gf.v_scale, win_lo=win_lo,
         scale=scale, num_kv_heads=hkv,
     )
@@ -185,16 +260,30 @@ def _dense_prefill_segment(q, gf, gpos, li, cache, cfg, cos_p, sin_p, rope_post)
     """K and V of a layer's prefill segment when the group factors at most
     one side: the factored side is reconstructed, the other read dense."""
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def heads(mat):  # (b, s, hkv*hd) -> (b, hkv, s, hd)
+        return mat.reshape(mat.shape[0], mat.shape[1], hkv, hd).permute(0, 2, 1, 3)
+
     if gf is not None and gf.k_us is not None:
         k_scale = None if gf.k_scale is None else vt_layer_slice(gf.k_scale, gpos, hkv, hd)
-        k_rec = reconstruct_group_heads(
-            gf.k_us, vt_layer_slice(gf.k_vt, gpos, hkv, hd), hkv, out_scale=k_scale)
+        if gf.k_us4 is not None:  # mixed int8 + packed int4: the tail ranks too
+            k_rec = heads(dequantize_k_mixed4(QuantizedKFactorsMixed4(
+                us8=gf.k_us, us4p=gf.k_us4, vt8=vt_layer_slice(gf.k_vt, gpos, hkv, hd),
+                vt4=vt_layer_slice(gf.k_vt4, gpos, hkv, hd), out_scale=k_scale,
+                scale4=vt_layer_slice(gf.k_scale4, gpos, hkv, hd))))
+        else:
+            k_rec = reconstruct_group_heads(
+                gf.k_us, vt_layer_slice(gf.k_vt, gpos, hkv, hd), hkv, out_scale=k_scale)
         if not rope_post:
             k_rec = apply_rope(k_rec, cos_p[None], sin_p[None])
         k_prefill = k_rec.to(q.dtype)
     else:
         k_prefill = cache.dense_k[li]
-    if gf is not None and gf.v_us is not None:
+    if gf is not None and gf.v_us4 is not None:
+        v_prefill = heads(dequantize_v_mixed4(QuantizedVFactorsMixed4(
+            us8=gf.v_us, us4p=gf.v_us4, rank_scale=gf.v_scale,
+            vt=vt_layer_slice(gf.v_vt, gpos, hkv, hd)))).to(q.dtype)
+    elif gf is not None and gf.v_us is not None:
         v_prefill = reconstruct_group_heads(
             gf.v_us, vt_layer_slice(gf.v_vt, gpos, hkv, hd), hkv,
             rank_scale=gf.v_scale).to(q.dtype)
@@ -211,12 +300,24 @@ def decode_step(
     tokens: torch.Tensor,
     pos: int,
     prefill_cos_sin: Tuple[torch.Tensor, torch.Tensor],
+    sparse_select: Optional[int] = None,
+    sparse_block: int = 512,
+    sparse_layers: Optional[frozenset] = None,
+    sparse_select_max: Optional[int] = None,
+    sparse_adaptive_band: float = 0.5,
 ) -> Tuple[torch.Tensor, XKVCache]:
     """One decode step over the hybrid factored cache.
 
     tokens: (b, ql) next token(s); pos: absolute position of tokens[:, 0];
     prefill_cos_sin: (s_p, hd) RoPE tables of the prefill positions. The
     tail is written in place. Returns (logits (b, ql, V) fp32, cache).
+
+    ``sparse_select``: attend to that many ``sparse_block``-row chunks of
+    each factored segment (Quest selection over the stored chunk bounds),
+    in the layers of ``sparse_layers`` (all when None; the others read the
+    factored cache exactly). ``sparse_select_max``: in post mode, the
+    budget of steps whose hot-chunk count (``adaptive_hot_chunks`` with
+    ``sparse_adaptive_band``) exceeds ``sparse_select``.
     """
     b, ql = tokens.shape
     dev = tokens.device
@@ -256,8 +357,26 @@ def decode_step(
             gf = cache.groups[gi]
         if gf is not None and gf.k_us is not None and gf.v_us is not None:
             k_scale = None if gf.k_scale is None else vt_layer_slice(gf.k_scale, gpos, hkv, hd)
+            sparse_ok = (sparse_select is not None and gf.k_cmin is not None and ql == 1
+                         and (sparse_layers is None or li in sparse_layers))
             if rope_post:
-                parts.append(_post_rope_factored_part(q, gf, gpos, cfg, scale, k_scale, win_lo))
+                parts.append(_post_rope_factored_part(
+                    q, gf, gpos, cfg, scale, k_scale, win_lo, sparse_ok, sparse_select,
+                    sparse_block, sparse_select_max, sparse_adaptive_band))
+            elif sparse_ok:
+                nc = _chunk_count(gf, sparse_block)
+                ids = select_topk_chunks(
+                    q, vt_layer_slice(gf.k_cmin, gpos, hkv, hd),
+                    vt_layer_slice(gf.k_cmax, gpos, hkv, hd), n_select=min(sparse_select, nc),
+                    num_kv_heads=hkv, block=sparse_block, win_lo=win_lo)
+                out_f, lse_f = sparse_lowrank_decode_attention(
+                    q_pre, gf.k_us, vt_layer_slice(gf.k_vt, gpos, hkv, hd),
+                    gf.v_us, vt_layer_slice(gf.v_vt, gpos, hkv, hd),
+                    cos_p, sin_p, cos, sin, ids,
+                    k_scale_slice=k_scale, v_rank_scale=gf.v_scale, win_lo=win_lo,
+                    scale=scale, num_kv_heads=hkv, block=sparse_block,
+                )
+                parts.append(PartialAttention(out=out_f, lse=lse_f))
             else:
                 out_f, lse_f = lowrank_decode_attention(
                     q_pre, gf.k_us, vt_layer_slice(gf.k_vt, gpos, hkv, hd),

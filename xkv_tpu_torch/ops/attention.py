@@ -15,9 +15,11 @@ ran them as XLA, not as Pallas kernels.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from xkv_tpu_torch.compress.quant import unpack_int4_rows
 
 NEG_INF = -1e30
 
@@ -222,25 +224,53 @@ def rankspace_decode_attention_ref(
     v_rank_scale: Optional[torch.Tensor] = None,
     valid_len: Optional[torch.Tensor] = None,
     valid_lo: Optional[torch.Tensor] = None,
+    k_us4: Optional[torch.Tensor] = None,  # packed int4 tails (mixed storage)
+    k_vt4_slice: Optional[torch.Tensor] = None,
+    k_scale4_slice: Optional[torch.Tensor] = None,
+    v_us4: Optional[torch.Tensor] = None,
 ) -> PartialAttention:
     """Decode attention over POST-RoPE factors in rank space: K is never
     reconstructed, scores = (q . vt^T) . us^T and out = ((P . us) * s) . vt.
+
+    With ``k_us4``/``v_us4`` (mixed int8+int4) the packed tails are
+    unpacked and contracted beside the int8 top ranks; ``v_vt_slice`` and
+    ``v_rank_scale`` are in the stored [hi | lo-evens | lo-odds] order.
     """
+    s_p = k_us.shape[1]
+    mask = _col_mask(k_us.shape[0], s_p, valid_len, valid_lo, q.device)
+    return _rankspace_partial(q, k_us, k_vt_slice, v_us, v_vt_slice, scale, num_kv_heads,
+                              k_scale_slice, v_rank_scale, mask, k_us4, k_vt4_slice,
+                              k_scale4_slice, v_us4)
+
+
+def _rankspace_partial(q, k_us, k_vt_slice, v_us, v_vt_slice, scale, num_kv_heads,
+                       k_scale_slice, v_rank_scale, mask, k_us4=None, k_vt4_slice=None,
+                       k_scale4_slice=None, v_us4=None) -> PartialAttention:
+    """The rank-space math over the rows given (all of a segment, or the
+    gathered rows of selected chunks), ``mask`` (b, 1, 1, s) or None."""
     b, hq, ql, hd = q.shape
     hkv = num_kv_heads
     gsz = hq // hkv
-    s_p = k_us.shape[1]
+    s = k_us.shape[1]
 
-    vt_f = k_vt_slice.to(torch.float32)
-    if k_scale_slice is not None:
-        vt_f = vt_f * k_scale_slice.to(torch.float32)
-    vt_f = vt_f.reshape(b, vt_f.shape[1], hkv, hd)
-    qg = q.to(torch.float32).reshape(b, hkv, gsz, ql, hd)
-    q_emb = torch.einsum("bgnqd,brgd->bgnqr", qg, vt_f) * scale
-    scores = torch.einsum("bgnqr,bsr->bgnqs", q_emb, k_us.to(torch.float32))
-    scores = scores.reshape(b, hq, ql, s_p)
+    def q_to_rank(vt_slice, col_scale):
+        vt_f = vt_slice.to(torch.float32)
+        if col_scale is not None:
+            vt_f = vt_f * col_scale.to(torch.float32)
+        vt_f = vt_f.reshape(b, vt_f.shape[1], hkv, hd)
+        qg = q.to(torch.float32).reshape(b, hkv, gsz, ql, hd)
+        return torch.einsum("bgnqd,brgd->bgnqr", qg, vt_f) * scale
 
-    mask = _col_mask(b, s_p, valid_len, valid_lo, q.device)
+    scores = torch.einsum("bgnqr,bsr->bgnqs", q_to_rank(k_vt_slice, k_scale_slice),
+                          k_us.to(torch.float32))
+    v_rows = v_us
+    if k_us4 is not None:
+        scores = scores + torch.einsum(
+            "bgnqr,bsr->bgnqs", q_to_rank(k_vt4_slice, k_scale4_slice),
+            unpack_int4_rows(k_us4).to(torch.float32))
+        v_rows = torch.cat([v_us, unpack_int4_rows(v_us4)], dim=-1)
+    scores = scores.reshape(b, hq, ql, s)
+
     if mask is not None:
         scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     m = scores.max(dim=-1, keepdim=True).values
@@ -251,8 +281,8 @@ def rankspace_decode_attention_ref(
     l = e.sum(dim=-1, keepdim=True)
     p = e / torch.clamp(l, min=1e-30)
 
-    rv = v_us.shape[2]
-    t = torch.einsum("bhqs,bsr->bhqr", p, v_us.to(torch.float32))
+    rv = v_rows.shape[2]
+    t = torch.einsum("bhqs,bsr->bhqr", p, v_rows.to(torch.float32))
     if v_rank_scale is not None:
         t = t * v_rank_scale.to(torch.float32)[:, None]
     vt_v = v_vt_slice.to(torch.float32).reshape(b, rv, hkv, hd)
@@ -260,6 +290,193 @@ def rankspace_decode_attention_ref(
     out = torch.einsum("bgnqr,brgd->bgnqd", tg, vt_v).reshape(b, hq, ql, hd)
     lse = m_safe.squeeze(-1) + torch.log(torch.clamp(l.squeeze(-1), min=1e-30))
     return PartialAttention(out=out, lse=lse)
+
+
+# -------------------------------------------------------------- sparse top-k
+def topk_ids(sc: torch.Tensor, n: int) -> torch.Tensor:
+    """Ids (b, n) int32 of the n largest scores of each row, ties broken
+    toward the lower index, as ``jax.lax.top_k`` breaks them: the sink and
+    recency sentinels can tie, and so can dead chunks at -inf."""
+    order = torch.sort(sc, dim=-1, descending=True, stable=True).indices
+    return order[:, :n].to(torch.int32)
+
+
+def chunk_bound_scores(
+    q: torch.Tensor,  # (b, hq, ql, hd) post-RoPE decode queries
+    k_cmin: torch.Tensor,  # (b, nc, hkv*hd) per-chunk min of post-RoPE keys
+    k_cmax: torch.Tensor,  # (b, nc, hkv*hd) ... and max
+    num_kv_heads: int,
+    valid_len: Optional[torch.Tensor] = None,  # (b,)
+    block: int = 512,
+    win_lo: Optional[torch.Tensor] = None,  # (b,) sliding-window lower bound
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Quest upper-bound scores per chunk, max over heads and positions.
+
+    Returns (sc (b, nc): selection scores, the oldest live chunk (the sink,
+    or the chunk holding ``win_lo``) and the last valid chunk (recency) set
+    to the sentinel 3e38; live (b, nc) bool: chunks holding live rows;
+    sc_raw (b, nc): the bounds with dead chunks at -inf and no sentinels).
+    """
+    b, hq, ql, hd = q.shape
+    nc = k_cmin.shape[1]
+
+    def to_heads(x):  # (b, nc, hkv*hd) -> (b, hkv, nc, hd)
+        return x.to(torch.float32).reshape(b, nc, num_kv_heads, hd).permute(0, 2, 1, 3)
+
+    qf = q.to(torch.float32)
+    sc = (_gqa_scores(torch.clamp(qf, min=0.0), to_heads(k_cmax))
+          + _gqa_scores(torch.clamp(qf, max=0.0), to_heads(k_cmin)))
+    sc = sc.amax(dim=(1, 2))  # (b, nc)
+    cidx = torch.arange(nc, device=q.device)[None, :]
+    if valid_len is not None:
+        n_valid = -(-valid_len.reshape(-1, 1).to(torch.int64) // block)
+        sc = torch.where(cidx < n_valid, sc, -math.inf)
+        last_valid = torch.clamp(n_valid - 1, min=0)
+    else:
+        last_valid = torch.full((b, 1), nc - 1, device=q.device)
+    if win_lo is not None:
+        first_live = win_lo.reshape(-1, 1).to(torch.int64) // block
+        sc = torch.where(cidx < first_live, -math.inf, sc)
+    else:
+        first_live = torch.zeros((b, 1), dtype=torch.int64, device=q.device)
+    live = torch.isfinite(sc)
+    sc_raw = sc
+    sc = torch.where(cidx == first_live, 3e38, sc)
+    sc = torch.where(cidx == last_valid, 3e38, sc)
+    return sc, live, sc_raw
+
+
+def select_topk_chunks(
+    q: torch.Tensor,
+    k_cmin: torch.Tensor,
+    k_cmax: torch.Tensor,
+    n_select: int,
+    num_kv_heads: int,
+    valid_len: Optional[torch.Tensor] = None,
+    block: int = 512,
+    win_lo: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Quest-style upper-bound chunk selection for sparse factored decode:
+    the ``n_select`` chunks of highest ``U_c = qpos . kmax + qneg . kmin``,
+    the sink and recency chunks always among them. Returns ids (b, n_select)
+    int32."""
+    sc, _, _ = chunk_bound_scores(q, k_cmin, k_cmax, num_kv_heads,
+                                  valid_len=valid_len, block=block, win_lo=win_lo)
+    return topk_ids(sc, n_select)
+
+
+def adaptive_hot_chunks(sc_raw: torch.Tensor, live: torch.Tensor,
+                        band: float = 0.5) -> torch.Tensor:
+    """(b,) count of hot chunks: live chunks whose bound lies in the top
+    ``band`` fraction of the (max - mean) spread. It picks the adaptive
+    budget (``sparse_topk_max``) of a decode step."""
+    scm = torch.where(live, sc_raw, torch.full_like(sc_raw, -3e38))
+    sc_max = scm.amax(dim=1)
+    cnt = torch.clamp(live.sum(dim=1), min=1)
+    mean = torch.where(live, sc_raw, torch.zeros_like(sc_raw)).sum(dim=1) / cnt
+    spread = torch.clamp(sc_max - mean, min=1e-6)
+    thr = sc_max - band * spread
+    return (live & (sc_raw >= thr[:, None])).sum(dim=1)
+
+
+def chunk_positions(ids: torch.Tensor, block: int) -> torch.Tensor:
+    """(b, n_sel) chunk ids -> (b, n_sel*block) absolute row positions."""
+    b, n_sel = ids.shape
+    j = torch.arange(block, device=ids.device)
+    return (ids.to(torch.int64)[:, :, None] * block + j[None, None, :]).reshape(b, n_sel * block)
+
+
+def gather_chunk_rows(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Rows ``pos`` (b, n) of x (b, s, r), clamped into range (rows past s
+    are masked by the caller). Returns (b, n, r)."""
+    idx = torch.clamp(pos, 0, x.shape[1] - 1)
+    return torch.gather(x, 1, idx[:, :, None].expand(-1, -1, x.shape[2]))
+
+
+def sparse_row_mask(pos, ids, block, s_p, valid_len, valid_lo):
+    """(b, 1, 1, n) live mask of the rows ``pos`` of chunks ``ids``: inside
+    the segment and [valid_lo, valid_len), of a chunk that was selected
+    (ids < 0 select nothing)."""
+    vlen = valid_len.reshape(-1, 1) if valid_len is not None else s_p
+    live = (pos < vlen) & (pos < s_p)
+    live &= (ids >= 0).repeat_interleave(block, dim=1)
+    if valid_lo is not None:
+        live &= pos >= valid_lo.reshape(-1, 1)
+    return live[:, None, None, :]
+
+
+def sparse_factored_decode_attention_ref(
+    q: torch.Tensor,  # (b, hq, ql, hd) post-RoPE
+    k_us: torch.Tensor,  # (b, s_p, rk)
+    k_vt_slice: torch.Tensor,
+    v_us: torch.Tensor,
+    v_vt_slice: torch.Tensor,
+    cos: torch.Tensor,  # (s_p, hd)
+    sin: torch.Tensor,
+    ids: torch.Tensor,  # (b, n_select) chunk ids
+    scale: float,
+    num_kv_heads: int,
+    block: int,
+    k_scale_slice: Optional[torch.Tensor] = None,
+    v_rank_scale: Optional[torch.Tensor] = None,
+    valid_len: Optional[torch.Tensor] = None,
+    pre_rotated: bool = False,
+    valid_lo: Optional[torch.Tensor] = None,
+) -> PartialAttention:
+    """Sparse factored decode attention by reconstruction: gather the
+    selected chunks' rows (and position-table rows), rebuild only those
+    keys, rotate them unless ``pre_rotated`` (post-RoPE factors), attend."""
+    from xkv_tpu_torch.ops.rope import apply_rope
+
+    s_p = k_us.shape[1]
+    pos = chunk_positions(ids, block)
+    k_rec = reconstruct_group_heads(gather_chunk_rows(k_us, pos), k_vt_slice, num_kv_heads,
+                                    out_scale=k_scale_slice)
+    if pre_rotated:
+        k = k_rec
+    else:
+        idx = torch.clamp(pos, 0, s_p - 1)
+        k = apply_rope(k_rec, cos[idx][:, None], sin[idx][:, None])
+    v = reconstruct_group_heads(gather_chunk_rows(v_us, pos), v_vt_slice, num_kv_heads,
+                                rank_scale=v_rank_scale)
+    mask = sparse_row_mask(pos, ids, block, s_p, valid_len, valid_lo)
+    return attention_partial(q, k.to(q.dtype), v.to(q.dtype), scale, mask)
+
+
+def sparse_rankspace_decode_attention_ref(
+    q: torch.Tensor,  # (b, hq, ql, hd) POST-RoPE decode queries
+    k_us: torch.Tensor,  # (b, s_p, rk) int8 top ranks (or full bf16/fp32)
+    k_vt_slice: torch.Tensor,  # (b, rk, hkv*hd)
+    v_us: torch.Tensor,
+    v_vt_slice: torch.Tensor,  # (b, rv_tot, hkv*hd), [hi | lo-eo] if mixed
+    ids: torch.Tensor,  # (b, n_select) chunk ids
+    scale: float,
+    num_kv_heads: int,
+    block: int,
+    k_scale_slice: Optional[torch.Tensor] = None,
+    v_rank_scale: Optional[torch.Tensor] = None,
+    valid_len: Optional[torch.Tensor] = None,
+    k_us4: Optional[torch.Tensor] = None,
+    k_vt4_slice: Optional[torch.Tensor] = None,
+    k_scale4_slice: Optional[torch.Tensor] = None,
+    v_us4: Optional[torch.Tensor] = None,
+    valid_lo: Optional[torch.Tensor] = None,
+) -> PartialAttention:
+    """Sparse top-k decode over POST-RoPE factors in rank space, mixed
+    int8+int4 storage included: gather the selected chunks' rows of every
+    stream (packing runs along the rank axis, so row gathers keep it),
+    then the rank-space math of ``rankspace_decode_attention_ref`` with
+    per-row position masks."""
+    s_p = k_us.shape[1]
+    pos = chunk_positions(ids, block)
+
+    def g(x):
+        return None if x is None else gather_chunk_rows(x, pos)
+
+    mask = sparse_row_mask(pos, ids, block, s_p, valid_len, valid_lo)
+    return _rankspace_partial(q, g(k_us), k_vt_slice, g(v_us), v_vt_slice, scale,
+                              num_kv_heads, k_scale_slice, v_rank_scale, mask, g(k_us4),
+                              k_vt4_slice, k_scale4_slice, g(v_us4))
 
 
 def dense_decode_attention_ref(

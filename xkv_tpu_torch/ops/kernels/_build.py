@@ -45,6 +45,10 @@ SIGNATURES = {
     "xkv_lowrank_decode": [_P, _P, _P, _L, _L, _P, _P, _L, _L, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "xkv_sparse_rankspace_decode": [_P] * 11 + [_I] * 9 + [_P],
+    "xkv_mixed_rankspace_decode": [_P] * 12 + [_I] * 8 + [_P],
+    "xkv_sparse_lowrank_decode": [_P, _P, _P, _L, _L, _P, _P, _L, _L] + [_P] * 11
+                                 + [_I] * 12 + [_P],
 }
 
 

@@ -1,7 +1,9 @@
-"""K3: fused low-rank decode attention over PRE-RoPE factors
+"""K3 and K5: fused low-rank decode attention over PRE-RoPE factors
 (``csrc/lowrank_attention.cu``).
 
-Port of ``xkv_tpu/ops/pallas/lowrank_attention.py:lowrank_decode_attention``.
+Port of ``xkv_tpu/ops/pallas/lowrank_attention.py``: K3
+``lowrank_decode_attention`` over the whole segment, and K5
+``sparse_lowrank_decode_attention``, the same over the selected chunks.
 The cache holds the factors ``K = k_us @ k_vt`` of pre-RoPE keys; every key
 block is rebuilt on chip and RoPE is applied in relative-angle form:
 
@@ -13,8 +15,9 @@ into the two embeds [qa | qb]; here they are stored compactly, one
 (2*hd)-wide row per query row for its own kv head, instead of the TPU's
 block-diagonal (2*hkv*hd)-wide rows. ``lowrank_kernel`` is the kernel: key
 rebuild, trig fields, scores, softmax, ``t = P @ v_us`` and the final
-``t @ v_vt`` per head. It launches the CUDA kernel for CUDA tensors and runs
-``lowrank_kernel_plain`` for CPU tensors.
+``t @ v_vt`` per head; ``sparse_lowrank_kernel`` does the same over the
+rows (and position-table rows) of the selected chunks. Each launches its
+CUDA kernel for CUDA tensors and runs its plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,14 +26,19 @@ from typing import Optional, Tuple
 
 import torch
 
+from xkv_tpu_torch.ops.attention import gather_chunk_rows
 from xkv_tpu_torch.ops.kernels import _build
 from xkv_tpu_torch.ops.kernels.rankspace_attention import (
     compute_dtype_for,
+    live_chunk_rows,
+    live_columns,
     masked_softmax_stats,
 )
 
-# Launches of the CUDA kernel since the last reset (plain runs not counted).
+# Launches of each CUDA kernel since the last reset (plain runs not
+# counted): K3 and K5 (sparse).
 launches = 0
+sparse_launches = 0
 
 
 def _query_embeds(
@@ -84,28 +92,38 @@ def lowrank_kernel_plain(
     and softmax; probabilities rounded before P @ v_us; the normalised and
     V-scaled t rounded before t @ v_vt. Returns (out (b, R, hd) in qab's
     dtype, lse (b, R) fp32)."""
+    b, s_p = k_us.shape[:2]
+    lens, los = _build.live_range(b, s_p, lengths, win_lo, k_us.device)
+    return _lowrank_rows(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h[None], sin_h[None],
+                         v_scale, live_columns(s_p, lens, los), num_q_heads, num_kv_heads)
+
+
+def _lowrank_rows(qab, k_rows, k_vt_slice, v_rows, v_vt_slice, cos_rows, sin_rows, v_scale,
+                  live, num_q_heads, num_kv_heads):
+    """Low-rank attention of qab over the given factor rows and their
+    position-table rows (1|b, s, hd/2), with the kernels' numerics (see
+    ``lowrank_kernel_plain``)."""
     b, R, two_hd = qab.shape
     hd = two_hd // 2
     hq, hkv = num_q_heads, num_kv_heads
     ql, gsz = R // hq, hq // hkv
-    s_p, rv = k_us.shape[1], v_us.shape[2]
-    cd = compute_dtype_for(k_us.dtype)
-    if k_us.dtype == torch.int8:
-        k_rec = torch.bmm(k_us.to(torch.float64), k_vt_slice.to(torch.float64))
+    s, rv = k_rows.shape[1], v_rows.shape[2]
+    cd = compute_dtype_for(k_rows.dtype)
+    if k_rows.dtype == torch.int8:
+        k_rec = torch.bmm(k_rows.to(torch.float64), k_vt_slice.to(torch.float64))
         k_rec = k_rec.to(torch.float32).to(cd)
     else:
-        k_rec = torch.bmm(k_us.to(torch.float32), k_vt_slice.to(torch.float32)).to(cd)
-    k_rec = k_rec.reshape(b, s_p, hkv, hd)
-    cos_w = torch.cat([cos_h, cos_h], dim=-1).to(cd)[None, :, None, :]
-    sin_w = torch.cat([sin_h, sin_h], dim=-1).to(cd)[None, :, None, :]
+        k_rec = torch.bmm(k_rows.to(torch.float32), k_vt_slice.to(torch.float32)).to(cd)
+    k_rec = k_rec.reshape(b, s, hkv, hd)
+    cos_w = torch.cat([cos_rows, cos_rows], dim=-1).to(cd)[:, :, None, :]
+    sin_w = torch.cat([sin_rows, sin_rows], dim=-1).to(cd)[:, :, None, :]
     k_cos = (k_rec * cos_w).to(torch.float32)
     k_sin = (k_rec * sin_w).to(torch.float32)
     q5 = qab.to(torch.float32).reshape(b, ql, hkv, gsz, two_hd)
     scores = (torch.einsum("bqgnd,bsgd->bqgns", q5[..., :hd], k_cos)
               + torch.einsum("bqgnd,bsgd->bqgns", q5[..., hd:], k_sin))
-    lens, los = _build.live_range(b, s_p, lengths, win_lo, k_us.device)
-    p, l_inv, lse = masked_softmax_stats(scores.reshape(b, R, s_p), lens, los)
-    t = p.to(cd).to(torch.float32) @ v_us.to(cd).to(torch.float32)
+    p, l_inv, lse = masked_softmax_stats(scores.reshape(b, R, s), live)
+    t = p.to(cd).to(torch.float32) @ v_rows.to(cd).to(torch.float32)
     t = t * l_inv
     if v_scale is not None:
         t = t * v_scale.to(torch.float32)
@@ -138,6 +156,31 @@ def lowrank_kernel(
             qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale,
             lengths, win_lo, num_q_heads=num_q_heads, num_kv_heads=num_kv_heads)
     global launches
+    out = _launch(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale, None, 0,
+                  lengths, win_lo, num_q_heads, num_kv_heads)
+    launches += 1
+    return out
+
+
+def sparse_lowrank_kernel_plain(
+    qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale, ids, block,
+    lengths, win_lo, *, num_q_heads: int, num_kv_heads: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5's function in plain tensor code: K3's numerics over the rows of
+    the selected ``block``-row chunks (``ids`` (b, n_sel), < 0 selects
+    nothing), position tables read at the rows' absolute positions."""
+    b, s_p = k_us.shape[:2]
+    lens, los = _build.live_range(b, s_p, lengths, win_lo, k_us.device)
+    pos, live = live_chunk_rows(ids, block, s_p, lens, los)
+    pos = torch.clamp(pos, 0, s_p - 1)  # rows past s_p are masked
+    return _lowrank_rows(qab, gather_chunk_rows(k_us, pos), k_vt_slice,
+                         gather_chunk_rows(v_us, pos), v_vt_slice, cos_h[pos], sin_h[pos],
+                         v_scale, live, num_q_heads, num_kv_heads)
+
+
+def _check_operands(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale,
+                    num_q_heads, num_kv_heads) -> bool:
+    """K3's and K5's operand checks; returns whether the factors are int8."""
     b, R, two_hd = qab.shape
     hd = two_hd // 2
     s_p, rk = k_us.shape[1], k_us.shape[2]
@@ -172,30 +215,82 @@ def lowrank_kernel(
                        "v_scale must be contiguous (b, 1, rv)")
     else:
         _build.require(v_scale is None, "v_scale applies to int8 factors only")
+    return quantized
+
+
+def _launch(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale, ids, block,
+            lengths, win_lo, num_q_heads, num_kv_heads):
+    """Check the operands and launch K3 (``ids`` None) or K5 over the
+    chunks ``ids`` of ``block`` rows. Returns (out, lse)."""
+    quantized = _check_operands(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h,
+                                v_scale, num_q_heads, num_kv_heads)
+    b, R, two_hd = qab.shape
+    hd = two_hd // 2
+    s_p, rk, rv = k_us.shape[1], k_us.shape[2], v_us.shape[2]
     dev = k_us.device
     lens, los = _build.live_range(b, s_p, lengths, win_lo, dev)
-    chunks = -(-R // 32)
-    nsplit = _build.num_splits(s_p, b * chunks, 1, dev)
+    if ids is None:
+        keys = s_p
+    else:
+        _build.require(block % 64 == 0, f"chunk block {block} must be a multiple of 64")
+        _build.require(ids.dim() == 2 and ids.shape[0] == b, "ids must be (b, n_sel)")
+        ids = ids.to(device=dev, dtype=torch.int32).contiguous()
+        keys = ids.shape[1] * block
+    nsplit = _build.num_splits(keys, b * -(-R // 32), 1, dev)
     part_t = torch.empty((b, nsplit, R, rv), dtype=torch.float32, device=dev)
     part_m = torch.empty((b, nsplit, R), dtype=torch.float32, device=dev)
     part_l = torch.empty((b, nsplit, R), dtype=torch.float32, device=dev)
     out = torch.empty((b, R, hd), dtype=torch.bfloat16, device=dev)
     lse = torch.empty((b, R), dtype=torch.float32, device=dev)
-    status = _build.load().xkv_lowrank_decode(
-        qab.data_ptr(), k_us.data_ptr(), k_vt_slice.data_ptr(),
-        k_vt_slice.stride(0), k_vt_slice.stride(1),
-        v_us.data_ptr(), v_vt_slice.data_ptr(),
-        v_vt_slice.stride(0), v_vt_slice.stride(1),
-        cos_h.data_ptr(), sin_h.data_ptr(),
-        v_scale.data_ptr() if quantized else None,
-        lens.data_ptr(), los.data_ptr(), part_t.data_ptr(), part_m.data_ptr(),
-        part_l.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, R, num_q_heads, num_kv_heads, hd, s_p, rk, rv, nsplit, int(quantized),
-        _build.stream_ptr(dev),
-    )
-    _build.check(status, "lowrank_kernel")
-    launches += 1
+    common = (qab.data_ptr(), k_us.data_ptr(), k_vt_slice.data_ptr(),
+              k_vt_slice.stride(0), k_vt_slice.stride(1),
+              v_us.data_ptr(), v_vt_slice.data_ptr(),
+              v_vt_slice.stride(0), v_vt_slice.stride(1),
+              cos_h.data_ptr(), sin_h.data_ptr(),
+              v_scale.data_ptr() if quantized else None)
+    scratch = (lens.data_ptr(), los.data_ptr(), part_t.data_ptr(), part_m.data_ptr(),
+               part_l.data_ptr(), out.data_ptr(), lse.data_ptr(),
+               b, R, num_q_heads, num_kv_heads, hd, s_p, rk, rv)
+    lib = _build.load()
+    if ids is None:
+        status = lib.xkv_lowrank_decode(*common, *scratch, nsplit, int(quantized),
+                                        _build.stream_ptr(dev))
+    else:
+        status = lib.xkv_sparse_lowrank_decode(*common, ids.data_ptr(), *scratch,
+                                               ids.shape[1], block, nsplit, int(quantized),
+                                               _build.stream_ptr(dev))
+    _build.check(status, "lowrank_kernel" if ids is None else "sparse_lowrank_kernel")
     return out, lse
+
+
+def sparse_lowrank_kernel(
+    qab: torch.Tensor,
+    k_us: torch.Tensor,
+    k_vt_slice: torch.Tensor,
+    v_us: torch.Tensor,
+    v_vt_slice: torch.Tensor,
+    cos_h: torch.Tensor,
+    sin_h: torch.Tensor,
+    v_scale: Optional[torch.Tensor],
+    ids: torch.Tensor,
+    block: int,
+    lengths: Optional[torch.Tensor],
+    win_lo: Optional[torch.Tensor],
+    *,
+    num_q_heads: int,
+    num_kv_heads: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5: K3 over the rows of the selected ``block``-row chunks only:
+    (out (b, R, hd), lse (b, R) fp32)."""
+    if k_us.device.type == "cpu":
+        return sparse_lowrank_kernel_plain(
+            qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale, ids, block,
+            lengths, win_lo, num_q_heads=num_q_heads, num_kv_heads=num_kv_heads)
+    global sparse_launches
+    out = _launch(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale, ids, block,
+                  lengths, win_lo, num_q_heads, num_kv_heads)
+    sparse_launches += 1
+    return out
 
 
 def half_tables(cos_p: torch.Tensor, sin_p: torch.Tensor, factor_dtype: torch.dtype):
@@ -242,3 +337,43 @@ def lowrank_decode_attention(
         lengths, win_lo, num_q_heads=hq, num_kv_heads=num_kv_heads)
     out = out.reshape(b, ql, hq, hd).permute(0, 2, 1, 3).to(q_pre.dtype)
     return out, lse.reshape(b, ql, hq).permute(0, 2, 1)
+
+
+def sparse_lowrank_decode_attention(
+    q_pre: torch.Tensor,  # (b, hq, 1, hd) PRE-RoPE decode queries
+    k_us: torch.Tensor,
+    k_vt_slice: torch.Tensor,
+    v_us: torch.Tensor,
+    v_vt_slice: torch.Tensor,
+    cos_p: torch.Tensor,  # (s_p, hd)
+    sin_p: torch.Tensor,
+    cos_t: torch.Tensor,  # (b|1, hd) or (b|1, 1, hd)
+    sin_t: torch.Tensor,
+    chunk_ids: torch.Tensor,  # (b, n_sel) int32 selected chunks
+    lengths: Optional[torch.Tensor] = None,
+    k_scale_slice: Optional[torch.Tensor] = None,
+    v_rank_scale: Optional[torch.Tensor] = None,
+    win_lo: Optional[torch.Tensor] = None,
+    *,
+    scale: float,
+    num_kv_heads: int,
+    block: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sparse top-k fused decode attention (K5): only the selected
+    ``block``-row chunks are rebuilt and read. Same contract as
+    ``lowrank_decode_attention`` otherwise."""
+    b, hq, ql, hd = q_pre.shape
+    if ql != 1:
+        raise ValueError("sparse decode is single-token")
+    quantized = k_us.dtype == torch.int8
+    if quantized and (k_scale_slice is None or v_rank_scale is None):
+        raise ValueError("int8 factors need k_scale_slice and v_rank_scale")
+    if not quantized:
+        k_scale_slice = v_rank_scale = None
+    cos_h, sin_h = half_tables(cos_p, sin_p, k_us.dtype)
+    qab = _query_embeds(q_pre, cos_t, sin_t, num_kv_heads, scale, k_scale_slice)
+    v_scale = v_rank_scale.to(torch.float32).contiguous() if quantized else None
+    out, lse = sparse_lowrank_kernel(
+        qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale, chunk_ids, block,
+        lengths, win_lo, num_q_heads=hq, num_kv_heads=num_kv_heads)
+    return out.reshape(b, 1, hq, hd).permute(0, 2, 1, 3).to(q_pre.dtype), lse[:, :, None]

@@ -1,16 +1,22 @@
-"""K2: rank-space decode attention over POST-RoPE factors
+"""K2, K4 and K6: rank-space decode attention over POST-RoPE factors
 (``csrc/rankspace_attention.cu``).
 
-Port of ``xkv_tpu/ops/pallas/rankspace_attention.py:rankspace_decode_attention``.
+Port of ``xkv_tpu/ops/pallas/rankspace_attention.py``:
+  * K2 ``rankspace_kernel``: ``rankspace_decode_attention`` (bf16, fp32 or
+    int8 factors);
+  * K6 ``mixed_rankspace_kernel``: the same with mixed int8 + packed int4
+    factors (``k_us4``/``v_us4``, Pallas body ``_rankspace_mixed_kernel``);
+  * K4 ``sparse_rankspace_kernel``: ``sparse_rankspace_decode_attention``,
+    K2 over the selected chunks only.
 The factors store rotated keys, so
 
     scores = q . K^T = (q . vt_k^T) . k_us^T        (exact)
     out    = ((P . v_us) * v_scale) . v_vt          (V has no RoPE)
 
 As on the TPU, the projections in and out of rank space (``_project_q``,
-``_project_out``) are plain tensor code; ``rankspace_kernel`` is the kernel:
-scores, mask, softmax and ``t = P @ v_us`` over the sequence. It launches
-the CUDA kernel for CUDA tensors and runs ``rankspace_kernel_plain`` for
+``_project_out``) are plain tensor code; each kernel computes scores,
+mask, softmax and ``t = P @ v_us`` over its rows. A kernel wrapper
+launches the CUDA kernel for CUDA tensors and runs its plain version for
 CPU tensors.
 """
 
@@ -20,12 +26,17 @@ from typing import Optional, Tuple
 
 import torch
 
+from xkv_tpu_torch.compress.quant import unpack_int4_rows
+from xkv_tpu_torch.ops.attention import chunk_positions, gather_chunk_rows, sparse_row_mask
 from xkv_tpu_torch.ops.kernels import _build
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
-# Launches of the CUDA kernel since the last reset (plain runs not counted).
+# Launches of each CUDA kernel since the last reset (plain runs not
+# counted): K2, K4 (sparse) and K6 (mixed int8+int4).
 launches = 0
+sparse_launches = 0
+mixed_launches = 0
 
 
 def compute_dtype_for(factor_dtype: torch.dtype) -> torch.dtype:
@@ -78,18 +89,28 @@ def _project_out(
     return out.reshape(b, hq, ql, hd).to(out_dtype)
 
 
+def live_columns(s: int, lens: torch.Tensor, los: torch.Tensor) -> torch.Tensor:
+    """(b, 1, s) mask of the live columns [los, lens)."""
+    cols = torch.arange(s, device=lens.device)
+    return ((cols[None, :] < lens[:, None]) & (cols[None, :] >= los[:, None]))[:, None, :]
+
+
+def live_chunk_rows(
+    ids: torch.Tensor, block: int, s_p: int, lens: torch.Tensor, los: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows of the selected chunks: (absolute positions (b, n_sel*block),
+    live mask (b, 1, n_sel*block)); see ``sparse_row_mask``."""
+    pos = chunk_positions(ids, block)
+    return pos, sparse_row_mask(pos, ids, block, s_p, lens, los)[:, 0]
+
+
 def masked_softmax_stats(
     scores: torch.Tensor,  # (b, R, s) fp32
-    lens: torch.Tensor,
-    los: torch.Tensor,
+    live: torch.Tensor,  # (b, 1, s) bool
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The decode kernels' softmax in one pass: masked columns (outside
-    [los, lens)) take NEG_INF and probability exactly 0. Returns (p, l_inv,
-    lse) with l_inv = 1/l, or 1 where l == 0."""
-    s = scores.shape[-1]
-    cols = torch.arange(s, device=scores.device)
-    live = (cols[None, :] < lens[:, None]) & (cols[None, :] >= los[:, None])
-    live = live[:, None, :]
+    """The decode kernels' softmax in one pass: masked columns take
+    NEG_INF and probability exactly 0. Returns (p, l_inv, lse) with
+    l_inv = 1/l, or 1 where l == 0."""
     x = torch.where(live, scores, torch.full_like(scores, NEG_INF))
     m = x.amax(dim=-1, keepdim=True)
     p = torch.where(live, torch.exp(x - m), torch.zeros_like(x))
@@ -111,12 +132,53 @@ def rankspace_kernel_plain(
     rounded to the compute dtype before P @ v_us. Returns (t (b, R, rv)
     fp32 normalised, lse (b, R) fp32)."""
     b, s_p, _ = k_us.shape
-    cd = q_emb.dtype
     lens, los = _build.live_range(b, s_p, lengths, win_lo, k_us.device)
-    scores = q_emb.to(torch.float32) @ k_us.to(cd).to(torch.float32).transpose(1, 2)
-    p, l_inv, lse = masked_softmax_stats(scores, lens, los)
-    t = p.to(cd).to(torch.float32) @ v_us.to(cd).to(torch.float32)
+    return _rankspace_rows(q_emb, k_us, v_us, live_columns(s_p, lens, los))
+
+
+def _rankspace_rows(q_emb, k_rows, v_rows, live):
+    """Rank-space attention of q_emb over the given rows, with the
+    kernels' numerics (see ``rankspace_kernel_plain``)."""
+    cd = q_emb.dtype
+    scores = q_emb.to(torch.float32) @ k_rows.to(cd).to(torch.float32).transpose(1, 2)
+    p, l_inv, lse = masked_softmax_stats(scores, live)
+    t = p.to(cd).to(torch.float32) @ v_rows.to(cd).to(torch.float32)
     return t * l_inv, lse
+
+
+def mixed_rankspace_kernel_plain(
+    q_emb: torch.Tensor,  # (b, R, r8k + r4k) bf16, [hi | lo-eo] columns
+    k_us8: torch.Tensor,  # (b, s_p, r8k) int8
+    k_us4: torch.Tensor,  # (b, s_p, r4k/2) packed int4 pairs
+    v_us8: torch.Tensor,  # (b, s_p, r8v) int8
+    v_us4: torch.Tensor,  # (b, s_p, r4v/2)
+    lengths: Optional[torch.Tensor] = None,
+    win_lo: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6's function in plain tensor code: the packed tails unpacked to
+    [evens | odds] beside the int8 ranks (values exact in bf16), then K2's
+    numerics. Returns (t (b, R, r8v + r4v) fp32 in [hi | lo-eo] order, lse)."""
+    k_all = torch.cat([k_us8, unpack_int4_rows(k_us4)], dim=-1)
+    v_all = torch.cat([v_us8, unpack_int4_rows(v_us4)], dim=-1)
+    return rankspace_kernel_plain(q_emb, k_all, v_all, lengths, win_lo)
+
+
+def sparse_rankspace_kernel_plain(
+    q_emb: torch.Tensor,  # (b, R, rk)
+    k_us: torch.Tensor,  # (b, s_p, rk)
+    v_us: torch.Tensor,  # (b, s_p, rv)
+    ids: torch.Tensor,  # (b, n_sel) int32 chunk ids, < 0: none
+    block: int,
+    lengths: Optional[torch.Tensor] = None,
+    win_lo: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's function in plain tensor code: K2's numerics over the rows of
+    the selected chunks, masked by absolute position."""
+    b, s_p, _ = k_us.shape
+    lens, los = _build.live_range(b, s_p, lengths, win_lo, k_us.device)
+    pos, live = live_chunk_rows(ids, block, s_p, lens, los)
+    return _rankspace_rows(q_emb, gather_chunk_rows(k_us, pos), gather_chunk_rows(v_us, pos),
+                           live)
 
 
 def rankspace_kernel(
@@ -132,27 +194,13 @@ def rankspace_kernel(
     if k_us.device.type == "cpu":
         return rankspace_kernel_plain(q_emb, k_us, v_us, lengths, win_lo)
     global launches
-    b, R, rk = q_emb.shape
-    s_p, rv = k_us.shape[1], v_us.shape[2]
-    _build.require_cuda_tensor(q_emb, "q_emb", (torch.bfloat16,), 3)
-    for name, t in (("k_us", k_us), ("v_us", v_us)):
-        _build.require_cuda_tensor(t, name, (torch.bfloat16, torch.int8), 3)
-        _build.require(t.is_contiguous(), f"{name} must be contiguous")
-    _build.require(q_emb.is_contiguous(), "q_emb must be contiguous")
-    _build.require(v_us.dtype == k_us.dtype, "k_us and v_us must share a dtype")
-    _build.require(k_us.shape == (b, s_p, rk) and v_us.shape[:2] == (b, s_p),
-                   "factor shapes do not match q_emb")
-    _build.require(rk % 16 == 0 and rv % 16 == 0 and rv <= 1024,
-                   f"ranks rk={rk}, rv={rv} must be multiples of 16, rv <= 1024")
+    _check_factors(q_emb, k_us, v_us)
+    b, R, _ = q_emb.shape
+    s_p, rk, rv = k_us.shape[1], k_us.shape[2], v_us.shape[2]
     dev = k_us.device
     lens, los = _build.live_range(b, s_p, lengths, win_lo, dev)
-    chunks = -(-R // 32)
-    nsplit = _build.num_splits(s_p, b * chunks, 2, dev)
-    part_t = torch.empty((b, nsplit, R, rv), dtype=torch.float32, device=dev)
-    part_m = torch.empty((b, nsplit, R), dtype=torch.float32, device=dev)
-    part_l = torch.empty((b, nsplit, R), dtype=torch.float32, device=dev)
-    t = torch.empty((b, R, rv), dtype=torch.float32, device=dev)
-    lse = torch.empty((b, R), dtype=torch.float32, device=dev)
+    nsplit = _build.num_splits(s_p, b * -(-R // 32), 2, dev)
+    part_t, part_m, part_l, t, lse = _split_scratch(b, nsplit, R, rv, dev)
     status = _build.load().xkv_rankspace_decode(
         q_emb.data_ptr(), k_us.data_ptr(), v_us.data_ptr(), lens.data_ptr(),
         los.data_ptr(), part_t.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
@@ -161,6 +209,114 @@ def rankspace_kernel(
     )
     _build.check(status, "rankspace_kernel")
     launches += 1
+    return t, lse
+
+
+def _check_factors(q_emb, k_us, v_us) -> None:
+    """K2's and K4's operand checks."""
+    b, R, rk = q_emb.shape
+    s_p, rv = k_us.shape[1], v_us.shape[2]
+    _build.require_cuda_tensor(q_emb, "q_emb", (torch.bfloat16,), 3)
+    _build.require(q_emb.is_contiguous(), "q_emb must be contiguous")
+    for name, t in (("k_us", k_us), ("v_us", v_us)):
+        _build.require_cuda_tensor(t, name, (torch.bfloat16, torch.int8), 3)
+        _build.require(t.is_contiguous(), f"{name} must be contiguous")
+    _build.require(v_us.dtype == k_us.dtype, "k_us and v_us must share a dtype")
+    _build.require(k_us.shape == (b, s_p, rk) and v_us.shape[:2] == (b, s_p),
+                   "factor shapes do not match q_emb")
+    _build.require(rk % 16 == 0 and rv % 16 == 0 and rv <= 1024,
+                   f"ranks rk={rk}, rv={rv} must be multiples of 16, rv <= 1024")
+
+
+def _split_scratch(b, nsplit, R, rv, dev):
+    """Partials (t, m, l) of the splits and the merged (t, lse)."""
+    f32 = torch.float32
+    return (torch.empty((b, nsplit, R, rv), dtype=f32, device=dev),
+            torch.empty((b, nsplit, R), dtype=f32, device=dev),
+            torch.empty((b, nsplit, R), dtype=f32, device=dev),
+            torch.empty((b, R, rv), dtype=f32, device=dev),
+            torch.empty((b, R), dtype=f32, device=dev))
+
+
+def mixed_rankspace_kernel(
+    q_emb: torch.Tensor,
+    k_us8: torch.Tensor,
+    k_us4: torch.Tensor,
+    v_us8: torch.Tensor,
+    v_us4: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+    win_lo: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6: K2 over mixed int8 + packed int4 factors, the tails unpacked on
+    chip to [evens | odds]. Returns (t (b, R, r8v + r4v) fp32 normalised,
+    lse (b, R) fp32)."""
+    if k_us8.device.type == "cpu":
+        return mixed_rankspace_kernel_plain(q_emb, k_us8, k_us4, v_us8, v_us4, lengths,
+                                            win_lo)
+    global mixed_launches
+    b, R, rk = q_emb.shape
+    s_p = k_us8.shape[1]
+    r8k, h4k, r8v, h4v = k_us8.shape[2], k_us4.shape[2], v_us8.shape[2], v_us4.shape[2]
+    rv = r8v + 2 * h4v
+    _build.require_cuda_tensor(q_emb, "q_emb", (torch.bfloat16,), 3)
+    _build.require(q_emb.is_contiguous(), "q_emb must be contiguous")
+    for name, t in (("k_us8", k_us8), ("k_us4", k_us4), ("v_us8", v_us8), ("v_us4", v_us4)):
+        _build.require_cuda_tensor(t, name, (torch.int8,), 3)
+        _build.require(t.is_contiguous(), f"{name} must be contiguous")
+        _build.require(t.shape[:2] == (b, s_p), f"{name} rows do not match k_us8")
+    # Any even split is served; the totals meet K2's rule.
+    _build.require(rk == r8k + 2 * h4k, "q_emb width must be r8k + r4k")
+    _build.require(rk % 16 == 0 and rv % 16 == 0 and rv <= 1024,
+                   f"total ranks rk={rk}, rv={rv} must be multiples of 16, rv <= 1024")
+    dev = k_us8.device
+    lens, los = _build.live_range(b, s_p, lengths, win_lo, dev)
+    nsplit = _build.num_splits(s_p, b * -(-R // 32), 2, dev)
+    part_t, part_m, part_l, t, lse = _split_scratch(b, nsplit, R, rv, dev)
+    status = _build.load().xkv_mixed_rankspace_decode(
+        q_emb.data_ptr(), k_us8.data_ptr(), k_us4.data_ptr(), v_us8.data_ptr(),
+        v_us4.data_ptr(), lens.data_ptr(), los.data_ptr(), part_t.data_ptr(),
+        part_m.data_ptr(), part_l.data_ptr(), t.data_ptr(), lse.data_ptr(),
+        b, R, s_p, r8k, h4k, r8v, h4v, nsplit, _build.stream_ptr(dev),
+    )
+    _build.check(status, "mixed_rankspace_kernel")
+    mixed_launches += 1
+    return t, lse
+
+
+def sparse_rankspace_kernel(
+    q_emb: torch.Tensor,
+    k_us: torch.Tensor,
+    v_us: torch.Tensor,
+    ids: torch.Tensor,
+    block: int,
+    lengths: Optional[torch.Tensor] = None,
+    win_lo: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4: K2 over the rows of the selected ``block``-row chunks only
+    (``ids`` (b, n_sel); an id < 0 selects nothing). Returns (t (b, R, rv)
+    fp32 normalised, lse (b, R) fp32)."""
+    if k_us.device.type == "cpu":
+        return sparse_rankspace_kernel_plain(q_emb, k_us, v_us, ids, block, lengths, win_lo)
+    global sparse_launches
+    _check_factors(q_emb, k_us, v_us)
+    b, R, _ = q_emb.shape
+    s_p, rk, rv = k_us.shape[1], k_us.shape[2], v_us.shape[2]
+    _build.require(block % 64 == 0, f"chunk block {block} must be a multiple of 64")
+    _build.require(ids.dim() == 2 and ids.shape[0] == b, "ids must be (b, n_sel)")
+    dev = k_us.device
+    ids = ids.to(device=dev, dtype=torch.int32).contiguous()
+    n_sel = ids.shape[1]
+    lens, los = _build.live_range(b, s_p, lengths, win_lo, dev)
+    nsplit = _build.num_splits(n_sel * block, b * -(-R // 32), 2, dev)
+    part_t, part_m, part_l, t, lse = _split_scratch(b, nsplit, R, rv, dev)
+    status = _build.load().xkv_sparse_rankspace_decode(
+        q_emb.data_ptr(), k_us.data_ptr(), v_us.data_ptr(), ids.data_ptr(),
+        lens.data_ptr(), los.data_ptr(), part_t.data_ptr(), part_m.data_ptr(),
+        part_l.data_ptr(), t.data_ptr(), lse.data_ptr(), b, R, s_p, rk, rv, n_sel, block,
+        nsplit, int(k_us.dtype == torch.int8), _build.stream_ptr(dev),
+    )
+    _build.check(status, "sparse_rankspace_kernel")
+    sparse_launches += 1
     return t, lse
 
 
@@ -174,16 +330,59 @@ def rankspace_decode_attention(
     k_scale_slice: Optional[torch.Tensor] = None,  # (b, 1, hkv*hd) int8 K scale
     v_rank_scale: Optional[torch.Tensor] = None,  # (b, 1, rv) int8 V scale
     win_lo: Optional[torch.Tensor] = None,  # (b,) sliding-window lower bound
+    k_us4: Optional[torch.Tensor] = None,  # (b, s_p, r4k/2) packed int4 tail
+    k_vt4_slice: Optional[torch.Tensor] = None,  # (b, r4k, hkv*hd) eo rows
+    k_scale4_slice: Optional[torch.Tensor] = None,  # (b, 1, hkv*hd)
+    v_us4: Optional[torch.Tensor] = None,  # (b, s_p, r4v/2) packed int4 tail
     *,
     scale: float,
     num_kv_heads: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rank-space decode attention over post-RoPE factors. ``ql > 1`` runs
-    every (position, head) pair as its own row. Returns (out (b, hq, ql,
-    hd), lse (b, hq, ql)), a partial mergeable with the dense tail."""
+    every (position, head) pair as its own row. With ``k_us4``/``v_us4``
+    the mixed int8+int4 kernel K6 runs in bf16; ``v_vt_slice`` and
+    ``v_rank_scale`` are then in the stored [hi | lo-eo] rank order, which
+    is the order of its t, so nothing is permuted. Returns (out (b, hq,
+    ql, hd), lse (b, hq, ql)), a partial mergeable with the dense tail."""
     b, hq, ql, hd = q.shape
-    cd = compute_dtype_for(k_us.dtype)
-    q_emb = _project_q(q, k_vt_slice, num_kv_heads, scale, k_scale_slice, cd)
-    t, lse = rankspace_kernel(q_emb, k_us, v_us, lengths, win_lo)
+    if k_us4 is None:
+        cd = compute_dtype_for(k_us.dtype)
+        q_emb = _project_q(q, k_vt_slice, num_kv_heads, scale, k_scale_slice, cd)
+        t, lse = rankspace_kernel(q_emb, k_us, v_us, lengths, win_lo)
+    else:
+        cd = torch.bfloat16
+        q_emb = torch.cat([
+            _project_q(q, k_vt_slice, num_kv_heads, scale, k_scale_slice, cd),
+            _project_q(q, k_vt4_slice, num_kv_heads, scale, k_scale4_slice, cd)], dim=2)
+        t, lse = mixed_rankspace_kernel(q_emb, k_us, k_us4, v_us, v_us4, lengths, win_lo)
     out = _project_out(t, v_vt_slice, v_rank_scale, num_kv_heads, ql, q.dtype)
     return out, lse.reshape(b, ql, hq).permute(0, 2, 1)
+
+
+def sparse_rankspace_decode_attention(
+    q: torch.Tensor,  # (b, hq, 1, hd) POST-RoPE decode queries
+    k_us: torch.Tensor,
+    k_vt_slice: torch.Tensor,
+    v_us: torch.Tensor,
+    v_vt_slice: torch.Tensor,
+    chunk_ids: torch.Tensor,  # (b, n_sel) int32 from select_topk_chunks
+    lengths: Optional[torch.Tensor] = None,
+    k_scale_slice: Optional[torch.Tensor] = None,
+    v_rank_scale: Optional[torch.Tensor] = None,
+    win_lo: Optional[torch.Tensor] = None,
+    *,
+    scale: float,
+    num_kv_heads: int,
+    block: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sparse top-k rank-space decode (K4): only the selected chunks' rows
+    are read. An id < 0 selects nothing (the adaptive budget's unused
+    slots). Same contract as ``rankspace_decode_attention`` otherwise."""
+    b, hq, ql, hd = q.shape
+    if ql != 1:
+        raise ValueError("sparse decode is single-token")
+    cd = compute_dtype_for(k_us.dtype)
+    q_emb = _project_q(q, k_vt_slice, num_kv_heads, scale, k_scale_slice, cd)
+    t, lse = sparse_rankspace_kernel(q_emb, k_us, v_us, chunk_ids, block, lengths, win_lo)
+    out = _project_out(t, v_vt_slice, v_rank_scale, num_kv_heads, 1, q.dtype)
+    return out, lse[:, :, None]
