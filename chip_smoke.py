@@ -9,8 +9,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
              (low-rank decode), K4 (sparse rank-space decode), K5 (sparse
              low-rank decode) and K6 (mixed int8+int4 rank-space decode)
              against their plain versions on the card, at the Llama-3.1-8B
-             xKV-4 shapes, and time kernel, plain version, library call and
-             bound;
+             xKV-4 shapes, and K7 (MLA rank-space decode) and K8 (its mixed
+             int8+int4 variant) at the DeepSeek-V2-Lite shapes; and time
+             kernel, plain version, library call and bound;
   3. main    serve Llama-3.1-8B (full width and depth, random bf16 weights
              from a seed) with an 8192-token prompt through
              ``InferenceEngine.generate`` in every mode, sparse top-k and
@@ -18,7 +19,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
              all-chunks-sparse-vs-dense logits and refactorisations;
   4. anchor  teacher-force the golden tokens of the JAX engine on the
              in-repo checkpoint and compare per-step logits (pre, post,
-             sparse pre, sparse post, int4 post).
+             sparse pre, sparse post, int4 post);
+  5. mla     serve DeepSeek-V2-Lite (MLA + MoE, full width and depth,
+             random bf16 weights from a seed) with an 8192-token prompt
+             through ``InferenceEngine.generate`` in modes none, fake and
+             factored (bf16, int8: K7; int4 with a refactorisation: K8),
+             checking launch counts and factored-vs-fake logits;
+  6. mla anchor  teacher-force the JAX engine's golden tokens of a small
+             MLA + MoE model (weights from a numpy seed) and compare
+             per-step logits (bf16 factors: K7; int4: K8).
 Then it prints the card's name and power limit, one JSON line of kernel
 records, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -54,8 +63,10 @@ SEED = 0
 #     chunks: K3's limit.
 #  lse: fp32 on both sides from the same maximum and sums in another
 #     order, so the error grows with the scores (``lse_err``).
+#  K7, K8: K2's arithmetic with P * r rounded to bf16 in place of P, over
+#     bf16, int8 or int8 + unpacked int4 latent factors: K2's limit.
 TOL = {"K1": 2.0 ** -6, "K2": 2.0 ** -7, "K3": 2.0 ** -6, "K4": 2.0 ** -7,
-       "K5": 2.0 ** -6, "K6": 2.0 ** -7, "lse": 1e-5}
+       "K5": 2.0 ** -6, "K6": 2.0 ** -7, "K7": 2.0 ** -7, "K8": 2.0 ** -7, "lse": 1e-5}
 # Logits of the main path and of the anchor (prefill step, decode steps):
 # twice the readings of these seeded runs on an H100, the same in every
 # call.
@@ -203,6 +214,8 @@ def check_decode(gen, results):
     """K2 and K3 at the 8B xKV-4 shapes (layer 1 of a 4-layer group)."""
     import torch
 
+    import torch.nn.functional as F
+
     from xkv_tpu_torch.cache import vt_layer_slice
     from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
     from xkv_tpu_torch.ops.kernels import rankspace_attention as k2
@@ -245,10 +258,14 @@ def check_decode(gen, results):
             if ql == 1 and lens is None and dtype == "bf16":
                 # The main path's shapes: bf16 factors, one query row per head.
                 live = s_p
+                # Library: SDPA over the same rank-space operands, scale 1.
+                q4, k4, v4 = q_emb[:, None], f["k_us"][:, None], f["v_us"][:, None]
                 timing["K2"] = dict(
                     ms=cuda_time_ms(lambda: k2.rankspace_kernel(q_emb, f["k_us"], f["v_us"])),
                     plain_ms=cuda_time_ms(
                         lambda: k2.rankspace_kernel_plain(q_emb, f["k_us"], f["v_us"])),
+                    library_ms=cuda_time_ms(
+                        lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)),
                     bound=bound_ms(nbytes(q_emb, f["k_us"], f["v_us"], t, lse),
                                    2.0 * q_emb.shape[1] * live * (rk + rv) / BF16_OPS_PER_S))
                 R = qab.shape[1]
@@ -282,7 +299,7 @@ def _report(results, key, name, src, rep, worst, timing):
                         max_lse_err=worst["lse"],
                         tol=f"{TOL[key]} of each row's max |ref|; lse {TOL['lse']} of max(1, |lse|)",
                         ms=timing["ms"], plain_ms=timing["plain_ms"], bound_ms=bnd,
-                        bound_by=by, library_ms=None)
+                        bound_by=by, library_ms=timing.get("library_ms"))
 
 
 def _hold(key, label, out, ref, lse, lse_ref, worst):
@@ -300,6 +317,7 @@ def check_sparse_and_mixed(gen, results):
     8B split 256 + 256 / 256 + 512) at the 8B xKV-4 shapes, layer 1 of a
     4-layer group, one query row per head."""
     import torch
+    import torch.nn.functional as F
 
     from xkv_tpu_torch.cache import vt_layer_slice
     from xkv_tpu_torch.compress.quant import (
@@ -351,9 +369,17 @@ def check_sparse_and_mixed(gen, results):
             if dtype == "bf16" and ids_l == cases[0][0]:
                 # The main path's shapes: bf16 factors, top-4 chunks.
                 live = len(ids_l) * block
+                # Library: SDPA over the whole segment, the rows of the
+                # selected chunks let through by a boolean mask.
+                rows = torch.zeros((1, 1, 1, s_p), dtype=torch.bool, device=dev)
+                for i in ids_l:
+                    rows[..., i * block:(i + 1) * block] = True
+                q4, k4, v4 = q_emb[:, None], f["k_us"][:, None], f["v_us"][:, None]
                 timing["K4"] = dict(
                     ms=cuda_time_ms(lambda: k2.sparse_rankspace_kernel(*a4)),
                     plain_ms=cuda_time_ms(lambda: k2.sparse_rankspace_kernel_plain(*a4)),
+                    library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=rows, scale=1.0)),
                     bound=bound_ms(nbytes(q_emb, ids, t4, l4)
                                    + live * bytes_per_row(f["k_us"], f["v_us"]),
                                    2.0 * hq * live * (rk + rv) / BF16_OPS_PER_S))
@@ -411,13 +437,86 @@ def check_sparse_and_mixed(gen, results):
         _report(results, key, name, src, rep, worst[key], timing[key])
 
 
+def check_mla(gen, results):
+    """K7 (bf16 and int8 latent factors) and K8 (256 int8 + 256 int4 ranks)
+    at the DeepSeek-V2-Lite shapes: 16 heads, rank 512, RoPE key 64, s_p
+    8192, one query row per head; also at a ragged length and ql = 2."""
+    import torch
+    import torch.nn.functional as F
+
+    from xkv_tpu_torch.compress.quant import (
+        quantize_k_factors,
+        quantize_k_factors_mixed4,
+        unpack_int4_rows,
+    )
+    from xkv_tpu_torch.ops.kernels import rankspace_attention as k2
+
+    nh, s_p, rk, rope = 16, 8192, 512, 64
+    dev = "cuda"
+    bf = torch.bfloat16
+    worst = {key: {"abs": 0.0, "rel": 0.0, "lse": 0.0} for key in ("K7", "K8")}
+    timing = {}
+    us_f = torch.randn((1, s_p, rk), generator=gen, device=dev)
+    vt_f = torch.randn((1, rk, 4 * rk), generator=gen, device=dev) * 0.05
+    k_pe = torch.randn((1, s_p, rope), generator=gen, device=dev).to(bf)
+    r = torch.rand((1, s_p), generator=gen, device=dev) + 0.5
+    q4 = quantize_k_factors_mixed4(us_f, vt_f, 256)
+    factors = {"bf16": ("K7", us_f.to(bf), None),
+               "int8": ("K7", quantize_k_factors(us_f, vt_f).us_q, None),
+               "int8+int4": ("K8", q4.us8, q4.us4p)}
+    for dtype, (key, us, us4) in factors.items():
+        us_all = us if us4 is None else torch.cat([us, unpack_int4_rows(us4)], dim=-1)
+        # Scores of a few units: q_emb against us rows of its own scale.
+        sigma = 1.5 / (math.sqrt(rk) * us_all.float().std().item())
+        for ql, lens in ((1, None), (1, s_p - 300), (2, None)):
+            R = ql * nh
+            lengths = None if lens is None else torch.tensor([lens], device=dev)
+            qe = (torch.randn((1, R, rk), generator=gen, device=dev) * sigma).to(bf)
+            qp = (torch.randn((1, R, rope), generator=gen, device=dev) * 0.1).to(bf)
+            if us4 is None:
+                args = (qe, qp, us, k_pe, r, lengths)
+                run, plain = k2.mla_rankspace_kernel, k2.mla_rankspace_kernel_plain
+            else:
+                args = (qe, qp, us, us4, k_pe, r, lengths)
+                run, plain = k2.mla_mixed_rankspace_kernel, k2.mla_mixed_rankspace_kernel_plain
+            t, lse = run(*args)
+            t_ref, lse_ref = plain(*args)
+            torch.cuda.synchronize()
+            _hold(key, f"{dtype} ql={ql} valid_len={lens}", t, t_ref, lse, lse_ref, worst[key])
+            if ql == 1 and lens is None and dtype != "int8":
+                # The main path's shapes (bf16 factors, int4 run). Library:
+                # SDPA on prebuilt operands, q = [q_emb | q_pe],
+                # k = [r * us | k_pe], v = r * us, scale 1.
+                rus = (r[..., None] * us_all.float()).to(bf)
+                lq = torch.cat([qe, qp], dim=-1)[:, None]
+                lk = torch.cat([rus, k_pe], dim=-1)[:, None]
+                lv = rus[:, None]
+                ops = 2.0 * R * s_p * (2 * rk + rope)
+                timing[key] = dict(
+                    ms=cuda_time_ms(lambda: run(*args)),
+                    plain_ms=cuda_time_ms(lambda: plain(*args)),
+                    library_ms=cuda_time_ms(
+                        lambda: F.scaled_dot_product_attention(lq, lk, lv, scale=1.0)),
+                    bound=bound_ms(nbytes(qe, qp, us, us4, k_pe, r, t, lse),
+                                   ops / BF16_OPS_PER_S))
+    rs = "xkv_tpu/ops/pallas/rankspace_attention.py"
+    for key, name, rep in (
+        ("K7", "mla_rankspace_decode_attention", f"{rs}:681"),
+        ("K8", "mla_rankspace_decode_attention (mixed int8+int4)", f"{rs}:598"),
+    ):
+        _report(results, key, name, "xkv_tpu_torch/csrc/rankspace_attention.cu", rep,
+                worst[key], timing[key])
+
+
 # ---------------------------------------------------------------- main path
 # Launch counters of the kernels: (module, attribute) per kernel.
 COUNTERS = {"K1": ("flash_attention", "launches"), "K2": ("rankspace_attention", "launches"),
             "K3": ("lowrank_attention", "launches"),
             "K4": ("rankspace_attention", "sparse_launches"),
             "K5": ("lowrank_attention", "sparse_launches"),
-            "K6": ("rankspace_attention", "mixed_launches")}
+            "K6": ("rankspace_attention", "mixed_launches"),
+            "K7": ("rankspace_attention", "mla_launches"),
+            "K8": ("rankspace_attention", "mla_mixed_launches")}
 
 
 def _counter_module(name):
@@ -469,6 +568,61 @@ def main_runs(n_layers: int) -> list:
     ]
 
 
+def serve(eng, cfg, prompt, label, n_new, want, profiled, sync_check=False):
+    """One run of the main path: prefill alone (timed), the first decode
+    step's logits, the rest of the tail's steps (timed; profiled when
+    ``profiled``), then ``generate`` with the launch counts read around it,
+    which must equal ``want``. Returns (row, counts, first-step logits)."""
+    import torch
+
+    s = prompt.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    logits, cache = eng.prefill(prompt)
+    torch.cuda.synchronize()
+    prefill_s = time.time() - t0
+    ratio = cache.compression_ratio(cfg)
+    tok = logits[:, -1].argmax(-1)
+    step_logits, cache = eng.decode_step(cache, tok[:, None], s)
+    first = step_logits[0, -1].float()
+    if sync_check:
+        # The adaptive budget is picked on the device: a step that waits
+        # for the device raises here.
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step_logits, cache = eng.decode_step(cache, tok[:, None], s + cache.tail_len)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        log(f"{label}: one decode step without a host sync")
+    # Decode alone (timed): the rest of the tail's steps on this cache.
+    pos0 = s + cache.tail_len
+    steps = min(n_new, eng.tail_max) - cache.tail_len
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for i in range(steps):
+        step_logits, cache = eng.decode_step(cache, tok[:, None], pos0 + i)
+    torch.cuda.synchronize()
+    decode_ms = (time.time() - t0) * 1e3 / steps
+    profile = (profile_decode(eng, cache, tok[:, None], pos0 + steps, decode_ms)
+               if profiled else None)
+    del cache, logits, step_logits
+    # The entry point a user calls, with the launch counts read around it.
+    reset_counts()
+    out = eng.generate(prompt, n_new)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    if tuple(out.shape) != (1, n_new) or not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"{label}: bad output tokens {out.shape}")
+    if not bool(torch.isfinite(first).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    row = dict(run=label, prefill_s=prefill_s, decode_ms_per_token=decode_ms,
+               compression_ratio=ratio, launches=counts, decode_profile=profile)
+    log("main " + json.dumps(row))
+    return row, counts, first
+
+
 def main_path(results):
     import torch
 
@@ -500,57 +654,14 @@ def main_path(results):
 
     for label, mode, rope, fdt, tail_max, n_new, kw, per_step in main_runs(cfg.num_layers):
         eng = engine(mode, rope, fdt, tail_max, **kw)
-        # Prefill alone (timed), then the first decode step's logits.
-        torch.cuda.synchronize()
-        t0 = time.time()
-        logits, cache = eng.prefill(prompt)
-        torch.cuda.synchronize()
-        prefill_s = time.time() - t0
-        ratio = cache.compression_ratio(cfg)
-        tok = logits[:, -1].argmax(-1)
-        step_logits, cache = eng.decode_step(cache, tok[:, None], s)
-        first_logits[label] = step_logits[0, -1].float()
-        if "sparse_topk_max" in kw:
-            # The adaptive budget is picked on the device: a step that
-            # waits for the device raises here.
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                step_logits, cache = eng.decode_step(cache, tok[:, None], s + cache.tail_len)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            log(f"{label}: one decode step without a host sync")
-        # Decode alone (timed): the rest of the tail's steps on this cache.
-        pos0 = s + cache.tail_len
-        steps = min(n_new, tail_max) - cache.tail_len
-        torch.cuda.synchronize()
-        t0 = time.time()
-        for i in range(steps):
-            step_logits, cache = eng.decode_step(cache, tok[:, None], pos0 + i)
-        torch.cuda.synchronize()
-        decode_ms = (time.time() - t0) * 1e3 / steps
-        profile = (profile_decode(eng, cache, tok[:, None], pos0 + steps, decode_ms)
-                   if label in PROFILED else None)
-        del cache, logits, step_logits
-        # The entry point a user calls, with the launch counts read around it.
-        reset_counts()
-        out = eng.generate(prompt, n_new)
-        torch.cuda.synchronize()
-        counts = read_counts()
-        steps = n_new - 1
-        want = {key: per_step.get(key, 0) * steps for key in COUNTERS}
+        want = {key: per_step.get(key, 0) * (n_new - 1) for key in COUNTERS}
         want["K1"] = cfg.num_layers
-        if counts != want:
-            raise AssertionError(f"{label}: launches {counts}, expected {want}")
-        if tuple(out.shape) != (1, n_new) or not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
-            raise AssertionError(f"{label}: bad output tokens {out.shape}")
-        if not bool(torch.isfinite(first_logits[label]).all()):
-            raise AssertionError(f"{label}: non-finite logits")
+        row, counts, first_logits[label] = serve(
+            eng, cfg, prompt, label, n_new, want, label in PROFILED,
+            sync_check="sparse_topk_max" in kw)
         for key in totals:
             totals[key] += counts[key]
-        row = dict(run=label, prefill_s=prefill_s, decode_ms_per_token=decode_ms,
-                   compression_ratio=ratio, launches=counts, decode_profile=profile)
         rows.append(row)
-        log("main " + json.dumps(row))
         del eng
         torch.cuda.empty_cache()
     # Factored and fake come from the same SVD: fake multiplies the fp32
@@ -678,6 +789,149 @@ def anchor():
             raise AssertionError(f"anchor {run}: launches {counts}, expected {want_counts}")
 
 
+# ------------------------------------------------------------- DeepSeek MLA
+# DeepSeek-V2-Lite, the values of its published config.json
+# (huggingface.co/deepseek-ai/DeepSeek-V2-Lite). Its rope_scaling (yarn,
+# with the mscale softmax) is left out: neither the JAX package nor the port
+# has yarn RoPE, so this runs plain RoPE at theta 10000.
+DEEPSEEK_V2_LITE = {
+    "model_type": "deepseek_v2", "vocab_size": 102400, "hidden_size": 2048,
+    "intermediate_size": 10944, "moe_intermediate_size": 1408, "num_hidden_layers": 27,
+    "num_attention_heads": 16, "num_key_value_heads": 16, "n_shared_experts": 2,
+    "n_routed_experts": 64, "num_experts_per_tok": 6, "routed_scaling_factor": 1.0,
+    "first_k_dense_replace": 1, "norm_topk_prob": False, "kv_lora_rank": 512,
+    "q_lora_rank": None, "qk_rope_head_dim": 64, "qk_nope_head_dim": 128,
+    "v_head_dim": 128, "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
+    "max_position_embeddings": 163840, "tie_word_embeddings": False,
+}
+# Factored (bf16 factors) against fake, first decode step: twice the reading
+# of this seeded run on an H100.
+TOL_MLA_FACTORED_VS_FAKE = 2 * 0.2422
+# MLA anchor, per-step logits (prefill step and decode steps; max |logit|
+# 0.73): twice the readings on an H100.
+TOL_MLA_ANCHOR = {"bf16": 2 * 0.005966, "int4": 2 * 0.02129}
+
+
+def mla_runs():
+    """(label, mode, factor dtype, tail_max, new tokens, the decode kernel)."""
+    import torch
+
+    bf = torch.bfloat16
+    return [
+        ("mla none", "none", bf, 128, 32, None),
+        ("mla fake", "fake", bf, 128, 32, None),
+        ("mla factored bf16", "factored", bf, 128, 32, "K7"),
+        ("mla factored int8", "factored", "int8", 128, 32, "K7"),
+        ("mla factored int4 refactorize", "factored", "int4", 32, 48, "K8"),
+    ]
+
+
+def mla_path(results):
+    """DeepSeek-V2-Lite at full width and depth (27 layers, 64 routed
+    experts), random bf16 weights from the seed, one 8192-token prompt, the
+    xKV config of ``configs/mla_deepseek_v2_lite.yaml`` (groups of 4,
+    rank 512, latent only)."""
+    import torch
+
+    from xkv_tpu_torch.configs import XKVConfig
+    from xkv_tpu_torch.engine import InferenceEngine
+    from xkv_tpu_torch.models import deepseek
+    from xkv_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig.from_hf_config(DEEPSEEK_V2_LITE)
+    xkv = XKVConfig.from_yaml(os.path.join(ROOT, "configs", "mla_deepseek_v2_lite.yaml"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    t0 = time.time()
+    params = deepseek.init_params(cfg, gen, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    log(f"DeepSeek-V2-Lite params: {sum(nbytes(t) for t in _leaves(params)) / 1e9:.2f} GB "
+        f"in {time.time() - t0:.1f} s")
+    prompt = torch.randint(0, cfg.vocab_size, (1, 8192), generator=gen, device="cuda")
+    totals = {key: 0 for key in COUNTERS}
+    first_logits = {}
+    rows = []
+    for label, mode, fdt, tail_max, n_new, kernel in mla_runs():
+        eng = InferenceEngine(params, cfg, xkv, mode=mode, tail_max=tail_max, factor_dtype=fdt,
+                              prefill_logits="last", device="cuda")
+        want = {key: 0 for key in COUNTERS}
+        if kernel is not None:
+            want[kernel] = cfg.num_layers * (n_new - 1)
+        row, counts, first_logits[label] = serve(
+            eng, cfg, prompt, label, n_new, want, label == "mla factored bf16")
+        for key in totals:
+            totals[key] += counts[key]
+        rows.append(row)
+        del eng
+        torch.cuda.empty_cache()
+    # Factored and fake hold the same SVD of the latent: fake stores the
+    # bf16 reconstruction, factored bf16 factors and decodes in rank space
+    # (K7). The first-step logits differ by those bf16 roundings, carried
+    # through 27 layers of random weights; none against fake (the
+    # truncation) is printed beside it for scale.
+    ref = first_logits["mla fake"]
+    diff = (first_logits["mla factored bf16"] - ref).abs().max().item()
+    trunc = (first_logits["mla none"] - ref).abs().max().item()
+    tol = TOL_MLA_FACTORED_VS_FAKE
+    log(f"mla factored vs fake first-step logits: max_abs_diff={diff:.4e} (limit {tol:.4e}; "
+        f"max |logit| {ref.abs().max().item():.4e}); none vs fake: {trunc:.4e}")
+    if not diff <= tol:
+        raise AssertionError("MLA factored and fake first-step logits disagree")
+    results["mla_runs"] = rows
+    return totals
+
+
+def mla_anchor():
+    """Teacher-force the JAX engine's golden tokens of a small MLA + MoE
+    model (``xkv_tpu_torch/testdata/mla_golden.npz``, weights rebuilt from
+    its numpy seed) through the port on the card (bf16) and compare each
+    step's logits with the golden fp32 ones."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from xkv_tpu_torch.configs import generate_consecutive_xkv_config
+    from xkv_tpu_torch.engine import InferenceEngine
+    from xkv_tpu_torch.models import deepseek
+    from xkv_tpu_torch.models.ckpt import params_from_numpy
+    from xkv_tpu_torch.models.config import ModelConfig
+
+    gold = np.load(os.path.join(ROOT, "xkv_tpu_torch", "testdata", "mla_golden.npz"))
+    cfg = ModelConfig(**_json.loads(str(gold["config"])))
+    params = params_from_numpy(deepseek.numpy_params(cfg, int(gold["seed"])),
+                               torch.bfloat16, "cuda")
+    prompt = torch.as_tensor(gold["prompt"], device="cuda")
+    xkv = generate_consecutive_xkv_config(
+        group_size=int(gold["group_size"]), rank_k=int(gold["rank_k"]), rank_v=None,
+        num_layers=cfg.num_layers, end_layer=cfg.num_layers - 1, merge_value=False,
+        extra_kwargs={"svd_method": "exact", "int4_rank_frac": float(gold["int4_rank_frac"])})
+    for run, (fdt, kernel) in {"bf16": (torch.bfloat16, "K7"), "int4": ("int4", "K8")}.items():
+        eng = InferenceEngine(params, cfg, xkv, mode="factored", tail_max=64, factor_dtype=fdt,
+                              device="cuda")
+        toks = gold[f"tokens_{run}"]
+        want = gold[f"logits_{run}"]
+        reset_counts()
+        logits, cache = eng.prefill(prompt)
+        got = [logits[0, -1].float().cpu().numpy()]
+        pos = prompt.shape[1]
+        for i in range(len(toks) - 1):
+            step, cache = eng.decode_step(cache, torch.tensor([[int(toks[i])]], device="cuda"),
+                                          pos + i)
+            got.append(step[0, -1].float().cpu().numpy())
+        err = float(np.abs(np.stack(got) - want).max())
+        counts = read_counts()
+        log(f"mla anchor {run}: {len(toks)} steps, max_abs_err {err:.4e} "
+            f"(limit {TOL_MLA_ANCHOR[run]:.4e}); max |logit| {np.abs(want).max():.4e}; "
+            f"launches {counts}")
+        if not err <= TOL_MLA_ANCHOR[run]:
+            raise AssertionError(f"mla anchor {run}: logits disagree with the JAX golden")
+        want_counts = {key: 0 for key in COUNTERS}
+        want_counts[kernel] = cfg.num_layers * (len(toks) - 1)
+        if counts != want_counts:
+            raise AssertionError(f"mla anchor {run}: launches {counts}, expected {want_counts}")
+
+
 def main() -> int:
     import torch
 
@@ -707,8 +961,14 @@ def main() -> int:
     check_flash(gen, results)
     check_decode(gen, results)
     check_sparse_and_mixed(gen, results)
+    check_mla(gen, results)
     totals = main_path(results)
     anchor()
+    torch.cuda.empty_cache()
+    mla_totals = mla_path(results)
+    for key in totals:
+        totals[key] += mla_totals[key]
+    mla_anchor()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

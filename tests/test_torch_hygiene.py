@@ -18,7 +18,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke  # its top level, then what its phases import
 for name in ("xkv_tpu_torch.configs", "xkv_tpu_torch.engine",
-             "xkv_tpu_torch.models.ckpt", "xkv_tpu_torch.models.llama"):
+             "xkv_tpu_torch.models.ckpt", "xkv_tpu_torch.models.llama",
+             "xkv_tpu_torch.models.deepseek"):
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -44,5 +45,6 @@ def test_every_port_module_is_found():
     for want in ("xkv_tpu_torch.ops.kernels.flash_attention",
                  "xkv_tpu_torch.ops.kernels.rankspace_attention",
                  "xkv_tpu_torch.ops.kernels.lowrank_attention",
-                 "xkv_tpu_torch.engine.engine", "xkv_tpu_torch.cache"):
+                 "xkv_tpu_torch.engine.engine", "xkv_tpu_torch.cache",
+                 "xkv_tpu_torch.models.deepseek"):
         assert want in names

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K6 against their plain versions, on a card.
+"""The CUDA kernels K1-K8 against their plain versions, on a card.
 
 Marked ``gpu``: each test skips without a CUDA device. This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only the
@@ -12,8 +12,10 @@ against another maximum than the plain version and round their bf16
 output once: 2^-6 (two units in bf16's last place). K2's fp32 t only
 carries the rounding of P: 2^-7; so do K6's (mixed int8+int4, whose
 unpacked values are exact in bf16) and K4's (K2 over selected chunks).
-K5 (K3 over selected chunks) as K3. The fp32 lse, whose error grows with
-the scores: 1e-5 of max(1, |lse|).
+K5 (K3 over selected chunks) as K3. K7 and K8 (the MLA rank-space decode
+over bf16, int8 or int8 + int4 latent factors) round P * r to bf16 in
+place of P: K2's 2^-7. The fp32 lse, whose error grows with the scores:
+1e-5 of max(1, |lse|).
 """
 
 import pytest
@@ -184,3 +186,49 @@ def test_mixed_kernel_matches_plain(cuda, r8k, r4k, r8v, r4v, lens, lo):
     assert k2.mixed_launches == before + 1
     t6r, l6r = k2.mixed_rankspace_kernel_plain(q_emb, k8, k4, v8, v4, lengths, win_lo)
     assert _row_rel_err(t6, t6r) <= TOL_T and _lse_err(l6, l6r) <= TOL_LSE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,ql,lens", [("bf16", 1, None), ("bf16", 2, 150),
+                                          ("int8", 1, 37), ("int8+int4", 1, None),
+                                          ("int8+int4", 2, 190)])
+def test_mla_kernels_match_plain(cuda, kind, ql, lens):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    s_p, rk, rope, nh = 200, 64, 16, 8
+    bf = torch.bfloat16
+    R = ql * nh
+    q_emb = (torch.randn((1, R, rk), generator=gen, device=cuda) * 0.05).to(bf)
+    q_pe = (torch.randn((1, R, rope), generator=gen, device=cuda) * 0.1).to(bf)
+    k_pe = torch.randn((1, s_p, rope), generator=gen, device=cuda).to(bf)
+    r = torch.rand((1, s_p), generator=gen, device=cuda) + 0.5
+    lengths = None if lens is None else torch.tensor([lens], device=cuda)
+    if kind == "int8+int4":
+        us8, us4 = _mixed(gen, cuda, s_p, 16, 48)
+        args = (q_emb * 0.02, q_pe, us8, us4, k_pe, r, lengths)
+        run, plain, counter = (k2.mla_mixed_rankspace_kernel,
+                               k2.mla_mixed_rankspace_kernel_plain, "mla_mixed_launches")
+    else:
+        us = torch.randn((1, s_p, rk), generator=gen, device=cuda)
+        if kind == "int8":
+            us, q_emb = (us * 40).round().clamp(-127, 127).to(torch.int8), q_emb * 0.02
+        args = (q_emb, q_pe, us.to(bf) if kind == "bf16" else us, k_pe, r, lengths)
+        run, plain, counter = (k2.mla_rankspace_kernel, k2.mla_rankspace_kernel_plain,
+                               "mla_launches")
+    before = getattr(k2, counter)
+    t, lse = run(*args)
+    assert getattr(k2, counter) == before + 1
+    t_ref, lse_ref = plain(*args)
+    assert _row_rel_err(t, t_ref) <= TOL_T and _lse_err(lse, lse_ref) <= TOL_LSE
+
+
+@pytest.mark.gpu
+def test_mla_wrapper_refuses_fp32_factors_on_cuda(cuda):
+    """A CUDA tensor launches the kernel or raises: fp32 factors, which the
+    kernel does not take, raise instead of running the plain version."""
+    s_p, rk, rope = 64, 32, 16
+    with pytest.raises(ValueError, match="k_us dtype"):
+        k2.mla_rankspace_decode_attention(
+            torch.zeros((1, 2, 1, rk), device=cuda), torch.zeros((1, 2, 1, rope), device=cuda),
+            torch.zeros((1, s_p, rk), device=cuda), torch.zeros((1, s_p, rope), device=cuda),
+            torch.ones((1, s_p), device=cuda))

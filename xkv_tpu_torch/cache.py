@@ -75,7 +75,8 @@ class XKVCache:
     groups:  GroupFactors per ``XKVConfig.layer_groups`` entry.
     dense_k: {layer: (b, hkv, s_p, hd)} post-RoPE prefill keys of layers
              whose K is not factored; dense_v likewise for V.
-    tail_k/tail_v: (L, b, hkv, t_max, hd) decode-time K (post-RoPE) and V.
+    tail_k/tail_v: (L, b, hkv, t_max, hd) decode-time K (post-RoPE) and V;
+             MLA: the latent and the rotated RoPE key (``init_tail``).
     tail_len: number of valid tail rows.
     """
 
@@ -127,9 +128,14 @@ class XKVCache:
         return total
 
     def compression_ratio(self, cfg: ModelConfig) -> float:
-        """Dense-cache bytes (at the tail's dtype) / stored bytes."""
+        """Dense-cache bytes (at the tail's dtype) / stored bytes. The MLA
+        dense cache is one latent and one RoPE key per layer and row."""
         b = self.tail_k.shape[1]
-        dense = 2 * cfg.num_layers * b * cfg.num_kv_heads * self.prefill_len * cfg.head_dim
+        s_p = self.prefill_len
+        if cfg.model_type == "deepseek_v2":
+            dense = cfg.num_layers * b * s_p * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+        else:
+            dense = 2 * cfg.num_layers * b * cfg.num_kv_heads * s_p * cfg.head_dim
         return dense * self.tail_k.element_size() / max(self.num_cache_bytes(), 1)
 
 
@@ -140,11 +146,16 @@ def init_tail(
     dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device = "cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed decode tails (L, b, heads, t_max, width) for K and V. MLA: the
+    K slot holds the latent (one "head" of kv_lora_rank), the V slot the
+    rotated RoPE key (qk_rope_head_dim)."""
     if cfg.model_type == "deepseek_v2":
-        raise NotImplementedError("MLA caches: ROADMAP queue 1 item 14")
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, t_max, cfg.head_dim)
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
+        k_shape = (cfg.num_layers, batch, 1, t_max, cfg.kv_lora_rank)
+        v_shape = (cfg.num_layers, batch, 1, t_max, cfg.qk_rope_head_dim)
+    else:
+        k_shape = v_shape = (cfg.num_layers, batch, cfg.num_kv_heads, t_max, cfg.head_dim)
+    return (torch.zeros(k_shape, dtype=dtype, device=device),
+            torch.zeros(v_shape, dtype=dtype, device=device))
 
 
 def layer_group_index(xkv: XKVConfig) -> Dict[int, Tuple[int, int]]:

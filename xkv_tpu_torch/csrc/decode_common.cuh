@@ -1,5 +1,6 @@
 // Split-sequence (flash-decoding) machinery shared by the decode kernels:
-// K2, K4, K6 (rankspace_attention.cu) and K3, K5 (lowrank_attention.cu).
+// K2, K4, K6, K7, K8 (rankspace_attention.cu) and K3, K5
+// (lowrank_attention.cu).
 //
 // A decode step has b = 1 on the main path, so one CTA per sequence would
 // use one SM of 132. The key blocks of each sequence (kBS keys each) are
@@ -79,10 +80,37 @@ __device__ __forceinline__ void softmax_init(SoftmaxSmem& sm) {
   }
 }
 
+// The warp's share of a (kRows x kBS) score tile in shared memory:
+// c[j] += A . B_j^T over `depth` columns (a multiple of 16), j = 0, 1, with
+// A the 16 query rows whose fragment starts at qa (row mt * 16 + g, column
+// tq * 2) and B_j the 8 key rows (nt0 + j) * 8 + g.. of ks; both of row
+// stride ld elements.
+__device__ __forceinline__ void mma_rows_x_keys(float (&c)[2][4], const bf16* qa, int ld,
+                                                const bf16* ks, int nt0, int g, int tq,
+                                                int depth) {
+  for (int kk = 0; kk < depth / 16; ++kk) {
+    const bf16* qk = qa + kk * 16;
+    const uint32_t af[4] = {*reinterpret_cast<const uint32_t*>(qk),
+                            *reinterpret_cast<const uint32_t*>(qk + 8 * ld),
+                            *reinterpret_cast<const uint32_t*>(qk + 8),
+                            *reinterpret_cast<const uint32_t*>(qk + 8 * ld + 8)};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const bf16* kr = ks + ((nt0 + j) * 8 + g) * ld + kk * 16 + tq * 2;
+      mma_bf16_16816(c[j], af, *reinterpret_cast<const uint32_t*>(kr),
+                     *reinterpret_cast<const uint32_t*>(kr + 8));
+    }
+  }
+}
+
 // One block's online-softmax update. Masked columns (outside [lo, hi))
-// take NEG_INF and probability exactly 0. Ends with __syncthreads().
+// take NEG_INF and probability exactly 0. The probabilities kept for the
+// value product are P, or P * pscale[col] (K7, K8: the latent's per-row
+// inverse RMS), rounded to bf16; the sum l takes P. Ends with
+// __syncthreads().
 __device__ __forceinline__ void softmax_block(SoftmaxSmem& sm, int rows, int key0,
-                                              int lo, int hi) {
+                                              int lo, int hi,
+                                              const float* pscale = nullptr) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < kRows; r += kThreads / 32) {
     const int c0 = key0 + lane, c1 = key0 + lane + 32;
@@ -96,8 +124,8 @@ __device__ __forceinline__ void softmax_block(SoftmaxSmem& sm, int rows, int key
     const float p1 = live1 ? __expf(x1 - m_new) : 0.f;
     const float psum = warp_sum(p0 + p1);
     const float alpha = __expf(m_old - m_new);
-    sm.pT[lane][r] = round_bf16(p0);
-    sm.pT[lane + 32][r] = round_bf16(p1);
+    sm.pT[lane][r] = round_bf16(pscale ? p0 * pscale[lane] : p0);
+    sm.pT[lane + 32][r] = round_bf16(pscale ? p1 * pscale[lane + 32] : p1);
     if (lane == 0) {
       sm.m[r] = m_new;
       sm.l[r] = alpha * sm.l[r] + psum;

@@ -11,6 +11,12 @@ or mixed int8+int4 (``factor_dtype="int4"``, post-RoPE only), with keys
 factored pre-RoPE (``rope_mode="pre"``) or post-RoPE ("post"). With
 ``sparse_block`` set, each factored K side also stores the Quest-style
 per-chunk (min, max) bounds of its post-RoPE keys for sparse top-k decode.
+
+DeepSeek-V2 MLA (``cfg.model_type == "deepseek_v2"``): the K slot holds the RoPE-free
+latent and is stored as it is (no RoPE, no post mode; mixed int8+int4
+allowed), the V slot the rotated RoPE key, never merged. Factored latents
+also store ``k_rnorm``, the per-row inverse RMS of the latent that decode
+contracts against (``latent_rnorm``).
 """
 
 from __future__ import annotations
@@ -56,6 +62,27 @@ def _split_group_matrix(mat: torch.Tensor, g: int, hkv: int) -> List[torch.Tenso
     """(b, s, g*hkv*hd) -> g tensors (b, hkv, s, hd)."""
     stacked = matrix_to_heads(mat, g * hkv)
     return [stacked[:, i * hkv:(i + 1) * hkv] for i in range(g)]
+
+
+def latent_rnorm(k_rec_mat: torch.Tensor, g: int) -> torch.Tensor:
+    """Per-layer inverse RMS of an MLA group's latent matrix (b, s, g*lora):
+    (b, g, s) fp32, rsqrt(mean(z^2) + 1e-6) per row, the row scalar of the
+    decode's rms_norm(latent, w, 1e-6). Storing it keeps the absorbed decode
+    in rank space (the column weight w folds into the query)."""
+    b, s, gm = k_rec_mat.shape
+    z = k_rec_mat.to(torch.float32).reshape(b, s, g, gm // g)
+    return torch.rsqrt(z.pow(2).mean(dim=-1) + 1e-6).permute(0, 2, 1)
+
+
+def _k_matrix(gf: GroupFactors) -> torch.Tensor:
+    """The fp32 group key (MLA: latent) matrix (b, s, g*hkv*hd) the stored
+    K factors hold: rebuilt from the stored factors, dequantised."""
+    if gf.k_us4 is not None:
+        return dequantize_k_mixed4(QuantizedKFactorsMixed4(
+            gf.k_us, gf.k_us4, gf.k_vt, gf.k_vt4, gf.k_scale, gf.k_scale4))
+    if gf.k_scale is not None:
+        return dequantize_k(QuantizedKFactors(gf.k_us, gf.k_vt, gf.k_scale))
+    return reconstruct(LowRankFactors(gf.k_us, gf.k_vt))
 
 
 def _is_int8(factor_dtype) -> bool:
@@ -122,11 +149,9 @@ def _svd_kw(xkv: XKVConfig) -> dict:
                 n_iter=xkv.svd_iters, seed=xkv.svd_seed)
 
 
-def _check_scheme(xkv: XKVConfig, cfg: ModelConfig) -> None:
+def _check_scheme(xkv: XKVConfig) -> None:
     if xkv.layer_merge_impl != "svd":
         raise NotImplementedError("MiniCache slerp: ROADMAP queue 1 item 15")
-    if cfg.model_type == "deepseek_v2":
-        raise NotImplementedError("DeepSeek MLA: ROADMAP queue 1 item 14")
 
 
 def _store_k(fac: LowRankFactors, factor_dtype, r_hi: Optional[int] = None) -> dict:
@@ -156,29 +181,31 @@ def compress_svd_group(
     vs: List[torch.Tensor],
     grp,
     xkv: XKVConfig,
-    cfg: ModelConfig,
-    cos_p: torch.Tensor,
-    sin_p: torch.Tensor,
+    cos_p: Optional[torch.Tensor],
+    sin_p: Optional[torch.Tensor],
     fake: bool = False,
     factor_dtype=torch.bfloat16,
     cache_dtype: torch.dtype = torch.bfloat16,
+    rope_dense_keys: bool = True,
     sparse_block: Optional[int] = None,
 ) -> Tuple[GroupFactors, Dict[int, torch.Tensor], Dict[int, torch.Tensor]]:
     """Compress ONE svd layer group's K/V.
 
-    ks/vs: per layer of the group, each (b, hkv, s, hd), keys PRE-RoPE.
+    ks/vs: per layer of the group, each (b, heads, s, width): keys PRE-RoPE
+    (``rope_dense_keys``), or the MLA latent (b, 1, s, kv_lora_rank) and
+    RoPE key with ``rope_dense_keys=False``, when cos_p/sin_p are unused.
     Returns (GroupFactors, dense_k, dense_v); the dense dicts, keyed by
-    ``grp.layers``, carry the unmerged side(s) and the fake reconstructions.
+    ``grp.layers``, carry the unmerged side(s) and the fake reconstructions,
+    split into each slot's own heads (one latent head for MLA).
     ``sparse_block``: also store the chunk bounds (``chunk_bounds``) of
     the exact prefill keys, in ``cache_dtype``.
     """
     svd_kw = _svd_kw(xkv)
-    hkv = cfg.num_kv_heads
     layers = grp.layers
     dense_k: Dict[int, torch.Tensor] = {}
     dense_v: Dict[int, torch.Tensor] = {}
-    rope_post = xkv.rope_mode == "post"
-    if factor_dtype == "int4" and not rope_post:
+    rope_post = xkv.rope_mode == "post" and rope_dense_keys
+    if factor_dtype == "int4" and not rope_post and rope_dense_keys:
         raise ValueError(
             "factor_dtype='int4' (mixed int8+int4) requires rope_mode='post' "
             "(the rank-space decode path)")
@@ -187,27 +214,36 @@ def compress_svd_group(
         return int4_rank_hi(rank, xkv.int4_rank_frac) if factor_dtype == "int4" else None
 
     def rope_dense_k(k_pre):
+        if not rope_dense_keys:
+            return k_pre.to(cache_dtype)
         return apply_rope(k_pre, cos_p[None], sin_p[None]).to(cache_dtype)
 
     gf_kwargs = {}
     if xkv.merge_key:
+        hk = ks[0].shape[1]
         if rope_post:
             ks = [apply_rope(k, cos_p[None], sin_p[None]) for k in ks]
         k_mat = _stack_group_matrix(ks)
         fac_k = factorize(k_mat, grp.rank_k, **svd_kw)
         if fake:
             k_rec = _split_group_matrix(
-                reconstruct(fac_k).to(k_mat.dtype), len(layers), hkv)
+                reconstruct(fac_k).to(k_mat.dtype), len(layers), hk)
             for l, kr in zip(layers, k_rec):
                 # Post mode: the reconstruction is already rotated.
                 dense_k[l] = kr.to(cache_dtype) if rope_post else rope_dense_k(kr)
         else:
             gf_kwargs.update(_store_k(fac_k, factor_dtype, r_hi(grp.rank_k)))
+            if not rope_dense_keys:
+                # MLA: the inverse RMS of the latent decode contracts
+                # against, rebuilt from the stored (rounded or quantised)
+                # factors.
+                gf_kwargs["k_rnorm"] = latent_rnorm(
+                    _k_matrix(GroupFactors(**gf_kwargs)), len(layers))
         if sparse_block is not None and not fake:
             # Bounds from the exact prefill keys (post mode: already rotated).
             cmin, cmax = chunk_bounds(
                 k_mat, None if rope_post else cos_p, sin_p, sparse_block,
-                len(layers) * hkv)
+                len(layers) * hk)
             gf_kwargs["k_cmin"] = cmin.to(cache_dtype)
             gf_kwargs["k_cmax"] = cmax.to(cache_dtype)
     else:
@@ -218,7 +254,7 @@ def compress_svd_group(
         fac_v = factorize(v_mat, grp.rank_v, **svd_kw)
         if fake:
             v_rec = _split_group_matrix(
-                reconstruct(fac_v).to(v_mat.dtype), len(layers), hkv)
+                reconstruct(fac_v).to(v_mat.dtype), len(layers), vs[0].shape[1])
             for l, vr in zip(layers, v_rec):
                 dense_v[l] = vr.to(cache_dtype)
         else:
@@ -229,12 +265,24 @@ def compress_svd_group(
     return GroupFactors(**gf_kwargs), dense_k, dense_v
 
 
+def _rope_keys(cfg: ModelConfig) -> bool:
+    """Whether the K slot holds RoPE'd keys: not for the MLA latent."""
+    return cfg.model_type != "deepseek_v2"
+
+
+def _dense_key(k, cos_p, sin_p, cache_dtype, rope_dense_keys: bool) -> torch.Tensor:
+    """A dense-stored key slot: post-RoPE keys, or (MLA) the latent as it is."""
+    if not rope_dense_keys:
+        return k.to(cache_dtype)
+    return apply_rope(k, cos_p[None], sin_p[None]).to(cache_dtype)
+
+
 def build_cache(
     kvs: List[Tuple[torch.Tensor, torch.Tensor]],
     xkv: XKVConfig,
     cfg: ModelConfig,
-    cos_p: torch.Tensor,
-    sin_p: torch.Tensor,
+    cos_p: Optional[torch.Tensor],
+    sin_p: Optional[torch.Tensor],
     tail_max: int,
     fake: bool = False,
     factor_dtype=torch.bfloat16,
@@ -245,11 +293,13 @@ def build_cache(
 
     kvs: per layer (k_pre_rope, v), each (b, hkv, s, hd). cos_p/sin_p:
     (s, hd) RoPE tables of the prefill positions, applied to the keys of
-    dense-stored layers. ``fake``: store dense reconstructions instead of
-    factors. ``sparse_block``: also store per-chunk key bounds for sparse
-    top-k decode.
+    dense-stored layers. MLA: kvs hold (latent, rotated RoPE key) per
+    layer, the latent stored without RoPE; cos_p/sin_p unused.
+    ``fake``: store dense reconstructions instead of factors.
+    ``sparse_block``: also store per-chunk key bounds for sparse top-k decode.
     """
-    _check_scheme(xkv, cfg)
+    _check_scheme(xkv)
+    rope_dense_keys = _rope_keys(cfg)
     groups: List[GroupFactors] = []
     dense_k: Dict[int, torch.Tensor] = {}
     dense_v: Dict[int, torch.Tensor] = {}
@@ -258,17 +308,17 @@ def build_cache(
         covered.update(grp.layers)
         gf, dk, dv = compress_svd_group(
             [kvs[l][0] for l in grp.layers], [kvs[l][1] for l in grp.layers],
-            grp, xkv, cfg, cos_p, sin_p, fake=fake,
+            grp, xkv, cos_p, sin_p, fake=fake,
             factor_dtype=factor_dtype, cache_dtype=cache_dtype,
-            sparse_block=sparse_block,
+            rope_dense_keys=rope_dense_keys, sparse_block=sparse_block,
         )
         dense_k.update(dk)
         dense_v.update(dv)
         groups.append(gf)
-    # Ungrouped layers: plain dense cache, post-RoPE K.
+    # Ungrouped layers: plain dense cache, post-RoPE K (MLA: the latent).
     for l in range(len(kvs)):
         if l not in covered:
-            dense_k[l] = apply_rope(kvs[l][0], cos_p[None], sin_p[None]).to(cache_dtype)
+            dense_k[l] = _dense_key(kvs[l][0], cos_p, sin_p, cache_dtype, rope_dense_keys)
             dense_v[l] = kvs[l][1].to(cache_dtype)
     k0 = kvs[0][0]
     tail_k, tail_v = init_tail(cfg, k0.shape[0], tail_max, cache_dtype, k0.device)
@@ -279,13 +329,14 @@ def build_cache(
 def build_uncompressed_cache(
     kvs: List[Tuple[torch.Tensor, torch.Tensor]],
     cfg: ModelConfig,
-    cos_p: torch.Tensor,
-    sin_p: torch.Tensor,
+    cos_p: Optional[torch.Tensor],
+    sin_p: Optional[torch.Tensor],
     tail_max: int,
     cache_dtype: torch.dtype = torch.bfloat16,
 ) -> XKVCache:
-    """Baseline: dense post-RoPE cache for every layer."""
-    dense_k = {l: apply_rope(k, cos_p[None], sin_p[None]).to(cache_dtype)
+    """Baseline: dense post-RoPE cache for every layer (MLA: the latent as
+    it is)."""
+    dense_k = {l: _dense_key(k, cos_p, sin_p, cache_dtype, _rope_keys(cfg))
                for l, (k, _) in enumerate(kvs)}
     dense_v = {l: v.to(cache_dtype) for l, (_, v) in enumerate(kvs)}
     k0 = kvs[0][0]
@@ -306,17 +357,17 @@ def refactorize_cache(
 
     Caller contract: ``tail_len == tail_max``. The tail stores post-RoPE
     keys; in "pre" mode they are un-rotated (RoPE by -theta is exact) before
-    joining the pre-RoPE factors. Groups that hold chunk bounds get them
-    recomputed over the extended keys in ``sparse_block``-row chunks.
+    joining the pre-RoPE factors. The MLA K slot holds the RoPE-free latent,
+    which joins as it is; its ``k_rnorm`` is recomputed from the new
+    factors. Groups that hold chunk bounds get them recomputed over the
+    extended keys in ``sparse_block``-row chunks.
     """
-    _check_scheme(xkv, cfg)
+    _check_scheme(xkv)
     s_p = cache.prefill_len
     t = cache.tail_max
     device = cache.tail_k.device
-    rope_post = xkv.rope_mode == "post"
-    cos_t, sin_t = rope_cos_sin(
-        s_p + torch.arange(t, device=device), cfg.head_dim, cfg.rope_theta,
-        cfg.rope_scaling)
+    rope_keys = _rope_keys(cfg)
+    rope_post = xkv.rope_mode == "post" and rope_keys
     svd_kw = _svd_kw(xkv)
     quantized = any(g.k_scale is not None or g.v_scale is not None for g in cache.groups)
     store_dtype = "int8" if quantized else factor_dtype
@@ -330,28 +381,28 @@ def refactorize_cache(
         cos_f, sin_f = rope_cos_sin(torch.arange(s_p + t, device=device), cfg.head_dim,
                                     cfg.rope_theta, cfg.rope_scaling)
 
+    cos_t = sin_t = None
+    if rope_keys and not rope_post:
+        cos_t, sin_t = rope_cos_sin(s_p + torch.arange(t, device=device), cfg.head_dim,
+                                    cfg.rope_theta, cfg.rope_scaling)
+
     def unrope(k):
-        return k if rope_post else apply_rope(k, cos_t[None], -sin_t[None])
+        return k if cos_t is None else apply_rope(k, cos_t[None], -sin_t[None])
 
     new_groups = []
     for grp, gf in zip(xkv.layer_groups, cache.groups):
         layers = grp.layers
         kw = {}
         if gf.k_us is not None:
-            if gf.k_us4 is not None:
-                k_mat = dequantize_k_mixed4(QuantizedKFactorsMixed4(
-                    gf.k_us, gf.k_us4, gf.k_vt, gf.k_vt4, gf.k_scale, gf.k_scale4))
-            elif gf.k_scale is not None:
-                k_mat = dequantize_k(QuantizedKFactors(gf.k_us, gf.k_vt, gf.k_scale))
-            else:
-                k_mat = reconstruct(LowRankFactors(gf.k_us, gf.k_vt))
             tail_pre = _stack_group_matrix(
                 [unrope(cache.tail_k[l].to(torch.float32)) for l in layers])
-            k_ext = torch.cat([k_mat, tail_pre], dim=1)
+            k_ext = torch.cat([_k_matrix(gf), tail_pre], dim=1)
             # Mixed factors keep their rank split.
             mixed = gf.k_us4 is not None
             kw.update(_store_k(factorize(k_ext, grp.rank_k, **svd_kw),
                                "int4" if mixed else store_dtype, gf.k_us.shape[2]))
+            if gf.k_rnorm is not None:
+                kw["k_rnorm"] = latent_rnorm(_k_matrix(GroupFactors(**kw)), len(layers))
             if gf.k_cmin is not None:
                 # The JAX package derives the chunk width from the stored
                 # chunk count, ceil(s_p / nc), which differs from

@@ -1,7 +1,9 @@
 """Single-sequence/batch inference engine: prefill + compress + greedy decode.
 
-Port of the single-device Llama-family path of
-``xkv_tpu/engine/engine.py:InferenceEngine``.
+Port of the single-device path of ``xkv_tpu/engine/engine.py:InferenceEngine``
+for the Llama family (``models/llama.py``) and DeepSeek-V2 MLA + MoE
+(``models/deepseek.py``, ``model_type="deepseek_v2"``: the latent is the
+merged K slot, the RoPE key the unmerged V slot).
 
 Modes:
   * "factored": the cache holds factors (+ dense tail);
@@ -18,7 +20,8 @@ factored segment (Quest selection; the sink and recency chunks always
 kept, the dense tail exact), in the layers of ``sparse_layers`` (all when
 None). ``sparse_topk_max``: a second, larger budget for steps with many
 near-maximal chunks (``sparse_adaptive_band``), in post mode.
-``factor_dtype="int4"``: mixed int8 + packed int4 factors, post mode only.
+``factor_dtype="int4"``: mixed int8 + packed int4 factors, post mode only
+(MLA: any mode, its latent carries no RoPE). MLA takes no sparse decode.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from xkv_tpu_torch.engine.compression import (
     build_uncompressed_cache,
     refactorize_cache,
 )
-from xkv_tpu_torch.models import llama
+from xkv_tpu_torch.models import deepseek, llama
 from xkv_tpu_torch.models.config import ModelConfig
 from xkv_tpu_torch.ops.rope import rope_cos_sin
 
@@ -61,10 +64,14 @@ class InferenceEngine:
             raise ValueError(f"unknown mode {mode!r}")
         if prefill_logits not in ("all", "last"):
             raise ValueError(f"unknown prefill_logits {prefill_logits!r}")
+        mla = cfg.model_type == "deepseek_v2"
         if sparse_topk is not None and mode != "factored":
             raise ValueError("sparse_topk requires mode='factored'")
+        if sparse_topk is not None and mla:
+            raise ValueError("sparse_topk is llama-family only (MLA's absorbed decode "
+                             "is already rank-space)")
         if factor_dtype == "int4" and xkv is not None and mode == "factored" \
-                and xkv.rope_mode != "post":
+                and xkv.rope_mode != "post" and not mla:
             raise ValueError("factor_dtype='int4' requires rope_mode='post' "
                              "(the rank-space decode path)")
         if sparse_topk_max is not None:
@@ -74,9 +81,13 @@ class InferenceEngine:
                 raise ValueError("sparse_topk_max must exceed sparse_topk")
         if mode != "none" and xkv is None:
             raise ValueError("xkv config required unless mode='none'")
-        if cfg.model_type != "llama" and cfg.model_type not in ("mistral", "qwen2"):
-            raise NotImplementedError(
-                f"model_type {cfg.model_type!r}: ROADMAP queue 1 item 14")
+        if mla and xkv is not None and xkv.merge_value:
+            raise ValueError(
+                "DeepSeek MLA does not support merge_value (the V slot "
+                "holds the uncompressed RoPE key); pass merge_value=False")
+        if not mla and cfg.model_type not in ("llama", "mistral", "qwen2"):
+            raise NotImplementedError(f"model_type {cfg.model_type!r}")
+        self._mla = mla
         self.device = torch.device(device)
         self.params = params
         self.cfg = cfg
@@ -110,10 +121,13 @@ class InferenceEngine:
         prefill_logits="last"; cache)."""
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
         s = tokens.shape[1]
-        logits, kvs = llama.prefill(
+        model = deepseek if self._mla else llama
+        logits, kvs = model.prefill(
             self.params, self.cfg, tokens,
             logits_position=s - 1 if self.prefill_logits == "last" else None)
-        cos_p, sin_p = self._prefill_cos_sin(s)
+        # The MLA latent is stored without RoPE: no tables (its RoPE key,
+        # already rotated, is qk_rope_head_dim wide, not head_dim).
+        cos_p, sin_p = (None, None) if self._mla else self._prefill_cos_sin(s)
         if self.mode == "none":
             cache = build_uncompressed_cache(
                 kvs, self.cfg, cos_p, sin_p, self.tail_max, cache_dtype=self.cache_dtype)
@@ -121,8 +135,7 @@ class InferenceEngine:
             cache = build_cache(
                 kvs, self.xkv, self.cfg, cos_p, sin_p, self.tail_max,
                 fake=self.mode == "fake", factor_dtype=self.factor_dtype,
-                cache_dtype=self.cache_dtype,
-                sparse_block=self._bound_block)
+                cache_dtype=self.cache_dtype, sparse_block=self._bound_block)
         return logits, cache
 
     @torch.no_grad()
@@ -131,6 +144,8 @@ class InferenceEngine:
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
         # The uncompressed cache has no groups, whatever merge plan is set.
         xkv = None if self.mode == "none" else self.xkv
+        if self._mla:
+            return deepseek.decode_step(self.params, self.cfg, xkv, cache, tokens, int(pos))
         return llama.decode_step(
             self.params, self.cfg, xkv, cache, tokens, int(pos),
             self._prefill_cos_sin(cache.prefill_len), **self._sparse_kw)

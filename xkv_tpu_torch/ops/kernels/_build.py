@@ -49,6 +49,7 @@ SIGNATURES = {
     "xkv_mixed_rankspace_decode": [_P] * 12 + [_I] * 8 + [_P],
     "xkv_sparse_lowrank_decode": [_P, _P, _P, _L, _L, _P, _P, _L, _L] + [_P] * 11
                                  + [_I] * 12 + [_P],
+    "xkv_mla_rankspace_decode": [_P] * 13 + [_I] * 8 + [_P],
 }
 
 

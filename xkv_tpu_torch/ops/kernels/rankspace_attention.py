@@ -1,5 +1,5 @@
-"""K2, K4 and K6: rank-space decode attention over POST-RoPE factors
-(``csrc/rankspace_attention.cu``).
+"""K2, K4, K6, K7 and K8: rank-space decode attention over POST-RoPE
+factors and over the factored MLA latent (``csrc/rankspace_attention.cu``).
 
 Port of ``xkv_tpu/ops/pallas/rankspace_attention.py``:
   * K2 ``rankspace_kernel``: ``rankspace_decode_attention`` (bf16, fp32 or
@@ -18,6 +18,13 @@ As on the TPU, the projections in and out of rank space (``_project_q``,
 mask, softmax and ``t = P @ v_us`` over its rows. A kernel wrapper
 launches the CUDA kernel for CUDA tensors and runs its plain version for
 CPU tensors.
+
+  * K7 ``mla_rankspace_kernel``: ``mla_rankspace_decode_attention``, the
+    absorbed DeepSeek-V2 MLA decode over the factored latent (Pallas body
+    ``_mla_rankspace_kernel``): ``s = (q_emb . us^T) * r + q_pe . k_pe^T``,
+    ``t = (P * r) @ us``, V being the latent's own ``us`` rows;
+  * K8 ``mla_mixed_rankspace_kernel``: the same over int8 + packed int4
+    latent factors (body ``_mla_rankspace_mixed_kernel``).
 """
 
 from __future__ import annotations
@@ -33,10 +40,13 @@ from xkv_tpu_torch.ops.kernels import _build
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
 # Launches of each CUDA kernel since the last reset (plain runs not
-# counted): K2, K4 (sparse) and K6 (mixed int8+int4).
+# counted): K2, K4 (sparse), K6 (mixed int8+int4), K7 (MLA) and K8 (MLA
+# mixed int8+int4).
 launches = 0
 sparse_launches = 0
 mixed_launches = 0
+mla_launches = 0
+mla_mixed_launches = 0
 
 
 def compute_dtype_for(factor_dtype: torch.dtype) -> torch.dtype:
@@ -386,3 +396,166 @@ def sparse_rankspace_decode_attention(
     t, lse = sparse_rankspace_kernel(q_emb, k_us, v_us, chunk_ids, block, lengths, win_lo)
     out = _project_out(t, v_vt_slice, v_rank_scale, num_kv_heads, 1, q.dtype)
     return out, lse[:, :, None]
+
+
+# ----------------------------------------------------------------- MLA
+def mla_rankspace_kernel_plain(
+    q_emb: torch.Tensor,  # (b, R, rk) compute dtype, scale and folds applied
+    q_pe: torch.Tensor,  # (b, R, rope) compute dtype, scale applied
+    k_us: torch.Tensor,  # (b, s_p, rk) latent factors
+    k_pe: torch.Tensor,  # (b, s_p, rope) rotated RoPE keys
+    r: torch.Tensor,  # (b, s_p) fp32 latent inverse RMS
+    lengths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7's function in plain tensor code, with its numerics: factors and
+    RoPE keys in the compute dtype, fp32 scores
+    ``(q_emb . us^T) * r + q_pe . k_pe^T`` and softmax, ``P * r`` rounded to
+    the compute dtype before the value product with the same ``us`` rows.
+    Columns past ``lengths`` are masked. Returns (t (b, R, rk) fp32
+    normalised, lse (b, R) fp32)."""
+    b, s_p, _ = k_us.shape
+    cd = q_emb.dtype
+    lens, los = _build.live_range(b, s_p, lengths, None, k_us.device)
+    us = k_us.to(cd).to(torch.float32)
+    rr = r.to(torch.float32)[:, None, :]
+    scores = (q_emb.to(torch.float32) @ us.transpose(1, 2)) * rr + (
+        q_pe.to(torch.float32) @ k_pe.to(cd).to(torch.float32).transpose(1, 2))
+    p, l_inv, lse = masked_softmax_stats(scores, live_columns(s_p, lens, los))
+    t = (p * rr).to(cd).to(torch.float32) @ us
+    return t * l_inv, lse
+
+
+def mla_mixed_rankspace_kernel_plain(
+    q_emb: torch.Tensor,  # (b, R, r8 + r4) bf16, [hi | lo-eo] columns
+    q_pe: torch.Tensor,
+    k_us8: torch.Tensor,  # (b, s_p, r8) int8
+    k_us4: torch.Tensor,  # (b, s_p, r4/2) packed int4 pairs
+    k_pe: torch.Tensor,
+    r: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8's function in plain tensor code: the packed tail unpacked to
+    [evens | odds] beside the int8 ranks (exact in bf16), then K7's
+    numerics. Returns (t (b, R, r8 + r4) fp32 in [hi | lo-eo] order, lse)."""
+    us = torch.cat([k_us8, unpack_int4_rows(k_us4)], dim=-1)
+    return mla_rankspace_kernel_plain(q_emb, q_pe, us, k_pe, r, lengths)
+
+
+def _check_mla(q_emb, q_pe, k_pe, r, b, s_p, rk) -> None:
+    """K7's and K8's operand checks (q_emb of total width rk)."""
+    R = q_emb.shape[1]
+    rope = q_pe.shape[2]
+    for name, x in (("q_emb", q_emb), ("q_pe", q_pe), ("k_pe", k_pe)):
+        _build.require_cuda_tensor(x, name, (torch.bfloat16,), 3)
+        _build.require(x.is_contiguous(), f"{name} must be contiguous")
+    _build.require(r.is_cuda and r.dtype == torch.float32 and r.is_contiguous()
+                   and tuple(r.shape) == (b, s_p), "r must be contiguous (b, s_p) fp32 on CUDA")
+    _build.require(tuple(q_pe.shape) == (b, R, rope) and tuple(k_pe.shape) == (b, s_p, rope),
+                   "q_pe/k_pe shapes do not match q_emb and the factors")
+    _build.require(rk % 16 == 0 and rk <= 1024 and rope % 16 == 0,
+                   f"ranks rk={rk} must be a multiple of 16 up to 1024, rope={rope} of 16")
+
+
+def mla_rankspace_kernel(
+    q_emb: torch.Tensor,
+    q_pe: torch.Tensor,
+    k_us: torch.Tensor,
+    k_pe: torch.Tensor,
+    r: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7: the absorbed MLA decode over the factored latent. Returns (t (b,
+    R, rk) fp32 normalised, lse (b, R) fp32); live columns [0, lengths)."""
+    if k_us.device.type == "cpu":
+        return mla_rankspace_kernel_plain(q_emb, q_pe, k_us, k_pe, r, lengths)
+    global mla_launches
+    b, R, rk = q_emb.shape
+    s_p = k_us.shape[1]
+    _build.require_cuda_tensor(k_us, "k_us", (torch.bfloat16, torch.int8), 3)
+    _build.require(k_us.is_contiguous() and tuple(k_us.shape) == (b, s_p, rk),
+                   "k_us must be contiguous (b, s_p, rk)")
+    _check_mla(q_emb, q_pe, k_pe, r, b, s_p, rk)
+    dev = k_us.device
+    lens, los = _build.live_range(b, s_p, lengths, None, dev)
+    nsplit = _build.num_splits(s_p, b * -(-R // 32), 2, dev)
+    part_t, part_m, part_l, t, lse = _split_scratch(b, nsplit, R, rk, dev)
+    status = _build.load().xkv_mla_rankspace_decode(
+        q_emb.data_ptr(), q_pe.data_ptr(), k_us.data_ptr(), None, k_pe.data_ptr(),
+        r.data_ptr(), lens.data_ptr(), los.data_ptr(), part_t.data_ptr(), part_m.data_ptr(),
+        part_l.data_ptr(), t.data_ptr(), lse.data_ptr(), b, R, s_p, rk, 0,
+        q_pe.shape[2], nsplit, int(k_us.dtype == torch.int8), _build.stream_ptr(dev),
+    )
+    _build.check(status, "mla_rankspace_kernel")
+    mla_launches += 1
+    return t, lse
+
+
+def mla_mixed_rankspace_kernel(
+    q_emb: torch.Tensor,
+    q_pe: torch.Tensor,
+    k_us8: torch.Tensor,
+    k_us4: torch.Tensor,
+    k_pe: torch.Tensor,
+    r: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8: K7 over int8 + packed int4 latent factors, the tail unpacked on
+    chip to [evens | odds]. Returns (t (b, R, r8 + r4) fp32 normalised in
+    [hi | lo-eo] order, lse (b, R) fp32)."""
+    if k_us8.device.type == "cpu":
+        return mla_mixed_rankspace_kernel_plain(q_emb, q_pe, k_us8, k_us4, k_pe, r, lengths)
+    global mla_mixed_launches
+    b, R, rk = q_emb.shape
+    s_p, r8, h4 = k_us8.shape[1], k_us8.shape[2], k_us4.shape[2]
+    for name, x in (("k_us8", k_us8), ("k_us4", k_us4)):
+        _build.require_cuda_tensor(x, name, (torch.int8,), 3)
+        _build.require(x.is_contiguous() and x.shape[:2] == (b, s_p),
+                       f"{name} must be contiguous with rows (b, s_p)")
+    _build.require(rk == r8 + 2 * h4, "q_emb width must be r8 + r4")
+    _check_mla(q_emb, q_pe, k_pe, r, b, s_p, rk)
+    dev = k_us8.device
+    lens, los = _build.live_range(b, s_p, lengths, None, dev)
+    nsplit = _build.num_splits(s_p, b * -(-R // 32), 2, dev)
+    part_t, part_m, part_l, t, lse = _split_scratch(b, nsplit, R, rk, dev)
+    status = _build.load().xkv_mla_rankspace_decode(
+        q_emb.data_ptr(), q_pe.data_ptr(), k_us8.data_ptr(), k_us4.data_ptr(),
+        k_pe.data_ptr(), r.data_ptr(), lens.data_ptr(), los.data_ptr(), part_t.data_ptr(),
+        part_m.data_ptr(), part_l.data_ptr(), t.data_ptr(), lse.data_ptr(), b, R, s_p, r8,
+        h4, q_pe.shape[2], nsplit, 1, _build.stream_ptr(dev),
+    )
+    _build.check(status, "mla_mixed_rankspace_kernel")
+    mla_mixed_launches += 1
+    return t, lse
+
+
+def mla_rankspace_decode_attention(
+    q_emb: torch.Tensor,  # (b, nh, ql, rk) absorbed rank-space query, folded;
+                          # with k_us4: (b, nh, ql, r8 + r4), [hi | lo-eo]
+    q_pe: torch.Tensor,  # (b, nh, ql, rope) rotated RoPE query, scale folded
+    k_us: torch.Tensor,  # (b, s_p, rk) latent factors (int8 hi ranks if mixed)
+    k_pe: torch.Tensor,  # (b, s_p, rope) dense rotated RoPE keys
+    r: torch.Tensor,  # (b, s_p) fp32 latent inverse RMS
+    lengths: Optional[torch.Tensor] = None,  # (b,) valid prefill length
+    k_us4: Optional[torch.Tensor] = None,  # (b, s_p, r4/2) packed int4 tail
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Absorbed MLA decode over the factored latent and the dense RoPE keys
+    (K7; K8 with ``k_us4``). Rows R = ql * nh are ordered (ql, nh). The
+    compute dtype is fp32 for fp32 factors without ``k_us4``, else bf16;
+    ``q_emb`` and ``q_pe`` are rounded to it and ``k_pe`` cast. Returns (t
+    (b, nh, ql, rk_tot) fp32, normalised within the segment, in the rank
+    order of ``q_emb``; lse (b, nh, ql)); the caller projects t through
+    the group's vt and merges with the dense tail."""
+    b, nh, ql, rk_q = q_emb.shape
+    rope = q_pe.shape[3]
+    cd = (torch.float32 if k_us.dtype == torch.float32 and k_us4 is None
+          else torch.bfloat16)
+    qe = q_emb.permute(0, 2, 1, 3).reshape(b, ql * nh, rk_q).to(cd).contiguous()
+    qp = q_pe.permute(0, 2, 1, 3).reshape(b, ql * nh, rope).to(cd).contiguous()
+    k_pe = k_pe.to(cd).contiguous()
+    r = r.to(torch.float32).contiguous()
+    if k_us4 is None:
+        t, lse = mla_rankspace_kernel(qe, qp, k_us, k_pe, r, lengths)
+    else:
+        t, lse = mla_mixed_rankspace_kernel(qe, qp, k_us, k_us4, k_pe, r, lengths)
+    t = t.reshape(b, ql, nh, rk_q).permute(0, 2, 1, 3)
+    return t, lse.reshape(b, ql, nh).permute(0, 2, 1)

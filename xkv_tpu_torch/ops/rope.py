@@ -85,3 +85,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     xf = x.to(torch.float32)
     out = xf * cos.to(torch.float32) + rotate_half(xf) * sin.to(torch.float32)
     return out.to(x.dtype)
+
+
+def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V2 interleaved RoPE: the (x0, x1), (x2, x3), ... pairs are
+    de-interleaved to [evens | odds], then rotated as ``apply_rope`` does,
+    in fp32. The result stays de-interleaved (the MLA cache stores the
+    rotated ``k_pe`` in that layout)."""
+    if x.dim() == cos.dim() + 1:
+        cos = cos.unsqueeze(-3)
+        sin = sin.unsqueeze(-3)
+    xf = x.to(torch.float32)
+    x_deint = torch.cat([xf[..., 0::2], xf[..., 1::2]], dim=-1)
+    out = x_deint * cos.to(torch.float32) + rotate_half(x_deint) * sin.to(torch.float32)
+    return out.to(x.dtype)
