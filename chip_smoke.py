@@ -12,6 +12,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
              xKV-4 shapes, and K7 (MLA rank-space decode) and K8 (its mixed
              int8+int4 variant) at the DeepSeek-V2-Lite shapes; and time
              kernel, plain version, library call and bound;
+  2b. tools  the kernel-study kernels: K9 (design variants of K3's score
+             stage) against K3's plain version at K3's shapes, K10 (K3's
+             stage ablation) in every stage set against its plain version,
+             K11 (tensor-core rate probe) in bf16, int8 and int4 against its
+             plain version, each timed; then the four tools
+             (``xkv_tpu_torch.scripts``) run once through their ``main()``
+             at their default sizes, with the launch counts read around
+             them;
   3. main    serve Llama-3.1-8B (full width and depth, random bf16 weights
              from a seed) with an 8192-token prompt through
              ``InferenceEngine.generate`` in every mode, sparse top-k and
@@ -43,6 +51,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+from xkv_tpu_torch.scripts.kernel_variants import lse_err, row_rel_err  # noqa: E402
+from xkv_tpu_torch.scripts.timing import cuda_time_ms  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12
 SEED = 0
@@ -65,8 +76,15 @@ SEED = 0
 #     order, so the error grows with the scores (``lse_err``).
 #  K7, K8: K2's arithmetic with P * r rounded to bf16 in place of P, over
 #     bf16, int8 or int8 + unpacked int4 latent factors: K2's limit.
+#  K9: K3's function, held against K3's plain version: K3's limits.
+#  K10: against its plain version at the kernel's split count; bf16 output
+#     rows carry the rounding of P (as K3); the running max m is fp32 from
+#     sums in another order (the lse limit, -inf equal to -inf).
+#  K11: integer products are exact (bit for bit); bf16 sums in another
+#     order can flip the rounding of the next input: as K3.
 TOL = {"K1": 2.0 ** -6, "K2": 2.0 ** -7, "K3": 2.0 ** -6, "K4": 2.0 ** -7,
-       "K5": 2.0 ** -6, "K6": 2.0 ** -7, "K7": 2.0 ** -7, "K8": 2.0 ** -7, "lse": 1e-5}
+       "K5": 2.0 ** -6, "K6": 2.0 ** -7, "K7": 2.0 ** -7, "K8": 2.0 ** -7,
+       "K9": 2.0 ** -6, "K10": 2.0 ** -6, "K11": 2.0 ** -6, "lse": 1e-5}
 # Logits of the main path and of the anchor (prefill step, decode steps):
 # twice the readings of these seeded runs on an H100, the same in every
 # call.
@@ -94,49 +112,6 @@ def log(msg: str) -> None:
 
 def max_abs_err(out, ref) -> float:
     return (out.float() - ref.float()).abs().max().item()
-
-
-def row_rel_err(out, ref) -> float:
-    """Largest over rows (the last axis) of max |out - ref| / max |ref|."""
-    import torch
-
-    diff = (out.float() - ref.float()).abs().amax(-1)
-    scale = ref.float().abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
-    return (diff / scale).max().item()
-
-
-def lse_err(lse, ref) -> float:
-    """Largest |lse - ref| / max(1, |ref|)."""
-    return ((lse - ref).abs() / ref.abs().clamp_min(1.0)).max().item()
-
-
-_L2_FLUSH = []
-
-
-def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, each timed alone
-    with CUDA events and each started with a cold L2: a 512 MB buffer (ten
-    times the L2) is written before every call, outside the timed span, as
-    the layers between two calls of a decode step would evict it. The
-    device then spins ~1 ms, so the host has queued a short call's
-    launches before its span opens and the span holds no host time."""
-    import torch
-
-    if not _L2_FLUSH:
-        _L2_FLUSH.append(torch.empty(128 << 20, dtype=torch.int32, device="cuda"))
-    for _ in range(warmup):
-        fn()
-    spans = []
-    for _ in range(iters):
-        _L2_FLUSH[0].zero_()
-        torch.cuda._sleep(2_000_000)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        spans.append((start, end))
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in spans) / iters
 
 
 def bound_ms(nbytes: float, ops_time_s: float) -> tuple:
@@ -508,6 +483,211 @@ def check_mla(gen, results):
                 worst[key], timing[key])
 
 
+# ------------------------------------------------------------ kernel tools
+INT8_OPS_PER_S = 1979e12
+K9_VARIANTS = ("two_gemm", "scratch_ab", "b16")
+
+
+def check_variants(gen, results):
+    """K9: each design of K3's score stage at K3's main-path shapes (b 1, 32
+    rows, s_p 8192, rank_k 512, rank_v 768), bf16 and int8 factors, held
+    against K3's plain version and timed beside K3 (``prod``). Returns K3's
+    time over the int8 factors."""
+    import torch
+
+    from xkv_tpu_torch.cache import vt_layer_slice
+    from xkv_tpu_torch.ops.kernels import kernel_variants as k9
+    from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
+    from xkv_tpu_torch.ops.rope import rope_cos_sin
+
+    hq, hkv, hd, s_p, rk, rv = 32, 8, 128, 8192, 512, 768
+    m = hkv * hd
+    scale = 1.0 / math.sqrt(hd)
+    worst = {"abs": 0.0, "rel": 0.0, "lse": 0.0}
+    cos_p, sin_p = rope_cos_sin(torch.arange(s_p, device="cuda"), hd, 500000.0)
+    cos_t, sin_t = rope_cos_sin(s_p + 5 + torch.arange(1, device="cuda")[None], hd, 500000.0)
+    times = {}
+    for dtype in ("bf16", "int8"):
+        f = _decode_inputs(gen, s_p, rk, rv, m, dtype)
+        sl = lambda x: None if x is None else vt_layer_slice(x, 1, hkv, hd)  # noqa: E731
+        q = torch.randn((1, hq, 1, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        cos_h, sin_h = k3.half_tables(cos_p, sin_p, f["k_us"].dtype)
+        qab = k3._query_embeds(q, cos_t, sin_t, hkv, scale, sl(f["k_scale"]))
+        full = k9.full_query_embeds(qab, hq, hkv)
+        rest = (f["k_us"], sl(f["k_vt"]), f["v_us"], sl(f["v_vt"]), cos_h, sin_h, f["v_scale"])
+        kw = dict(num_q_heads=hq, num_kv_heads=hkv)
+        o_ref, l_ref = k3.lowrank_kernel_plain(qab, *rest, None, None, **kw)
+        times[("prod", dtype)] = cuda_time_ms(lambda: k3.lowrank_kernel(qab, *rest, None, None,
+                                                                        **kw))
+        for v in K9_VARIANTS:
+            o, lse = k9.variant_kernel(full, *rest, None, variant=v, **kw)
+            torch.cuda.synchronize()
+            _hold("K9", f"{v} {dtype}", o, o_ref, lse, l_ref, worst)
+            times[(v, dtype)] = cuda_time_ms(lambda: k9.variant_kernel(full, *rest, None,
+                                                                       variant=v, **kw))
+        if dtype == "bf16":
+            plain_ms = cuda_time_ms(lambda: k9.variant_kernel_plain(full, *rest, None, **kw))
+            recon = 2.0 * s_p * rk * m
+            rest_ops = 2.0 * hq * s_p * (2 * hd + rv) + 2.0 * hq * rv * hd
+            bound = bound_ms(nbytes(full, f["k_us"], f["v_us"], cos_h, sin_h, o, lse)
+                             + (rk + rv) * m * 2, (recon + rest_ops) / BF16_OPS_PER_S)
+    for dtype in ("bf16", "int8"):
+        log(f"K9 {dtype} ms/call: " + ", ".join(
+            f"{v} {times[(v, dtype)]:.4f}" for v in ("prod",) + K9_VARIANTS))
+    results["K9"] = dict(
+        name="variant_attention (scratch_ab)", route="cuda",
+        source="xkv_tpu_torch/csrc/kernel_variants.cu",
+        replaces="scripts/kernel_variants.py:138", max_abs_err=worst["abs"],
+        max_rel_err=worst["rel"], max_lse_err=worst["lse"],
+        tol=f"{TOL['K9']} of each row's max |ref| (K3's plain version); lse {TOL['lse']}",
+        ms=times[("scratch_ab", "bf16")], plain_ms=plain_ms, bound_ms=bound[0],
+        bound_by=bound[1], library_ms=None,
+        variants_ms={f"{v} {d}": t for (v, d), t in times.items()})
+    return times[("prod", "int8")]
+
+
+def check_ablation(gen, results, k3_int8_ms):
+    """K10: every stage set at b 1, s 8192 over int8 factors, held against
+    its plain version at the kernel's split count and timed; prints what
+    each set saves against ``full`` and against K3 (int8, same shapes)."""
+    import torch
+
+    from xkv_tpu_torch.ops.kernels import kernel_ablation as k10
+
+    hq, hkv, hd, s, rk, rv = 32, 8, 128, 8192, 512, 768
+    m = hkv * hd
+    ops = k10.inputs(1, s, hq, hkv, hd, rk, rv, "cuda", seed=SEED)
+    nsplit = k10.num_splits(1, s, torch.device("cuda"))
+    worst = {"abs": 0.0, "rel": 0.0, "m": 0.0}
+    times = {}
+    for name, stages in k10.configs():
+        tabs = k10.tables(s, hd, stages, "cuda")
+        args = (*ops, *tabs, stages)
+        out, mx = k10.ablation_step(*args, num_kv_heads=hkv, nsplit=nsplit)
+        ref, m_ref = k10.ablation_step_plain(*args, num_kv_heads=hkv, nsplit=nsplit)
+        torch.cuda.synchronize()
+        a, r = max_abs_err(out, ref), row_rel_err(out, ref)
+        inf = torch.isinf(m_ref)
+        same_inf = torch.equal(torch.isinf(mx), inf)
+        e = lse_err(mx[~inf], m_ref[~inf]) if bool((~inf).any()) else 0.0
+        log(f"K10 {name}: max_abs_err={a:.3e} max_rel_err={r:.3e} (limit {TOL['K10']:.3e}) "
+            f"m_err={e:.3e} (limit {TOL['lse']:.0e}), -inf where the plain version has it: "
+            f"{same_inf}")
+        if not (r <= TOL["K10"] and e <= TOL["lse"] and same_inf):
+            raise AssertionError(f"K10 {name} disagrees with its plain version")
+        worst["abs"], worst["rel"] = max(worst["abs"], a), max(worst["rel"], r)
+        worst["m"] = max(worst["m"], e)
+        times[name] = cuda_time_ms(lambda: k10.ablation_step(*args, num_kv_heads=hkv,
+                                                             nsplit=nsplit))
+        if name == "full":
+            plain_ms = cuda_time_ms(lambda: k10.ablation_step_plain(
+                *args, num_kv_heads=hkv, nsplit=nsplit), iters=3, warmup=1)
+            op_time = (2.0 * s * rk * m / INT8_OPS_PER_S
+                       + 2.0 * hq * s * (m + rv) / BF16_OPS_PER_S)
+            bound = bound_ms(nbytes(*ops, *tabs, out, mx), op_time)
+    full = times["full"]
+    log(f"K10 stage costs (K3 int8 at these shapes {k3_int8_ms:.4f} ms):")
+    for name, t in times.items():
+        saves = "" if name == "full" else f"  (saves {full - t:7.4f} ms)"
+        log(f"  {name:12s} {t:8.4f} ms/call{saves}  ({t / k3_int8_ms:5.2f} x K3)")
+    results["K10"] = dict(
+        name="kernel_ablation build_step (full)", route="cuda",
+        source="xkv_tpu_torch/csrc/kernel_ablation.cu",
+        replaces="scripts/kernel_ablation.py:197", max_abs_err=worst["abs"],
+        max_rel_err=worst["rel"], max_m_err=worst["m"],
+        tol=f"{TOL['K10']} of each row's max |ref|; m {TOL['lse']} of max(1, |m|)",
+        ms=full, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+        stages_ms=times, k3_int8_ms=k3_int8_ms, nsplit=nsplit)
+
+
+def check_probe(results):
+    """K11: bf16, int8 and int4 chains of 256 products at M = K = 512 (the
+    probe's shape) and at an M that gives every SM two CTAs, held against
+    the plain version and timed; the rate against the published peak."""
+    import torch
+
+    from xkv_tpu_torch.ops.kernels import probe_int4 as k11
+    from xkv_tpu_torch.scripts import probe_int4 as tool
+
+    reps, k = 256, 512
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    peak = {"bf16": BF16_OPS_PER_S, "int8": INT8_OPS_PER_S, "int4": None}
+    rows = {}
+    worst = {"abs": 0.0, "rel": 0.0}
+    for m in (512, 2 * 32 * n_sm):
+        for kind in ("bf16", "int8", "int4"):
+            x, w = tool.inputs(kind, torch.device("cuda"), m, k)
+            got = k11.gemm_chain(x, w, reps, kind)
+            ref = k11.gemm_chain_plain(x, w, reps, kind)
+            torch.cuda.synchronize()
+            a, r = max_abs_err(got, ref), row_rel_err(got, ref)
+            exact = bool(torch.equal(got, ref))
+            ok = r <= TOL["K11"] if kind == "bf16" else exact
+            log(f"K11 {kind} M={m} K={k} reps={reps}: max_abs_err={a:.3e} max_rel_err={r:.3e} "
+                f"({'limit ' + format(TOL['K11'], '.3e') if kind == 'bf16' else 'bit-exact'}: "
+                f"{ok})")
+            if not ok:
+                raise AssertionError(f"K11 {kind} M={m} disagrees with its plain version")
+            worst["abs"], worst["rel"] = max(worst["abs"], a), max(worst["rel"], r)
+            ms = cuda_time_ms(lambda: k11.gemm_chain(x, w, reps, kind), iters=5, warmup=1)
+            ops = 2.0 * m * k * k * reps
+            rate = ops / (ms * 1e-3)
+            share = rate / peak[kind] if peak[kind] else None
+            row = dict(ms=ms, us_per_gemm=ms * 1e3 / reps, tops=rate / 1e12, peak_share=share)
+            if m == 512:
+                row["plain_ms"] = cuda_time_ms(
+                    lambda: k11.gemm_chain_plain(x, w, reps, kind), iters=3, warmup=1)
+                if kind == "bf16":
+                    row["library_ms"] = cuda_time_ms(
+                        lambda: [torch.matmul(x, w) for _ in range(reps)], iters=3, warmup=1)
+                elif kind == "int8":
+                    wc = w.t().contiguous().t()  # column-major, cuBLASLt's int8 layout
+                    row["library_ms"] = cuda_time_ms(
+                        lambda: [torch._int_mm(x, wc) for _ in range(reps)], iters=3, warmup=1)
+                row["bound"] = (bound_ms(nbytes(x, w, got), ops / peak[kind]) if peak[kind]
+                                else None)
+            rows[f"{kind} M={m}"] = row
+            log(f"K11 {kind} M={m}: {row['us_per_gemm']:.3f} us/GEMM, {row['tops']:.1f} TOP/s"
+                + (f", {share:.1%} of the published peak" if share else ", no published peak"))
+    base = rows["int8 M=512"]
+    results["K11"] = dict(
+        name="probe_int4 gemm chain (int8, M = K = 512, 256 products)", route="cuda",
+        source="xkv_tpu_torch/csrc/probe_int4.cu", replaces="scripts/probe_int4.py:45",
+        max_abs_err=worst["abs"], max_rel_err=worst["rel"],
+        tol=f"int8/int4 bit-exact; bf16 {TOL['K11']} of each row's max |ref|",
+        ms=base["ms"], plain_ms=base["plain_ms"], bound_ms=base["bound"][0],
+        bound_by=base["bound"][1],
+        library_ms=base["library_ms"], library="256 torch._int_mm calls on the same inputs",
+        cases=rows)
+
+
+def tools_path(results) -> dict:
+    """The kernel-study path: the four tools at their JAX defaults, in
+    process through their ``main()``, with short runs; the launch counts
+    read around it (K9, K10 and K11 must each launch)."""
+    import gc
+
+    import torch
+
+    from xkv_tpu_torch.scripts import bench_kernel, kernel_ablation, kernel_variants, probe_int4
+
+    t0 = time.time()
+    reset_counts()
+    bench_kernel.main(["--n", "2"])
+    probe_int4.main(["--reps", "16"])
+    kernel_ablation.main(["--n", "2"])
+    kernel_variants.main(["--n", "2", "--check"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"tools: {time.time() - t0:.1f} s, launches {counts}")
+    for key in ("K3", "K9", "K10", "K11"):
+        if counts[key] == 0:
+            raise AssertionError(f"tools: {key} was not launched")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ---------------------------------------------------------------- main path
 # Launch counters of the kernels: (module, attribute) per kernel.
 COUNTERS = {"K1": ("flash_attention", "launches"), "K2": ("rankspace_attention", "launches"),
@@ -516,7 +696,9 @@ COUNTERS = {"K1": ("flash_attention", "launches"), "K2": ("rankspace_attention",
             "K5": ("lowrank_attention", "sparse_launches"),
             "K6": ("rankspace_attention", "mixed_launches"),
             "K7": ("rankspace_attention", "mla_launches"),
-            "K8": ("rankspace_attention", "mla_mixed_launches")}
+            "K8": ("rankspace_attention", "mla_mixed_launches"),
+            "K9": ("kernel_variants", "launches"), "K10": ("kernel_ablation", "launches"),
+            "K11": ("probe_int4", "launches")}
 
 
 def _counter_module(name):
@@ -940,7 +1122,6 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    sys.path.insert(0, ROOT)
     from xkv_tpu_torch.ops.kernels import _build
 
     t_start = time.time()
@@ -962,7 +1143,15 @@ def main() -> int:
     check_decode(gen, results)
     check_sparse_and_mixed(gen, results)
     check_mla(gen, results)
+    t0 = time.time()
+    k3_int8_ms = check_variants(gen, results)
+    check_ablation(gen, results, k3_int8_ms)
+    check_probe(results)
+    tool_counts = tools_path(results)
+    log(f"tools phase: {time.time() - t0:.1f} s")
     totals = main_path(results)
+    for key in totals:
+        totals[key] += tool_counts[key]
     anchor()
     torch.cuda.empty_cache()
     mla_totals = mla_path(results)

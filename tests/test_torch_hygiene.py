@@ -46,5 +46,12 @@ def test_every_port_module_is_found():
                  "xkv_tpu_torch.ops.kernels.rankspace_attention",
                  "xkv_tpu_torch.ops.kernels.lowrank_attention",
                  "xkv_tpu_torch.engine.engine", "xkv_tpu_torch.cache",
-                 "xkv_tpu_torch.models.deepseek"):
+                 "xkv_tpu_torch.models.deepseek",
+                 "xkv_tpu_torch.ops.kernels.kernel_variants",
+                 "xkv_tpu_torch.ops.kernels.kernel_ablation",
+                 "xkv_tpu_torch.ops.kernels.probe_int4",
+                 "xkv_tpu_torch.scripts.timing", "xkv_tpu_torch.scripts.bench_kernel",
+                 "xkv_tpu_torch.scripts.kernel_variants",
+                 "xkv_tpu_torch.scripts.kernel_ablation",
+                 "xkv_tpu_torch.scripts.probe_int4"):
         assert want in names

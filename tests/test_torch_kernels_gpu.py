@@ -16,6 +16,15 @@ K5 (K3 over selected chunks) as K3. K7 and K8 (the MLA rank-space decode
 over bf16, int8 or int8 + int4 latent factors) round P * r to bf16 in
 place of P: K2's 2^-7. The fp32 lse, whose error grows with the scores:
 1e-5 of max(1, |lse|).
+
+The kernel-study kernels: K9 (K3's function by other score designs) is
+held against K3's plain version within K3's limits. K10 (stage ablation)
+against its plain version at the kernel's split count: its bf16 output
+rows carry the rounding of P to bf16 (2^-6), its running max m is fp32
+from sums in another order (1e-5 of max(1, |m|), -inf equal to -inf). K11
+(tensor-core probe): integer products are exact, so int8 and int4 equal
+the plain version bit for bit; bf16 sums in another order can flip the
+rounding of the next input (2^-6 of a row's largest value).
 """
 
 import pytest
@@ -27,6 +36,9 @@ from xkv_tpu_torch.compress.quant import (
     quantize_v_factors,
 )
 from xkv_tpu_torch.ops.kernels import flash_attention as k1
+from xkv_tpu_torch.ops.kernels import kernel_ablation as k10
+from xkv_tpu_torch.ops.kernels import kernel_variants as k9
+from xkv_tpu_torch.ops.kernels import probe_int4 as k11
 from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
 from xkv_tpu_torch.ops.kernels import rankspace_attention as k2
 
@@ -232,3 +244,68 @@ def test_mla_wrapper_refuses_fp32_factors_on_cuda(cuda):
             torch.zeros((1, 2, 1, rk), device=cuda), torch.zeros((1, 2, 1, rope), device=cuda),
             torch.zeros((1, s_p, rk), device=cuda), torch.zeros((1, s_p, rope), device=cuda),
             torch.ones((1, s_p), device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,int8,lens", [("two_gemm", False, None), ("two_gemm", True, 170),
+                                               ("scratch_ab", True, None), ("b16", False, 150),
+                                               ("b32", True, 199)])
+def test_variant_kernels_match_k3_plain(cuda, variant, int8, lens):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(6)
+    s_p, rk, rv, hq, hkv = 200, 64, 640, 8, 2
+    k_us, k_vt, v_us, v_vt, v_scale = _factors(gen, cuda, s_p, rk, rv, hkv * 128, int8)
+    lengths = None if lens is None else torch.tensor([lens], device=cuda)
+    cos_h, sin_h = _half_tables(cuda, s_p)
+    qab = torch.randn((1, hq, 256), generator=gen, device=cuda).to(torch.bfloat16) * 0.1
+    full = k9.full_query_embeds(qab, hq, hkv)
+    rest = (k_us, k_vt, v_us, v_vt, cos_h, sin_h, v_scale)
+    before = k9.launches
+    o, lse = k9.variant_kernel(full, *rest, lengths, num_q_heads=hq, num_kv_heads=hkv,
+                               variant=variant)
+    assert k9.launches == before + 1
+    o_ref, l_ref = k3.lowrank_kernel_plain(qab, *rest, lengths, None, num_q_heads=hq,
+                                           num_kv_heads=hkv)
+    assert _row_rel_err(o, o_ref) <= TOL_BF16_OUT and _lse_err(lse, l_ref) <= TOL_LSE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [c[0] for c in k10.configs()])
+def test_ablation_kernel_matches_plain(cuda, name):
+    s, hq, hkv, rk, rv = 320, 8, 2, 64, 768
+    stages = dict(k10.configs())[name]
+    ops = k10.inputs(1, s, hq, hkv, 128, rk, rv, cuda, seed=7)
+    args = (*ops, *k10.tables(s, 128, stages, cuda), stages)
+    nsplit = k10.num_splits(1, s, cuda)
+    before = k10.launches
+    out, m = k10.ablation_step(*args, num_kv_heads=hkv, nsplit=nsplit)
+    assert k10.launches == before + 1
+    ref, m_ref = k10.ablation_step_plain(*args, num_kv_heads=hkv, nsplit=nsplit)
+    assert _row_rel_err(out, ref) <= TOL_BF16_OUT
+    inf = torch.isinf(m_ref)
+    assert torch.equal(torch.isinf(m), inf)
+    assert _lse_err(m[~inf], m_ref[~inf]) <= TOL_LSE if (~inf).any() else True
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,m,k", [("bf16", 64, 128), ("int8", 100, 256), ("int4", 70, 512),
+                                      ("int8", 40, 512), ("bf16", 33, 512)])
+def test_probe_kernel_matches_plain(cuda, kind, m, k):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(8)
+    if kind == "bf16":
+        x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+        w = torch.randn((k, k), generator=gen, device=cuda).to(torch.bfloat16)
+    else:
+        x = torch.randint(-8, 8, (m, k), generator=gen, device=cuda, dtype=torch.int8)
+        w = torch.randint(-8, 8, (k, k), generator=gen, device=cuda, dtype=torch.int8)
+    before = k11.launches
+    got = k11.gemm_chain(x, w, 7, kind)
+    assert k11.launches == before + 1
+    ref = k11.gemm_chain_plain(x, w, 7, kind)
+    if kind == "bf16":
+        assert _row_rel_err(got, ref) <= TOL_BF16_OUT
+    else:
+        assert torch.equal(got, ref)
+    if kind == "int4":
+        assert torch.equal(got, k11.gemm_chain(x, w, 7, "int8"))

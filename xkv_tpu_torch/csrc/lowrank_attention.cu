@@ -38,22 +38,11 @@
 // last grid step. Masked scores are the finite NEG_INF, masked
 // probabilities are exactly 0, a row with no live key outputs 0, and
 // lse = m + log(max(l, 1e-30)).
-#include "decode_common.cuh"
+#include "lowrank_common.cuh"
 
 using namespace xkv;
 
 namespace {
-
-constexpr int kHD = 128;       // head_dim served by this kernel
-constexpr int kChunkB = 64;    // bytes of rank per staged k_vt tile row
-constexpr int kVtStride = kChunkB + 16;  // padded bytes per transposed row
-
-template <typename T>
-struct RebuildAcc;
-template <>
-struct RebuildAcc<bf16> { typedef float type; };
-template <>
-struct RebuildAcc<int8_t> { typedef int type; };
 
 template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads) lowrank_split_kernel(
@@ -204,41 +193,6 @@ __global__ void __launch_bounds__(kThreads) lowrank_split_kernel(
   write_partial<NC>(acc, sm, part_t, part_m, part_l, bi, split, nsplit, R, row0, rows, rv);
 }
 
-__global__ void __launch_bounds__(kThreads) lowrank_merge_kernel(
-    const float* __restrict__ part_t, const float* __restrict__ part_m,
-    const float* __restrict__ part_l, const bf16* __restrict__ v_vt,
-    long long sb_vvt, long long ld_vvt, const float* __restrict__ v_scale,
-    bf16* __restrict__ out, float* __restrict__ lse_out, int R, int hq, int hkv, int rv,
-    int nsplit) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* red = reinterpret_cast<float*>(smem);
-  float* half_sums = red + 8;                  // [kThreads]
-  float* trow = half_sums + kThreads;          // [rv]
-  float* w = trow + rv;                        // [nsplit]
-  const int r = blockIdx.x, bi = blockIdx.y;
-  const float lse = merge_row(part_t, part_m, part_l, bi, r, R, rv, nsplit, w, red, trow);
-  for (int j = threadIdx.x; j < rv; j += kThreads) {
-    const float sc = v_scale ? v_scale[(size_t)bi * rv + j] : 1.f;
-    trow[j] = round_bf16(trow[j] * sc);
-  }
-  __syncthreads();
-  const int head = (r % hq) / (hq / hkv);
-  const int d = threadIdx.x % kHD, part = threadIdx.x / kHD;
-  constexpr int kParts = kThreads / kHD;
-  const bf16* vt = v_vt + (size_t)bi * sb_vvt + head * kHD + d;
-  float s = 0.f;
-  for (int j = part; j < rv; j += kParts) s += trow[j] * __bfloat162float(vt[(size_t)j * ld_vvt]);
-  half_sums[threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.x < kHD) {
-    float o = 0.f;
-#pragma unroll
-    for (int p = 0; p < kParts; ++p) o += half_sums[p * kHD + threadIdx.x];
-    out[((size_t)bi * R + r) * kHD + threadIdx.x] = __float2bfloat16_rn(o);
-    if (threadIdx.x == 0) lse_out[(size_t)bi * R + r] = lse;
-  }
-}
-
 template <typename T, int NC>
 int launch_split(dim3 grid, size_t smem, cudaStream_t st, const void* qab, const void* k_us,
                  const void* k_vt, const void* v_us, const void* cos_h, const void* sin_h,
@@ -301,12 +255,8 @@ int run(const void* qab, const void* k_us, const void* k_vt, long long sb_kvt,
       ? dispatch_nc<int8_t>(nc, grid, smem, st, qab, k_us, k_vt, v_us, cos_h, sin_h, lens, los, ids, n_sel, chunk, part_t, part_m, part_l, R, hq, hkv, s_p, rk, rv, sb_kvt, ld_kvt, nsplit)
       : dispatch_nc<bf16>(nc, grid, smem, st, qab, k_us, k_vt, v_us, cos_h, sin_h, lens, los, ids, n_sel, chunk, part_t, part_m, part_l, R, hq, hkv, s_p, rk, rv, sb_kvt, ld_kvt, nsplit);
   if (err != 0) return err;
-  const size_t msmem = (8 + kThreads + (size_t)rv + nsplit) * sizeof(float);
-  lowrank_merge_kernel<<<dim3(R, b), kThreads, msmem, st>>>(
-      (const float*)part_t, (const float*)part_m, (const float*)part_l, (const bf16*)v_vt,
-      sb_vvt, ld_vvt, (const float*)v_scale, (bf16*)out, (float*)lse, R, hq, hkv, rv,
-      nsplit);
-  return (int)cudaGetLastError();
+  return launch_lowrank_merge(part_t, part_m, part_l, v_vt, sb_vvt, ld_vvt, v_scale, out, lse,
+                              b, R, hq, hkv, rv, nsplit, st);
 }
 
 }  // namespace

@@ -107,22 +107,45 @@ def _lowrank_rows(qab, k_rows, k_vt_slice, v_rows, v_vt_slice, cos_rows, sin_row
     hd = two_hd // 2
     hq, hkv = num_q_heads, num_kv_heads
     ql, gsz = R // hq, hq // hkv
-    s, rv = k_rows.shape[1], v_rows.shape[2]
+    s = k_rows.shape[1]
+    k_cos, k_sin = trig_keys(k_rows, k_vt_slice, cos_rows, sin_rows, hkv)
+    q5 = qab.to(torch.float32).reshape(b, ql, hkv, gsz, two_hd)
+    scores = (torch.einsum("bqgnd,bsgd->bqgns", q5[..., :hd], k_cos)
+              + torch.einsum("bqgnd,bsgd->bqgns", q5[..., hd:], k_sin))
+    return attend_rank_space(scores.reshape(b, R, s), live, k_rows.dtype, v_rows, v_vt_slice,
+                             v_scale, num_q_heads, num_kv_heads, qab.dtype)
+
+
+def trig_keys(k_rows, k_vt_slice, cos_rows, sin_rows, num_kv_heads):
+    """The rebuilt keys (fp32, or exact integer products for int8) rounded
+    to the compute dtype and times the key-position cos and sin fields in
+    that dtype: (K*cos, K*sin), each (b, s, hkv, hd) fp32."""
+    b, s = k_rows.shape[:2]
+    hd = k_vt_slice.shape[2] // num_kv_heads
     cd = compute_dtype_for(k_rows.dtype)
     if k_rows.dtype == torch.int8:
         k_rec = torch.bmm(k_rows.to(torch.float64), k_vt_slice.to(torch.float64))
         k_rec = k_rec.to(torch.float32).to(cd)
     else:
         k_rec = torch.bmm(k_rows.to(torch.float32), k_vt_slice.to(torch.float32)).to(cd)
-    k_rec = k_rec.reshape(b, s, hkv, hd)
+    k_rec = k_rec.reshape(b, s, num_kv_heads, hd)
     cos_w = torch.cat([cos_rows, cos_rows], dim=-1).to(cd)[:, :, None, :]
     sin_w = torch.cat([sin_rows, sin_rows], dim=-1).to(cd)[:, :, None, :]
-    k_cos = (k_rec * cos_w).to(torch.float32)
-    k_sin = (k_rec * sin_w).to(torch.float32)
-    q5 = qab.to(torch.float32).reshape(b, ql, hkv, gsz, two_hd)
-    scores = (torch.einsum("bqgnd,bsgd->bqgns", q5[..., :hd], k_cos)
-              + torch.einsum("bqgnd,bsgd->bqgns", q5[..., hd:], k_sin))
-    p, l_inv, lse = masked_softmax_stats(scores.reshape(b, R, s), live)
+    return (k_rec * cos_w).to(torch.float32), (k_rec * sin_w).to(torch.float32)
+
+
+def attend_rank_space(scores, live, factor_dtype, v_rows, v_vt_slice, v_scale, num_q_heads,
+                      num_kv_heads, out_dtype):
+    """From fp32 scores (b, R, s): the masked softmax, probabilities rounded
+    before P @ v_us, the normalised and V-scaled t rounded before t @ v_vt
+    for each row's own head. Returns (out (b, R, hd), lse (b, R) fp32)."""
+    b, R, s = scores.shape
+    hq, hkv = num_q_heads, num_kv_heads
+    ql, gsz = R // hq, hq // hkv
+    rv = v_rows.shape[2]
+    hd = v_vt_slice.shape[2] // hkv
+    cd = compute_dtype_for(factor_dtype)
+    p, l_inv, lse = masked_softmax_stats(scores, live)
     t = p.to(cd).to(torch.float32) @ v_rows.to(cd).to(torch.float32)
     t = t * l_inv
     if v_scale is not None:
@@ -130,7 +153,7 @@ def _lowrank_rows(qab, k_rows, k_vt_slice, v_rows, v_vt_slice, cos_rows, sin_row
     t = t.to(cd).to(torch.float32).reshape(b, ql, hkv, gsz, rv)
     vt = v_vt_slice.to(torch.float32).reshape(b, rv, hkv, hd)
     out = torch.einsum("bqgnr,brgd->bqgnd", t, vt).reshape(b, R, hd)
-    return out.to(qab.dtype), lse
+    return out.to(out_dtype), lse
 
 
 def lowrank_kernel(
@@ -179,10 +202,12 @@ def sparse_lowrank_kernel_plain(
 
 
 def _check_operands(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale,
-                    num_q_heads, num_kv_heads) -> bool:
-    """K3's and K5's operand checks; returns whether the factors are int8."""
+                    num_q_heads, num_kv_heads, hd=None) -> bool:
+    """K3's and K5's operand checks (K9's too, whose qab is the full-width
+    (b, R, 2*hkv*hd), with ``hd`` given); returns whether the factors are
+    int8."""
     b, R, two_hd = qab.shape
-    hd = two_hd // 2
+    hd = two_hd // 2 if hd is None else hd
     s_p, rk = k_us.shape[1], k_us.shape[2]
     rv = v_us.shape[2]
     fdt = (torch.bfloat16, torch.int8)
