@@ -9,9 +9,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
              (low-rank decode), K4 (sparse rank-space decode), K5 (sparse
              low-rank decode) and K6 (mixed int8+int4 rank-space decode)
              against their plain versions on the card, at the Llama-3.1-8B
-             xKV-4 shapes, and K7 (MLA rank-space decode) and K8 (its mixed
-             int8+int4 variant) at the DeepSeek-V2-Lite shapes; and time
-             kernel, plain version, library call and bound;
+             xKV-4 shapes (K1 also at group sizes 3 and 7, head size 64
+             and a 4096 window), and K7 (MLA rank-space decode) and K8 (its
+             mixed int8+int4 variant) at the DeepSeek-V2-Lite shapes; and
+             time kernel, plain version, library call and bound;
   2b. tools  the kernel-study kernels: K9 (design variants of K3's score
              stage) against K3's plain version at K3's shapes, K10 (K3's
              stage ablation) in every stage set against its plain version,
@@ -24,7 +25,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
              from a seed) with an 8192-token prompt through
              ``InferenceEngine.generate`` in every mode, sparse top-k and
              int4 included, checking launch counts, factored-vs-fake and
-             all-chunks-sparse-vs-dense logits and refactorisations;
+             all-chunks-sparse-vs-dense logits and refactorisations; then
+             Llama-3.2-1B (head_dim 64) in mode none through K1;
   4. anchor  teacher-force the golden tokens of the JAX engine on the
              in-repo checkpoint and compare per-step logits (pre, post,
              sparse pre, sparse post, int4 post);
@@ -46,6 +48,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -128,17 +131,53 @@ def nbytes(*ts) -> int:
 
 
 # ------------------------------------------------------------------ kernels
-def check_flash(gen, results):
+# K1 cases: (q heads, kv heads, head_dim, s, window, timed). The first is
+# the main path's shape (Llama-3.1-8B prefill); then group sizes 3
+# (Llama-3.2-3B) and 7 (Qwen2-7B), head size 64 (Llama-3.2-1B) and
+# Mistral-7B-v0.1's sliding window of 4096.
+K1_CASES = [(32, 8, 128, 8192, None, True), (32, 8, 128, 1000, None, False),
+            (32, 8, 128, 2048, 512, False), (24, 8, 128, 2048, None, False),
+            (28, 4, 128, 2048, None, False), (32, 8, 64, 8192, None, True),
+            (32, 8, 128, 8192, 4096, False)]
+K1_DESIGN = ("stage 2 (the Hopper design; stage 1 was mma.sync with a cp.async ring): "
+             "persistent, warp-specialised, TMA into a two-stage K/V ring, wgmma products, "
+             "ping-pong consumers at head size 128")
+
+
+def ptxas_resources(build_log: str, source: str) -> dict:
+    """Registers and spill bytes per kernel of one source, from the
+    compiler's report in ``build.log``: {entry: {...}}, each entry named by
+    its mangled name cut to the kernel and its template arguments."""
+    found, entry, section = {}, None, False
+    with open(build_log) as f:
+        for line in f:
+            if line.startswith("== "):
+                section = line.strip() == f"== {source}"
+            elif section and "Compiling entry function" in line:
+                tail = line.split("'")[1].split("_cu_", 1)[-1]
+                entry = re.sub(r"^[0-9a-f]{8}\d+", "", tail).split("Ev")[0]
+                found[entry] = {}
+            elif section and entry and "spill stores" in line:
+                nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+                found[entry].update(stack_bytes=nums[0], spill_stores=nums[1],
+                                    spill_loads=nums[2])
+            elif section and entry and "Used" in line and "registers" in line:
+                found[entry]["registers"] = int(line.split("Used")[1].split()[0])
+    return found
+
+
+def check_flash(gen, results, build_log=None):
     import torch
     import torch.nn.functional as F
 
     from xkv_tpu_torch.ops.kernels import flash_attention as k1
 
-    b, hq, hkv, hd = 1, 32, 8, 128
-    scale = 1.0 / math.sqrt(hd)
+    b = 1
     tol = TOL["K1"]
     worst, worst_rel = 0.0, 0.0
-    for s, window in ((8192, None), (1000, None), (2048, 512)):
+    timing = {}
+    for hq, hkv, hd, s, window, timed in K1_CASES:
+        scale = 1.0 / math.sqrt(hd)
         q = torch.randn((b, hq, s, hd), generator=gen, device="cuda").to(torch.bfloat16)
         k = torch.randn((b, hkv, s, hd), generator=gen, device="cuda").to(torch.bfloat16)
         v = torch.randn((b, hkv, s, hd), generator=gen, device="cuda").to(torch.bfloat16)
@@ -146,25 +185,29 @@ def check_flash(gen, results):
         ref = k1.flash_attention_plain(q, k, v, scale=scale, window=window)
         torch.cuda.synchronize()
         err, rel = max_abs_err(out, ref), row_rel_err(out, ref)
-        log(f"K1 s={s} window={window}: max_abs_err={err:.3e}, "
-            f"max_rel_err={rel:.3e} (limit {tol:.3e})")
+        label = f"{hq}/{hkv} heads hd={hd} s={s} window={window}"
+        log(f"K1 {label}: max_abs_err={err:.3e}, max_rel_err={rel:.3e} (limit {tol:.3e})")
         if not rel <= tol:
-            raise AssertionError(f"K1 disagrees with its plain version at s={s}")
+            raise AssertionError(f"K1 disagrees with its plain version at {label}")
         worst, worst_rel = max(worst, err), max(worst_rel, rel)
-        if s == 8192:
-            ms = cuda_time_ms(lambda: k1.flash_attention(q, k, v, scale=scale))
-            plain_ms = cuda_time_ms(
-                lambda: k1.flash_attention_plain(q, k, v, scale=scale), iters=2, warmup=1)
-            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, scale=scale, enable_gqa=True))
+        if timed:
             pairs = s * (s + 1) / 2
             ops = 4.0 * b * hq * hd * pairs
             bnd, by = bound_ms(nbytes(q, k, v, out), ops / BF16_OPS_PER_S)
+            timing[hd] = dict(
+                ms=cuda_time_ms(lambda: k1.flash_attention(q, k, v, scale=scale)),
+                plain_ms=cuda_time_ms(
+                    lambda: k1.flash_attention_plain(q, k, v, scale=scale), iters=2, warmup=1),
+                library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, scale=scale, enable_gqa=True)),
+                bound_ms=bnd, bound_by=by)
+            log(f"K1 {label} ms: " + ", ".join(f"{key} {val}" for key, val in timing[hd].items()))
+    resources = ptxas_resources(build_log, "flash_attention.cu") if build_log else {}
     results["K1"] = dict(
         name="flash_attention", route="cuda", source="xkv_tpu_torch/csrc/flash_attention.cu",
         replaces="xkv_tpu/ops/pallas/flash_attention.py:118", max_abs_err=worst,
-        max_rel_err=worst_rel, tol=f"{tol} of each row's max |ref|", ms=ms,
-        plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+        max_rel_err=worst_rel, tol=f"{tol} of each row's max |ref|", **timing[128],
+        hd64=timing[64], design=K1_DESIGN, ptxas=resources)
 
 
 def _decode_inputs(gen, s_p, rk, rv, m, dtype):
@@ -881,6 +924,36 @@ def main_path(results):
     return totals
 
 
+def llama_1b_path(results):
+    """Llama-3.2-1B (head_dim 64) at full width and depth, random bf16
+    weights from the seed, mode none, one 8192-token prompt, 8 greedy
+    tokens: every prefill layer runs K1 at head size 64."""
+    import torch
+
+    from xkv_tpu_torch.engine import InferenceEngine
+    from xkv_tpu_torch.models.config import llama32_1b_config
+    from xkv_tpu_torch.models.llama import init_params
+
+    cfg = llama32_1b_config()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    t0 = time.time()
+    params = init_params(cfg, gen, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    log(f"1B params: {sum(nbytes(t) for t in _leaves(params)) / 1e9:.2f} GB "
+        f"in {time.time() - t0:.1f} s")
+    prompt = torch.randint(0, cfg.vocab_size, (1, 8192), generator=gen, device="cuda")
+    eng = InferenceEngine(params, cfg, None, mode="none", tail_max=128,
+                          prefill_logits="last", device="cuda")
+    want = {key: 0 for key in COUNTERS}
+    want["K1"] = cfg.num_layers
+    row, counts, _ = serve(eng, cfg, prompt, "1B none", 8, want, False)
+    results["llama_1b_runs"] = [row]
+    del eng, params
+    torch.cuda.empty_cache()
+    return counts
+
+
 PROFILED = ("none", "factored pre bf16", "factored post bf16", "factored post bf16 sparse top-4",
             "factored post int8 sparse-mixed top-4", "factored post int4 sparse-mixed top-4",
             "factored post bf16 sparse top-4 max 8")
@@ -1139,7 +1212,7 @@ def main() -> int:
     results = {}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    check_flash(gen, results)
+    check_flash(gen, results, build_log if os.path.exists(build_log) else None)
     check_decode(gen, results)
     check_sparse_and_mixed(gen, results)
     check_mla(gen, results)
@@ -1150,8 +1223,10 @@ def main() -> int:
     tool_counts = tools_path(results)
     log(f"tools phase: {time.time() - t0:.1f} s")
     totals = main_path(results)
+    torch.cuda.empty_cache()
+    counts_1b = llama_1b_path(results)
     for key in totals:
-        totals[key] += tool_counts[key]
+        totals[key] += tool_counts[key] + counts_1b[key]
     anchor()
     torch.cuda.empty_cache()
     mla_totals = mla_path(results)

@@ -1,0 +1,62 @@
+"""The port's engine against the JAX engine on other Llama-family configs.
+
+Mistral's sliding window, mirroring
+``tests/test_model_families.py:test_mistral_window_decode_matches_oracle``:
+``tiny_llama_config(model_type="mistral", sliding_window=10)``, weights
+from ``jax.random.PRNGKey(2)`` handed to both engines as numpy, a (2, 24)
+prompt from ``np.random.default_rng(3)`` (the window's lower bound moves
+through the prefix), full-rank factors of groups of 2 layers (lossless),
+exact SVD, fp32 weights, cache and factors. The window reaches the port's
+prefill attention (K1's plain version here) and every decode path. In fp32
+the two frameworks differ only in the order of their sums, so the greedy
+tokens must be equal.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from xkv_tpu.configs import generate_consecutive_xkv_config as jax_xkv
+from xkv_tpu.engine import InferenceEngine as JaxEngine
+from xkv_tpu.models.config import tiny_llama_config as jax_tiny
+from xkv_tpu.models.llama import init_params as jax_init
+from xkv_tpu_torch.configs import generate_consecutive_xkv_config as torch_xkv
+from xkv_tpu_torch.engine import InferenceEngine
+from xkv_tpu_torch.models.ckpt import params_from_numpy
+from xkv_tpu_torch.models.config import tiny_llama_config
+
+N_NEW = 6
+
+
+@pytest.fixture(scope="module")
+def mistral():
+    jcfg = jax_tiny(model_type="mistral", sliding_window=10)
+    np_params = jax.tree.map(np.array, jax_init(jcfg, jax.random.PRNGKey(2),
+                                                  dtype=jnp.float32))
+    cfg = tiny_llama_config(model_type="mistral", sliding_window=10)
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(2, 24)).astype(np.int32)
+    return jcfg, cfg, np_params, prompt
+
+
+@pytest.mark.parametrize("mode,rope", [("none", "pre"), ("factored", "pre"),
+                                       ("factored", "post")])
+def test_mistral_window_greedy_matches_jax(mistral, mode, rope):
+    jcfg, cfg, np_params, prompt = mistral
+    full_rank = 2 * cfg.num_kv_heads * cfg.head_dim
+    kw = dict(num_layers=cfg.num_layers, end_layer=cfg.num_layers - 1, group_size=2,
+              rank_k=full_rank, rank_v=full_rank,
+              extra_kwargs={"svd_method": "exact", "rope_mode": rope})
+    factored = mode == "factored"
+    j = JaxEngine(jax.tree.map(jnp.asarray, np_params), jcfg,
+                  jax_xkv(**kw) if factored else None, mode=mode, tail_max=N_NEW + 2,
+                  cache_dtype=jnp.float32, factor_dtype=jnp.float32, donate_cache=False)
+    want = np.asarray(j.generate(jnp.asarray(prompt), max_new_tokens=N_NEW))
+    t = InferenceEngine(params_from_numpy(np_params, torch.float32, "cpu"), cfg,
+                        torch_xkv(**kw) if factored else None, mode=mode,
+                        tail_max=N_NEW + 2, cache_dtype=torch.float32,
+                        factor_dtype=torch.float32, device="cpu")
+    got = t.generate(prompt, N_NEW).numpy()
+    assert got.shape == (2, N_NEW)
+    np.testing.assert_array_equal(got, want)

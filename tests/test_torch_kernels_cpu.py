@@ -3,7 +3,8 @@ versions) against the JAX package.
 
   * K1 ``flash_attention`` against ``flash_attention_fwd`` in interpret
     mode, at the tiny shapes the JAX package's own tests use (fp32; 2e-4,
-    as there).
+    as there), and at group sizes 7 and 3 and head size 64; K1's shape
+    checks on ``meta`` tensors (any group size, head sizes 64 and 128).
   * K2 ``rankspace_decode_attention`` against
     ``rankspace_decode_attention_xla`` and K3 ``lowrank_decode_attention``
     against ``factored_decode_attention_xla``, the oracles the JAX tests
@@ -46,9 +47,20 @@ def j(x):
     return None if x is None else jnp.asarray(x)
 
 
-@pytest.mark.parametrize("s,window", [(64, None), (96, None), (40, None), (96, 40)])
-def test_flash_plain_matches_pallas_interpret(s, window):
-    b, hq, hkv, hd = 2, 4, 2, 32
+def _flash_case(s, window, hq=4, hkv=2, hd=32):
+    label = f"{s}-{window}" if (hq, hkv, hd) == (4, 2, 32) else f"{s}-{window}-{hq}q{hkv}kv-hd{hd}"
+    return pytest.param(s, window, hq, hkv, hd, id=label)
+
+
+# Group sizes 7 and 3 (Qwen2-7B's 28/4 and 1.5B's 12/2 reduced), and the
+# head size of Llama-3.2-1B.
+@pytest.mark.parametrize("s,window,hq,hkv,hd", [
+    _flash_case(64, None), _flash_case(96, None), _flash_case(40, None), _flash_case(96, 40),
+    _flash_case(64, None, 7, 1), _flash_case(96, 40, 6, 2), _flash_case(96, None, 4, 2, 64),
+    _flash_case(40, 24, 6, 2, 64),
+])
+def test_flash_plain_matches_pallas_interpret(s, window, hq, hkv, hd):
+    b = 2
     q, k, v = rnd(0, b, hq, s, hd), rnd(1, b, hkv, s, hd), rnd(2, b, hkv, s, hd)
     scale = 1.0 / math.sqrt(hd)
     want = flash_attention_fwd(j(q), j(k), j(v), scale=scale, causal=True, window=window,
@@ -57,6 +69,26 @@ def test_flash_plain_matches_pallas_interpret(s, window):
     got = k1.flash_attention(t(q), t(k), t(v), scale=scale, window=window)
     assert k1.launches == before  # the plain version is not a launch
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("hq,hkv,hd", [(24, 8, 128), (28, 4, 128), (12, 2, 128), (32, 8, 64),
+                                       (7, 7, 64), (5, 1, 128)])
+def test_flash_kernel_takes_every_group_size(hq, hkv, hd):
+    """The kernel's shape checks (run before the device checks) accept any
+    group size hq / hkv and head sizes 64 and 128."""
+    q = torch.empty((2, hq, 40, hd), device="meta")
+    k = torch.empty((2, hkv, 40, hd), device="meta")
+    assert k1.kernel_shapes(q, k, k) == (2, hq, hkv, 40, hd)
+
+
+@pytest.mark.parametrize("hq,hkv,hd", [(32, 8, 96), (32, 8, 256), (6, 4, 64)])
+def test_flash_kernel_refuses_other_shapes(hq, hkv, hd):
+    q = torch.empty((1, hq, 16, hd), device="meta")
+    k = torch.empty((1, hkv, 16, hd), device="meta")
+    with pytest.raises(ValueError, match="head_dim" if hq % hkv == 0 else "multiple"):
+        k1.kernel_shapes(q, k, k)
+    with pytest.raises(ValueError, match="head_dim" if hq % hkv == 0 else "multiple"):
+        k1.flash_attention(q, k, k, scale=0.1)  # refused before the device checks
 
 
 def test_wrappers_refuse_non_cpu_tensors_without_a_kernel():

@@ -6,6 +6,9 @@ port's dependencies; ``tests/conftest.py`` imports JAX, so there run it as
 
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
 
+K1 is held at the 8B shape's group size 4 and at group sizes 1, 3 and 7
+and head sizes 64 and 128, with and without a sliding window.
+
 Tolerances: each output row is held against its own largest value, since
 a row that averages many keys has small values. K1 and K3 round P to bf16
 against another maximum than the plain version and round their bf16
@@ -81,6 +84,34 @@ def test_flash_kernel_matches_plain(cuda, s, hq, hkv, window):
     out = k1.flash_attention(q, k, v, scale=0.088, window=window)
     assert k1.launches == before + 1
     ref = k1.flash_attention_plain(q, k, v, scale=0.088, window=window)
+    assert _row_rel_err(out, ref) <= TOL_BF16_OUT
+
+
+# Group sizes 3 (Llama-3.2-3B, 24/8) and 7 (Qwen2-7B, 28/4), head size 64
+# (Llama-3.2-1B, 32/8); lengths below one query tile, ragged, and one past
+# a power of two; windows not a multiple of the key tile (40), and 512 and
+# 4096 (Mistral-7B-v0.1's).
+K1_SHAPES = [(24, 8, 128), (28, 4, 128), (32, 8, 64)]
+K1_CASES = ([(hq, hkv, hd, s, None) for hq, hkv, hd in K1_SHAPES for s in (40, 1000, 4097)]
+            + [(24, 8, 128, 1000, 40), (28, 4, 128, 4097, 512), (32, 8, 64, 4097, 4096),
+               (32, 8, 64, 1000, 40), (24, 8, 128, 4097, 4096), (32, 8, 64, 40, 512)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,hd,s,window", K1_CASES)
+def test_flash_kernel_group_and_head_sizes(cuda, hq, hkv, hd, s, window):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    bf = torch.bfloat16
+    q = torch.randn((2, hq, s, hd), generator=gen, device=cuda).to(bf)
+    k = torch.randn((2, hkv, s, hd), generator=gen, device=cuda).to(bf)
+    v = torch.randn((2, hkv, s, hd), generator=gen, device=cuda).to(bf)
+    scale = hd ** -0.5
+    before = k1.launches
+    out = k1.flash_attention(q, k, v, scale=scale, window=window)
+    assert k1.launches == before + 1
+    ref = k1.flash_attention_plain(q, k, v, scale=scale, window=window)
+    assert out.shape == (2, s, hq, hd)
     assert _row_rel_err(out, ref) <= TOL_BF16_OUT
 
 

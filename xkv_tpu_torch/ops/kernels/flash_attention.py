@@ -7,7 +7,7 @@ Port of ``xkv_tpu/ops/pallas/flash_attention.py:flash_attention_fwd``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -16,6 +16,9 @@ from xkv_tpu_torch.ops.kernels import _build
 
 # Launches of the CUDA kernel since the last reset (plain runs not counted).
 launches = 0
+
+# Head sizes the kernel is built for (those of the Llama-family configs).
+HEAD_DIMS = (64, 128)
 
 
 def flash_attention_plain(
@@ -33,6 +36,22 @@ def flash_attention_plain(
     return out.permute(0, 2, 1, 3).contiguous()
 
 
+def kernel_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[int, ...]:
+    """Check the operands' shapes against what the kernel takes and return
+    (b, hq, hkv, s, hd): q (b, hq, s, hd), k and v (b, hkv, s, hd), any
+    group size hq / hkv, hd in ``HEAD_DIMS``. Reads shapes only, so it
+    runs on any device (``meta`` included)."""
+    _build.require(q.dim() == 4 and k.dim() == 4,
+                   f"q and k must have 4 dims, got {tuple(q.shape)}, {tuple(k.shape)}")
+    b, hq, s, hd = q.shape
+    hkv = k.shape[1]
+    _build.require(k.shape == (b, hkv, s, hd) and v.shape == k.shape,
+                   "k and v must be (b, hkv, s, hd) with q's b, s and hd")
+    _build.require(hkv > 0 and hq % hkv == 0, f"q heads {hq} not a multiple of kv heads {hkv}")
+    _build.require(hd in HEAD_DIMS, f"head_dim {hd} not supported: the kernel takes {HEAD_DIMS}")
+    return b, hq, hkv, s, hd
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -47,16 +66,10 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale, window=window)
     global launches
-    b, hq, s, hd = q.shape
-    hkv = k.shape[1]
+    b, hq, hkv, s, hd = kernel_shapes(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require_cuda_tensor(t, name, (torch.bfloat16,), 4)
         _build.require(t.is_contiguous(), f"{name} must be contiguous")
-    _build.require(k.shape == (b, hkv, s, hd) and v.shape == k.shape,
-                   "k and v must be (b, hkv, s, hd) with q's b, s and hd")
-    _build.require(hd == 128, f"head_dim {hd} != 128")
-    _build.require(hq % hkv == 0 and (hq // hkv) in (1, 2, 4, 8),
-                   f"q_per_kv {hq / hkv} not in (1, 2, 4, 8)")
     out = torch.empty((b, s, hq, hd), dtype=q.dtype, device=q.device)
     status = _build.load().xkv_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
