@@ -26,7 +26,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
              ``InferenceEngine.generate`` in every mode, sparse top-k and
              int4 included, checking launch counts, factored-vs-fake and
              all-chunks-sparse-vs-dense logits and refactorisations; then
-             Llama-3.2-1B (head_dim 64) in mode none through K1;
+             Llama-3.2-1B (head_dim 64) in mode none through K1 and in
+             factored pre (xKV-4, bf16 factors) through K3;
   4. anchor  teacher-force the golden tokens of the JAX engine on the
              in-repo checkpoint and compare per-step logits (pre, post,
              sparse pre, sparse post, int4 post);
@@ -59,6 +60,7 @@ from xkv_tpu_torch.scripts.kernel_variants import lse_err, row_rel_err  # noqa: 
 from xkv_tpu_torch.scripts.timing import cuda_time_ms  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 SEED = 0
 
 # Kernel against plain version. Outputs are held row by row against the
@@ -228,8 +230,47 @@ def _decode_inputs(gen, s_p, rk, rv, m, dtype):
                 v_us=us_v.to(bf), v_vt=vt_v.to(bf), v_scale=None)
 
 
-def check_decode(gen, results):
-    """K2 and K3 at the 8B xKV-4 shapes (layer 1 of a 4-layer group)."""
+# K3/K5 shapes, (q heads, kv heads, head_dim, s_p, rank_k, rank_v): the
+# Llama-3.1-8B xKV-4 layer and the Llama-3.2-1B one (head size 64; the 8B
+# ranks at the same fraction of the group width, 2048 against 4096).
+LOWRANK_SHAPES = {"8B": (32, 8, 128, 8192, 512, 768), "1B": (32, 8, 64, 8192, 256, 384)}
+K3_DESIGN = ("stage 2 (the Hopper design; stage 1 was mma.sync with a cp.async ring): one CTA "
+             "per (kv head, 16-row tile, key split), the head's k_vt slice resident in shared "
+             "memory, a producer warp filling a 4-stage TMA ring of k_us, [cos | sin] and v_us "
+             "chunks, the key rebuild on wgmma (m64n64, hd 128; mma.sync at hd 64), scores "
+             "and P @ v_us on mma.sync; merge per (head, 64-rank chunk), the last chunk CTA "
+             "summing; k_vt slices too large to stay resident stream through a cp.async ring")
+
+
+def _lowrank_timing(run, plain, in_bytes, recon, rest, int8):
+    """Kernel and plain times of one K3/K5 call, and its bound: the rebuild's
+    operations at the factors' tensor-core rate (int8 or bf16), the rest at
+    bf16's."""
+    ops_s = recon / (INT8_OPS_PER_S if int8 else BF16_OPS_PER_S) + rest / BF16_OPS_PER_S
+    return dict(ms=cuda_time_ms(run), plain_ms=cuda_time_ms(plain),
+                bound=bound_ms(in_bytes, ops_s))
+
+
+def _lowrank_extra(timing, key, build_log):
+    """The K3/K5 record's readings beyond the 8B bf16 call: 8B int8, the 1B
+    shape (bf16, int8), the design, where k_vt lives, and registers."""
+    from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
+
+    def row(t):
+        return dict(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
+                    bound_by=t["bound"][1])
+
+    kvt = {f"{shape} {dt}": ("streamed" if k3.streams_kvt(hd, rk, dt == "int8") else "resident")
+           for shape, (_, _, hd, _, rk, _) in LOWRANK_SHAPES.items() for dt in ("bf16", "int8")}
+    return dict(int8=row(timing[(key, "8B", "int8")]),
+                hd64={dt: row(timing[(key, "1B", dt)]) for dt in ("bf16", "int8")},
+                design=K3_DESIGN, k_vt=kvt,
+                ptxas=ptxas_resources(build_log, "lowrank_attention.cu") if build_log else {})
+
+
+def check_decode(gen, results, build_log=None):
+    """K2 at the 8B xKV-4 shapes and K3 at the 8B and 1B ones (layer 1 of a
+    4-layer group)."""
     import torch
 
     import torch.nn.functional as F
@@ -239,64 +280,70 @@ def check_decode(gen, results):
     from xkv_tpu_torch.ops.kernels import rankspace_attention as k2
     from xkv_tpu_torch.ops.rope import rope_cos_sin
 
-    hq, hkv, hd, s_p, rk, rv = 32, 8, 128, 8192, 512, 768
-    m = hkv * hd
-    scale = 1.0 / math.sqrt(hd)
     worst = {key: {"abs": 0.0, "rel": 0.0, "lse": 0.0} for key in ("K2", "K3")}
     timing = {}
-    cos_p, sin_p = rope_cos_sin(torch.arange(s_p, device="cuda"), hd, 500000.0)
-    for dtype in ("bf16", "int8"):
-        f = _decode_inputs(gen, s_p, rk, rv, m, dtype)
-        vt_k = vt_layer_slice(f["k_vt"], 1, hkv, hd)
-        vt_v = vt_layer_slice(f["v_vt"], 1, hkv, hd)
-        k_scale = None if f["k_scale"] is None else vt_layer_slice(f["k_scale"], 1, hkv, hd)
-        for ql, lens, lo in ((1, None, None), (4, s_p - 300, 1000), (1, s_p - 37, 4100)):
-            lengths = None if lens is None else torch.tensor([lens], device="cuda")
-            win_lo = None if lo is None else torch.tensor([lo], device="cuda")
-            q = torch.randn((1, hq, ql, hd), generator=gen, device="cuda").to(torch.bfloat16)
-            # K2: the kernel proper (scores, softmax, t = P @ v_us).
-            q_emb = k2._project_q(q, vt_k, hkv, scale, k_scale, torch.bfloat16)
-            t, lse = k2.rankspace_kernel(q_emb, f["k_us"], f["v_us"], lengths, win_lo)
-            t_ref, lse_ref = k2.rankspace_kernel_plain(q_emb, f["k_us"], f["v_us"], lengths, win_lo)
-            torch.cuda.synchronize()
-            # K3: query embeds at position s_p + 5.
-            cos_t, sin_t = rope_cos_sin(s_p + 5 + torch.arange(ql, device="cuda")[None], hd,
-                                        500000.0)
-            cos_h, sin_h = k3.half_tables(cos_p, sin_p, f["k_us"].dtype)
-            qab = k3._query_embeds(q, cos_t, sin_t, hkv, scale, k_scale)
-            args = (qab, f["k_us"], vt_k, f["v_us"], vt_v, cos_h, sin_h, f["v_scale"],
-                    lengths, win_lo)
-            kw = dict(num_q_heads=hq, num_kv_heads=hkv)
-            o3, l3 = k3.lowrank_kernel(*args, **kw)
-            o3_ref, l3_ref = k3.lowrank_kernel_plain(*args, **kw)
-            torch.cuda.synchronize()
-            label = f"{dtype} ql={ql} valid_len={lens} win_lo={lo}"
-            _hold("K2", label, t, t_ref, lse, lse_ref, worst["K2"])
-            _hold("K3", label, o3, o3_ref, l3, l3_ref, worst["K3"])
-            if ql == 1 and lens is None and dtype == "bf16":
-                # The main path's shapes: bf16 factors, one query row per head.
-                live = s_p
-                # Library: SDPA over the same rank-space operands, scale 1.
-                q4, k4, v4 = q_emb[:, None], f["k_us"][:, None], f["v_us"][:, None]
-                timing["K2"] = dict(
-                    ms=cuda_time_ms(lambda: k2.rankspace_kernel(q_emb, f["k_us"], f["v_us"])),
-                    plain_ms=cuda_time_ms(
-                        lambda: k2.rankspace_kernel_plain(q_emb, f["k_us"], f["v_us"])),
-                    library_ms=cuda_time_ms(
-                        lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)),
-                    bound=bound_ms(nbytes(q_emb, f["k_us"], f["v_us"], t, lse),
-                                   2.0 * q_emb.shape[1] * live * (rk + rv) / BF16_OPS_PER_S))
-                R = qab.shape[1]
-                recon = 2.0 * live * rk * m
-                rest = 2.0 * R * live * (2 * hd + rv) + 2.0 * R * rv * hd
-                # Inputs as the kernel reads them: vt slices are rk x m and
-                # rv x m of the group's wider bases.
-                slice_bytes = (rk + rv) * m * 2
-                timing["K3"] = dict(
-                    ms=cuda_time_ms(lambda: k3.lowrank_kernel(*args, **kw)),
-                    plain_ms=cuda_time_ms(lambda: k3.lowrank_kernel_plain(*args, **kw)),
-                    bound=bound_ms(nbytes(qab, f["k_us"], f["v_us"], cos_h, sin_h, o3, l3)
-                                   + slice_bytes, (recon + rest) / BF16_OPS_PER_S))
+    for shape, (hq, hkv, hd, s_p, rk, rv) in LOWRANK_SHAPES.items():
+        m = hkv * hd
+        scale = 1.0 / math.sqrt(hd)
+        cos_p, sin_p = rope_cos_sin(torch.arange(s_p, device="cuda"), hd, 500000.0)
+        for dtype in ("bf16", "int8"):
+            f = _decode_inputs(gen, s_p, rk, rv, m, dtype)
+            vt_k = vt_layer_slice(f["k_vt"], 1, hkv, hd)
+            vt_v = vt_layer_slice(f["v_vt"], 1, hkv, hd)
+            k_scale = None if f["k_scale"] is None else vt_layer_slice(f["k_scale"], 1, hkv, hd)
+            for ql, lens, lo in ((1, None, None), (4, s_p - 300, 1000), (1, s_p - 37, 4100)):
+                lengths = None if lens is None else torch.tensor([lens], device="cuda")
+                win_lo = None if lo is None else torch.tensor([lo], device="cuda")
+                q = torch.randn((1, hq, ql, hd), generator=gen, device="cuda").to(torch.bfloat16)
+                label = f"{shape} {dtype} ql={ql} valid_len={lens} win_lo={lo}"
+                if shape == "8B":
+                    # K2: the kernel proper (scores, softmax, t = P @ v_us).
+                    q_emb = k2._project_q(q, vt_k, hkv, scale, k_scale, torch.bfloat16)
+                    t, lse = k2.rankspace_kernel(q_emb, f["k_us"], f["v_us"], lengths, win_lo)
+                    t_ref, lse_ref = k2.rankspace_kernel_plain(q_emb, f["k_us"], f["v_us"],
+                                                               lengths, win_lo)
+                    torch.cuda.synchronize()
+                    _hold("K2", label, t, t_ref, lse, lse_ref, worst["K2"])
+                # K3: query embeds at position s_p + 5.
+                cos_t, sin_t = rope_cos_sin(s_p + 5 + torch.arange(ql, device="cuda")[None],
+                                            hd, 500000.0)
+                cos_h, sin_h = k3.half_tables(cos_p, sin_p, f["k_us"].dtype)
+                qab = k3._query_embeds(q, cos_t, sin_t, hkv, scale, k_scale)
+                args = (qab, f["k_us"], vt_k, f["v_us"], vt_v, cos_h, sin_h, f["v_scale"],
+                        lengths, win_lo)
+                kw = dict(num_q_heads=hq, num_kv_heads=hkv)
+                o3, l3 = k3.lowrank_kernel(*args, **kw)
+                o3_ref, l3_ref = k3.lowrank_kernel_plain(*args, **kw)
+                torch.cuda.synchronize()
+                _hold("K3", label, o3, o3_ref, l3, l3_ref, worst["K3"])
+                if ql == 1 and lens is None:
+                    # The main path's shapes: one query row per head.
+                    live = s_p
+                    if shape == "8B" and dtype == "bf16":
+                        # Library: SDPA over the same rank-space operands, scale 1.
+                        q4, k4, v4 = q_emb[:, None], f["k_us"][:, None], f["v_us"][:, None]
+                        timing["K2"] = dict(
+                            ms=cuda_time_ms(lambda: k2.rankspace_kernel(q_emb, f["k_us"],
+                                                                        f["v_us"])),
+                            plain_ms=cuda_time_ms(
+                                lambda: k2.rankspace_kernel_plain(q_emb, f["k_us"], f["v_us"])),
+                            library_ms=cuda_time_ms(
+                                lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)),
+                            bound=bound_ms(nbytes(q_emb, f["k_us"], f["v_us"], t, lse),
+                                           2.0 * q_emb.shape[1] * live * (rk + rv)
+                                           / BF16_OPS_PER_S))
+                    R = qab.shape[1]
+                    # Inputs as the kernel reads them: vt slices are rk x m
+                    # and rv x m of the group's wider bases.
+                    slice_bytes = rk * m * vt_k.element_size() + rv * m * 2
+                    timing[("K3", shape, dtype)] = _lowrank_timing(
+                        lambda: k3.lowrank_kernel(*args, **kw),
+                        lambda: k3.lowrank_kernel_plain(*args, **kw),
+                        nbytes(qab, f["k_us"], f["v_us"], cos_h, sin_h, o3, l3) + slice_bytes,
+                        2.0 * live * rk * m,
+                        2.0 * R * live * (2 * hd + rv) + 2.0 * R * rv * hd, dtype == "int8")
+                    log(f"K3 {shape} {dtype} ms: {timing[('K3', shape, dtype)]}")
+    timing["K3"] = timing[("K3", "8B", "bf16")]
     for key, name, src, rep in (
         ("K2", "rankspace_decode_attention", "xkv_tpu_torch/csrc/rankspace_attention.cu",
          "xkv_tpu/ops/pallas/rankspace_attention.py:285"),
@@ -304,6 +351,7 @@ def check_decode(gen, results):
          "xkv_tpu/ops/pallas/lowrank_attention.py:343"),
     ):
         _report(results, key, name, src, rep, worst[key], timing[key])
+    results["K3"].update(_lowrank_extra(timing, "K3", build_log))
 
 
 def bytes_per_row(*ts) -> int:
@@ -330,10 +378,10 @@ def _hold(key, label, out, ref, lse, lse_ref, worst):
     worst["lse"] = max(worst["lse"], e)
 
 
-def check_sparse_and_mixed(gen, results):
+def check_sparse_and_mixed(gen, results, build_log=None):
     """K4 and K5 (top-k of 512-row chunks) and K6 (mixed int8+int4 at the
-    8B split 256 + 256 / 256 + 512) at the 8B xKV-4 shapes, layer 1 of a
-    4-layer group, one query row per head."""
+    8B split 256 + 256 / 256 + 512) at the 8B xKV-4 shapes, K5 also at the
+    1B ones, layer 1 of a 4-layer group, one query row per head."""
     import torch
     import torch.nn.functional as F
 
@@ -346,76 +394,88 @@ def check_sparse_and_mixed(gen, results):
     from xkv_tpu_torch.ops.kernels import rankspace_attention as k2
     from xkv_tpu_torch.ops.rope import rope_cos_sin
 
-    hq, hkv, hd, s_p, rk, rv, block = 32, 8, 128, 8192, 512, 768, 512
-    m = hkv * hd
-    scale = 1.0 / math.sqrt(hd)
+    block = 512
     dev = "cuda"
     worst = {key: {"abs": 0.0, "rel": 0.0, "lse": 0.0} for key in ("K4", "K5", "K6")}
     timing = {}
-    cos_p, sin_p = rope_cos_sin(torch.arange(s_p, device=dev), hd, 500000.0)
-    cos_t, sin_t = rope_cos_sin(s_p + 5 + torch.arange(1, device=dev)[None], hd, 500000.0)
     # (ids, valid_len, win_lo): the main path's top-4; a chunk wholly and
     # one partly past valid_len; a window that cuts chunk 8 and drops
     # chunk 2; the adaptive budget's low step (-1: no chunk).
-    cases = [([0, 5, 11, 15], None, None), ([15, 3, 14, 0], s_p - 600, None),
-             ([8, 2, 12, 15], None, 4100), ([3, 9, 15, 0, -1, -1, -1, -1], None, None)]
-    for dtype in ("bf16", "int8"):
-        f = _decode_inputs(gen, s_p, rk, rv, m, dtype)
-        vt_k = vt_layer_slice(f["k_vt"], 1, hkv, hd)
-        vt_v = vt_layer_slice(f["v_vt"], 1, hkv, hd)
-        k_scale = None if f["k_scale"] is None else vt_layer_slice(f["k_scale"], 1, hkv, hd)
-        q = torch.randn((1, hq, 1, hd), generator=gen, device=dev).to(torch.bfloat16)
-        q_emb = k2._project_q(q, vt_k, hkv, scale, k_scale, torch.bfloat16)
-        cos_h, sin_h = k3.half_tables(cos_p, sin_p, f["k_us"].dtype)
-        qab = k3._query_embeds(q, cos_t, sin_t, hkv, scale, k_scale)
-        kw = dict(num_q_heads=hq, num_kv_heads=hkv)
-        for ids_l, lens, lo in cases:
-            ids = torch.tensor([ids_l], dtype=torch.int32, device=dev)
-            lengths = None if lens is None else torch.tensor([lens], device=dev)
-            win_lo = None if lo is None else torch.tensor([lo], device=dev)
-            label = f"{dtype} ids={ids_l} valid_len={lens} win_lo={lo}"
-            a4 = (q_emb, f["k_us"], f["v_us"], ids, block, lengths, win_lo)
-            t4, l4 = k2.sparse_rankspace_kernel(*a4)
-            t4r, l4r = k2.sparse_rankspace_kernel_plain(*a4)
-            a5 = (qab, f["k_us"], vt_k, f["v_us"], vt_v, cos_h, sin_h, f["v_scale"], ids, block,
-                  lengths, win_lo)
-            o5, l5 = k3.sparse_lowrank_kernel(*a5, **kw)
-            o5r, l5r = k3.sparse_lowrank_kernel_plain(*a5, **kw)
-            torch.cuda.synchronize()
-            _hold("K4", label, t4, t4r, l4, l4r, worst["K4"])
-            _hold("K5", label, o5, o5r, l5, l5r, worst["K5"])
-            if dtype == "bf16" and ids_l == cases[0][0]:
-                # The main path's shapes: bf16 factors, top-4 chunks.
+    for shape, (hq, hkv, hd, s_p, rk, rv) in LOWRANK_SHAPES.items():
+        m = hkv * hd
+        scale = 1.0 / math.sqrt(hd)
+        cos_p, sin_p = rope_cos_sin(torch.arange(s_p, device=dev), hd, 500000.0)
+        cos_t, sin_t = rope_cos_sin(s_p + 5 + torch.arange(1, device=dev)[None], hd, 500000.0)
+        cases = [([0, 5, 11, 15], None, None), ([15, 3, 14, 0], s_p - 600, None),
+                 ([8, 2, 12, 15], None, 4100), ([3, 9, 15, 0, -1, -1, -1, -1], None, None)]
+        for dtype in ("bf16", "int8"):
+            f = _decode_inputs(gen, s_p, rk, rv, m, dtype)
+            vt_k = vt_layer_slice(f["k_vt"], 1, hkv, hd)
+            vt_v = vt_layer_slice(f["v_vt"], 1, hkv, hd)
+            k_scale = None if f["k_scale"] is None else vt_layer_slice(f["k_scale"], 1, hkv, hd)
+            q = torch.randn((1, hq, 1, hd), generator=gen, device=dev).to(torch.bfloat16)
+            q_emb = k2._project_q(q, vt_k, hkv, scale, k_scale, torch.bfloat16)
+            cos_h, sin_h = k3.half_tables(cos_p, sin_p, f["k_us"].dtype)
+            qab = k3._query_embeds(q, cos_t, sin_t, hkv, scale, k_scale)
+            kw = dict(num_q_heads=hq, num_kv_heads=hkv)
+            for ids_l, lens, lo in cases:
+                ids = torch.tensor([ids_l], dtype=torch.int32, device=dev)
+                lengths = None if lens is None else torch.tensor([lens], device=dev)
+                win_lo = None if lo is None else torch.tensor([lo], device=dev)
+                label = f"{shape} {dtype} ids={ids_l} valid_len={lens} win_lo={lo}"
+                a4 = (q_emb, f["k_us"], f["v_us"], ids, block, lengths, win_lo)
+                if shape == "8B":
+                    t4, l4 = k2.sparse_rankspace_kernel(*a4)
+                    t4r, l4r = k2.sparse_rankspace_kernel_plain(*a4)
+                a5 = (qab, f["k_us"], vt_k, f["v_us"], vt_v, cos_h, sin_h, f["v_scale"], ids,
+                      block, lengths, win_lo)
+                o5, l5 = k3.sparse_lowrank_kernel(*a5, **kw)
+                o5r, l5r = k3.sparse_lowrank_kernel_plain(*a5, **kw)
+                torch.cuda.synchronize()
+                if shape == "8B":
+                    _hold("K4", label, t4, t4r, l4, l4r, worst["K4"])
+                _hold("K5", label, o5, o5r, l5, l5r, worst["K5"])
+                if ids_l != cases[0][0]:
+                    continue
+                # The main path's shapes: top-4 chunks.
                 live = len(ids_l) * block
-                # Library: SDPA over the whole segment, the rows of the
-                # selected chunks let through by a boolean mask.
-                rows = torch.zeros((1, 1, 1, s_p), dtype=torch.bool, device=dev)
-                for i in ids_l:
-                    rows[..., i * block:(i + 1) * block] = True
-                q4, k4, v4 = q_emb[:, None], f["k_us"][:, None], f["v_us"][:, None]
-                timing["K4"] = dict(
-                    ms=cuda_time_ms(lambda: k2.sparse_rankspace_kernel(*a4)),
-                    plain_ms=cuda_time_ms(lambda: k2.sparse_rankspace_kernel_plain(*a4)),
-                    library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                        q4, k4, v4, attn_mask=rows, scale=1.0)),
-                    bound=bound_ms(nbytes(q_emb, ids, t4, l4)
-                                   + live * bytes_per_row(f["k_us"], f["v_us"]),
-                                   2.0 * hq * live * (rk + rv) / BF16_OPS_PER_S))
-                recon = 2.0 * live * rk * m
-                rest = 2.0 * hq * live * (2 * hd + rv) + 2.0 * hq * rv * hd
-                timing["K5"] = dict(
-                    ms=cuda_time_ms(lambda: k3.sparse_lowrank_kernel(*a5, **kw)),
-                    plain_ms=cuda_time_ms(lambda: k3.sparse_lowrank_kernel_plain(*a5, **kw)),
-                    bound=bound_ms(nbytes(qab, ids, o5, l5) + (rk + rv) * m * 2
-                                   + live * bytes_per_row(f["k_us"], f["v_us"], cos_h, sin_h),
-                                   (recon + rest) / BF16_OPS_PER_S))
-        # Every chunk selected: K4 reads the rows K2 reads.
-        all_ids = torch.arange(s_p // block, dtype=torch.int32, device=dev).flip(0)[None]
-        t4, l4 = k2.sparse_rankspace_kernel(q_emb, f["k_us"], f["v_us"], all_ids, block)
-        t2, l2 = k2.rankspace_kernel(q_emb, f["k_us"], f["v_us"])
-        torch.cuda.synchronize()
-        _hold("K4", f"{dtype} all 16 chunks against K2", t4, t2, l4, l2, worst["K4"])
+                if shape == "8B" and dtype == "bf16":
+                    # Library: SDPA over the whole segment, the rows of the
+                    # selected chunks let through by a boolean mask.
+                    rows = torch.zeros((1, 1, 1, s_p), dtype=torch.bool, device=dev)
+                    for i in ids_l:
+                        rows[..., i * block:(i + 1) * block] = True
+                    q4, k4, v4 = q_emb[:, None], f["k_us"][:, None], f["v_us"][:, None]
+                    timing["K4"] = dict(
+                        ms=cuda_time_ms(lambda: k2.sparse_rankspace_kernel(*a4)),
+                        plain_ms=cuda_time_ms(lambda: k2.sparse_rankspace_kernel_plain(*a4)),
+                        library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                            q4, k4, v4, attn_mask=rows, scale=1.0)),
+                        bound=bound_ms(nbytes(q_emb, ids, t4, l4)
+                                       + live * bytes_per_row(f["k_us"], f["v_us"]),
+                                       2.0 * hq * live * (rk + rv) / BF16_OPS_PER_S))
+                slice_bytes = rk * m * vt_k.element_size() + rv * m * 2
+                timing[("K5", shape, dtype)] = _lowrank_timing(
+                    lambda: k3.sparse_lowrank_kernel(*a5, **kw),
+                    lambda: k3.sparse_lowrank_kernel_plain(*a5, **kw),
+                    nbytes(qab, ids, o5, l5) + slice_bytes
+                    + live * bytes_per_row(f["k_us"], f["v_us"], cos_h, sin_h),
+                    2.0 * live * rk * m, 2.0 * hq * live * (2 * hd + rv) + 2.0 * hq * rv * hd,
+                    dtype == "int8")
+                log(f"K5 {shape} {dtype} ms: {timing[('K5', shape, dtype)]}")
+            if shape != "8B":
+                continue
+            # Every chunk selected: K4 reads the rows K2 reads.
+            all_ids = torch.arange(s_p // block, dtype=torch.int32, device=dev).flip(0)[None]
+            t4, l4 = k2.sparse_rankspace_kernel(q_emb, f["k_us"], f["v_us"], all_ids, block)
+            t2, l2 = k2.rankspace_kernel(q_emb, f["k_us"], f["v_us"])
+            torch.cuda.synchronize()
+            _hold("K4", f"{dtype} all 16 chunks against K2", t4, t2, l4, l2, worst["K4"])
+    timing["K5"] = timing[("K5", "8B", "bf16")]
 
+    hq, hkv, hd, s_p, rk, rv = LOWRANK_SHAPES["8B"]
+    m = hkv * hd
+    scale = 1.0 / math.sqrt(hd)
     # K6: mixed factors at the 8B split.
     us_k = torch.randn((1, s_p, rk), generator=gen, device=dev)
     vt_kf = torch.randn((1, rk, 4 * m), generator=gen, device=dev) * 0.05
@@ -453,6 +513,7 @@ def check_sparse_and_mixed(gen, results):
          "xkv_tpu_torch/csrc/rankspace_attention.cu", f"{rs}:141"),
     ):
         _report(results, key, name, src, rep, worst[key], timing[key])
+    results["K5"].update(_lowrank_extra(timing, "K5", build_log))
 
 
 def check_mla(gen, results):
@@ -527,7 +588,6 @@ def check_mla(gen, results):
 
 
 # ------------------------------------------------------------ kernel tools
-INT8_OPS_PER_S = 1979e12
 K9_VARIANTS = ("two_gemm", "scratch_ab", "b16")
 
 
@@ -926,10 +986,14 @@ def main_path(results):
 
 def llama_1b_path(results):
     """Llama-3.2-1B (head_dim 64) at full width and depth, random bf16
-    weights from the seed, mode none, one 8192-token prompt, 8 greedy
-    tokens: every prefill layer runs K1 at head size 64."""
+    weights from the seed, one 8192-token prompt: mode none, 8 greedy
+    tokens (every prefill layer runs K1 at head size 64); then factored
+    pre, xKV-4 over all 16 layers at rank_k 256 / rank_v 384 (the 8B
+    config's ranks at the same fraction of the group width), 32 greedy
+    tokens (every decode step runs K3 at head size 64 in every layer)."""
     import torch
 
+    from xkv_tpu_torch.configs import generate_consecutive_xkv_config
     from xkv_tpu_torch.engine import InferenceEngine
     from xkv_tpu_torch.models.config import llama32_1b_config
     from xkv_tpu_torch.models.llama import init_params
@@ -943,15 +1007,29 @@ def llama_1b_path(results):
     log(f"1B params: {sum(nbytes(t) for t in _leaves(params)) / 1e9:.2f} GB "
         f"in {time.time() - t0:.1f} s")
     prompt = torch.randint(0, cfg.vocab_size, (1, 8192), generator=gen, device="cuda")
-    eng = InferenceEngine(params, cfg, None, mode="none", tail_max=128,
-                          prefill_logits="last", device="cuda")
-    want = {key: 0 for key in COUNTERS}
-    want["K1"] = cfg.num_layers
-    row, counts, _ = serve(eng, cfg, prompt, "1B none", 8, want, False)
-    results["llama_1b_runs"] = [row]
-    del eng, params
+    totals = {key: 0 for key in COUNTERS}
+    rows = []
+    _, rk, rv = LOWRANK_SHAPES["1B"][3:]
+    xkv = generate_consecutive_xkv_config(
+        group_size=4, rank_k=rk, rank_v=rv, num_layers=cfg.num_layers,
+        end_layer=cfg.num_layers - 1, extra_kwargs={"rope_mode": "pre"})
+    for label, mode, n_new, per_step in (("1B none", "none", 8, {}),
+                                         ("1B factored pre bf16", "factored", 32,
+                                          {"K3": cfg.num_layers})):
+        eng = InferenceEngine(params, cfg, xkv if mode == "factored" else None, mode=mode,
+                              tail_max=128, prefill_logits="last", device="cuda")
+        want = {key: per_step.get(key, 0) * (n_new - 1) for key in COUNTERS}
+        want["K1"] = cfg.num_layers
+        row, counts, _ = serve(eng, cfg, prompt, label, n_new, want, mode == "factored")
+        rows.append(row)
+        for key in totals:
+            totals[key] += counts[key]
+        del eng
+        torch.cuda.empty_cache()
+    results["llama_1b_runs"] = rows
+    del params
     torch.cuda.empty_cache()
-    return counts
+    return totals
 
 
 PROFILED = ("none", "factored pre bf16", "factored post bf16", "factored post bf16 sparse top-4",
@@ -1213,8 +1291,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     check_flash(gen, results, build_log if os.path.exists(build_log) else None)
-    check_decode(gen, results)
-    check_sparse_and_mixed(gen, results)
+    bl = build_log if os.path.exists(build_log) else None
+    check_decode(gen, results, bl)
+    check_sparse_and_mixed(gen, results, bl)
     check_mla(gen, results)
     t0 = time.time()
     k3_int8_ms = check_variants(gen, results)

@@ -10,6 +10,11 @@ exact SVD, fp32 weights, cache and factors. The window reaches the port's
 prefill attention (K1's plain version here) and every decode path. In fp32
 the two frameworks differ only in the order of their sums, so the greedy
 tokens must be equal.
+
+Head size 64 (Llama-3.2-1B's) in ``pre`` mode, the factored decode that K3
+serves on a card: ``tiny_llama_config(head_dim=64)``, the same weights
+seed, prompt, full rank, exact SVD and fp32 setup; the greedy tokens must
+be equal.
 """
 
 import jax
@@ -56,6 +61,28 @@ def test_mistral_window_greedy_matches_jax(mistral, mode, rope):
     t = InferenceEngine(params_from_numpy(np_params, torch.float32, "cpu"), cfg,
                         torch_xkv(**kw) if factored else None, mode=mode,
                         tail_max=N_NEW + 2, cache_dtype=torch.float32,
+                        factor_dtype=torch.float32, device="cpu")
+    got = t.generate(prompt, N_NEW).numpy()
+    assert got.shape == (2, N_NEW)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_head_dim_64_factored_pre_greedy_matches_jax():
+    jcfg = jax_tiny(head_dim=64)
+    np_params = jax.tree.map(np.array, jax_init(jcfg, jax.random.PRNGKey(2),
+                                                  dtype=jnp.float32))
+    cfg = tiny_llama_config(head_dim=64)
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(2, 24)).astype(np.int32)
+    full_rank = 2 * cfg.num_kv_heads * cfg.head_dim
+    kw = dict(num_layers=cfg.num_layers, end_layer=cfg.num_layers - 1, group_size=2,
+              rank_k=full_rank, rank_v=full_rank,
+              extra_kwargs={"svd_method": "exact", "rope_mode": "pre"})
+    j = JaxEngine(jax.tree.map(jnp.asarray, np_params), jcfg, jax_xkv(**kw), mode="factored",
+                  tail_max=N_NEW + 2, cache_dtype=jnp.float32, factor_dtype=jnp.float32,
+                  donate_cache=False)
+    want = np.asarray(j.generate(jnp.asarray(prompt), max_new_tokens=N_NEW))
+    t = InferenceEngine(params_from_numpy(np_params, torch.float32, "cpu"), cfg, torch_xkv(**kw),
+                        mode="factored", tail_max=N_NEW + 2, cache_dtype=torch.float32,
                         factor_dtype=torch.float32, device="cpu")
     got = t.generate(prompt, N_NEW).numpy()
     assert got.shape == (2, N_NEW)

@@ -10,7 +10,9 @@ versions) against the JAX package.
     against ``factored_decode_attention_xla``, the oracles the JAX tests
     use (fp32 factors: 1e-4, the orders of the fp32 sums differ; int8
     factors run in bf16 as the kernels do, against fp32 oracles: 1e-2 for
-    K2, 3e-2 for K3, which also rounds its rebuilt keys).
+    K2, 3e-2 for K3, which also rounds its rebuilt keys); K3 also at head
+    size 64 (fp32, bf16 and int8 factors); K3's and K5's shape checks on
+    ``meta`` tensors (head sizes 64 and 128, any group size).
 
 The CUDA kernels themselves are held against these plain versions in
 ``test_torch_kernels_gpu.py`` (on a card) and by ``chip_smoke.py``.
@@ -141,6 +143,82 @@ def test_rankspace_plain_matches_xla_oracle(int8, ql, lens, lo):
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want.lse), **tol)
 
 
+def _bf16_values(x):
+    return None if x is None else torch.as_tensor(x).to(torch.bfloat16).float().numpy()
+
+
+# Head size 64 (Llama-3.2-1B's), rk 64, rv 32: (factors, b, ql, valid_len,
+# win_lo). "bf16" factors are bf16 values, handed to the oracle as fp32.
+LOWRANK_HD64_CASES = [("fp32", 2, 1, None, None), ("fp32", 1, 3, [90], [7]),
+                      ("bf16", 2, 1, [70, 96], None), ("int8", 2, 1, None, None),
+                      ("int8", 1, 2, [81], [30])]
+
+
+@pytest.mark.parametrize("dtype,b,ql,lens,lo", LOWRANK_HD64_CASES)
+def test_lowrank_plain_matches_xla_oracle_hd64(dtype, b, ql, lens, lo):
+    hq, hkv, hd, s_p, rk, rv = 4, 2, 64, 96, 64, 32
+    f = _factors(50, b, s_p, rk, rv, hkv * hd, dtype == "int8")
+    if dtype == "bf16":
+        f = {k: _bf16_values(v) for k, v in f.items()}
+    q_pre = rnd(60, b, hq, ql, hd)
+    cos_p, sin_p = rope_cos_sin(jnp.arange(s_p), hd, theta=10000.0)
+    cos_t, sin_t = rope_cos_sin(s_p + 3 + jnp.arange(ql)[None], hd, theta=10000.0)
+    scale = 1.0 / math.sqrt(hd)
+    want = factored_decode_attention_xla(
+        apply_rope(j(q_pre), cos_t, sin_t), j(f["k_us"]), j(f["k_vt"]), j(f["v_us"]),
+        j(f["v_vt"]), cos_p, sin_p, scale, hkv, k_scale_slice=j(f["k_scale"]),
+        v_rank_scale=j(f["v_scale"]), valid_len=j(lens), valid_lo=j(lo))
+    fac = {k: t(f[k]) for k in ("k_us", "k_vt", "v_us", "v_vt")}
+    if dtype == "bf16":
+        fac = {k: v.to(torch.bfloat16) for k, v in fac.items()}
+    before = k3.launches
+    got_out, got_lse = k3.lowrank_decode_attention(
+        t(q_pre), fac["k_us"], fac["k_vt"], fac["v_us"], fac["v_vt"],
+        t(cos_p), t(sin_p), t(cos_t), t(sin_t), lengths=t(lens),
+        k_scale_slice=t(f["k_scale"]), v_rank_scale=t(f["v_scale"]), win_lo=t(lo),
+        scale=scale, num_kv_heads=hkv)
+    assert k3.launches == before  # the plain version is not a launch
+    assert got_out.shape == (b, hq, ql, hd)
+    # bf16 and int8 factors round the rebuilt keys, the trig fields and the
+    # probabilities to bf16, as the kernel does: the file's bf16 tolerance.
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "fp32" else dict(rtol=3e-2, atol=3e-2)
+    np.testing.assert_allclose(got_out.float().numpy(), np.asarray(want.out), **tol)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want.lse), **tol)
+
+
+def _lowrank_meta(hq, hkv, hd, rk=64, rv=32, ql=1, s_p=40):
+    meta = dict(device="meta")
+    return (torch.empty((2, ql * hq, 2 * hd), dtype=torch.bfloat16, **meta),
+            torch.empty((2, s_p, rk), dtype=torch.bfloat16, **meta),
+            torch.empty((2, rk, hkv * hd), dtype=torch.bfloat16, **meta),
+            torch.empty((2, s_p, rv), dtype=torch.bfloat16, **meta),
+            torch.empty((2, rv, hkv * hd), dtype=torch.bfloat16, **meta),
+            torch.empty((s_p, hd // 2), dtype=torch.bfloat16, **meta),
+            torch.empty((s_p, hd // 2), dtype=torch.bfloat16, **meta))
+
+
+@pytest.mark.parametrize("hq,hkv,hd,ql", [(32, 8, 64, 1), (32, 8, 128, 1), (24, 8, 128, 1),
+                                          (12, 2, 64, 2), (28, 4, 128, 3), (7, 1, 64, 1)])
+def test_lowrank_kernel_takes_head_and_group_sizes(hq, hkv, hd, ql):
+    """K3's and K5's shape checks (run before the device checks) accept head
+    sizes 64 and 128 and any group size hq / hkv (3, 6, 7 included)."""
+    ops = _lowrank_meta(hq, hkv, hd, ql=ql)
+    assert k3.kernel_shapes(*ops, hq, hkv) == (2, ql * hq, hd, 40, 64, 32)
+
+
+@pytest.mark.parametrize("hd", [96, 256, 32])
+def test_lowrank_kernel_refuses_other_head_sizes(hd):
+    ops = _lowrank_meta(8, 2, hd)
+    with pytest.raises(ValueError, match="64 and 128"):
+        k3.kernel_shapes(*ops, 8, 2)
+    kw = dict(num_q_heads=8, num_kv_heads=2)
+    with pytest.raises(ValueError, match="64 and 128"):  # before the device checks
+        k3.lowrank_kernel(*ops, None, None, None, **kw)
+    ids = torch.zeros((2, 1), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="64 and 128"):
+        k3.sparse_lowrank_kernel(*ops, None, ids, 64, None, None, **kw)
+
+
 @pytest.mark.parametrize("int8,ql,lens,lo", DECODE_CASES)
 def test_lowrank_plain_matches_xla_oracle(int8, ql, lens, lo):
     b, hq, hkv, hd, s_p, rk, rv = 2, 4, 2, 16, 24, 12, 10
@@ -167,3 +245,79 @@ def test_lowrank_plain_matches_xla_oracle(int8, ql, lens, lo):
         tol = dict(rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got_out.numpy(), np.asarray(want.out), **tol)
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want.lse), **tol)
+
+
+def _bf16_values(x):
+    return None if x is None else torch.as_tensor(x).to(torch.bfloat16).float().numpy()
+
+
+# Head size 64 (Llama-3.2-1B's), rk 64, rv 32: (factors, b, ql, valid_len,
+# win_lo). "bf16" factors are bf16 values, handed to the oracle as fp32.
+LOWRANK_HD64_CASES = [("fp32", 2, 1, None, None), ("fp32", 1, 3, [90], [7]),
+                      ("bf16", 2, 1, [70, 96], None), ("int8", 2, 1, None, None),
+                      ("int8", 1, 2, [81], [30])]
+
+
+@pytest.mark.parametrize("dtype,b,ql,lens,lo", LOWRANK_HD64_CASES)
+def test_lowrank_plain_matches_xla_oracle_hd64(dtype, b, ql, lens, lo):
+    hq, hkv, hd, s_p, rk, rv = 4, 2, 64, 96, 64, 32
+    f = _factors(50, b, s_p, rk, rv, hkv * hd, dtype == "int8")
+    if dtype == "bf16":
+        f = {k: _bf16_values(v) for k, v in f.items()}
+    q_pre = rnd(60, b, hq, ql, hd)
+    cos_p, sin_p = rope_cos_sin(jnp.arange(s_p), hd, theta=10000.0)
+    cos_t, sin_t = rope_cos_sin(s_p + 3 + jnp.arange(ql)[None], hd, theta=10000.0)
+    scale = 1.0 / math.sqrt(hd)
+    want = factored_decode_attention_xla(
+        apply_rope(j(q_pre), cos_t, sin_t), j(f["k_us"]), j(f["k_vt"]), j(f["v_us"]),
+        j(f["v_vt"]), cos_p, sin_p, scale, hkv, k_scale_slice=j(f["k_scale"]),
+        v_rank_scale=j(f["v_scale"]), valid_len=j(lens), valid_lo=j(lo))
+    fac = {k: t(f[k]) for k in ("k_us", "k_vt", "v_us", "v_vt")}
+    if dtype == "bf16":
+        fac = {k: v.to(torch.bfloat16) for k, v in fac.items()}
+    before = k3.launches
+    got_out, got_lse = k3.lowrank_decode_attention(
+        t(q_pre), fac["k_us"], fac["k_vt"], fac["v_us"], fac["v_vt"],
+        t(cos_p), t(sin_p), t(cos_t), t(sin_t), lengths=t(lens),
+        k_scale_slice=t(f["k_scale"]), v_rank_scale=t(f["v_scale"]), win_lo=t(lo),
+        scale=scale, num_kv_heads=hkv)
+    assert k3.launches == before  # the plain version is not a launch
+    assert got_out.shape == (b, hq, ql, hd)
+    # bf16 and int8 factors round the rebuilt keys, the trig fields and the
+    # probabilities to bf16, as the kernel does: the file's bf16 tolerance.
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "fp32" else dict(rtol=3e-2, atol=3e-2)
+    np.testing.assert_allclose(got_out.float().numpy(), np.asarray(want.out), **tol)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want.lse), **tol)
+
+
+def _lowrank_meta(hq, hkv, hd, rk=64, rv=32, ql=1, s_p=40):
+    meta = dict(device="meta")
+    return (torch.empty((2, ql * hq, 2 * hd), dtype=torch.bfloat16, **meta),
+            torch.empty((2, s_p, rk), dtype=torch.bfloat16, **meta),
+            torch.empty((2, rk, hkv * hd), dtype=torch.bfloat16, **meta),
+            torch.empty((2, s_p, rv), dtype=torch.bfloat16, **meta),
+            torch.empty((2, rv, hkv * hd), dtype=torch.bfloat16, **meta),
+            torch.empty((s_p, hd // 2), dtype=torch.bfloat16, **meta),
+            torch.empty((s_p, hd // 2), dtype=torch.bfloat16, **meta))
+
+
+@pytest.mark.parametrize("hq,hkv,hd,ql", [(32, 8, 64, 1), (32, 8, 128, 1), (24, 8, 128, 1),
+                                          (12, 2, 64, 2), (28, 4, 128, 3), (7, 1, 64, 1)])
+def test_lowrank_kernel_takes_head_and_group_sizes(hq, hkv, hd, ql):
+    """K3's and K5's shape checks (run before the device checks) accept head
+    sizes 64 and 128 and any group size hq / hkv (3, 6, 7 included)."""
+    ops = _lowrank_meta(hq, hkv, hd, ql=ql)
+    assert k3.kernel_shapes(*ops, hq, hkv) == (2, ql * hq, hd, 40, 64, 32)
+
+
+@pytest.mark.parametrize("hd", [96, 256, 32])
+def test_lowrank_kernel_refuses_other_head_sizes(hd):
+    ops = _lowrank_meta(8, 2, hd)
+    with pytest.raises(ValueError, match="64 and 128"):
+        k3.kernel_shapes(*ops, 8, 2)
+    kw = dict(num_q_heads=8, num_kv_heads=2)
+    with pytest.raises(ValueError, match="64 and 128"):  # before the device checks
+        k3.lowrank_kernel(*ops, None, None, None, **kw)
+    ids = torch.zeros((2, 1), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="64 and 128"):
+        k3.sparse_lowrank_kernel(*ops, None, ids, 64, None, None, **kw)

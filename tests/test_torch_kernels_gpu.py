@@ -7,7 +7,9 @@ port's dependencies; ``tests/conftest.py`` imports JAX, so there run it as
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
 
 K1 is held at the 8B shape's group size 4 and at group sizes 1, 3 and 7
-and head sizes 64 and 128, with and without a sliding window.
+and head sizes 64 and 128, with and without a sliding window. K3 and K5
+likewise at head sizes 64 and 128, group size 7 with several row tiles,
+the 8B ranks, and ranks whose k_vt slice streams through the ring.
 
 Tolerances: each output row is held against its own largest value, since
 a row that averages many keys has small values. K1 and K3 round P to bf16
@@ -188,6 +190,72 @@ def test_sparse_kernels_match_plain(cuda, int8, ids, lens, lo):
     assert k3.sparse_launches == before + 1
     o5r, l5r = k3.sparse_lowrank_kernel_plain(*args, num_q_heads=hq, num_kv_heads=hkv)
     assert _row_rel_err(o5, o5r) <= TOL_BF16_OUT and _lse_err(l5, l5r) <= TOL_LSE
+
+
+# K3 and K5 beyond the main shape: head size 64 (Llama-3.2-1B's 32/8
+# reduced to 8/2), group size 7 (Qwen2-7B's 28/4) with ql 3 (21 rows of a
+# head: two row tiles), the 8B ranks at a ragged length, and ranks whose
+# k_vt slice does not fit in shared memory (streamed through the ring).
+# The vt slices are layer 1 of a 4-layer group's wider basis, as on the
+# main path. (hq, hkv, hd, s_p, rk, rv, int8, ql, valid_len, win_lo)
+LOWRANK_SHAPES = [
+    (8, 2, 64, 200, 64, 96, False, 1, None, None),
+    (8, 2, 64, 200, 64, 96, True, 2, 180, 30),
+    (8, 2, 64, 1000, 256, 384, False, 1, 990, None),
+    (28, 4, 128, 200, 64, 96, False, 3, 150, 20),
+    (28, 4, 128, 200, 128, 96, True, 1, None, 70),
+    (8, 2, 128, 1000, 512, 768, False, 1, 1000, None),
+    (8, 2, 128, 1000, 512, 768, True, 2, 777, 100),
+    (8, 2, 128, 300, 1024, 256, False, 1, None, None),
+    (8, 2, 128, 300, 1408, 96, True, 1, 250, None),
+    (8, 2, 64, 300, 1280, 128, False, 1, None, 40),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,hd,s_p,rk,rv,int8,ql,lens,lo", LOWRANK_SHAPES)
+def test_lowrank_kernels_shapes(cuda, hq, hkv, hd, s_p, rk, rv, int8, ql, lens, lo):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(9)
+    m = hkv * hd
+    k_us, k_vt, v_us, v_vt, v_scale = _factors(gen, cuda, s_p, rk, rv, 4 * m, int8)
+    k_vt, v_vt = k_vt[:, :, m:2 * m], v_vt[:, :, m:2 * m]
+    lengths = None if lens is None else torch.tensor([lens], device=cuda)
+    win_lo = None if lo is None else torch.tensor([lo], device=cuda)
+    theta = torch.arange(s_p, device=cuda)[:, None] * 0.01 * torch.arange(
+        1, hd // 2 + 1, device=cuda)[None]
+    cos_h, sin_h = theta.cos().to(torch.bfloat16), theta.sin().to(torch.bfloat16)
+    kw = dict(num_q_heads=hq, num_kv_heads=hkv)
+    # Scores of a few tenths: int8 factors rebuild keys ~2e4 times larger.
+    scale = 0.5 / rk ** 0.5 / (2e4 if int8 else 1.0)
+    qab = (torch.randn((1, ql * hq, 2 * hd), generator=gen, device=cuda) * scale).to(
+        torch.bfloat16)
+    args = (qab, k_us, k_vt, v_us, v_vt, cos_h, sin_h, v_scale, lengths, win_lo)
+    before = k3.launches
+    o3, l3 = k3.lowrank_kernel(*args, **kw)
+    assert k3.launches == before + 1
+    o3r, l3r = k3.lowrank_kernel_plain(*args, **kw)
+    assert o3.shape == (1, ql * hq, hd)
+    assert _row_rel_err(o3, o3r) <= TOL_BF16_OUT and _lse_err(l3, l3r) <= TOL_LSE
+    # K5 over chunks of 64 rows: one past valid_len, one cut by win_lo, -1.
+    nc = -(-s_p // 64)
+    ids = torch.tensor([[nc - 1, 0, -1, nc // 2]], device=cuda, dtype=torch.int32)
+    a5 = (qab[:, :hq], k_us, k_vt, v_us, v_vt, cos_h, sin_h, v_scale, ids, 64, lengths, win_lo)
+    before = k3.sparse_launches
+    o5, l5 = k3.sparse_lowrank_kernel(*a5, **kw)
+    assert k3.sparse_launches == before + 1
+    o5r, l5r = k3.sparse_lowrank_kernel_plain(*a5, **kw)
+    assert _row_rel_err(o5, o5r) <= TOL_BF16_OUT and _lse_err(l5, l5r) <= TOL_LSE
+
+
+@pytest.mark.gpu
+def test_lowrank_streams_only_large_slices(cuda):
+    """The k_vt slice stays resident at the main paths' ranks and streams
+    where it does not fit (the cases above)."""
+    assert not k3.streams_kvt(128, 512, False) and not k3.streams_kvt(64, 256, False)
+    assert not k3.streams_kvt(128, 512, True) and not k3.streams_kvt(64, 256, True)
+    assert k3.streams_kvt(128, 1024, False) and k3.streams_kvt(128, 1408, True)
+    assert k3.streams_kvt(64, 1280, False)
 
 
 @pytest.mark.gpu

@@ -10,7 +10,8 @@
     counterparts in fp32 (1e-4).
   * The plain versions of K4 and K5 (the wrappers on CPU tensors, fp32
     factors) against the Pallas kernels ``sparse_rankspace_decode_attention``
-    and ``sparse_lowrank_decode_attention`` in interpret mode (1e-4).
+    and ``sparse_lowrank_decode_attention`` in interpret mode (1e-4); K5
+    also at head size 64.
   * The engine, fp32 weights and cache on the in-repo checkpoint: greedy
     tokens equal the JAX engine's in sparse pre, sparse post, sparse post
     with ``sparse_layers`` and with ``sparse_topk_max``; full coverage
@@ -190,6 +191,33 @@ def test_k4_k5_plain_match_pallas_interpret(ids, lens, lo):
     got = k3.sparse_lowrank_decode_attention(t(q_pre), *map(t, fac), *map(t, trig), t(ids_np),
                                              t(lens), win_lo=t(lo), **kw)
     assert k3.sparse_launches == before
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
+
+
+# Head size 64 (Llama-3.2-1B's), rk 64, rv 32, chunks of 16 rows over 72
+# rows (chunk 4 is ragged): (ids, valid_len, win_lo).
+K5_HD64_CASES = [([[4, 0], [1, 3]], None, None), ([[2, -1, 4], [0, 1, 3]], [72, 50], [9, 0])]
+
+
+@pytest.mark.parametrize("ids,lens,lo", K5_HD64_CASES)
+def test_k5_plain_matches_pallas_interpret_hd64(ids, lens, lo):
+    b, hq, hkv, hd, s_p, blk = 2, 4, 2, 64, 72, 16
+    f = _factors(9, b, s_p, 64, 32, hkv * hd)
+    q_pre = rnd(10, b, hq, 1, hd)
+    ids_np = np.asarray(ids, np.int32)
+    fac = [f["k_us"], f["k_vt"], f["v_us"], f["v_vt"]]
+    cos_p, sin_p = rope_cos_sin(jnp.arange(s_p), hd, theta=10000.0)
+    cos_t, sin_t = rope_cos_sin(jnp.full((b,), s_p + 2), hd, theta=10000.0)
+    trig = [cos_p, sin_p, cos_t, sin_t]
+    kw = dict(scale=0.125, num_kv_heads=hkv, block=blk)
+    want = jax_k5(j(q_pre), *map(j, fac), *trig, j(ids_np), j(lens), win_lo=j(lo),
+                  interpret=True, **kw)
+    before = k3.sparse_launches
+    got = k3.sparse_lowrank_decode_attention(t(q_pre), *map(t, fac), *map(t, trig), t(ids_np),
+                                             t(lens), win_lo=t(lo), **kw)
+    assert k3.sparse_launches == before
+    assert got[0].shape == (b, hq, 1, hd)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
 

@@ -1,6 +1,8 @@
-// Pieces shared by the pre-RoPE low-rank decode kernels: K3/K5
-// (lowrank_attention.cu) and the kernel-study kernels built from K3, K9
-// (kernel_variants.cu) and K10 (kernel_ablation.cu).
+// Pieces of K3's first design (one CTA per 32 rows and key split, all kv
+// heads in turn, k_vt re-streamed per block), kept for the kernel-study
+// kernels built from it: K9 (kernel_variants.cu) and K10
+// (kernel_ablation.cu). K3/K5 themselves (lowrank_attention.cu) no longer
+// use them.
 //
 // - The on-chip key rebuild of one kv head, K = k_us @ k_vt, on mma.sync
 //   tensor cores (bf16 -> fp32 or int8 -> int32), k_vt streamed through

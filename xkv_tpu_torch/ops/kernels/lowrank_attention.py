@@ -201,15 +201,42 @@ def sparse_lowrank_kernel_plain(
                          v_scale, live, num_q_heads, num_kv_heads)
 
 
-def _check_operands(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale,
-                    num_q_heads, num_kv_heads, hd=None) -> bool:
-    """K3's and K5's operand checks (K9's too, whose qab is the full-width
-    (b, R, 2*hkv*hd), with ``hd`` given); returns whether the factors are
-    int8."""
+HEAD_DIMS = (64, 128)
+# Query rows of one CTA: the rows of one kv head, in tiles of this many
+# (kHR in csrc/lowrank_attention.cu).
+HEAD_ROW_TILE = 16
+
+
+def kernel_shapes(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, num_q_heads,
+                  num_kv_heads, hd=None):
+    """K3's and K5's shape checks, run before the device checks: head size
+    64 or 128, any group size, rk a multiple of 64, rv a multiple of 16 up
+    to 1024. Returns (b, R, hd, s_p, rk, rv). K9, whose qab is the
+    full-width (b, R, 2*hkv*hd), passes ``hd``."""
     b, R, two_hd = qab.shape
     hd = two_hd // 2 if hd is None else hd
     s_p, rk = k_us.shape[1], k_us.shape[2]
     rv = v_us.shape[2]
+    m = num_kv_heads * hd
+    _build.require(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS} (the kernels take 64 "
+                   "and 128)")
+    _build.require(num_q_heads % num_kv_heads == 0 and R % num_q_heads == 0,
+                   "rows must be ql * hq with hq a multiple of hkv")
+    _build.require(tuple(k_vt_slice.shape) == (b, rk, m) and tuple(v_vt_slice.shape) == (b, rv, m),
+                   "vt slices must be (b, rank, hkv*hd)")
+    _build.require(tuple(cos_h.shape) == (s_p, hd // 2) and sin_h.shape == cos_h.shape,
+                   "half tables must be (s_p, hd/2)")
+    _build.require(rk % 64 == 0 and rk > 0 and rv % 16 == 0 and 0 < rv <= 1024,
+                   f"ranks rk={rk} (multiple of 64), rv={rv} (multiple of 16, <= 1024)")
+    return b, R, hd, s_p, rk, rv
+
+
+def _check_operands(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale,
+                    num_q_heads, num_kv_heads, hd=None) -> bool:
+    """K3's and K5's operand checks (K9's too, see ``kernel_shapes``);
+    returns whether the factors are int8."""
+    b, _, _, _, _, rv = kernel_shapes(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h,
+                                      num_q_heads, num_kv_heads, hd)
     fdt = (torch.bfloat16, torch.int8)
     _build.require_cuda_tensor(qab, "qab", (torch.bfloat16,), 3)
     _build.require_cuda_tensor(k_us, "k_us", fdt, 3)
@@ -221,26 +248,22 @@ def _check_operands(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_sca
     for name, t in (("qab", qab), ("k_us", k_us), ("v_us", v_us),
                     ("cos_h", cos_h), ("sin_h", sin_h)):
         _build.require(t.is_contiguous(), f"{name} must be contiguous")
-    m = num_kv_heads * hd
-    _build.require(hd == 128, f"head_dim {hd} != 128")
-    _build.require(num_q_heads % num_kv_heads == 0 and R % num_q_heads == 0,
-                   "rows must be ql * hq with hq a multiple of hkv")
-    _build.require(k_vt_slice.shape == (b, rk, m) and v_vt_slice.shape == (b, rv, m),
-                   "vt slices must be (b, rank, hkv*hd)")
-    _build.require(cos_h.shape == (s_p, hd // 2) and sin_h.shape == cos_h.shape,
-                   "half tables must be (s_p, hd/2)")
-    _build.require(rk % 64 == 0 and rv % 16 == 0 and rv <= 1024,
-                   f"ranks rk={rk} (multiple of 64), rv={rv} (multiple of 16, <= 1024)")
     _build.require(k_vt_slice.stride(1) % 16 == 0 and v_vt_slice.stride(1) % 8 == 0,
                    "vt row strides must keep 16-byte alignment")
     quantized = k_us.dtype == torch.int8
     if quantized:
         _build.require_cuda_tensor(v_scale, "v_scale", (torch.float32,), 3)
-        _build.require(v_scale.shape == (b, 1, rv) and v_scale.is_contiguous(),
+        _build.require(tuple(v_scale.shape) == (b, 1, rv) and v_scale.is_contiguous(),
                        "v_scale must be contiguous (b, 1, rv)")
     else:
         _build.require(v_scale is None, "v_scale applies to int8 factors only")
     return quantized
+
+
+def streams_kvt(hd: int, rk: int, int8: bool) -> bool:
+    """Whether K3/K5 stream the head's k_vt slice through their ring (True)
+    or keep it resident in shared memory (False) at these sizes."""
+    return bool(_build.load().xkv_lowrank_streams_kvt(hd, rk, int(int8)))
 
 
 def _launch(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale, ids, block,
@@ -249,9 +272,8 @@ def _launch(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale, ids,
     chunks ``ids`` of ``block`` rows. Returns (out, lse)."""
     quantized = _check_operands(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h,
                                 v_scale, num_q_heads, num_kv_heads)
-    b, R, two_hd = qab.shape
-    hd = two_hd // 2
-    s_p, rk, rv = k_us.shape[1], k_us.shape[2], v_us.shape[2]
+    b, R, hd, s_p, rk, rv = kernel_shapes(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h,
+                                          sin_h, num_q_heads, num_kv_heads)
     dev = k_us.device
     lens, los = _build.live_range(b, s_p, lengths, win_lo, dev)
     if ids is None:
@@ -261,10 +283,14 @@ def _launch(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale, ids,
         _build.require(ids.dim() == 2 and ids.shape[0] == b, "ids must be (b, n_sel)")
         ids = ids.to(device=dev, dtype=torch.int32).contiguous()
         keys = ids.shape[1] * block
-    nsplit = _build.num_splits(keys, b * -(-R // 32), 1, dev)
+    # One CTA per (kv head, tile of its rows, split, sequence).
+    tiles = -(-(R // num_kv_heads) // HEAD_ROW_TILE)
+    nsplit = _build.num_splits(keys, b * num_kv_heads * tiles, 1, dev)
     part_t = torch.empty((b, nsplit, R, rv), dtype=torch.float32, device=dev)
     part_m = torch.empty((b, nsplit, R), dtype=torch.float32, device=dev)
     part_l = torch.empty((b, nsplit, R), dtype=torch.float32, device=dev)
+    part_o = torch.empty((b, -(-rv // 64), R, hd), dtype=torch.float32, device=dev)
+    done = torch.empty((b * num_kv_heads * tiles,), dtype=torch.int32, device=dev)
     out = torch.empty((b, R, hd), dtype=torch.bfloat16, device=dev)
     lse = torch.empty((b, R), dtype=torch.float32, device=dev)
     common = (qab.data_ptr(), k_us.data_ptr(), k_vt_slice.data_ptr(),
@@ -274,7 +300,8 @@ def _launch(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale, ids,
               cos_h.data_ptr(), sin_h.data_ptr(),
               v_scale.data_ptr() if quantized else None)
     scratch = (lens.data_ptr(), los.data_ptr(), part_t.data_ptr(), part_m.data_ptr(),
-               part_l.data_ptr(), out.data_ptr(), lse.data_ptr(),
+               part_l.data_ptr(), part_o.data_ptr(), done.data_ptr(), out.data_ptr(),
+               lse.data_ptr(),
                b, R, num_q_heads, num_kv_heads, hd, s_p, rk, rv)
     lib = _build.load()
     if ids is None:
