@@ -12,7 +12,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
              xKV-4 shapes (K1 also at group sizes 3 and 7, head size 64
              and a 4096 window), and K7 (MLA rank-space decode) and K8 (its
              mixed int8+int4 variant) at the DeepSeek-V2-Lite shapes; and
-             time kernel, plain version, library call and bound;
+             time kernel, plain version, library call and bound (K2 also
+             over int8 factors, K2 and K6 also at R 128, four tokens of 32
+             heads, as a speculative verify pass runs them);
   2b. tools  the kernel-study kernels: K9 (design variants of K3's score
              stage) against K3's plain version at K3's shapes, K10 (K3's
              stage ablation) in every stage set against its plain version,
@@ -234,6 +236,13 @@ def _decode_inputs(gen, s_p, rk, rv, m, dtype):
 # Llama-3.1-8B xKV-4 layer and the Llama-3.2-1B one (head size 64; the 8B
 # ranks at the same fraction of the group width, 2048 against 4096).
 LOWRANK_SHAPES = {"8B": (32, 8, 128, 8192, 512, 768), "1B": (32, 8, 64, 8192, 256, 384)}
+K2_DESIGN = ("stage 2 (the Hopper design; PR 8 measured a stage-1 mma.sync kernel first): one "
+             "CTA per (key split, value slice, 32-row tile), 256-rank value slices when R <= 32, "
+             "a producer warp loading q_emb and a ring of 64-key x 64-rank panels by TMA (as "
+             "deep as shared memory allows), int8 and int4 widened to bf16 in shared memory, "
+             "scores s^T = k_us . q_emb^T and t^T += v_us^T . P^T on wgmma (keys and ranks on "
+             "M, tnspA), splits filling the SMs once; merge per (64-rank chunk, row); K4 and K6 "
+             "run the same kernel")
 K3_DESIGN = ("stage 2 (the Hopper design; stage 1 was mma.sync with a cp.async ring): one CTA "
              "per (kv head, 16-row tile, key split), the head's k_vt slice resident in shared "
              "memory, a producer warp filling a 4-stage TMA ring of k_us, [cos | sin] and v_us "
@@ -256,14 +265,10 @@ def _lowrank_extra(timing, key, build_log):
     shape (bf16, int8), the design, where k_vt lives, and registers."""
     from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
 
-    def row(t):
-        return dict(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
-                    bound_by=t["bound"][1])
-
     kvt = {f"{shape} {dt}": ("streamed" if k3.streams_kvt(hd, rk, dt == "int8") else "resident")
            for shape, (_, _, hd, _, rk, _) in LOWRANK_SHAPES.items() for dt in ("bf16", "int8")}
-    return dict(int8=row(timing[(key, "8B", "int8")]),
-                hd64={dt: row(timing[(key, "1B", dt)]) for dt in ("bf16", "int8")},
+    return dict(int8=_row(timing[(key, "8B", "int8")]),
+                hd64={dt: _row(timing[(key, "1B", dt)]) for dt in ("bf16", "int8")},
                 design=K3_DESIGN, k_vt=kvt,
                 ptxas=ptxas_resources(build_log, "lowrank_attention.cu") if build_log else {})
 
@@ -319,19 +324,28 @@ def check_decode(gen, results, build_log=None):
                 if ql == 1 and lens is None:
                     # The main path's shapes: one query row per head.
                     live = s_p
-                    if shape == "8B" and dtype == "bf16":
-                        # Library: SDPA over the same rank-space operands, scale 1.
-                        q4, k4, v4 = q_emb[:, None], f["k_us"][:, None], f["v_us"][:, None]
-                        timing["K2"] = dict(
-                            ms=cuda_time_ms(lambda: k2.rankspace_kernel(q_emb, f["k_us"],
-                                                                        f["v_us"])),
-                            plain_ms=cuda_time_ms(
-                                lambda: k2.rankspace_kernel_plain(q_emb, f["k_us"], f["v_us"])),
-                            library_ms=cuda_time_ms(
-                                lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)),
-                            bound=bound_ms(nbytes(q_emb, f["k_us"], f["v_us"], t, lse),
-                                           2.0 * q_emb.shape[1] * live * (rk + rv)
-                                           / BF16_OPS_PER_S))
+                    if shape == "8B":
+                        # K2 at R 32 (ql 1) and R 128 (ql 4, a speculative
+                        # verify pass); the library time at R 32, bf16: SDPA
+                        # over the same rank-space operands, scale 1.
+                        q128 = torch.randn((1, hq, 4, hd), generator=gen, device="cuda")
+                        q_emb128 = k2._project_q(q128.to(torch.bfloat16), vt_k, hkv, scale,
+                                                 k_scale, torch.bfloat16)
+                        for qe in (q_emb, q_emb128):
+                            R = qe.shape[1]
+                            t_r, lse_r = k2.rankspace_kernel(qe, f["k_us"], f["v_us"])
+                            timing[("K2", dtype, R)] = dict(
+                                ms=cuda_time_ms(lambda: k2.rankspace_kernel(qe, f["k_us"],
+                                                                            f["v_us"])),
+                                plain_ms=cuda_time_ms(lambda: k2.rankspace_kernel_plain(
+                                    qe, f["k_us"], f["v_us"])),
+                                bound=bound_ms(nbytes(qe, f["k_us"], f["v_us"], t_r, lse_r),
+                                               2.0 * R * live * (rk + rv) / BF16_OPS_PER_S))
+                            log(f"K2 {dtype} R {R} ms: {timing[('K2', dtype, R)]}")
+                        if dtype == "bf16":
+                            q4, k4, v4 = q_emb[:, None], f["k_us"][:, None], f["v_us"][:, None]
+                            timing["K2"] = dict(timing[("K2", dtype, 32)], library_ms=cuda_time_ms(
+                                lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)))
                     R = qab.shape[1]
                     # Inputs as the kernel reads them: vt slices are rk x m
                     # and rv x m of the group's wider bases.
@@ -352,6 +366,17 @@ def check_decode(gen, results, build_log=None):
     ):
         _report(results, key, name, src, rep, worst[key], timing[key])
     results["K3"].update(_lowrank_extra(timing, "K3", build_log))
+    results["K2"].update(
+        int8=_row(timing[("K2", "int8", 32)]),
+        r128={dt: _row(timing[("K2", dt, 128)]) for dt in ("bf16", "int8")},
+        design=K2_DESIGN,
+        ptxas=ptxas_resources(build_log, "rankspace_attention.cu") if build_log else {})
+
+
+def _row(t):
+    """A kernel's readings beyond the main record: ms, plain ms, bound."""
+    return dict(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
+                bound_by=t["bound"][1])
 
 
 def bytes_per_row(*ts) -> int:
@@ -498,11 +523,22 @@ def check_sparse_and_mixed(gen, results, build_log=None):
         torch.cuda.synchronize()
         _hold("K6", f"ql={ql} valid_len={lens} win_lo={lo}", t6, t6r, l6, l6r, worst["K6"])
         if ql == 1 and lens is None:
-            timing["K6"] = dict(
-                ms=cuda_time_ms(lambda: k2.mixed_rankspace_kernel(*a6)),
-                plain_ms=cuda_time_ms(lambda: k2.mixed_rankspace_kernel_plain(*a6)),
-                bound=bound_ms(nbytes(q_emb, qk.us8, qk.us4p, qv.us8, qv.us4p, t6, l6),
-                               2.0 * hq * s_p * (rk + rv) / BF16_OPS_PER_S))
+            # R 32 (ql 1) and R 128 (ql 4, a speculative verify pass).
+            q128 = torch.randn((1, hq, 4, hd), generator=gen, device=dev).to(torch.bfloat16)
+            q_emb128 = torch.cat([
+                k2._project_q(q128, sl(qk.vt8), hkv, scale, sl(qk.out_scale), torch.bfloat16),
+                k2._project_q(q128, sl(qk.vt4), hkv, scale, sl(qk.scale4), torch.bfloat16)],
+                dim=2)
+            for qe in (q_emb, q_emb128):
+                a = (qe,) + a6[1:]
+                t_r, l_r = k2.mixed_rankspace_kernel(*a)
+                timing[("K6", qe.shape[1])] = dict(
+                    ms=cuda_time_ms(lambda: k2.mixed_rankspace_kernel(*a)),
+                    plain_ms=cuda_time_ms(lambda: k2.mixed_rankspace_kernel_plain(*a)),
+                    bound=bound_ms(nbytes(qe, qk.us8, qk.us4p, qv.us8, qv.us4p, t_r, l_r),
+                                   2.0 * qe.shape[1] * s_p * (rk + rv) / BF16_OPS_PER_S))
+                log(f"K6 R {qe.shape[1]} ms: {timing[('K6', qe.shape[1])]}")
+            timing["K6"] = timing[("K6", 32)]
     rs = "xkv_tpu/ops/pallas/rankspace_attention.py"
     for key, name, src, rep in (
         ("K4", "sparse_rankspace_decode_attention",
@@ -514,6 +550,8 @@ def check_sparse_and_mixed(gen, results, build_log=None):
     ):
         _report(results, key, name, src, rep, worst[key], timing[key])
     results["K5"].update(_lowrank_extra(timing, "K5", build_log))
+    results["K6"].update(r128=_row(timing[("K6", 128)]), design=K2_DESIGN)
+    results["K4"].update(design=K2_DESIGN)
 
 
 def check_mla(gen, results):
@@ -1055,9 +1093,14 @@ def profile_decode(eng, cache, tok, pos, step_ms: float, steps: int = 4) -> dict
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    # The decode kernels' split and merge passes by name (K2/K4/K6:
+    # rankspace_tma_split_kernel, rankspace_merge_cols_kernel).
+    decode = {e.key[:60]: e.self_device_time_total / 1e3 / steps for e in kernels
+              if any(k in e.key for k in ("rankspace", "lowrank", "mla_split"))}
     return dict(device_busy_ms_per_step=busy_ms, device_idle_share=1.0 - busy_ms / step_ms,
                 top_kernels_ms_per_step={e.key[:60]: e.self_device_time_total / 1e3 / steps
-                                         for e in top})
+                                         for e in top},
+                decode_kernels_ms_per_step=decode)
 
 
 def _leaves(tree):

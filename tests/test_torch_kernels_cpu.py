@@ -143,82 +143,6 @@ def test_rankspace_plain_matches_xla_oracle(int8, ql, lens, lo):
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want.lse), **tol)
 
 
-def _bf16_values(x):
-    return None if x is None else torch.as_tensor(x).to(torch.bfloat16).float().numpy()
-
-
-# Head size 64 (Llama-3.2-1B's), rk 64, rv 32: (factors, b, ql, valid_len,
-# win_lo). "bf16" factors are bf16 values, handed to the oracle as fp32.
-LOWRANK_HD64_CASES = [("fp32", 2, 1, None, None), ("fp32", 1, 3, [90], [7]),
-                      ("bf16", 2, 1, [70, 96], None), ("int8", 2, 1, None, None),
-                      ("int8", 1, 2, [81], [30])]
-
-
-@pytest.mark.parametrize("dtype,b,ql,lens,lo", LOWRANK_HD64_CASES)
-def test_lowrank_plain_matches_xla_oracle_hd64(dtype, b, ql, lens, lo):
-    hq, hkv, hd, s_p, rk, rv = 4, 2, 64, 96, 64, 32
-    f = _factors(50, b, s_p, rk, rv, hkv * hd, dtype == "int8")
-    if dtype == "bf16":
-        f = {k: _bf16_values(v) for k, v in f.items()}
-    q_pre = rnd(60, b, hq, ql, hd)
-    cos_p, sin_p = rope_cos_sin(jnp.arange(s_p), hd, theta=10000.0)
-    cos_t, sin_t = rope_cos_sin(s_p + 3 + jnp.arange(ql)[None], hd, theta=10000.0)
-    scale = 1.0 / math.sqrt(hd)
-    want = factored_decode_attention_xla(
-        apply_rope(j(q_pre), cos_t, sin_t), j(f["k_us"]), j(f["k_vt"]), j(f["v_us"]),
-        j(f["v_vt"]), cos_p, sin_p, scale, hkv, k_scale_slice=j(f["k_scale"]),
-        v_rank_scale=j(f["v_scale"]), valid_len=j(lens), valid_lo=j(lo))
-    fac = {k: t(f[k]) for k in ("k_us", "k_vt", "v_us", "v_vt")}
-    if dtype == "bf16":
-        fac = {k: v.to(torch.bfloat16) for k, v in fac.items()}
-    before = k3.launches
-    got_out, got_lse = k3.lowrank_decode_attention(
-        t(q_pre), fac["k_us"], fac["k_vt"], fac["v_us"], fac["v_vt"],
-        t(cos_p), t(sin_p), t(cos_t), t(sin_t), lengths=t(lens),
-        k_scale_slice=t(f["k_scale"]), v_rank_scale=t(f["v_scale"]), win_lo=t(lo),
-        scale=scale, num_kv_heads=hkv)
-    assert k3.launches == before  # the plain version is not a launch
-    assert got_out.shape == (b, hq, ql, hd)
-    # bf16 and int8 factors round the rebuilt keys, the trig fields and the
-    # probabilities to bf16, as the kernel does: the file's bf16 tolerance.
-    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "fp32" else dict(rtol=3e-2, atol=3e-2)
-    np.testing.assert_allclose(got_out.float().numpy(), np.asarray(want.out), **tol)
-    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want.lse), **tol)
-
-
-def _lowrank_meta(hq, hkv, hd, rk=64, rv=32, ql=1, s_p=40):
-    meta = dict(device="meta")
-    return (torch.empty((2, ql * hq, 2 * hd), dtype=torch.bfloat16, **meta),
-            torch.empty((2, s_p, rk), dtype=torch.bfloat16, **meta),
-            torch.empty((2, rk, hkv * hd), dtype=torch.bfloat16, **meta),
-            torch.empty((2, s_p, rv), dtype=torch.bfloat16, **meta),
-            torch.empty((2, rv, hkv * hd), dtype=torch.bfloat16, **meta),
-            torch.empty((s_p, hd // 2), dtype=torch.bfloat16, **meta),
-            torch.empty((s_p, hd // 2), dtype=torch.bfloat16, **meta))
-
-
-@pytest.mark.parametrize("hq,hkv,hd,ql", [(32, 8, 64, 1), (32, 8, 128, 1), (24, 8, 128, 1),
-                                          (12, 2, 64, 2), (28, 4, 128, 3), (7, 1, 64, 1)])
-def test_lowrank_kernel_takes_head_and_group_sizes(hq, hkv, hd, ql):
-    """K3's and K5's shape checks (run before the device checks) accept head
-    sizes 64 and 128 and any group size hq / hkv (3, 6, 7 included)."""
-    ops = _lowrank_meta(hq, hkv, hd, ql=ql)
-    assert k3.kernel_shapes(*ops, hq, hkv) == (2, ql * hq, hd, 40, 64, 32)
-
-
-@pytest.mark.parametrize("hd", [96, 256, 32])
-def test_lowrank_kernel_refuses_other_head_sizes(hd):
-    ops = _lowrank_meta(8, 2, hd)
-    with pytest.raises(ValueError, match="64 and 128"):
-        k3.kernel_shapes(*ops, 8, 2)
-    kw = dict(num_q_heads=8, num_kv_heads=2)
-    with pytest.raises(ValueError, match="64 and 128"):  # before the device checks
-        k3.lowrank_kernel(*ops, None, None, None, **kw)
-    ids = torch.zeros((2, 1), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="64 and 128"):
-        k3.sparse_lowrank_kernel(*ops, None, ids, 64, None, None, **kw)
-
-
 @pytest.mark.parametrize("int8,ql,lens,lo", DECODE_CASES)
 def test_lowrank_plain_matches_xla_oracle(int8, ql, lens, lo):
     b, hq, hkv, hd, s_p, rk, rv = 2, 4, 2, 16, 24, 12, 10
@@ -321,3 +245,95 @@ def test_lowrank_kernel_refuses_other_head_sizes(hd):
     ids = torch.zeros((2, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="64 and 128"):
         k3.sparse_lowrank_kernel(*ops, None, ids, 64, None, None, **kw)
+
+
+# K2/K4/K6 split counts on a 132-SM card: (64-key blocks, R, rv, b, splits).
+# The 8B layer at ql 1 and 4 (R 32, 128), sparse top-4 of 512-row chunks
+# (32 blocks), Qwen2-7B's 28 heads x ql 3 (R 84), two sequences, and a
+# grid too large for one split per SM.
+SPLIT_CASES = [(128, 32, 768, 1, 44), (128, 128, 768, 1, 33), (32, 32, 768, 1, 32),
+               (128, 84, 768, 1, 44), (4, 32, 96, 2, 4), (128, 32, 1024, 2, 16),
+               (1, 2000, 1024, 4, 1)]
+
+
+@pytest.mark.parametrize("n_blocks,R,rv,b,want", SPLIT_CASES)
+def test_rankspace_split_count(n_blocks, R, rv, b, want):
+    """The grid (splits x value slices x 32-row tiles x sequences) fills the
+    SMs once, with at least one 64-key block per split; 256-rank value
+    slices only for a single row tile."""
+    nsplit = k2.split_count(n_blocks, R, rv, b, 132)
+    assert nsplit == want
+    assert 1 <= nsplit <= n_blocks
+
+
+def test_rankspace_partials_are_a_small_part_of_the_factors():
+    """At the 8B layer (s_p 8192, rk 512, rv 768, bf16, R 32) the fp32
+    partials written and read back are under a quarter of the factor bytes."""
+    s_p, rk, rv, R = 8192, 512, 768, 32
+    nsplit = k2.split_count(s_p // 64, R, rv, 1, 132)
+    assert nsplit * R * rv * 4 < 0.25 * s_p * (rk + rv) * 2
+
+
+def _rankspace_meta(b, R, s_p, rk, rv, dtype=torch.bfloat16):
+    meta = dict(device="meta")
+    return (torch.empty((b, R, rk), dtype=torch.bfloat16, **meta),
+            torch.empty((b, s_p, rk), dtype=dtype, **meta),
+            torch.empty((b, s_p, rv), dtype=dtype, **meta))
+
+
+# (R, s_p, rk, rv): the 8B layer at ql 1 and 4, R 84, rv 16 and 1024, a
+# segment shorter than a block and not a multiple of 64.
+RANKSPACE_SHAPES = [(32, 8192, 512, 768), (128, 8192, 512, 768), (84, 2000, 512, 768),
+                    (32, 1000, 64, 16), (32, 1000, 256, 1024), (3, 40, 16, 16)]
+
+
+@pytest.mark.parametrize("R,s_p,rk,rv", RANKSPACE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_rankspace_kernel_takes_shapes(R, s_p, rk, rv, dtype):
+    """K2's and K4's shape rules (run before the device checks) take any b
+    and R, rk and rv multiples of 16, rv up to 1024."""
+    assert k2.rankspace_shapes(*_rankspace_meta(2, R, s_p, rk, rv, dtype)) == (2, R, s_p, rk, rv)
+
+
+@pytest.mark.parametrize("rk,rv", [(24, 64), (64, 24), (64, 1040), (0, 64)])
+def test_rankspace_kernel_refuses_other_ranks(rk, rv):
+    ops = _rankspace_meta(1, 32, 100, rk, rv)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        k2.rankspace_kernel(*ops)  # before the device checks
+    ids = torch.zeros((1, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="multiples of 16"):
+        k2.sparse_rankspace_kernel(*ops, ids, 64)
+
+
+def test_sparse_rankspace_kernel_refuses_other_chunks():
+    ops = _rankspace_meta(1, 32, 100, 64, 64)
+    ids = torch.zeros((1, 2), dtype=torch.int32, device="meta")
+    for block in (32, 100, 0):
+        with pytest.raises(ValueError, match="multiple of 64"):
+            k2.sparse_rankspace_kernel(*ops, ids, block)
+
+
+def _mixed_meta(b, R, s_p, r8k, h4k, r8v, h4v):
+    meta = dict(device="meta", dtype=torch.int8)
+    return (torch.empty((b, R, r8k + 2 * h4k), device="meta", dtype=torch.bfloat16),
+            torch.empty((b, s_p, r8k), **meta), torch.empty((b, s_p, h4k), **meta),
+            torch.empty((b, s_p, r8v), **meta), torch.empty((b, s_p, h4v), **meta))
+
+
+# (r8k, h4k, r8v, h4v): the 8B split (256 + 256 / 256 + 512 ranks), splits
+# that are not whole 64-byte boxes, all int8, all int4, rv 1024.
+MIXED_SPLITS = [(256, 128, 256, 256), (16, 24, 24, 36), (64, 0, 96, 0), (0, 32, 0, 48),
+                (2, 7, 256, 384)]
+
+
+@pytest.mark.parametrize("r8k,h4k,r8v,h4v", MIXED_SPLITS)
+def test_mixed_kernel_takes_any_split(r8k, h4k, r8v, h4v):
+    ops = _mixed_meta(2, 84, 1000, r8k, h4k, r8v, h4v)
+    assert k2.mixed_shapes(*ops) == (2, 84, 1000, r8k, h4k, r8v, h4v)
+
+
+def test_mixed_kernel_refuses_other_totals():
+    with pytest.raises(ValueError, match="multiples of 16"):
+        k2.mixed_rankspace_kernel(*_mixed_meta(1, 32, 100, 8, 8, 16, 0))
+    with pytest.raises(ValueError, match="multiples of 16"):
+        k2.mixed_rankspace_kernel(*_mixed_meta(1, 32, 100, 16, 0, 512, 264))

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K8 against their plain versions, on a card.
+"""The CUDA kernels K1-K11 against their plain versions, on a card.
 
 Marked ``gpu``: each test skips without a CUDA device. This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only the
@@ -9,7 +9,12 @@ port's dependencies; ``tests/conftest.py`` imports JAX, so there run it as
 K1 is held at the 8B shape's group size 4 and at group sizes 1, 3 and 7
 and head sizes 64 and 128, with and without a sliding window. K3 and K5
 likewise at head sizes 64 and 128, group size 7 with several row tiles,
-the 8B ranks, and ranks whose k_vt slice streams through the ring.
+the 8B ranks, and ranks whose k_vt slice streams through the ring. K2, K4
+and K6 at the 8B layer (R 32 and 128, bf16, int8 and the mixed split) and
+at the edges of their ring and splits: s_p not a multiple of 64, a
+valid_len inside one CTA's run of blocks, win_lo inside a block, two
+sequences of different lengths, R 84, rv 16 and 1024, a -1 chunk id, a
+ragged last chunk, and K6 splits that are not whole 64-byte boxes.
 
 Tolerances: each output row is held against its own largest value, since
 a row that averages many keys has small values. K1 and K3 round P to bf16
@@ -408,3 +413,113 @@ def test_probe_kernel_matches_plain(cuda, kind, m, k):
         assert torch.equal(got, ref)
     if kind == "int4":
         assert torch.equal(got, k11.gemm_chain(x, w, 7, "int8"))
+
+
+def _rs_factors(gen, cuda, b, s_p, rk, rv, dtype):
+    """k_us, v_us and a q_emb whose scores are a few tenths."""
+    if dtype == "int8":
+        k_us = torch.randint(-127, 128, (b, s_p, rk), generator=gen, device=cuda).to(torch.int8)
+        v_us = torch.randint(-127, 128, (b, s_p, rv), generator=gen, device=cuda).to(torch.int8)
+        scale = 0.5 / rk ** 0.5 / 73.0
+    else:
+        k_us = torch.randn((b, s_p, rk), generator=gen, device=cuda).to(torch.bfloat16)
+        v_us = torch.randn((b, s_p, rv), generator=gen, device=cuda).to(torch.bfloat16)
+        scale = 0.5 / rk ** 0.5
+    return k_us, v_us, scale
+
+
+def _live(cuda, vals):
+    return None if vals is None else torch.tensor(vals, device=cuda)
+
+
+# K2 at the 8B layer (s_p 8192, rk 512, rv 768) at ql 1 and 4 (R 32, 128),
+# bf16 and int8, then the edges of the ring and of the splits: s_p not a
+# multiple of 64, a valid_len inside one CTA's run of blocks, win_lo inside
+# a block, two sequences of different lengths, R 84 (28 heads x ql 3), rv
+# 16 and 1024, rk 16. (dtype, b, R, s_p, rk, rv, valid_len, win_lo)
+RS_CASES = [
+    ("bf16", 1, 32, 8192, 512, 768, None, None),
+    ("int8", 1, 32, 8192, 512, 768, None, None),
+    ("bf16", 1, 128, 8192, 512, 768, None, None),
+    ("int8", 1, 128, 8192, 512, 768, [8000], [1000]),
+    ("bf16", 1, 32, 1000, 512, 768, None, None),
+    ("int8", 1, 32, 8192, 512, 768, [150], None),
+    ("bf16", 1, 32, 4096, 512, 768, None, [1000]),
+    ("bf16", 2, 32, 3000, 512, 768, [3000, 1234], [0, 70]),
+    ("int8", 2, 84, 2000, 512, 768, [1900, 2000], None),
+    ("bf16", 1, 32, 1000, 64, 16, None, None),
+    ("int8", 1, 32, 1000, 256, 1024, None, [10]),
+    ("bf16", 1, 32, 100, 16, 1024, [77], None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,R,s_p,rk,rv,lens,lo", RS_CASES)
+def test_rankspace_kernel_shapes(cuda, dtype, b, R, s_p, rk, rv, lens, lo):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(11)
+    k_us, v_us, scale = _rs_factors(gen, cuda, b, s_p, rk, rv, dtype)
+    q_emb = (torch.randn((b, R, rk), generator=gen, device=cuda) * scale).to(torch.bfloat16)
+    lengths, win_lo = _live(cuda, lens), _live(cuda, lo)
+    before = k2.launches
+    t2, l2 = k2.rankspace_kernel(q_emb, k_us, v_us, lengths, win_lo)
+    assert k2.launches == before + 1
+    t2r, l2r = k2.rankspace_kernel_plain(q_emb, k_us, v_us, lengths, win_lo)
+    assert t2.shape == (b, R, rv) and l2.shape == (b, R)
+    assert _row_rel_err(t2, t2r) <= TOL_T and _lse_err(l2, l2r) <= TOL_LSE
+
+
+# K4 over 512-row chunks of a segment whose last chunk is ragged (s_p 8092):
+# the main path's top-4, a -1 id, and a window inside chunk 1.
+# (dtype, ids, valid_len, win_lo)
+K4_CASES = [("bf16", [[15, 3, 9, 0]], None, None), ("int8", [[15, -1, 3, 7]], None, None),
+            ("bf16", [[1, 15, -1, -1]], [8000], [1000]), ("int8", [[0, 2, 15, 1]], None, [700])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,ids,lens,lo", K4_CASES)
+def test_sparse_rankspace_kernel_ragged_chunks(cuda, dtype, ids, lens, lo):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(12)
+    s_p, rk, rv, R = 8092, 512, 768, 32
+    k_us, v_us, scale = _rs_factors(gen, cuda, 1, s_p, rk, rv, dtype)
+    q_emb = (torch.randn((1, R, rk), generator=gen, device=cuda) * scale).to(torch.bfloat16)
+    ids = torch.tensor(ids, device=cuda, dtype=torch.int32)
+    lengths, win_lo = _live(cuda, lens), _live(cuda, lo)
+    before = k2.sparse_launches
+    t4, l4 = k2.sparse_rankspace_kernel(q_emb, k_us, v_us, ids, 512, lengths, win_lo)
+    assert k2.sparse_launches == before + 1
+    t4r, l4r = k2.sparse_rankspace_kernel_plain(q_emb, k_us, v_us, ids, 512, lengths, win_lo)
+    assert _row_rel_err(t4, t4r) <= TOL_T and _lse_err(l4, l4r) <= TOL_LSE
+
+
+# K6 at the 8B split (256 + 256 int8/int4 K ranks, 256 + 512 V ranks), at
+# ql 1 and 4 and R 84, and a split of no whole 64-byte boxes (gathered
+# panels) over two sequences and at R 64 (two row tiles).
+# (r8k, r4k, r8v, r4v, b, R, s_p, valid_len, win_lo)
+K6_CASES = [(256, 256, 256, 512, 1, 32, 8192, None, None),
+            (256, 256, 256, 512, 1, 128, 8192, [8100], [1000]),
+            (256, 256, 256, 512, 2, 84, 1000, [1000, 333], [0, 40]),
+            (16, 48, 24, 72, 2, 32, 1000, [999, 64], None),
+            (16, 48, 24, 72, 1, 64, 300, None, [70])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r8k,r4k,r8v,r4v,b,R,s_p,lens,lo", K6_CASES)
+def test_mixed_kernel_shapes(cuda, r8k, r4k, r8v, r4v, b, R, s_p, lens, lo):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(13)
+    us8 = torch.randint(-127, 128, (b, s_p, r8k), generator=gen, device=cuda).to(torch.int8)
+    k4 = pack_int4_pairs(torch.randint(-7, 8, (b, s_p, r4k), generator=gen, device=cuda))
+    v8 = torch.randint(-127, 128, (b, s_p, r8v), generator=gen, device=cuda).to(torch.int8)
+    v4 = pack_int4_pairs(torch.randint(-7, 8, (b, s_p, r4v), generator=gen, device=cuda))
+    rk = r8k + r4k
+    q_emb = (torch.randn((b, R, rk), generator=gen, device=cuda) * (0.5 / rk ** 0.5 / 40)).to(
+        torch.bfloat16)
+    lengths, win_lo = _live(cuda, lens), _live(cuda, lo)
+    before = k2.mixed_launches
+    t6, l6 = k2.mixed_rankspace_kernel(q_emb, us8, k4, v8, v4, lengths, win_lo)
+    assert k2.mixed_launches == before + 1
+    t6r, l6r = k2.mixed_rankspace_kernel_plain(q_emb, us8, k4, v8, v4, lengths, win_lo)
+    assert t6.shape == (b, R, r8v + r4v)
+    assert _row_rel_err(t6, t6r) <= TOL_T and _lse_err(l6, l6r) <= TOL_LSE

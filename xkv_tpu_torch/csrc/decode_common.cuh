@@ -1,6 +1,6 @@
 // Split-sequence (flash-decoding) machinery shared by the decode kernels:
-// K2, K4, K6, K7, K8 (rankspace_attention.cu), K9, K10 and, for the block
-// walk alone, K3, K5 (lowrank_attention.cu).
+// K7, K8 (rankspace_attention.cu), K9, K10 and, for the block walk alone,
+// K2, K4, K6 (rankspace_attention.cu) and K3, K5 (lowrank_attention.cu).
 //
 // A decode step has b = 1 on the main path, so one CTA per sequence would
 // use one SM of 132. The key blocks of each sequence (kBS keys each) are

@@ -39,9 +39,8 @@
 // the finite NEG_INF; a row whose running max is still NEG_INF
 // exponentiates against 0, so masked probabilities are exactly 0 and a row
 // with no live key outputs 0.
-#include <cuda.h>  // CUtensorMap; the encoder is fetched from the runtime
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace xkv;
 
@@ -69,88 +68,13 @@ struct Smem {
   static constexpr int kBytes = kBar + 8 * (2 + 4 * kStages);
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA box (64 columns x rows of one head) into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int col, int row, int head) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(head)
-      : "memory");
-}
-
 // Load rows [row0, row0 + rows) x HD of one head as HD / 64 panels.
 template <int HD>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int rows, int row0, int head) {
 #pragma unroll
   for (int p = 0; p < HD / kPanel; ++p)
-    tma_load(dst + p * rows * 128, map, bar, p * kPanel, row0, head);
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (in 16-byte units), layout B128.
-__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma instructions.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[kBN / 16][4]) {
-#pragma unroll
-  for (int i = 0; i < kBN / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+    tma_box(dst + p * rows * 128, map, bar, p * kPanel, row0, head);
 }
 
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -541,31 +465,6 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled, fetched through the runtime so that the library
-// needs no link against the driver.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A (hd, s, heads) bf16 tensor map whose box is 64 columns x rows x 1 head,

@@ -56,11 +56,10 @@
 //   shares in chunk order.
 // Masked scores are the finite NEG_INF, masked probabilities are exactly
 // 0, a row with no live key outputs 0, and lse = m + log(max(l, 1e-30)).
-#include <cuda.h>  // CUtensorMap; the encoder is fetched from the runtime
-
 #include <type_traits>
 
 #include "decode_common.cuh"
+#include "hopper.cuh"
 
 using namespace xkv;
 
@@ -96,10 +95,6 @@ struct Layout {
   static constexpr int kStage = kStageUs + kVtChunk;
   static constexpr int kStreamSmem = kStages * kStage + kFixed;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16 bytes global -> shared, zero-filled when !valid (src is then not read).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -462,87 +457,14 @@ struct TmaLayout {
   }
 };
 
-// Byte offset of (row, byte) in rows of 128 bytes stored in TMA's 128-byte
-// swizzle (the 16-byte unit index XOR the row's low three bits).
-__device__ __forceinline__ int swz(int row, int byte) {
-  return row * 128 + ((((byte >> 4) & 7) ^ (row & 7)) << 4) + (byte & 15);
-}
-
 // (row, byte) of a 64-row x 256-byte chunk stored as two swizzled panels.
 __device__ __forceinline__ int chunk_off(int row, int byte) {
   return (byte >> 7) * kPanel + swz(row, byte & 127);
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA box into shared memory, counted on the barrier at `bar`.
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                        int x, int y, int z) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y), "r"(z)
-      : "memory");
-}
-
 // The 8 consumer warps' barrier (the producer warp does not take part).
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kT) : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (in 16-byte units), layout B128.
-__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma instructions.
-template <typename A>
-__device__ __forceinline__ void fence_regs(A (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    if constexpr (sizeof(A) == 4 && std::is_same<A, float>::value)
-      asm volatile("" : "+f"(d[i])::"memory");
-    else
-      asm volatile("" : "+r"(d[i])::"memory");
-  }
 }
 
 // D (64 keys x 64 columns) += A (64 x 16 ranks, K-major) B (16 x 64, MN-major).
@@ -782,7 +704,7 @@ __global__ void __launch_bounds__(kTP, 1) lowrank_tma_split_kernel(
           }
         }
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs(kacc);
       } else {
 #pragma unroll
@@ -938,46 +860,6 @@ __global__ void __launch_bounds__(kTP, 1) lowrank_tma_split_kernel(
     part_m[base + grow(tid)] = m_s[tid];
     part_l[base + grow(tid)] = l_s[tid];
   }
-}
-
-// cuTensorMapEncodeTiled, fetched through the runtime so that the library
-// needs no link against the driver.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (row_bytes, rows, batch) byte tensor map, row and batch strides in
-// bytes, box 128 bytes x 64 rows x 1 in the 128-byte swizzle; reads past
-// the rows or the row's bytes give zeros.
-bool byte_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, long long row_bytes,
-              long long rows, long long batch, long long row_stride, long long batch_stride) {
-  const cuuint64_t dims[3] = {(cuuint64_t)row_bytes, (cuuint64_t)rows, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)row_stride, (cuuint64_t)batch_stride};
-  const cuuint32_t box[3] = {128, (cuuint32_t)kBS, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
 }
 
 template <typename T, int HD>

@@ -26,26 +26,57 @@
 // and r 0.03 MB in bf16 (5.3 MB with int8 us); K8 at 256 int8 + 256 int4
 // ranks 4.2 MB: 2.8, 1.6 and 1.3 us at 3.35 TB/s.
 //
-// Design: flash-decoding (decode_common.cuh). The key blocks of 64 are
-// dealt out to `nsplit` CTAs per (32-row chunk, sequence), so a b = 1 step
-// fills the card: for K2 and K6 the blocks covering [win_lo, valid_len),
-// for K4 the blocks of the selected chunks, each CTA reading the chunk ids
-// itself and masking by absolute column (id * chunk + j); a block past the
-// segment or outside the live range is never read, and the ragged last
-// chunk is masked in the kernel with no padding copy. Per block a CTA
-// stages the key rows in shared memory as bf16 (int8 upcast, int4 nibbles
-// unpacked to [hi | evens | odds] with the shifts of the Pallas
-// _unpack_nibbles; int8 and int4 values are exact in bf16), computes the
-// (32 x 64) scores q_emb . k_us^T on mma.sync bf16 tensor cores, runs the
-// fp32 online softmax, and accumulates t += P @ v_us with each thread
-// owning rank columns of t in registers, reading every v_us byte from
-// device memory once (int4 pairs unpacked in the same loop). A second
-// kernel merges the splits by log-sum-exp and writes the normalised t and
-// lse. Masked scores are the finite NEG_INF, masked probabilities are
-// exactly 0, and a row with no live key gets t = 0.
+// Design of K2, K4 and K6 (flash-decoding over a TMA ring, wgmma):
+// - One CTA per (key split, value slice, 32-row tile, sequence). A single
+//   row tile (R <= 32, one decode token) splits the value ranks into
+//   256-rank slices so that a b = 1 step fills the SMs; several tiles keep
+//   every value rank in each CTA, so each tile reads the factors once.
+//   The key blocks of 64 covering [win_lo, valid_len) (K2, K6), or the
+//   blocks of the selected chunks (K4: each CTA reads the chunk ids itself
+//   and masks by absolute column id * chunk + j), are dealt out in
+//   contiguous runs to `nsplit` splits, as many as fill the SMs once, so a
+//   CTA streams several blocks and the partials stay a small part of the
+//   factor bytes. A block past the segment, outside the live range or of
+//   an unselected chunk is never read; ragged rows and ranks arrive as
+//   TMA's zero fill.
+// - A producer warp loads the row tile's q_emb by TMA, then keeps a ring
+//   of 64-key x 64-rank panels in flight (as deep as shared memory allows,
+//   up to 32): per block the key panels of k_us, then the CTA's value
+//   panels of v_us, with a full/empty mbarrier pair per stage. bf16 panels
+//   land in the 128-byte swizzle and are read in place; int8 panels (and
+//   K6's packed int4 bytes) land as 64-byte boxes and the warpgroup that
+//   reads them widens them to bf16 with 16-byte vector reads into one of
+//   its two swizzled panels (int4: the high nibbles give the evens, the
+//   low ones the odds, in the [hi | evens | odds] order of the Pallas
+//   _unpack_nibbles; int8 and int4 values are exact in bf16), so no
+//   product loop unpacks anything. K6 splits that are not whole 64-byte
+//   boxes gather their panels byte by byte instead.
+// - Two consumer warpgroups never issue a load. Keys go on wgmma's 64-row
+//   M: s^T (64 keys x 32 rows) = k_us . q_emb^T, both K-major, the key
+//   panel straight from the ring; each warpgroup sums half the key panels
+//   and the halves meet in shared memory for the fp32 online softmax. P,
+//   rounded to bf16, goes back to shared memory as the K-major B operand
+//   of t^T (64 ranks x 32 rows) += v_us^T . P^T, the value panel read
+//   MN-major (tnspA); fp32 accumulators.
+// - The k_us panels of a block are read by each value slice's CTA; those
+//   CTAs are adjacent in the grid, and loading the key panels in one
+//   slice only was no faster, so the other reads are L2 hits.
+// - Merge: a second kernel, one CTA per (64-rank chunk, row, sequence), a
+//   thread per (rank, quarter of the splits), each thread's partials
+//   loaded before the softmax statistics. (A programmatic dependent launch
+//   measured no faster, and a last-CTA reduction would read every split's
+//   partial from one SM.)
+// Masked scores are the finite NEG_INF, masked probabilities are exactly
+// 0, and a row with no live key gets t = 0.
 //
-// K7 and K8 keep that structure with three changes. V is the latent's own
-// us rows: each 64-key block of us is staged to shared memory once (int8
+// K7 and K8 (mla_split_kernel, on decode_common.cuh's machinery): the key
+// blocks of 64 are dealt out to `nsplit` CTAs per (32-row chunk,
+// sequence); per block a CTA stages the rows in shared memory as bf16,
+// computes the scores on mma.sync, runs the online softmax and
+// accumulates t += P @ us with each thread owning rank columns of t in
+// registers; a second kernel merges the splits by log-sum-exp.
+// They differ from K2's arithmetic in three ways. V is the latent's
+// own us rows: each 64-key block of us is staged to shared memory once (int8
 // upcast, int4 unpacked to [hi | evens | odds]) and read there by both the
 // score product and P @ us, so us crosses device memory once. A second,
 // rope-wide score product runs against the block's k_pe rows. The block's
@@ -53,6 +84,7 @@
 // before the value product: s = (q_emb . us^T) * r + q_pe . k_pe^T,
 // t += round_bf16(P * r) @ us, as the Pallas kernels compute it.
 #include "decode_common.cuh"
+#include "hopper.cuh"
 
 using namespace xkv;
 
@@ -99,80 +131,492 @@ __device__ __forceinline__ void stage_mixed(bf16* dst, int ld, const int8_t* k8,
   }
 }
 
-template <typename T, int NC, bool kMixed>
-__global__ void __launch_bounds__(kThreads) rankspace_split_kernel(const RankspaceArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  SoftmaxSmem& sm = *reinterpret_cast<SoftmaxSmem*>(smem);
-  const int rk = a.rk, rv = a.rv, s_p = a.s_p;
-  const int ld = rk + 8;
-  bf16* qs = reinterpret_cast<bf16*>(smem + sizeof(SoftmaxSmem));
-  bf16* ks = qs + kRows * ld;
+// ---- K2, K4, K6: one CTA per (key split, value slice, 32-row tile,
+// sequence); a producer warp fills a TMA ring of 64-key x 64-rank panels;
+// 2 consumer warpgroups compute on wgmma from shared memory.
+constexpr int kCW = 8;                  // consumer warps: 2 warpgroups
+constexpr int kCT = kCW * 32;           // consumer threads
+constexpr int kTP = kCT + 32;           // and the producer warp
+constexpr int kGroups = 2;
+constexpr int kMaxStages = 32;          // panels in flight, at most
+constexpr int kPanelB = kBS * 128;      // a bf16 panel: 64 keys x 64 ranks, swizzled rows
+constexpr int kRawB = kBS * 64;         // an int8 box: 64 keys x 64 bytes
+constexpr int kQPanelB = kRows * 128;   // a q (or P) panel: 32 rows x 64 ranks (keys)
+constexpr int kMaxVPanels = 16;         // value panels of a CTA: rv <= 1024
+constexpr int kSliceVP = 4;             // value panels of a 256-rank slice
+constexpr int kScLd = kBS + 4;          // fp32 score row stride
+constexpr int kMaxSmemB = 232448;
 
-  const int split = blockIdx.x, bi = blockIdx.z;
-  const int row0 = blockIdx.y * kRows;
-  const int rows = min(kRows, a.R - row0);
-  const BlockWalk walk =
-      block_walk(a.lens, a.los, a.ids, a.n_sel, a.chunk, bi, s_p, split, a.nsplit);
-  const T* k_us = reinterpret_cast<const T*>(a.k_us);
-  const T* v_us = reinterpret_cast<const T*>(a.v_us);
+// How a panel is staged. kBf16: the TMA box is the panel (128-byte swizzle).
+// kInt8: a 64-byte TMA box of int8 ranks, widened to bf16 by the
+// warpgroup that reads it. kMixedTma: K6 with 64-aligned int8/int4 splits,
+// each panel an int8 box or the hi (evens) or lo (odds) nibbles of a packed
+// int4 box. kMixedGather: other K6 splits, each panel gathered from device
+// memory byte by byte by its warpgroup.
+enum Mode { kBf16 = 0, kInt8 = 1, kMixedTma = 2, kMixedGather = 3 };
+enum Src { kSrcBf16, kSrcInt8, kSrcHi, kSrcLo };
 
-  stage_as_bf16<bf16>(qs, ld, a.q_emb + ((size_t)bi * a.R + row0) * rk, rk, kRows, rk, rows);
-  softmax_init(sm);
-  float acc[kRows][NC];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int mt = warp & 1, nt0 = (warp >> 1) * 2;
-
-  for (int v = walk.begin; v < walk.end; ++v) {
-    const int key0 = walk.key0(v);
-    if (key0 < 0) continue;  // uniform over the CTA
-    const int nkeys = min(kBS, s_p - key0);
-    const size_t row_base = (size_t)bi * s_p + key0;
-    __syncthreads();
-    if constexpr (kMixed) {
-      stage_mixed(ks, ld, reinterpret_cast<const int8_t*>(a.k_us) + row_base * a.r8k,
-                  a.k_us4 + row_base * a.h4k, a.r8k, a.h4k, nkeys);
-    } else {
-      stage_as_bf16<T>(ks, ld, k_us + row_base * rk, rk, kBS, rk, nkeys);
-    }
-    __syncthreads();
-
-    float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    mma_rows_x_keys(c, qs + (mt * 16 + g) * ld + tq * 2, ld, ks, nt0, g, tq, rk);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = (nt0 + j) * 8 + tq * 2;
-      sm.sc[mt * 16 + g][col] = c[j][0];
-      sm.sc[mt * 16 + g][col + 1] = c[j][1];
-      sm.sc[mt * 16 + g + 8][col] = c[j][2];
-      sm.sc[mt * 16 + g + 8][col + 1] = c[j][3];
-    }
-    __syncthreads();
-    softmax_block(sm, rows, key0, walk.lo, walk.hi);
-    if constexpr (kMixed) {
-      const int r8 = a.r8v, h4 = a.h4v;
-      const int8_t* v8 = reinterpret_cast<const int8_t*>(a.v_us) + row_base * r8;
-      const int8_t* v4 = a.v_us4 + row_base * h4;
-      pv_block_with<NC>(acc, sm, rv, nkeys, [=](int kk, int j) -> float {
-        if (j < r8) return (float)v8[(size_t)kk * r8 + j];
-        j -= r8;
-        const int x = (int)v4[(size_t)kk * h4 + (j < h4 ? j : j - h4)];
-        return (float)(j < h4 ? (x >> 4) : (((x & 0xF) ^ 8) - 8));
-      });
-    } else {
-      pv_block<T, NC>(acc, sm, v_us + row_base * rv, rv, nkeys);
-    }
+// Shared memory, in bytes from a 1024-aligned base: each warpgroup's two
+// widened panels (not for bf16), q_emb's panels, P (one panel), the ring,
+// the warpgroups' partial scores, the softmax statistics and the barriers.
+// Every wgmma operand starts on a 1024-byte swizzle atom. The ring takes
+// what the opt-in limit leaves, up to kMaxStages panels, so large ranks
+// still fit (at least 2 stages).
+struct RsLayout {
+  int stage, stages, cv, q, p, ring, sc, stats, bars, total;
+  __host__ __device__ RsLayout(int rk, int mode) {
+    const int npk = (rk + 63) / 64;
+    stage = mode == kBf16 ? kPanelB : kRawB;
+    cv = 0;
+    q = cv + (mode == kBf16 ? 0 : kGroups * 2 * kPanelB);
+    p = q + npk * kQPanelB;
+    ring = p + kQPanelB;
+    const int rest = kGroups * kRows * kScLd * 4 + 3 * kRows * 4 + (2 * kMaxStages + 1) * 8;
+    stages = min(kMaxStages, (kMaxSmemB - 1024 - ring - rest) / stage);
+    sc = ring + stages * stage;
+    stats = sc + kGroups * kRows * kScLd * 4;
+    bars = stats + 3 * kRows * 4;
+    total = bars + (2 * kMaxStages + 1) * 8 + 1024;  // slack: the base is aligned to 1024
   }
-  __syncthreads();
-  write_partial<NC>(acc, sm, a.part_t, a.part_m, a.part_l, bi, split, a.nsplit, a.R, row0,
-                    rows, rv);
+};
+
+// Where panel p of a factor comes from: the tensor map (0: the int8 or bf16
+// stream, 1: the packed int4 stream), the box's first byte and how to
+// widen it. r8/h4: the factor's int8 ranks and packed int4 bytes.
+template <int kMode>
+__device__ __forceinline__ Src panel_src(int p, int r8, int h4, int& map, int& x) {
+  map = 0;
+  if (kMode == kBf16) {
+    x = p * 128;
+    return kSrcBf16;
+  }
+  if (kMode == kInt8 || p < r8 / 64) {
+    x = p * 64;
+    return kSrcInt8;
+  }
+  map = 1;
+  const int q = p - r8 / 64;
+  x = (q < h4 / 64 ? q : q - h4 / 64) * 64;
+  return q < h4 / 64 ? kSrcHi : kSrcLo;
 }
 
+// Live range and key blocks of one CTA (block_walk, with a null lens or
+// los read as s_p or 0).
+__device__ __forceinline__ BlockWalk rs_walk(const RankspaceArgs& a, int bi, int split) {
+  BlockWalk w;
+  w.hi = a.lens ? min(a.lens[bi], a.s_p) : a.s_p;
+  w.lo = a.los ? max(a.los[bi], 0) : 0;
+  w.chunk = a.chunk;
+  int first, last;
+  if (a.ids != nullptr) {
+    w.ids = a.ids + (size_t)bi * a.n_sel;
+    first = 0;
+    last = a.n_sel * (a.chunk / kBS);
+  } else {
+    w.ids = nullptr;
+    first = w.lo / kBS;
+    last = w.hi > w.lo ? (w.hi + kBS - 1) / kBS : first;
+  }
+  const int per = (last - first + a.nsplit - 1) / a.nsplit;
+  w.begin = min(first + split * per, last);
+  w.end = min(w.begin + per, last);
+  return w;
+}
+
+// Named barriers: 1 for the 8 consumer warps, 2 + c for warpgroup c.
+__device__ __forceinline__ void rs_consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kCT) : "memory");
+}
+__device__ __forceinline__ void group_sync(int c) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");
+}
+// Order this thread's shared-memory stores before wgmma's reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// D (64 x 32, fp32) += A (64 x 16) B (16 x 32), both from shared memory,
+// B K-major; A K-major (kTA 0) or MN-major (kTA 1).
+template <int kTA>
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, 1, 1, 1, %18, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "n"(kTA));
+}
+
+// 16 bf16 values into two 16-byte units of a swizzled panel row.
+__device__ __forceinline__ void put16(unsigned char* panel, int row, int byte,
+                                      const float (&f)[16]) {
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = pack_bf16(f[2 * i], f[2 * i + 1]);
+  *reinterpret_cast<uint4*>(panel + swz(row, byte)) = make_uint4(o[0], o[1], o[2], o[3]);
+  *reinterpret_cast<uint4*>(panel + swz(row, byte + 16)) = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// Widen half `half` (32 bytes) of row `row` of a 64-row x 64-byte box into
+// a bf16 panel with 16-byte reads: int8 values, or the high or low nibble
+// of each packed int4 byte with the shifts of the Pallas _unpack_nibbles.
+// All exact in bf16.
+__device__ __forceinline__ void widen_half(unsigned char* panel, const unsigned char* box,
+                                           Src src, int row, int half) {
+#pragma unroll
+  for (int c = 2 * half; c < 2 * half + 2; ++c) {
+    const int4 x = *reinterpret_cast<const int4*>(box + row * 64 + c * 16);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&x);
+    float f[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int v = b[i];
+      f[i] = (float)(src == kSrcInt8 ? v : src == kSrcHi ? (v >> 4) : (((v & 0xF) ^ 8) - 8));
+    }
+    put16(panel, row, c * 32, f);
+  }
+}
+
+// Half `half` of row `row` of panel p of mixed factors gathered from device
+// memory: logical ranks [hi | evens | odds] of the block's rows (zero past
+// nkeys or the width).
+__device__ __forceinline__ void gather_half(unsigned char* panel, const int8_t* f8,
+                                            const int8_t* f4, int r8, int h4, size_t row0,
+                                            int nkeys, int p, int row, int half) {
+  const size_t r = row0 + row;
+#pragma unroll
+  for (int cc = 2 * half; cc < 2 * half + 2; ++cc) {
+    float f[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int c = p * 64 + cc * 16 + i;
+      int v = 0;
+      if (row < nkeys && c < r8) {
+        v = f8[r * r8 + c];
+      } else if (row < nkeys && c < r8 + 2 * h4) {
+        const int j = c - r8;
+        const int x = f4[r * h4 + (j < h4 ? j : j - h4)];
+        v = j < h4 ? (x >> 4) : (((x & 0xF) ^ 8) - 8);
+      }
+      f[i] = (float)v;
+    }
+    put16(panel, row, cc * 32, f);
+  }
+}
+
+// Warpgroup c reads the key panels c, c + 2, ... of each block and the
+// value panels c and c + 2 of the slice, so each ring stage has the 4
+// warps of one warpgroup as readers. Scores are taken transposed, keys on
+// wgmma's 64-row M: s^T (64 keys x 32 rows) = k_us (K-major, the ring
+// panel as it landed) . q_emb^T (K-major q panels); the two warpgroups'
+// partial sums meet in shared memory for the softmax. The value product is
+// t^T (64 ranks x 32 rows) += v_us^T (the ring panel read MN-major) . P^T
+// (K-major, P in one swizzled panel).
+template <int kMode, int kVPanels>
+__global__ void __launch_bounds__(kTP, 1) rankspace_tma_split_kernel(
+    const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_k4,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_v4,
+    const __grid_constant__ CUtensorMap tm_q, const RankspaceArgs a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int rk = a.rk, rv = a.rv, s_p = a.s_p;
+  const RsLayout lay(rk, kMode);
+  unsigned char* ring = smem + lay.ring;
+  const int S = lay.stages;
+  float* sc = reinterpret_cast<float*>(smem + lay.sc);
+  float* m_s = reinterpret_cast<float*>(smem + lay.stats);
+  float* l_s = m_s + kRows;
+  float* a_s = l_s + kRows;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + kMaxStages);
+  const uint32_t q_bar = smem_u32(bars + 2 * kMaxStages);
+
+  const int nvs = (rv + 64 * kVPanels - 1) / (64 * kVPanels);
+  const int split = blockIdx.x / nvs, vs = blockIdx.x % nvs;
+  const int bi = blockIdx.z, row0 = blockIdx.y * kRows;
+  const int rows = min(kRows, a.R - row0);
+  const int npk = (rk + 63) / 64;
+  const int nvp = min(kVPanels, (rv + 63) / 64 - vs * kVPanels);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const BlockWalk walk = rs_walk(a, bi, split);
+  auto next_live = [&](int v) {
+    while (v < walk.end && walk.key0(v) < 0) ++v;
+    return v;
+  };
+
+  if (tid == kCT) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == kCW) {
+    // Producer: panel n into stage n % S once its warpgroup has
+    // released that stage's previous panel; per block the npk key panels,
+    // then this CTA's value panels. First the row tile's q_emb, as npk
+    // swizzled panels of 32 rows (zero past the rows and the ranks).
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, npk * kQPanelB);
+      for (int p = 0; p < npk; ++p)
+        tma_box(smem_u32(smem + lay.q + p * kQPanelB), &tm_q, q_bar, p * 128, row0, bi);
+    }
+    if (kMode != kMixedGather && lane == 0) {
+      int n = 0;
+      for (int v = next_live(walk.begin); v < walk.end; v = next_live(v + 1)) {
+        const int key0 = walk.key0(v);
+        for (int i = 0; i < npk + nvp; ++i, ++n) {
+          const int s = n % S;
+          if (n >= S) mbar_wait(empty0 + 8 * s, (n / S - 1) & 1);
+          const bool is_k = i < npk;
+          int map, x;
+          panel_src<kMode>(is_k ? i : vs * kVPanels + i - npk, is_k ? a.r8k : a.r8v,
+                           is_k ? a.h4k : a.h4v, map, x);
+          const CUtensorMap* tm = is_k ? (map ? &tm_k4 : &tm_k) : (map ? &tm_v4 : &tm_v);
+          mbar_expect_tx(full0 + 8 * s, lay.stage);
+          tma_box(smem_u32(ring + s * lay.stage), tm, full0 + 8 * s, x, key0, bi);
+        }
+      }
+    }
+    return;
+  }
+
+  if (tid < kRows) {
+    m_s[tid] = kNegInf;
+    l_s[tid] = 0.f;
+  }
+  rs_consumers_sync();
+  mbar_wait(q_bar, 0);
+
+  const int grp = warp >> 2, wg_tid = tid & 127, wq = warp & 3;  // warpgroup, its warp
+  const int g = lane >> 2, tq = lane & 3;
+  unsigned char* cv = smem + lay.cv + grp * 2 * kPanelB;
+  int ncv = 0;
+  // Panel n of the CTA's sequence (panel p of the K or V factor) as a bf16
+  // wgmma operand in shared memory. A widened stage is released at once, a
+  // bf16 one by release() once the warpgroup's products have read it.
+  auto acquire = [&](int n, bool is_k, int p, int key0, int nkeys) -> uint32_t {
+    if constexpr (kMode == kMixedGather) {
+      unsigned char* dst = cv + (ncv++ & 1) * kPanelB;
+      const size_t rb = (size_t)bi * s_p + key0;
+      if (is_k)
+        gather_half(dst, reinterpret_cast<const int8_t*>(a.k_us), a.k_us4, a.r8k, a.h4k, rb,
+                    nkeys, p, wg_tid >> 1, wg_tid & 1);
+      else
+        gather_half(dst, reinterpret_cast<const int8_t*>(a.v_us), a.v_us4, a.r8v, a.h4v, rb,
+                    nkeys, p, wg_tid >> 1, wg_tid & 1);
+      fence_async_smem();
+      group_sync(grp);
+      return smem_u32(dst);
+    } else {
+      const int s = n % S;
+      mbar_wait(full0 + 8 * s, (n / S) & 1);
+      const unsigned char* st = ring + s * lay.stage;
+      if constexpr (kMode == kBf16) return smem_u32(st);
+      int map, x;
+      const Src src = panel_src<kMode>(p, is_k ? a.r8k : a.r8v, is_k ? a.h4k : a.h4v, map, x);
+      unsigned char* dst = cv + (ncv++ & 1) * kPanelB;
+      widen_half(dst, st, src, wg_tid >> 1, wg_tid & 1);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);
+      fence_async_smem();
+      group_sync(grp);
+      return smem_u32(dst);
+    }
+  };
+  auto release = [&](int n) {
+    if constexpr (kMode == kBf16) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * (n % S));
+    }
+  };
+
+  // t^T of the warpgroup's value panels c and c + 2: ranks 16 wq + g (+ 8)
+  // x rows 8 i + 2 tq (+ 1) in acc[j][4 i + e].
+  constexpr int kVJ = kVPanels / kGroups;
+  float acc[kVJ][16];
+#pragma unroll
+  for (int j = 0; j < kVJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[j][e] = 0.f;
+
+  const uint32_t q_a = smem_u32(smem + lay.q), p_a = smem_u32(smem + lay.p);
+  bf16* p_s = reinterpret_cast<bf16*>(smem + lay.p);
+  const int nsum = min(kGroups, npk);  // warpgroups holding partial scores
+  int n0 = 0;                          // the block's first panel in the CTA's sequence
+  for (int v = next_live(walk.begin); v < walk.end; v = next_live(v + 1), n0 += npk + nvp) {
+    const int key0 = walk.key0(v);
+    const int nkeys = min(kBS, s_p - key0);
+    // Partial s^T over the warpgroup's key panels.
+    float s[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) s[e] = 0.f;
+    for (int p = grp; p < npk; p += kGroups) {
+      const uint32_t kp = acquire(n0 + p, true, p, key0, nkeys);
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_n32<0>(s, desc_b128(kp + ks * 32, 16, 1024),
+                     desc_b128(q_a + p * kQPanelB + ks * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      release(n0 + p);
+    }
+    if (grp < nsum) {
+      float* scp = sc + grp * kRows * kScLd;
+      const int key = 16 * wq + g;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 8 * i + 2 * tq;
+        scp[r * kScLd + key] = s[4 * i];
+        scp[(r + 1) * kScLd + key] = s[4 * i + 1];
+        scp[r * kScLd + key + 8] = s[4 * i + 2];
+        scp[(r + 1) * kScLd + key + 8] = s[4 * i + 3];
+      }
+    }
+    rs_consumers_sync();
+    // Online softmax over the summed partials: rows warp, warp + 8, ...;
+    // lanes over the 64 keys. P goes to its swizzled panel as bf16.
+    for (int r = warp; r < kRows; r += kCW) {
+      const int c0 = key0 + lane, c1 = c0 + 32;
+      const bool live0 = r < rows && c0 >= walk.lo && c0 < walk.hi;
+      const bool live1 = r < rows && c1 >= walk.lo && c1 < walk.hi;
+      float s0 = 0.f, s1 = 0.f;
+      for (int q = 0; q < nsum; ++q) {
+        s0 += sc[(q * kRows + r) * kScLd + lane];
+        s1 += sc[(q * kRows + r) * kScLd + lane + 32];
+      }
+      const float x0 = live0 ? s0 : kNegInf;
+      const float x1 = live1 ? s1 : kNegInf;
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
+      const float p0 = live0 ? __expf(x0 - m_new) : 0.f;
+      const float p1 = live1 ? __expf(x1 - m_new) : 0.f;
+      const float psum = warp_sum(p0 + p1);
+      unsigned char* prow = reinterpret_cast<unsigned char*>(p_s);
+      *reinterpret_cast<bf16*>(prow + swz(r, lane * 2)) = __float2bfloat16_rn(p0);
+      *reinterpret_cast<bf16*>(prow + swz(r, lane * 2 + 64)) = __float2bfloat16_rn(p1);
+      if (lane == 0) {
+        const float alpha = __expf(m_old - m_new);
+        m_s[r] = m_new;
+        l_s[r] = alpha * l_s[r] + psum;
+        a_s[r] = alpha;
+      }
+    }
+    fence_async_smem();
+    rs_consumers_sync();
+    // t^T += v_us^T . P^T over the warpgroup's value panels.
+#pragma unroll
+    for (int j = 0; j < kVJ; ++j) {
+      const int vp = grp + kGroups * j;
+      if (vp < nvp) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float a0 = a_s[8 * i + 2 * tq], a1 = a_s[8 * i + 2 * tq + 1];
+          acc[j][4 * i] *= a0;
+          acc[j][4 * i + 1] *= a1;
+          acc[j][4 * i + 2] *= a0;
+          acc[j][4 * i + 3] *= a1;
+        }
+        const uint32_t vpn = acquire(n0 + npk + vp, false, vs * kVPanels + vp, key0, nkeys);
+        fence_regs(acc[j]);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_n32<1>(acc[j], desc_b128(vpn + ks * 16 * 128, kPanelB, 1024),
+                       desc_b128(p_a + ks * 32, 16, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc[j]);
+        release(n0 + npk + vp);
+      }
+    }
+  }
+  // This CTA's partial (t, m, l); m and l from the first value slice.
+  const size_t base = ((size_t)bi * a.nsplit + split) * a.R + row0;
+#pragma unroll
+  for (int j = 0; j < kVJ; ++j) {
+    const int vp = grp + kGroups * j;
+    if (vp < nvp) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int r = 8 * (e >> 2) + 2 * tq + (e & 1);
+        const int col = (vs * kVPanels + vp) * 64 + 16 * wq + g + 8 * ((e >> 1) & 1);
+        if (r < rows && col < rv) a.part_t[(base + r) * rv + col] = acc[j][e];
+      }
+    }
+  }
+  if (vs == 0 && tid < rows) {
+    a.part_m[base + tid] = m_s[tid];
+    a.part_l[base + tid] = l_s[tid];
+  }
+}
+
+// The merge: one CTA per (64-rank chunk, row, sequence) combines the
+// splits' (t, m, l) by log-sum-exp into the normalised t and, from the
+// first chunk, lse = M + log(max(L, 1e-30)). A thread per (rank, quarter
+// of the splits), the quarters summed in shared memory, so each thread
+// waits on a few loads.
+constexpr int kMergeCols = 64;
+__global__ void __launch_bounds__(kCT) rankspace_merge_cols_kernel(
+    const float* __restrict__ part_t, const float* __restrict__ part_m,
+    const float* __restrict__ part_l, float* __restrict__ t_out,
+    float* __restrict__ lse_out, int R, int rv, int nsplit) {
+  extern __shared__ __align__(16) float m_sm[];  // nsplit m, nsplit l, then the quarters
+  float* l_sm = m_sm + nsplit;
+  float* q_sm = l_sm + nsplit;  // [3][kMergeCols]
+  const int c0 = blockIdx.x * kMergeCols, r = blockIdx.y, bi = blockIdx.z;
+  const int tid = threadIdx.x, col = tid % kMergeCols, quarter = tid / kMergeCols;
+  constexpr int kQuarters = kCT / kMergeCols;
+  // The thread's partials (splits quarter, quarter + 4, ...) are loaded
+  // before the statistics arrive, so the merge waits on one round trip.
+  const int j = c0 + col;
+  const float* pt = part_t + ((size_t)bi * nsplit * R + r) * rv + j;
+  const size_t ss = (size_t)R * rv;  // split stride
+  constexpr int kPer = 16;
+  float v[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int s = quarter + kQuarters * k;
+    v[k] = s < nsplit && j < rv ? pt[s * ss] : 0.f;
+  }
+  for (int s = tid; s < nsplit; s += kCT) {
+    const size_t idx = ((size_t)bi * nsplit + s) * R + r;
+    m_sm[s] = part_m[idx];
+    l_sm[s] = part_l[idx];
+  }
+  __syncthreads();
+  float M = kNegInf;
+  for (int s = 0; s < nsplit; ++s) M = fmaxf(M, m_sm[s]);
+  float acc = 0.f;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int s = quarter + kQuarters * k;
+    if (s < nsplit) acc += __expf(m_sm[s] - M) * v[k];
+  }
+  if (j < rv)
+    for (int s = quarter + kQuarters * kPer; s < nsplit; s += kQuarters)
+      acc += __expf(m_sm[s] - M) * pt[s * ss];
+  if (quarter > 0) q_sm[(quarter - 1) * kMergeCols + col] = acc;
+  __syncthreads();
+  if (quarter == 0) {
+    float L = 0.f;
+    for (int s = 0; s < nsplit; ++s) L += __expf(m_sm[s] - M) * l_sm[s];
+    for (int q = 0; q < kQuarters - 1; ++q) acc += q_sm[q * kMergeCols + col];
+    if (j < rv) t_out[((size_t)bi * R + r) * rv + j] = acc * (L > 0.f ? 1.f / L : 0.f);
+    if (blockIdx.x == 0 && tid == 0) lse_out[(size_t)bi * R + r] = M + logf(fmaxf(L, 1e-30f));
+  }
+}
+
+// K7 and K8: the merge of the splits, one CTA per (row, sequence).
 __global__ void __launch_bounds__(kThreads) rankspace_merge_kernel(
     const float* __restrict__ part_t, const float* __restrict__ part_m,
     const float* __restrict__ part_l, float* __restrict__ t_out,
@@ -273,11 +717,6 @@ int launch(Kern kern, dim3 grid, size_t smem, cudaStream_t st, const RankspaceAr
 }
 
 template <typename T, int NC, bool kMixed>
-int launch_split(dim3 grid, size_t smem, cudaStream_t st, const RankspaceArgs& a) {
-  return launch(rankspace_split_kernel<T, NC, kMixed>, grid, smem, st, a);
-}
-
-template <typename T, int NC, bool kMixed>
 int launch_mla(dim3 grid, size_t smem, cudaStream_t st, const RankspaceArgs& a) {
   return launch(mla_split_kernel<T, NC, kMixed>, grid, smem, st, a);
 }
@@ -288,27 +727,6 @@ int merge(const RankspaceArgs& a, int b, int rv, void* t_out, void* lse_out, cud
   rankspace_merge_kernel<<<dim3(a.R, b), kThreads, msmem, st>>>(
       a.part_t, a.part_m, a.part_l, (float*)t_out, (float*)lse_out, a.R, rv, a.nsplit);
   return (int)cudaGetLastError();
-}
-
-// Split kernel for the launch's value width, then the merge.
-template <typename T, bool kMixed>
-int run(const RankspaceArgs& a, int b, void* t_out, void* lse_out, void* stream) {
-  if (a.rk % 16 != 0 || a.rv > 4 * kThreads || a.nsplit < 1) return (int)cudaErrorInvalidValue;
-  if (a.ids != nullptr && (a.chunk % kBS != 0 || a.chunk <= 0 || a.n_sel < 1))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(SoftmaxSmem) + (size_t)(kRows + kBS) * (a.rk + 8) * sizeof(bf16);
-  const dim3 grid(a.nsplit, (a.R + kRows - 1) / kRows, b);
-  int err;
-  switch ((a.rv + kThreads - 1) / kThreads) {
-    case 1: err = launch_split<T, 1, kMixed>(grid, smem, st, a); break;
-    case 2: err = launch_split<T, 2, kMixed>(grid, smem, st, a); break;
-    case 3: err = launch_split<T, 3, kMixed>(grid, smem, st, a); break;
-    case 4: err = launch_split<T, 4, kMixed>(grid, smem, st, a); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err != 0) return err;
-  return merge(a, b, a.rv, t_out, lse_out, st);
 }
 
 // K7 / K8 split kernel for the launch's rank, then the merge.
@@ -330,6 +748,84 @@ int run_mla(const RankspaceArgs& a, int b, void* t_out, void* lse_out, void* str
   }
   if (err != 0) return err;
   return merge(a, b, a.rk, t_out, lse_out, st);
+}
+
+// K2, K4, K6: encode the launch's tensor maps, then the split kernel and
+// the merge.
+template <int kMode, int kVPanels>
+int run_split(const RankspaceArgs& a, int b, void* t_out, void* lse_out, cudaStream_t st) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const long long sp = a.s_p;
+  CUtensorMap tm[5] = {};  // k, k4, v, v4, q_emb
+  if constexpr (kMode == kBf16) {
+    const long long kb = 2LL * a.rk, vb = 2LL * a.rv;
+    if (!byte_map(enc, &tm[0], a.k_us, kb, sp, b, kb, sp * kb) ||
+        !byte_map(enc, &tm[2], a.v_us, vb, sp, b, vb, sp * vb))
+      return (int)cudaErrorInvalidValue;
+  } else if constexpr (kMode != kMixedGather) {
+    // Unswizzled 64-byte boxes of int8 (and packed int4) bytes.
+    const void* ptr[4] = {a.k_us, a.k_us4, a.v_us, a.v_us4};
+    const long long w[4] = {a.r8k, a.h4k, a.r8v, a.h4v};
+    for (int i = 0; i < 4; ++i) {
+      if (w[i] == 0 || (kMode == kInt8 && (i & 1))) continue;
+      if (!byte_map(enc, &tm[i], ptr[i], w[i], sp, b, w[i], sp * w[i], 64, kBS, false))
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  const long long qb = 2LL * a.rk;
+  if (!byte_map(enc, &tm[4], a.q_emb, qb, a.R, b, qb, (long long)a.R * qb, 128, kRows, true))
+    return (int)cudaErrorInvalidValue;
+  const RsLayout lay(a.rk, kMode);
+  if (lay.stages < 2 || lay.total > kMaxSmemB) return (int)cudaErrorInvalidValue;
+  auto kern = rankspace_tma_split_kernel<kMode, kVPanels>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
+  if (e != cudaSuccess) return (int)e;
+  const int nvs = (a.rv + 64 * kVPanels - 1) / (64 * kVPanels);
+  const int ntiles = (a.R + kRows - 1) / kRows;
+  kern<<<dim3(a.nsplit * nvs, ntiles, b), kTP, lay.total, st>>>(tm[0], tm[1], tm[2], tm[3],
+                                                                 tm[4], a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+
+  const size_t msmem = (2 * a.nsplit + kCT - kMergeCols) * sizeof(float);
+  rankspace_merge_cols_kernel<<<dim3((a.rv + kMergeCols - 1) / kMergeCols, a.R, b), kCT, msmem,
+                                st>>>((const float*)a.part_t, (const float*)a.part_m,
+                                      (const float*)a.part_l, (float*)t_out, (float*)lse_out,
+                                      a.R, a.rv, a.nsplit);
+  return (int)cudaGetLastError();
+}
+
+// One 32-row tile: 256-rank value slices, so a b = 1 step fills the SMs.
+// Several tiles: every value rank in each CTA, so each tile reads the
+// factors once (at R 128 the slices would read k_us twelve times).
+template <int kMode>
+int run_mode(const RankspaceArgs& a, int b, void* t_out, void* lse_out, cudaStream_t st) {
+  return a.R <= kRows ? run_split<kMode, kSliceVP>(a, b, t_out, lse_out, st)
+                      : run_split<kMode, kMaxVPanels>(a, b, t_out, lse_out, st);
+}
+
+// The shape rules of K2, K4 and K6, then the launch in the factors' mode.
+int run(const RankspaceArgs& a, int b, int mode, void* t_out, void* lse_out, void* stream) {
+  if (b < 1 || a.R < 1 || a.s_p < 1 || a.rk < 16 || a.rk % 16 != 0 || a.rv < 16 ||
+      a.rv % 16 != 0 || a.rv > 1024 || a.nsplit < 1)
+    return (int)cudaErrorInvalidValue;
+  if (a.ids != nullptr && (a.chunk % kBS != 0 || a.chunk <= 0 || a.n_sel < 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kBf16: return run_mode<kBf16>(a, b, t_out, lse_out, st);
+    case kInt8: return run_mode<kInt8>(a, b, t_out, lse_out, st);
+    case kMixedTma: return run_mode<kMixedTma>(a, b, t_out, lse_out, st);
+    case kMixedGather: return run_mode<kMixedGather>(a, b, t_out, lse_out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K6's staging: TMA boxes where every int8 and int4 part is a whole number
+// of 64-byte boxes (the configs' splits), else gathered.
+int mixed_mode(int r8k, int h4k, int r8v, int h4v) {
+  return (r8k % 64 | h4k % 64 | r8v % 64 | h4v % 64) == 0 ? kMixedTma : kMixedGather;
 }
 
 RankspaceArgs base_args(const void* q_emb, const void* k_us, const void* v_us,
@@ -355,7 +851,8 @@ RankspaceArgs base_args(const void* q_emb, const void* k_us, const void* v_us,
 }  // namespace
 
 // K2. q_emb (b, R, rk) bf16; k_us (b, s_p, rk), v_us (b, s_p, rv) bf16 or
-// int8, contiguous; lens/los (b,) int32 live range [los, lens). Scratch
+// int8, contiguous; lens/los (b,) int32 live range [los, lens), or null
+// for s_p / 0. Scratch
 // part_t (b, nsplit, R, rv), part_m/part_l (b, nsplit, R) fp32. Writes
 // t_out (b, R, rv) and lse_out (b, R) fp32. Returns cudaGetLastError().
 extern "C" int xkv_rankspace_decode(const void* q_emb, const void* k_us, const void* v_us,
@@ -365,8 +862,7 @@ extern "C" int xkv_rankspace_decode(const void* q_emb, const void* k_us, const v
                                     int is_int8, void* stream) {
   const RankspaceArgs a =
       base_args(q_emb, k_us, v_us, lens, los, part_t, part_m, part_l, R, s_p, rk, rv, nsplit);
-  return is_int8 ? run<int8_t, false>(a, b, t_out, lse_out, stream)
-                 : run<bf16, false>(a, b, t_out, lse_out, stream);
+  return run(a, b, is_int8 ? kInt8 : kBf16, t_out, lse_out, stream);
 }
 
 // K4. As K2, over the rows of the selected chunks: ids (b, n_sel) int32,
@@ -384,8 +880,7 @@ extern "C" int xkv_sparse_rankspace_decode(const void* q_emb, const void* k_us,
   a.ids = ids;
   a.n_sel = n_sel;
   a.chunk = chunk;
-  return is_int8 ? run<int8_t, false>(a, b, t_out, lse_out, stream)
-                 : run<bf16, false>(a, b, t_out, lse_out, stream);
+  return run(a, b, is_int8 ? kInt8 : kBf16, t_out, lse_out, stream);
 }
 
 // K6. q_emb (b, R, r8k + 2 * h4k) bf16 in [hi | lo-eo] column order;
@@ -407,7 +902,7 @@ extern "C" int xkv_mixed_rankspace_decode(const void* q_emb, const void* k_us8,
   a.h4k = h4k;
   a.r8v = r8v;
   a.h4v = h4v;
-  return run<int8_t, true>(a, b, t_out, lse_out, stream);
+  return run(a, b, mixed_mode(r8k, h4k, r8v, h4v), t_out, lse_out, stream);
 }
 
 // K7 (k_us4 null): q_emb (b, R, r8) bf16; k_us (b, s_p, r8) bf16 or int8

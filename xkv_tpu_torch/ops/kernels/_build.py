@@ -180,9 +180,13 @@ def live_range(
     return lens, los
 
 
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def num_splits(s_p: int, ctas_per_split: int, ctas_per_sm: int, device: torch.device) -> int:
     """Splits of the key axis for a flash-decoding launch: enough CTAs to
     fill every SM ``ctas_per_sm`` deep, at most one per 64-key block."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    n_sm = sm_count(device)
     blocks = -(-s_p // 64)
     return max(1, min(blocks, (n_sm * ctas_per_sm) // max(ctas_per_split, 1)))

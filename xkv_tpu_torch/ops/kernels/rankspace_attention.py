@@ -48,6 +48,10 @@ mixed_launches = 0
 mla_launches = 0
 mla_mixed_launches = 0
 
+# K2, K4, K6: rows of a CTA and ranks of a value slice, taken when R fits
+# one CTA (csrc/rankspace_attention.cu).
+CTA_ROWS, SLICE_RANKS = 32, 256
+
 
 def compute_dtype_for(factor_dtype: torch.dtype) -> torch.dtype:
     """fp32 factors run in fp32 (tests); bf16 and int8 factors in bf16."""
@@ -204,16 +208,15 @@ def rankspace_kernel(
     if k_us.device.type == "cpu":
         return rankspace_kernel_plain(q_emb, k_us, v_us, lengths, win_lo)
     global launches
+    b, R, s_p, rk, rv = rankspace_shapes(q_emb, k_us, v_us)
     _check_factors(q_emb, k_us, v_us)
-    b, R, _ = q_emb.shape
-    s_p, rk, rv = k_us.shape[1], k_us.shape[2], v_us.shape[2]
     dev = k_us.device
-    lens, los = _build.live_range(b, s_p, lengths, win_lo, dev)
-    nsplit = _build.num_splits(s_p, b * -(-R // 32), 2, dev)
+    lens, los = _live_range_or_none(b, lengths, win_lo, dev)
+    nsplit = split_count(-(-s_p // 64), R, rv, b, _build.sm_count(dev))
     part_t, part_m, part_l, t, lse = _split_scratch(b, nsplit, R, rv, dev)
     status = _build.load().xkv_rankspace_decode(
-        q_emb.data_ptr(), k_us.data_ptr(), v_us.data_ptr(), lens.data_ptr(),
-        los.data_ptr(), part_t.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+        q_emb.data_ptr(), k_us.data_ptr(), v_us.data_ptr(), _ptr(lens), _ptr(los),
+        part_t.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
         t.data_ptr(), lse.data_ptr(), b, R, s_p, rk, rv, nsplit,
         int(k_us.dtype == torch.int8), _build.stream_ptr(dev),
     )
@@ -222,20 +225,51 @@ def rankspace_kernel(
     return t, lse
 
 
-def _check_factors(q_emb, k_us, v_us) -> None:
-    """K2's and K4's operand checks."""
+def split_count(n_blocks: int, R: int, rv: int, b: int, n_sm: int) -> int:
+    """Key splits of a K2/K4/K6 launch: the grid (splits x value slices x
+    32-row tiles x sequences) fills the SMs once, and no split is emptier
+    than one 64-key block. One row tile (R <= 32) splits the value ranks
+    into 256-rank slices; several tiles keep every rank in each CTA, as the
+    kernel does."""
+    tiles = -(-R // CTA_ROWS)
+    slices = -(-rv // SLICE_RANKS) if tiles == 1 else 1
+    return max(1, min(n_blocks, n_sm // (b * tiles * slices)))
+
+
+def rankspace_shapes(q_emb, k_us, v_us) -> Tuple[int, int, int, int, int]:
+    """K2's and K4's shape rules, checked before any device check: (b, R,
+    s_p, rk, rv). Any b and R; rk and rv multiples of 16, rv <= 1024."""
+    _build.require(q_emb.dim() == 3 and k_us.dim() == 3 and v_us.dim() == 3,
+                   "q_emb, k_us and v_us must be 3-D")
     b, R, rk = q_emb.shape
     s_p, rv = k_us.shape[1], v_us.shape[2]
+    _build.require(tuple(k_us.shape) == (b, s_p, rk) and tuple(v_us.shape[:2]) == (b, s_p),
+                   "factor shapes do not match q_emb")
+    _build.require(rk % 16 == 0 and rv % 16 == 0 and rk > 0 and 0 < rv <= 1024,
+                   f"ranks rk={rk}, rv={rv} must be multiples of 16, rv <= 1024")
+    return b, R, s_p, rk, rv
+
+
+def _check_factors(q_emb, k_us, v_us) -> None:
+    """K2's and K4's device checks."""
     _build.require_cuda_tensor(q_emb, "q_emb", (torch.bfloat16,), 3)
     _build.require(q_emb.is_contiguous(), "q_emb must be contiguous")
     for name, t in (("k_us", k_us), ("v_us", v_us)):
         _build.require_cuda_tensor(t, name, (torch.bfloat16, torch.int8), 3)
         _build.require(t.is_contiguous(), f"{name} must be contiguous")
     _build.require(v_us.dtype == k_us.dtype, "k_us and v_us must share a dtype")
-    _build.require(k_us.shape == (b, s_p, rk) and v_us.shape[:2] == (b, s_p),
-                   "factor shapes do not match q_emb")
-    _build.require(rk % 16 == 0 and rv % 16 == 0 and rv <= 1024,
-                   f"ranks rk={rk}, rv={rv} must be multiples of 16, rv <= 1024")
+
+
+def _live_range_or_none(b, lengths, win_lo, dev):
+    """(lens, los) int32 (b,) on ``dev``, each None where not given: the
+    kernels read a null lens as s_p and a null los as 0, so no fill runs."""
+    def as_i32(x):
+        return None if x is None else x.reshape(b).to(device=dev, dtype=torch.int32).contiguous()
+    return as_i32(lengths), as_i32(win_lo)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _split_scratch(b, nsplit, R, rv, dev):
@@ -264,33 +298,44 @@ def mixed_rankspace_kernel(
         return mixed_rankspace_kernel_plain(q_emb, k_us8, k_us4, v_us8, v_us4, lengths,
                                             win_lo)
     global mixed_launches
-    b, R, rk = q_emb.shape
-    s_p = k_us8.shape[1]
-    r8k, h4k, r8v, h4v = k_us8.shape[2], k_us4.shape[2], v_us8.shape[2], v_us4.shape[2]
+    b, R, s_p, r8k, h4k, r8v, h4v = mixed_shapes(q_emb, k_us8, k_us4, v_us8, v_us4)
     rv = r8v + 2 * h4v
     _build.require_cuda_tensor(q_emb, "q_emb", (torch.bfloat16,), 3)
     _build.require(q_emb.is_contiguous(), "q_emb must be contiguous")
     for name, t in (("k_us8", k_us8), ("k_us4", k_us4), ("v_us8", v_us8), ("v_us4", v_us4)):
         _build.require_cuda_tensor(t, name, (torch.int8,), 3)
         _build.require(t.is_contiguous(), f"{name} must be contiguous")
-        _build.require(t.shape[:2] == (b, s_p), f"{name} rows do not match k_us8")
-    # Any even split is served; the totals meet K2's rule.
-    _build.require(rk == r8k + 2 * h4k, "q_emb width must be r8k + r4k")
-    _build.require(rk % 16 == 0 and rv % 16 == 0 and rv <= 1024,
-                   f"total ranks rk={rk}, rv={rv} must be multiples of 16, rv <= 1024")
     dev = k_us8.device
-    lens, los = _build.live_range(b, s_p, lengths, win_lo, dev)
-    nsplit = _build.num_splits(s_p, b * -(-R // 32), 2, dev)
+    lens, los = _live_range_or_none(b, lengths, win_lo, dev)
+    nsplit = split_count(-(-s_p // 64), R, rv, b, _build.sm_count(dev))
     part_t, part_m, part_l, t, lse = _split_scratch(b, nsplit, R, rv, dev)
     status = _build.load().xkv_mixed_rankspace_decode(
         q_emb.data_ptr(), k_us8.data_ptr(), k_us4.data_ptr(), v_us8.data_ptr(),
-        v_us4.data_ptr(), lens.data_ptr(), los.data_ptr(), part_t.data_ptr(),
+        v_us4.data_ptr(), _ptr(lens), _ptr(los), part_t.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), t.data_ptr(), lse.data_ptr(),
         b, R, s_p, r8k, h4k, r8v, h4v, nsplit, _build.stream_ptr(dev),
     )
     _build.check(status, "mixed_rankspace_kernel")
     mixed_launches += 1
     return t, lse
+
+
+def mixed_shapes(q_emb, k_us8, k_us4, v_us8, v_us4) -> Tuple[int, ...]:
+    """K6's shape rules, checked before any device check: (b, R, s_p, r8k,
+    h4k, r8v, h4v). Any split of int8 and packed int4 ranks whose totals
+    meet K2's rule (rk, rv multiples of 16, rv <= 1024)."""
+    _build.require(all(x.dim() == 3 for x in (q_emb, k_us8, k_us4, v_us8, v_us4)),
+                   "q_emb and the factors must be 3-D")
+    b, R, rk = q_emb.shape
+    s_p = k_us8.shape[1]
+    r8k, h4k, r8v, h4v = k_us8.shape[2], k_us4.shape[2], v_us8.shape[2], v_us4.shape[2]
+    for name, t in (("k_us8", k_us8), ("k_us4", k_us4), ("v_us8", v_us8), ("v_us4", v_us4)):
+        _build.require(tuple(t.shape[:2]) == (b, s_p), f"{name} rows do not match k_us8")
+    rv = r8v + 2 * h4v
+    _build.require(rk == r8k + 2 * h4k, "q_emb width must be r8k + r4k")
+    _build.require(rk % 16 == 0 and rv % 16 == 0 and rk > 0 and 0 < rv <= 1024,
+                   f"total ranks rk={rk}, rv={rv} must be multiples of 16, rv <= 1024")
+    return b, R, s_p, r8k, h4k, r8v, h4v
 
 
 def sparse_rankspace_kernel(
@@ -308,20 +353,20 @@ def sparse_rankspace_kernel(
     if k_us.device.type == "cpu":
         return sparse_rankspace_kernel_plain(q_emb, k_us, v_us, ids, block, lengths, win_lo)
     global sparse_launches
-    _check_factors(q_emb, k_us, v_us)
-    b, R, _ = q_emb.shape
-    s_p, rk, rv = k_us.shape[1], k_us.shape[2], v_us.shape[2]
-    _build.require(block % 64 == 0, f"chunk block {block} must be a multiple of 64")
+    b, R, s_p, rk, rv = rankspace_shapes(q_emb, k_us, v_us)
+    _build.require(block % 64 == 0 and block > 0,
+                   f"chunk block {block} must be a multiple of 64")
     _build.require(ids.dim() == 2 and ids.shape[0] == b, "ids must be (b, n_sel)")
+    _check_factors(q_emb, k_us, v_us)
     dev = k_us.device
     ids = ids.to(device=dev, dtype=torch.int32).contiguous()
     n_sel = ids.shape[1]
-    lens, los = _build.live_range(b, s_p, lengths, win_lo, dev)
-    nsplit = _build.num_splits(n_sel * block, b * -(-R // 32), 2, dev)
+    lens, los = _live_range_or_none(b, lengths, win_lo, dev)
+    nsplit = split_count(n_sel * block // 64, R, rv, b, _build.sm_count(dev))
     part_t, part_m, part_l, t, lse = _split_scratch(b, nsplit, R, rv, dev)
     status = _build.load().xkv_sparse_rankspace_decode(
         q_emb.data_ptr(), k_us.data_ptr(), v_us.data_ptr(), ids.data_ptr(),
-        lens.data_ptr(), los.data_ptr(), part_t.data_ptr(), part_m.data_ptr(),
+        _ptr(lens), _ptr(los), part_t.data_ptr(), part_m.data_ptr(),
         part_l.data_ptr(), t.data_ptr(), lse.data_ptr(), b, R, s_p, rk, rv, n_sel, block,
         nsplit, int(k_us.dtype == torch.int8), _build.stream_ptr(dev),
     )
