@@ -20,21 +20,34 @@ The CUDA kernels themselves are held against these plain versions in
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from xkv_tpu.compress.quant import quantize_k_factors, quantize_v_factors
+from xkv_tpu.compress.quant import (
+    quantize_k_factors,
+    quantize_k_factors_mixed4,
+    quantize_v_factors,
+    quantize_v_factors_mixed4,
+)
 from xkv_tpu.ops.attention import (
     factored_decode_attention_xla,
     rankspace_decode_attention_xla,
 )
 from xkv_tpu.ops.pallas.flash_attention import flash_attention_fwd
+from xkv_tpu.ops.pallas.lowrank_attention import lowrank_decode_attention as jax_k3
+from xkv_tpu.ops.pallas.rankspace_attention import mla_rankspace_decode_attention as jax_mla
+from xkv_tpu.ops.pallas.rankspace_attention import rankspace_decode_attention as jax_k2
 from xkv_tpu.ops.rope import apply_rope, rope_cos_sin
 from xkv_tpu_torch.ops.kernels import flash_attention as k1
 from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
 from xkv_tpu_torch.ops.kernels import rankspace_attention as k2
+from xkv_tpu_torch.scripts.kernel_variants import row_rel_err
+
+jax_quantize_k4 = jax.jit(quantize_k_factors_mixed4, static_argnums=2)
+jax_quantize_v4 = jax.jit(quantize_v_factors_mixed4, static_argnums=2)
 
 
 def rnd(seed, *shape, scale=1.0):
@@ -225,13 +238,19 @@ def _lowrank_meta(hq, hkv, hd, rk=64, rv=32, ql=1, s_p=40):
             torch.empty((s_p, hd // 2), dtype=torch.bfloat16, **meta))
 
 
-@pytest.mark.parametrize("hq,hkv,hd,ql", [(32, 8, 64, 1), (32, 8, 128, 1), (24, 8, 128, 1),
-                                          (12, 2, 64, 2), (28, 4, 128, 3), (7, 1, 64, 1)])
-def test_lowrank_kernel_takes_head_and_group_sizes(hq, hkv, hd, ql):
+# (hq, hkv, hd, ql, rk, rv): head sizes and group sizes, then value ranks
+# past one CTA's 1024 (value slices) and rank 4096, the full rank of an
+# 8B group of 4 layers.
+@pytest.mark.parametrize("hq,hkv,hd,ql,rk,rv", [
+    (32, 8, 64, 1, 64, 32), (32, 8, 128, 1, 64, 32), (24, 8, 128, 1, 64, 32),
+    (12, 2, 64, 2, 64, 32), (28, 4, 128, 3, 64, 32), (7, 1, 64, 1, 64, 32),
+    (32, 8, 128, 1, 512, 1088), (32, 8, 64, 1, 256, 4096), (8, 2, 128, 2, 4096, 4096)])
+def test_lowrank_kernel_takes_head_and_group_sizes(hq, hkv, hd, ql, rk, rv):
     """K3's and K5's shape checks (run before the device checks) accept head
-    sizes 64 and 128 and any group size hq / hkv (3, 6, 7 included)."""
-    ops = _lowrank_meta(hq, hkv, hd, ql=ql)
-    assert k3.kernel_shapes(*ops, hq, hkv) == (2, ql * hq, hd, 40, 64, 32)
+    sizes 64 and 128, any group size hq / hkv (3, 6, 7 included) and any
+    rank of the JAX kernels' layout (rk a multiple of 64, rv of 16)."""
+    ops = _lowrank_meta(hq, hkv, hd, rk=rk, rv=rv, ql=ql)
+    assert k3.kernel_shapes(*ops, hq, hkv) == (2, ql * hq, hd, 40, rk, rv)
 
 
 @pytest.mark.parametrize("hd", [96, 256, 32])
@@ -253,14 +272,14 @@ def test_lowrank_kernel_refuses_other_head_sizes(hd):
 # grid too large for one split per SM.
 SPLIT_CASES = [(128, 32, 768, 1, 44), (128, 128, 768, 1, 33), (32, 32, 768, 1, 32),
                (128, 84, 768, 1, 44), (4, 32, 96, 2, 4), (128, 32, 1024, 2, 16),
-               (1, 2000, 1024, 4, 1)]
+               (1, 2000, 1024, 4, 1), (128, 128, 1536, 1, 16), (128, 32, 4096, 1, 8)]
 
 
 @pytest.mark.parametrize("n_blocks,R,rv,b,want", SPLIT_CASES)
 def test_rankspace_split_count(n_blocks, R, rv, b, want):
     """The grid (splits x value slices x 32-row tiles x sequences) fills the
     SMs once, with at least one 64-key block per split; 256-rank value
-    slices only for a single row tile."""
+    slices for a single row tile, 1024-rank ones past 1024 for several."""
     nsplit = k2.split_count(n_blocks, R, rv, b, 132)
     assert nsplit == want
     assert 1 <= nsplit <= n_blocks
@@ -282,20 +301,22 @@ def _rankspace_meta(b, R, s_p, rk, rv, dtype=torch.bfloat16):
 
 
 # (R, s_p, rk, rv): the 8B layer at ql 1 and 4, R 84, rv 16 and 1024, a
-# segment shorter than a block and not a multiple of 64.
+# segment shorter than a block and not a multiple of 64; past 1024 value
+# ranks, and rk = rv = 4096 (the full rank of an 8B group of 4 layers).
 RANKSPACE_SHAPES = [(32, 8192, 512, 768), (128, 8192, 512, 768), (84, 2000, 512, 768),
-                    (32, 1000, 64, 16), (32, 1000, 256, 1024), (3, 40, 16, 16)]
+                    (32, 1000, 64, 16), (32, 1000, 256, 1024), (3, 40, 16, 16),
+                    (32, 100, 64, 1040), (32, 8192, 4096, 4096), (128, 1000, 512, 1536)]
 
 
 @pytest.mark.parametrize("R,s_p,rk,rv", RANKSPACE_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
 def test_rankspace_kernel_takes_shapes(R, s_p, rk, rv, dtype):
     """K2's and K4's shape rules (run before the device checks) take any b
-    and R, rk and rv multiples of 16, rv up to 1024."""
+    and R, rk and rv positive multiples of 16."""
     assert k2.rankspace_shapes(*_rankspace_meta(2, R, s_p, rk, rv, dtype)) == (2, R, s_p, rk, rv)
 
 
-@pytest.mark.parametrize("rk,rv", [(24, 64), (64, 24), (64, 1040), (0, 64)])
+@pytest.mark.parametrize("rk,rv", [(24, 64), (64, 24), (4096, 4104), (0, 64)])
 def test_rankspace_kernel_refuses_other_ranks(rk, rv):
     ops = _rankspace_meta(1, 32, 100, rk, rv)
     with pytest.raises(ValueError, match="multiples of 16"):
@@ -321,9 +342,10 @@ def _mixed_meta(b, R, s_p, r8k, h4k, r8v, h4v):
 
 
 # (r8k, h4k, r8v, h4v): the 8B split (256 + 256 / 256 + 512 ranks), splits
-# that are not whole 64-byte boxes, all int8, all int4, rv 1024.
+# that are not whole 64-byte boxes, all int8, all int4, rv 1024, rv 1040,
+# and rk = rv = 4096.
 MIXED_SPLITS = [(256, 128, 256, 256), (16, 24, 24, 36), (64, 0, 96, 0), (0, 32, 0, 48),
-                (2, 7, 256, 384)]
+                (2, 7, 256, 384), (16, 0, 512, 264), (2048, 1024, 2048, 1024)]
 
 
 @pytest.mark.parametrize("r8k,h4k,r8v,h4v", MIXED_SPLITS)
@@ -336,4 +358,102 @@ def test_mixed_kernel_refuses_other_totals():
     with pytest.raises(ValueError, match="multiples of 16"):
         k2.mixed_rankspace_kernel(*_mixed_meta(1, 32, 100, 8, 8, 16, 0))
     with pytest.raises(ValueError, match="multiples of 16"):
-        k2.mixed_rankspace_kernel(*_mixed_meta(1, 32, 100, 16, 0, 512, 264))
+        k2.mixed_rankspace_kernel(*_mixed_meta(1, 32, 100, 16, 0, 512, 260))
+
+
+def _mla_meta(R, s_p, r8, h4, rope):
+    """K7's (h4 None) or K8's operands on ``meta``: q_emb, q_pe, us (int8
+    ranks for K8), k_pe, r, and K8's packed int4 tail."""
+    meta = dict(device="meta")
+    rk = r8 + (0 if h4 is None else 2 * h4)
+    return (torch.empty((2, R, rk), dtype=torch.bfloat16, **meta),
+            torch.empty((2, R, rope), dtype=torch.bfloat16, **meta),
+            torch.empty((2, s_p, r8), dtype=torch.bfloat16 if h4 is None else torch.int8, **meta),
+            torch.empty((2, s_p, rope), dtype=torch.bfloat16, **meta),
+            torch.empty((2, s_p), dtype=torch.float32, **meta),
+            None if h4 is None else torch.empty((2, s_p, h4), dtype=torch.int8, **meta))
+
+
+# (R, r8, h4): DeepSeek-V2-Lite's rank 512 (bf16; 256 int8 + 256 int4, ql
+# 1), past one CTA's 1024 ranks (value slices), and 2048, the full rank of
+# its groups of 4 layers (bf16; 1024 int8 + 1024 int4, ql 2).
+@pytest.mark.parametrize("R,r8,h4", [(16, 512, None), (16, 256, 128), (32, 1088, None),
+                                     (16, 2048, None), (32, 1024, 512)])
+def test_mla_kernel_takes_ranks(R, r8, h4):
+    """K7's and K8's shape rules (run before the device checks) take any
+    rank of the JAX kernels' layout: a positive multiple of 16."""
+    rk = r8 + (0 if h4 is None else 2 * h4)
+    assert k2.mla_shapes(*_mla_meta(R, 100, r8, h4, 64)) == (2, R, 100, rk, 64)
+
+
+@pytest.mark.parametrize("r8,h4,rope", [(1032, None, 64), (512, None, 24), (1024, 516, 64)])
+def test_mla_kernel_refuses_other_ranks(r8, h4, rope):
+    q_emb, q_pe, us, k_pe, r, us4 = _mla_meta(16, 100, r8, h4, rope)
+    with pytest.raises(ValueError, match="multiples of 16"):  # before the device checks
+        if us4 is None:
+            k2.mla_rankspace_kernel(q_emb, q_pe, us, k_pe, r)
+        else:
+            k2.mla_mixed_rankspace_kernel(q_emb, q_pe, us, us4, k_pe, r)
+
+
+WIDE = 1088  # a rank past one CTA's 1024: value slices on the card
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K6", "K3", "K7"])
+def test_wide_rank_plain_matches_pallas_interpret(kernel):
+    """The plain versions that the card holds the kernels against, at rank
+    1088 (K2, K6 and K3: rv; K7: the latent rank), against the Pallas
+    kernels in interpret mode, s_p 96 with ragged lengths. fp32 factors:
+    1e-4 (the sums run in another order), K7 1e-5 of a row as in
+    test_torch_deepseek.py; K6, mixed int8 + int4 in bf16: 1e-2 as in
+    test_torch_int4.py."""
+    b, hq, hkv, hd, s_p = 2, 4, 2, 16, 96
+    lens, lo = [96, 70], [0, 9]
+    kw = dict(scale=0.25, num_kv_heads=hkv)
+    if kernel in ("K2", "K3"):
+        f = _factors(30, b, s_p, 64, WIDE, hkv * hd, False)
+        fac = [f["k_us"], f["k_vt"], f["v_us"], f["v_vt"]]
+        q = rnd(31, b, hq, 1, hd)
+        if kernel == "K2":
+            want = jax_k2(j(q), *map(j, fac), j(lens), win_lo=j(lo), block_s=32,
+                          interpret=True, **kw)
+            got = k2.rankspace_decode_attention(t(q), *map(t, fac), t(lens), win_lo=t(lo),
+                                                **kw)
+        else:
+            cos_p, sin_p = rope_cos_sin(jnp.arange(s_p), hd, theta=10000.0)
+            cos_t, sin_t = rope_cos_sin(jnp.full((b,), s_p + 2), hd, theta=10000.0)
+            trig = [cos_p, sin_p, cos_t, sin_t]
+            want = jax_k3(j(q), *map(j, fac), *trig, j(lens), win_lo=j(lo), block_s=32,
+                          interpret=True, **kw)
+            got = k3.lowrank_decode_attention(t(q), *map(t, fac), *map(t, trig), lengths=t(lens),
+                                              win_lo=t(lo), **kw)
+        assert got[0].shape == (b, hq, 1, hd)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
+    elif kernel == "K6":
+        m = hkv * hd
+        qk = jax_quantize_k4(j(rnd(32, b, s_p, 128)), j(rnd(33, b, 128, m, scale=0.3)), 64)
+        qv = jax_quantize_v4(j(rnd(34, b, s_p, WIDE)), j(rnd(35, b, WIDE, m, scale=0.3)), 512)
+        f = [qk.us8, qk.vt8, qv.us8, qv.vt.astype(jnp.float32)]
+        extra = dict(k_scale_slice=qk.out_scale, v_rank_scale=qv.rank_scale, k_us4=qk.us4p,
+                     k_vt4_slice=qk.vt4, k_scale4_slice=qk.scale4, v_us4=qv.us4p)
+        q = rnd(36, b, hq, 2, hd)
+        want = jax_k2(j(q), *f, j(lens), win_lo=j(lo), block_s=32, interpret=True, **extra,
+                      **kw)
+        got = k2.rankspace_decode_attention(
+            t(q), *map(t, f), t(lens), win_lo=t(lo), **kw, **{k: t(v) for k, v in extra.items()})
+        assert got[0].shape == (b, hq, 2, hd)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-2, atol=1e-2)
+    else:
+        nh, rope = 4, 16
+        q_emb, q_pe = rnd(37, b, nh, 1, WIDE, scale=0.1), rnd(38, b, nh, 1, rope, scale=0.3)
+        us, k_pe = rnd(39, b, s_p, WIDE), rnd(40, b, s_p, rope)
+        r = np.abs(rnd(41, b, s_p)) + 0.5
+        want_t, want_lse = jax_mla(j(q_emb), j(q_pe), j(us), j(k_pe), j(r), j(lens),
+                                   block_s=32, interpret=True)
+        got_t, got_lse = k2.mla_rankspace_decode_attention(t(q_emb), t(q_pe), t(us), t(k_pe),
+                                                           t(r), t(lens))
+        assert got_t.shape == (b, nh, 1, WIDE)
+        assert row_rel_err(got_t, t(want_t)) <= 1e-5
+        np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), rtol=1e-5)

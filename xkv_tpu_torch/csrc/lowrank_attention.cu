@@ -19,7 +19,10 @@
 //
 // Design (head-split flash-decoding):
 // - One CTA per (kv head, 16-row tile of that head's ql*gsz query rows,
-//   key split, sequence). The 64-key blocks of the live columns
+//   key split, value slice, sequence); one value slice holds every rank up
+//   to 1024 (t's share of a thread stays in registers), past that slices
+//   of at most 1024, each of which rebuilds the keys again (value_slice).
+//   The 64-key blocks of the live columns
 //   [win_lo, valid_len) (K3), or of the selected chunks (K5, each CTA
 //   reading the chunk ids itself: BlockWalk, decode_common.cuh), are dealt
 //   out to `nsplit` splits, chosen so that the grid fills the SMs.
@@ -72,7 +75,7 @@ constexpr int kStages = 4;          // cp.async ring depth
 constexpr int kChunk = 128;         // bytes of a staged chunk row
 constexpr int kRowB = kChunk + 16;  // padded chunk row stride (bytes)
 constexpr int kStageUs = kBS * kRowB;
-constexpr int kMaxVC = 16;          // 64-rank value chunks: rv <= 1024
+constexpr int kMaxVC = 16;          // 64-rank value chunks of a slice: <= 1024 ranks
 constexpr int kMaxSmem = 232448;    // opt-in shared memory of one CTA
 
 // Shared-memory sizes of the split kernels: the fixed part (q rows,
@@ -158,7 +161,7 @@ __global__ void __launch_bounds__(kT, 1) lowrank_stream_split_kernel(
     const int* __restrict__ los, const int* __restrict__ ids, int n_sel, int chunk,
     float* __restrict__ part_t, float* __restrict__ part_m, float* __restrict__ part_l,
     int* __restrict__ done, int R, int hq, int hkv, int s_p, int rk, int rv, long long sb_kvt,
-    long long ld_kvt, int nsplit, int ntiles) {
+    long long ld_kvt, int nsplit, int ntiles, int vslice) {
   using L = Layout<T, HD>;
   using Acc = typename std::conditional<sizeof(T) == 2, float, int>::type;
   constexpr bool kInt8 = sizeof(T) == 1;
@@ -173,7 +176,10 @@ __global__ void __launch_bounds__(kT, 1) lowrank_stream_split_kernel(
   float* l_s = m_s + kHR;
   float* a_s = l_s + kHR;
 
-  const int split = blockIdx.x, bi = blockIdx.z;
+  // Value slice vs holds ranks [v0, v0 + rvs); one slice up to 1024 ranks.
+  const int nvs = (rv + vslice - 1) / vslice;
+  const int split = blockIdx.x / nvs, vs = blockIdx.x % nvs, bi = blockIdx.z;
+  const int v0 = vs * vslice, rvs = min(vslice, rv - v0);
   const int hk = blockIdx.y / ntiles, rt = blockIdx.y % ntiles;
   const int gsz = hq / hkv;
   const int head_rows = (R / hq) * gsz;
@@ -182,7 +188,7 @@ __global__ void __launch_bounds__(kT, 1) lowrank_stream_split_kernel(
   const int g = lane >> 2, tq = lane & 3;
   const int mt = warp & 3, half = warp >> 2;  // key tile, column half
   const BlockWalk walk = block_walk(lens, los, ids, n_sel, chunk, bi, s_p, split, nsplit);
-  if (split == 0 && threadIdx.x == 0) done[((size_t)bi * hkv + hk) * ntiles + rt] = 0;
+  if (blockIdx.x == 0 && threadIdx.x == 0) done[((size_t)bi * hkv + hk) * ntiles + rt] = 0;
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");  // the merge may start
   auto grow = [&](int i) {  // the tile's row i -> row of (ql, hq)
     const int hr = rt * kHR + i;
@@ -191,7 +197,7 @@ __global__ void __launch_bounds__(kT, 1) lowrank_stream_split_kernel(
 
   const int us_bytes = rk * (int)sizeof(T);
   const int nk = (us_bytes + kChunk - 1) / kChunk;
-  const int nv = (rv + 63) / 64;
+  const int nv = (rvs + 63) / 64;
   const int nch = nk + 2 + nv;
   const T* kvt_b = k_vt + (size_t)bi * sb_kvt + hk * HD;
   const unsigned char* kus_b = reinterpret_cast<const unsigned char*>(k_us + (size_t)bi * s_p * rk);
@@ -221,7 +227,7 @@ __global__ void __launch_bounds__(kT, 1) lowrank_stream_split_kernel(
         stage_rows(st, kRowB, reinterpret_cast<const unsigned char*>(tab + (size_t)key0 * (HD / 2)),
                    HD, kBS, HD, valid);
       } else {
-        const int r0 = (psub - nk - 2) * 64;
+        const int r0 = v0 + (psub - nk - 2) * 64;
         const int nr = min(64, rv - r0);
         stage_rows(st, kRowB, vus_b + ((size_t)key0 * rv + r0) * sizeof(T), (size_t)rv * sizeof(T),
                    kBS, nr * (int)sizeof(T), valid);
@@ -390,7 +396,7 @@ __global__ void __launch_bounds__(kT, 1) lowrank_stream_split_kernel(
             acc_v[cc][3] *= a1;
           }
         }
-        if (c * 64 + warp * 8 < rv) {
+        if (c * 64 + warp * 8 < rvs) {
 #pragma unroll
           for (int kk = 0; kk < 2; ++kk) {
             uint32_t b[4];
@@ -416,8 +422,8 @@ __global__ void __launch_bounds__(kT, 1) lowrank_stream_split_kernel(
   const size_t base = ((size_t)bi * nsplit + split) * R;
 #pragma unroll
   for (int c = 0; c < kMaxVC; ++c) {
-    const int col = c * 64 + warp * 8 + 2 * tq;
-    if (c < nv && c * 64 + warp * 8 < rv) {
+    const int col = v0 + c * 64 + warp * 8 + 2 * tq;
+    if (c < nv && c * 64 + warp * 8 < rvs) {
       if (g < nrows)
         *reinterpret_cast<float2*>(part_t + (base + grow(g)) * rv + col) =
             make_float2(acc_v[c][0], acc_v[c][1]);
@@ -426,7 +432,7 @@ __global__ void __launch_bounds__(kT, 1) lowrank_stream_split_kernel(
             make_float2(acc_v[c][2], acc_v[c][3]);
     }
   }
-  if (tid < nrows) {
+  if (vs == 0 && tid < nrows) {
     part_m[base + grow(tid)] = m_s[tid];
     part_l[base + grow(tid)] = l_s[tid];
   }
@@ -436,7 +442,7 @@ __global__ void __launch_bounds__(kT, 1) lowrank_stream_split_kernel(
 constexpr int kCStages = 4;             // ring depth
 constexpr int kPanel = 64 * 128;        // one 128-byte panel of a 64-row chunk
 constexpr int kCStage = 2 * kPanel;     // a chunk: 64 rows x 256 bytes, two panels
-constexpr int kMaxVC2 = 8;              // 128-rank value chunks: rv <= 1024
+constexpr int kMaxVC2 = 8;              // 128-rank value chunks of a slice: <= 1024 ranks
 constexpr int kTP = kT + 32;            // 8 consumer warps and the producer warp
 
 template <typename T, int HD>
@@ -518,7 +524,7 @@ __global__ void __launch_bounds__(kTP, 1) lowrank_tma_split_kernel(
     const int* __restrict__ los, const int* __restrict__ ids, int n_sel, int chunk,
     float* __restrict__ part_t, float* __restrict__ part_m, float* __restrict__ part_l,
     int* __restrict__ done, int R, int hq, int hkv, int s_p, int rk, int rv, long long sb_kvt,
-    long long ld_kvt, int nsplit, int ntiles) {
+    long long ld_kvt, int nsplit, int ntiles, int vslice) {
   using L = Layout<T, HD>;
   using Acc = typename std::conditional<sizeof(T) == 2, float, int>::type;
   constexpr bool kInt8 = sizeof(T) == 1;
@@ -539,7 +545,10 @@ __global__ void __launch_bounds__(kTP, 1) lowrank_tma_split_kernel(
   const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + kCStages);
 
   const int hk = blockIdx.y / ntiles, rt = blockIdx.y % ntiles;
-  const int split = blockIdx.x, bi = blockIdx.z;
+  // Value slice vs holds ranks [v0, v0 + rvs); one slice up to 1024 ranks.
+  const int nvs = (rv + vslice - 1) / vslice;
+  const int split = blockIdx.x / nvs, vs = blockIdx.x % nvs, bi = blockIdx.z;
+  const int v0 = vs * vslice, rvs = min(vslice, rv - v0);
   const int gsz = hq / hkv;
   const int head_rows = (R / hq) * gsz;
   const int nrows = min(kHR, head_rows - rt * kHR);
@@ -547,7 +556,7 @@ __global__ void __launch_bounds__(kTP, 1) lowrank_tma_split_kernel(
   const int g = lane >> 2, tq = lane & 3;
   const int mt = warp & 3, half = (warp >> 2) & 1;  // key tile, column half
   const BlockWalk walk = block_walk(lens, los, ids, n_sel, chunk, bi, s_p, split, nsplit);
-  if (split == 0 && tid == 0) done[((size_t)bi * hkv + hk) * ntiles + rt] = 0;
+  if (blockIdx.x == 0 && tid == 0) done[((size_t)bi * hkv + hk) * ntiles + rt] = 0;
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");  // the merge may start
   auto grow = [&](int i) {  // the tile's row i -> row of (ql, hq)
     const int hr = rt * kHR + i;
@@ -560,7 +569,7 @@ __global__ void __launch_bounds__(kTP, 1) lowrank_tma_split_kernel(
 
   const int us_bytes = rk * (int)sizeof(T);
   const int nk = (us_bytes + 255) / 256;
-  const int nv = (rv + 127) / 128;
+  const int nv = (rvs + 127) / 128;
   const int nch = nk + 1 + nv;
 
   if (tid == kT) {
@@ -592,7 +601,7 @@ __global__ void __launch_bounds__(kTP, 1) lowrank_tma_split_kernel(
             tma_box(dst, &tm_cos, full, 0, key0, 0);
             tma_box(dst + kPanel, &tm_sin, full, 0, key0, 0);
           } else {
-            const int x = (sub - nk - 1) * 128 * (int)sizeof(T);
+            const int x = (v0 + (sub - nk - 1) * 128) * (int)sizeof(T);
             mbar_expect_tx(full, kInt8 ? kPanel : kCStage);
             tma_box(dst, &tm_vus, full, x, key0, bi);
             if (!kInt8) tma_box(dst + kPanel, &tm_vus, full, x + 128, key0, bi);
@@ -814,7 +823,7 @@ __global__ void __launch_bounds__(kTP, 1) lowrank_tma_split_kernel(
     for (int c = 0; c < kMaxVC2; ++c) {
       if (c < nv) {
         const unsigned char* st = acquire();
-        if (c * 128 + warp * 16 < rv) {
+        if (c * 128 + warp * 16 < rvs) {
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks) {
             uint32_t b[4];
@@ -843,10 +852,10 @@ __global__ void __launch_bounds__(kTP, 1) lowrank_tma_split_kernel(
   const size_t base = ((size_t)bi * nsplit + split) * R;
 #pragma unroll
   for (int c = 0; c < kMaxVC2; ++c) {
-    if (c < nv && c * 128 + warp * 16 < rv) {
+    if (c < nv && c * 128 + warp * 16 < rvs) {
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
-        const int col = c * 128 + warp * 16 + nt * 8 + 2 * tq;
+        const int col = v0 + c * 128 + warp * 16 + nt * 8 + 2 * tq;
         if (g < nrows)
           *reinterpret_cast<float2*>(part_t + (base + grow(g)) * rv + col) =
               make_float2(acc_v[c][nt][0], acc_v[c][nt][1]);
@@ -856,7 +865,7 @@ __global__ void __launch_bounds__(kTP, 1) lowrank_tma_split_kernel(
       }
     }
   }
-  if (tid < nrows) {
+  if (vs == 0 && tid < nrows) {
     part_m[base + grow(tid)] = m_s[tid];
     part_l[base + grow(tid)] = l_s[tid];
   }
@@ -867,7 +876,8 @@ int launch_tma(cudaStream_t st, const void* qab, const void* k_us, const void* k
                const void* v_us, const void* cos_h, const void* sin_h, const int* lens,
                const int* los, const int* ids, int n_sel, int chunk, void* part_t,
                void* part_m, void* part_l, int* done, int b, int R, int hq, int hkv, int s_p,
-               int rk, int rv, long long sb_kvt, long long ld_kvt, int nsplit, int ntiles) {
+               int rk, int rv, long long sb_kvt, long long ld_kvt, int nsplit, int ntiles,
+               int vslice) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   const long long sz = sizeof(T);
@@ -882,10 +892,11 @@ int launch_tma(cudaStream_t st, const void* qab, const void* k_us, const void* k
   auto kern = lowrank_tma_split_kernel<T, HD>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<dim3(nsplit, hkv * ntiles, b), kTP, smem, st>>>(
+  const int nvs = (rv + vslice - 1) / vslice;
+  kern<<<dim3(nsplit * nvs, hkv * ntiles, b), kTP, smem, st>>>(
       tm_kus, tm_vus, tm_cos, tm_sin, (const bf16*)qab, (const T*)k_vt, lens, los, ids, n_sel,
       chunk, (float*)part_t, (float*)part_m, (float*)part_l, done, R, hq, hkv, s_p, rk, rv,
-      sb_kvt, ld_kvt, nsplit, ntiles);
+      sb_kvt, ld_kvt, nsplit, ntiles, vslice);
   return (int)cudaGetLastError();
 }
 
@@ -1008,16 +1019,18 @@ int launch_stream(cudaStream_t st, const void* qab, const void* k_us, const void
                   const void* v_us, const void* cos_h, const void* sin_h, const int* lens,
                   const int* los, const int* ids, int n_sel, int chunk, void* part_t,
                   void* part_m, void* part_l, int* done, int b, int R, int hq, int hkv, int s_p,
-                  int rk, int rv, long long sb_kvt, long long ld_kvt, int nsplit, int ntiles) {
+                  int rk, int rv, long long sb_kvt, long long ld_kvt, int nsplit, int ntiles,
+                  int vslice) {
   constexpr int smem = Layout<T, HD>::kStreamSmem;
   static_assert(smem <= kMaxSmem, "streamed ring too large");
   auto kern = lowrank_stream_split_kernel<T, HD>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<dim3(nsplit, hkv * ntiles, b), kT, smem, st>>>(
+  const int nvs = (rv + vslice - 1) / vslice;
+  kern<<<dim3(nsplit * nvs, hkv * ntiles, b), kT, smem, st>>>(
       (const bf16*)qab, (const T*)k_us, (const T*)k_vt, (const T*)v_us, (const bf16*)cos_h,
       (const bf16*)sin_h, lens, los, ids, n_sel, chunk, (float*)part_t, (float*)part_m,
-      (float*)part_l, done, R, hq, hkv, s_p, rk, rv, sb_kvt, ld_kvt, nsplit, ntiles);
+      (float*)part_l, done, R, hq, hkv, s_p, rk, rv, sb_kvt, ld_kvt, nsplit, ntiles, vslice);
   return (int)cudaGetLastError();
 }
 
@@ -1030,14 +1043,15 @@ bool streams(int rk) {
 
 #define XKV_SPLIT_ARGS                                                                    \
   st, qab, k_us, k_vt, v_us, cos_h, sin_h, lens, los, ids, n_sel, chunk, part_t, part_m,  \
-      part_l, done, b, R, hq, hkv, s_p, rk, rv, sb_kvt, ld_kvt, nsplit, ntiles
+      part_l, done, b, R, hq, hkv, s_p, rk, rv, sb_kvt, ld_kvt, nsplit, ntiles, vslice
 
 template <typename T, int HD>
 int dispatch_split(cudaStream_t st, const void* qab, const void* k_us, const void* k_vt,
                    const void* v_us, const void* cos_h, const void* sin_h, const int* lens,
                    const int* los, const int* ids, int n_sel, int chunk, void* part_t,
                    void* part_m, void* part_l, int* done, int b, int R, int hq, int hkv, int s_p,
-                   int rk, int rv, long long sb_kvt, long long ld_kvt, int nsplit, int ntiles) {
+                   int rk, int rv, long long sb_kvt, long long ld_kvt, int nsplit, int ntiles,
+                   int vslice) {
   return streams<T, HD>(rk) ? launch_stream<T, HD>(XKV_SPLIT_ARGS)
                             : launch_tma<T, HD>(XKV_SPLIT_ARGS);
 }
@@ -1070,6 +1084,15 @@ int launch_merge(cudaStream_t st, const void* part_t, const void* part_m, const 
   return (int)cudaGetLastError();
 }
 
+// Ranks of a value slice: every rank up to 64 * kMaxVC = 1024; past that
+// the fewest slices of at most 1024, in whole 128-rank chunks. Each slice's
+// CTAs rebuild the keys again.
+int value_slice(int rv) {
+  if (rv <= 64 * kMaxVC) return rv;
+  const int nvs = (rv + 64 * kMaxVC - 1) / (64 * kMaxVC);
+  return ((rv + nvs - 1) / nvs + 127) / 128 * 128;
+}
+
 // Split kernel for the launch's (factor type, head size), then the merge
 // (K3 with ids == null, K5 otherwise).
 int run(const void* qab, const void* k_us, const void* k_vt, long long sb_kvt,
@@ -1080,12 +1103,13 @@ int run(const void* qab, const void* k_us, const void* k_vt, long long sb_kvt,
         int hq, int hkv, int hd, int s_p, int rk, int rv, int nsplit, int is_int8,
         void* stream) {
   if ((hd != 64 && hd != 128) || rk < 64 || rk % 64 != 0 || rv < 16 || rv % 16 != 0 ||
-      rv > 64 * kMaxVC || nsplit < 1 || hkv < 1 || hq % hkv != 0 || R % hq != 0)
+      nsplit < 1 || hkv < 1 || hq % hkv != 0 || R % hq != 0)
     return (int)cudaErrorInvalidValue;
   if (ids != nullptr && (chunk <= 0 || chunk % kBS != 0 || n_sel < 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int ntiles = ((R / hq) * (hq / hkv) + kHR - 1) / kHR;
+  const int vslice = value_slice(rv);
   int err;
   if (hd == 128)
     err = is_int8 ? dispatch_split<int8_t, 128>(XKV_SPLIT_ARGS)

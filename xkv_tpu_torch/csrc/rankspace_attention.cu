@@ -30,7 +30,8 @@
 // - One CTA per (key split, value slice, 32-row tile, sequence). A single
 //   row tile (R <= 32, one decode token) splits the value ranks into
 //   256-rank slices so that a b = 1 step fills the SMs; several tiles keep
-//   every value rank in each CTA, so each tile reads the factors once.
+//   every value rank in each CTA up to 1024, so each tile reads the
+//   factors once, and take 1024-rank slices past that.
 //   The key blocks of 64 covering [win_lo, valid_len) (K2, K6), or the
 //   blocks of the selected chunks (K4: each CTA reads the chunk ids itself
 //   and masks by absolute column id * chunk + j), are dealt out in
@@ -42,7 +43,11 @@
 // - A producer warp loads the row tile's q_emb by TMA, then keeps a ring
 //   of 64-key x 64-rank panels in flight (as deep as shared memory allows,
 //   up to 32): per block the key panels of k_us, then the CTA's value
-//   panels of v_us, with a full/empty mbarrier pair per stage. bf16 panels
+//   panels of v_us, with a full/empty mbarrier pair per stage. Where
+//   q_emb's panels would leave the ring under two stages (rk past ~3000
+//   in bf16), they come through a ring of their own instead, each beside
+//   its key panel: the same 32 rows for every block, so L2 serves them.
+//   bf16 panels
 //   land in the 128-byte swizzle and are read in place; int8 panels (and
 //   K6's packed int4 bytes) land as 64-byte boxes and the warpgroup that
 //   reads them widens them to bf16 with 16-byte vector reads into one of
@@ -131,6 +136,30 @@ __device__ __forceinline__ void stage_mixed(bf16* dst, int ld, const int8_t* k8,
   }
 }
 
+// stage_mixed's logical columns [c0, c0 + w) only.
+__device__ __forceinline__ void stage_mixed_cols(bf16* dst, int ld, const int8_t* k8,
+                                                 const int8_t* k4, int r8, int h4, int valid,
+                                                 int c0, int w) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int row = warp; row < kBS; row += kThreads / 32) {
+    bf16* d = dst + row * ld;
+    for (int c = lane; c < w; c += 32) {
+      const int j = c0 + c;
+      int x = 0;
+      if (row < valid) {
+        if (j < r8) {
+          x = k8[(size_t)row * r8 + j];
+        } else if (j < r8 + h4) {
+          x = k4[(size_t)row * h4 + j - r8] >> 4;
+        } else {
+          x = ((k4[(size_t)row * h4 + j - r8 - h4] & 0xF) ^ 8) - 8;
+        }
+      }
+      d[c] = __float2bfloat16_rn((float)x);
+    }
+  }
+}
+
 // ---- K2, K4, K6: one CTA per (key split, value slice, 32-row tile,
 // sequence); a producer warp fills a TMA ring of 64-key x 64-rank panels;
 // 2 consumer warpgroups compute on wgmma from shared memory.
@@ -142,8 +171,9 @@ constexpr int kMaxStages = 32;          // panels in flight, at most
 constexpr int kPanelB = kBS * 128;      // a bf16 panel: 64 keys x 64 ranks, swizzled rows
 constexpr int kRawB = kBS * 64;         // an int8 box: 64 keys x 64 bytes
 constexpr int kQPanelB = kRows * 128;   // a q (or P) panel: 32 rows x 64 ranks (keys)
-constexpr int kMaxVPanels = 16;         // value panels of a CTA: rv <= 1024
+constexpr int kMaxVPanels = 16;         // value panels of a CTA: 1024-rank slices
 constexpr int kSliceVP = 4;             // value panels of a 256-rank slice
+constexpr int kQStages = 8;             // q panels in flight when q_emb streams
 constexpr int kScLd = kBS + 4;          // fp32 score row stride
 constexpr int kMaxSmemB = 232448;
 
@@ -161,24 +191,34 @@ enum Src { kSrcBf16, kSrcInt8, kSrcHi, kSrcLo };
 // the warpgroups' partial scores, the softmax statistics and the barriers.
 // Every wgmma operand starts on a 1024-byte swizzle atom. The ring takes
 // what the opt-in limit leaves, up to kMaxStages panels, so large ranks
-// still fit (at least 2 stages).
+// still fit (at least 2 stages). Where q_emb's panels leave no room for 2
+// stages (rk past ~3000 in bf16, ~2600 in int8), they stream instead
+// (qring): a ring of kQStages q panels beside the panel ring, one q panel
+// loaded with each key panel, with its own full/empty barriers.
 struct RsLayout {
-  int stage, stages, cv, q, p, ring, sc, stats, bars, total;
-  __host__ __device__ RsLayout(int rk, int mode) {
+  int stage, stages, cv, q, p, ring, sc, stats, bars, nbars, total;
+  __host__ __device__ RsLayout(int rk, int mode, bool qring) {
     const int npk = (rk + 63) / 64;
     stage = mode == kBf16 ? kPanelB : kRawB;
     cv = 0;
     q = cv + (mode == kBf16 ? 0 : kGroups * 2 * kPanelB);
-    p = q + npk * kQPanelB;
+    p = q + (qring ? kQStages : npk) * kQPanelB;
     ring = p + kQPanelB;
-    const int rest = kGroups * kRows * kScLd * 4 + 3 * kRows * 4 + (2 * kMaxStages + 1) * 8;
+    nbars = 2 * kMaxStages + 1 + (qring ? 2 * kQStages : 0);
+    const int rest = kGroups * kRows * kScLd * 4 + 3 * kRows * 4 + nbars * 8;
     stages = min(kMaxStages, (kMaxSmemB - 1024 - ring - rest) / stage);
     sc = ring + stages * stage;
     stats = sc + kGroups * kRows * kScLd * 4;
     bars = stats + 3 * kRows * 4;
-    total = bars + (2 * kMaxStages + 1) * 8 + 1024;  // slack: the base is aligned to 1024
+    total = bars + nbars * 8 + 1024;  // slack: the base is aligned to 1024
   }
 };
+
+// Whether q_emb's panels stream through their own ring at this rank: only
+// where keeping them resident would leave the panel ring under 2 stages.
+__host__ __device__ inline bool q_streams(int rk, int mode) {
+  return RsLayout(rk, mode, false).stages < 2;
+}
 
 // Where panel p of a factor comes from: the tensor map (0: the int8 or bf16
 // stream, 1: the packed int4 stream), the box's first byte and how to
@@ -314,8 +354,9 @@ __device__ __forceinline__ void gather_half(unsigned char* panel, const int8_t* 
 // panel as it landed) . q_emb^T (K-major q panels); the two warpgroups'
 // partial sums meet in shared memory for the softmax. The value product is
 // t^T (64 ranks x 32 rows) += v_us^T (the ring panel read MN-major) . P^T
-// (K-major, P in one swizzled panel).
-template <int kMode, int kVPanels>
+// (K-major, P in one swizzled panel). With kQRing the q_emb panel of each
+// key panel arrives through the q ring instead of staying resident.
+template <int kMode, int kVPanels, bool kQRing>
 __global__ void __launch_bounds__(kTP, 1) rankspace_tma_split_kernel(
     const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_k4,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_v4,
@@ -324,7 +365,7 @@ __global__ void __launch_bounds__(kTP, 1) rankspace_tma_split_kernel(
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int rk = a.rk, rv = a.rv, s_p = a.s_p;
-  const RsLayout lay(rk, kMode);
+  const RsLayout lay(rk, kMode, kQRing);
   unsigned char* ring = smem + lay.ring;
   const int S = lay.stages;
   float* sc = reinterpret_cast<float*>(smem + lay.sc);
@@ -334,6 +375,9 @@ __global__ void __launch_bounds__(kTP, 1) rankspace_tma_split_kernel(
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
   const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + kMaxStages);
   const uint32_t q_bar = smem_u32(bars + 2 * kMaxStages);
+  // kQRing: the q ring's full and empty barriers.
+  const uint32_t qfull0 = smem_u32(bars + 2 * kMaxStages + 1);
+  const uint32_t qempty0 = qfull0 + 8 * kQStages;
 
   const int nvs = (rv + 64 * kVPanels - 1) / (64 * kVPanels);
   const int split = blockIdx.x / nvs, vs = blockIdx.x % nvs;
@@ -354,6 +398,12 @@ __global__ void __launch_bounds__(kTP, 1) rankspace_tma_split_kernel(
       mbar_init(empty0 + 8 * s, 4);
     }
     mbar_init(q_bar, 1);
+    if constexpr (kQRing) {
+      for (int s = 0; s < kQStages; ++s) {
+        mbar_init(qfull0 + 8 * s, 1);
+        mbar_init(qempty0 + 8 * s, 4);
+      }
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -361,20 +411,32 @@ __global__ void __launch_bounds__(kTP, 1) rankspace_tma_split_kernel(
     // Producer: panel n into stage n % S once its warpgroup has
     // released that stage's previous panel; per block the npk key panels,
     // then this CTA's value panels. First the row tile's q_emb, as npk
-    // swizzled panels of 32 rows (zero past the rows and the ranks).
-    if (lane == 0) {
+    // swizzled panels of 32 rows (zero past the rows and the ranks); with
+    // kQRing instead each key panel's q panel just before it.
+    if (!kQRing && lane == 0) {
       mbar_expect_tx(q_bar, npk * kQPanelB);
       for (int p = 0; p < npk; ++p)
         tma_box(smem_u32(smem + lay.q + p * kQPanelB), &tm_q, q_bar, p * 128, row0, bi);
     }
-    if (kMode != kMixedGather && lane == 0) {
-      int n = 0;
+    if ((kQRing || kMode != kMixedGather) && lane == 0) {
+      int n = 0, nq = 0;
       for (int v = next_live(walk.begin); v < walk.end; v = next_live(v + 1)) {
         const int key0 = walk.key0(v);
         for (int i = 0; i < npk + nvp; ++i, ++n) {
+          const bool is_k = i < npk;
+          if (kQRing && is_k) {
+            // The key panel's q panel, into q stage nq % kQStages (K6's
+            // gathered panels too).
+            const int sq = nq % kQStages;
+            if (nq >= kQStages) mbar_wait(qempty0 + 8 * sq, (nq / kQStages - 1) & 1);
+            mbar_expect_tx(qfull0 + 8 * sq, kQPanelB);
+            tma_box(smem_u32(smem + lay.q + sq * kQPanelB), &tm_q, qfull0 + 8 * sq, i * 128,
+                    row0, bi);
+            ++nq;
+          }
+          if (kMode == kMixedGather) continue;
           const int s = n % S;
           if (n >= S) mbar_wait(empty0 + 8 * s, (n / S - 1) & 1);
-          const bool is_k = i < npk;
           int map, x;
           panel_src<kMode>(is_k ? i : vs * kVPanels + i - npk, is_k ? a.r8k : a.r8v,
                            is_k ? a.h4k : a.h4v, map, x);
@@ -392,7 +454,7 @@ __global__ void __launch_bounds__(kTP, 1) rankspace_tma_split_kernel(
     l_s[tid] = 0.f;
   }
   rs_consumers_sync();
-  mbar_wait(q_bar, 0);
+  if (!kQRing) mbar_wait(q_bar, 0);
 
   const int grp = warp >> 2, wg_tid = tid & 127, wq = warp & 3;  // warpgroup, its warp
   const int g = lane >> 2, tq = lane & 3;
@@ -450,7 +512,9 @@ __global__ void __launch_bounds__(kTP, 1) rankspace_tma_split_kernel(
   bf16* p_s = reinterpret_cast<bf16*>(smem + lay.p);
   const int nsum = min(kGroups, npk);  // warpgroups holding partial scores
   int n0 = 0;                          // the block's first panel in the CTA's sequence
-  for (int v = next_live(walk.begin); v < walk.end; v = next_live(v + 1), n0 += npk + nvp) {
+  int nq0 = 0;                         // kQRing: the block's first q panel
+  for (int v = next_live(walk.begin); v < walk.end;
+       v = next_live(v + 1), n0 += npk + nvp, nq0 += npk) {
     const int key0 = walk.key0(v);
     const int nkeys = min(kBS, s_p - key0);
     // Partial s^T over the warpgroup's key panels.
@@ -458,17 +522,26 @@ __global__ void __launch_bounds__(kTP, 1) rankspace_tma_split_kernel(
 #pragma unroll
     for (int e = 0; e < 16; ++e) s[e] = 0.f;
     for (int p = grp; p < npk; p += kGroups) {
+      uint32_t qp = q_a + p * kQPanelB;
+      if constexpr (kQRing) {
+        const int nq = nq0 + p, sq = nq % kQStages;
+        mbar_wait(qfull0 + 8 * sq, (nq / kQStages) & 1);
+        qp = q_a + sq * kQPanelB;
+      }
       const uint32_t kp = acquire(n0 + p, true, p, key0, nkeys);
       fence_regs(s);
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks)
-        wgmma_n32<0>(s, desc_b128(kp + ks * 32, 16, 1024),
-                     desc_b128(q_a + p * kQPanelB + ks * 32, 16, 1024));
+        wgmma_n32<0>(s, desc_b128(kp + ks * 32, 16, 1024), desc_b128(qp + ks * 32, 16, 1024));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
       release(n0 + p);
+      if constexpr (kQRing) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(qempty0 + 8 * ((nq0 + p) % kQStages));
+      }
     }
     if (grp < nsum) {
       float* scp = sc + grp * kRows * kScLd;
@@ -707,6 +780,122 @@ __global__ void __launch_bounds__(kThreads) mla_split_kernel(const RankspaceArgs
                     rows, rk);
 }
 
+// K7 and K8 past 1024 ranks: t's columns are dealt out in value slices of
+// `vslice` ranks (<= 1024), one CTA per (key split, value slice, 32-row
+// chunk, sequence), so t's share of a thread stays 4 columns of registers.
+// The scores need every rank, and q_emb's and us's rows of that width do
+// not fit in shared memory: per block both are staged in chunks of vslice
+// ranks, in rank order, each chunk's products added to the same fragments
+// as the one-chunk kernel adds them, so every slice computes the same
+// scores. The CTA's own slice of us is staged again for P @ us unless it
+// was the last chunk. (Every slice reads all of us: past 1024 ranks K7
+// reads the latent nvs times, from L2 after the first.)
+template <typename T, bool kMixed>
+__global__ void __launch_bounds__(kThreads) mla_wide_split_kernel(const RankspaceArgs a,
+                                                                  int vslice) {
+  constexpr int NC = 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  SoftmaxSmem& sm = *reinterpret_cast<SoftmaxSmem*>(smem);
+  const int rk = a.rk, rope = a.rope, s_p = a.s_p;
+  const int ld = vslice + 8, ldp = rope + 8;
+  bf16* qs = reinterpret_cast<bf16*>(smem + sizeof(SoftmaxSmem));
+  bf16* us = qs + kRows * ld;     // kBS x ld: a chunk of the block's us rows
+  bf16* qps = us + kBS * ld;      // kRows x ldp
+  bf16* kps = qps + kRows * ldp;  // kBS x ldp
+  float* rs = reinterpret_cast<float*>(kps + kBS * ldp);  // kBS
+
+  const int nvs = (rk + vslice - 1) / vslice;
+  const int split = blockIdx.x / nvs, vs = blockIdx.x % nvs;
+  const int v0 = vs * vslice, rvs = min(vslice, rk - v0);
+  const int bi = blockIdx.z, row0 = blockIdx.y * kRows;
+  const int rows = min(kRows, a.R - row0);
+  const BlockWalk walk =
+      block_walk(a.lens, a.los, nullptr, 0, 0, bi, s_p, split, a.nsplit);
+
+  const size_t qrow = (size_t)bi * a.R + row0;
+  stage_as_bf16<bf16>(qps, ldp, a.q_pe + qrow * rope, rope, kRows, rope, rows);
+  softmax_init(sm);
+  float acc[kRows][NC];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int mt = warp & 1, nt0 = (warp >> 1) * 2;
+
+  for (int v = walk.begin; v < walk.end; ++v) {
+    const int key0 = walk.key0(v);
+    const int nkeys = min(kBS, s_p - key0);
+    const size_t row_base = (size_t)bi * s_p + key0;
+    // Columns [c0, c0 + w) of the block's us rows as bf16.
+    auto stage_us = [&](int c0, int w) {
+      if constexpr (kMixed) {
+        stage_mixed_cols(us, ld, reinterpret_cast<const int8_t*>(a.k_us) + row_base * a.r8k,
+                         a.k_us4 + row_base * a.h4k, a.r8k, a.h4k, nkeys, c0, w);
+      } else {
+        stage_as_bf16<T>(us, ld, reinterpret_cast<const T*>(a.k_us) + row_base * rk + c0, rk,
+                         kBS, w, nkeys);
+      }
+    };
+    __syncthreads();
+    stage_as_bf16<bf16>(kps, ldp, a.k_pe + row_base * rope, rope, kBS, rope, nkeys);
+    for (int c = threadIdx.x; c < kBS; c += kThreads)
+      rs[c] = c < nkeys ? a.r[row_base + c] : 0.f;
+
+    // (32 x 64) nope scores over the rank chunks, then pe scores.
+    float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    float cp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    for (int c0 = 0; c0 < rk; c0 += vslice) {
+      const int w = min(vslice, rk - c0);
+      if (c0 > 0) __syncthreads();  // the previous chunk's products are done
+      stage_as_bf16<bf16>(qs, ld, a.q_emb + qrow * rk + c0, rk, kRows, w, rows);
+      stage_us(c0, w);
+      __syncthreads();
+      mma_rows_x_keys(c, qs + (mt * 16 + g) * ld + tq * 2, ld, us, nt0, g, tq, w);
+    }
+    mma_rows_x_keys(cp, qps + (mt * 16 + g) * ldp + tq * 2, ldp, kps, nt0, g, tq, rope);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = (nt0 + j) * 8 + tq * 2;
+      const float r0 = rs[col], r1 = rs[col + 1];
+      sm.sc[mt * 16 + g][col] = c[j][0] * r0 + cp[j][0];
+      sm.sc[mt * 16 + g][col + 1] = c[j][1] * r1 + cp[j][1];
+      sm.sc[mt * 16 + g + 8][col] = c[j][2] * r0 + cp[j][2];
+      sm.sc[mt * 16 + g + 8][col + 1] = c[j][3] * r1 + cp[j][3];
+    }
+    __syncthreads();
+    softmax_block(sm, rows, key0, walk.lo, walk.hi, rs);  // ends with __syncthreads
+    if (vs != nvs - 1) {
+      stage_us(v0, rvs);
+      __syncthreads();
+    }
+    const bf16* ub = us;
+    pv_block_with<NC>(acc, sm, rvs, nkeys, [=](int kk, int j) -> float {
+      return __bfloat162float(ub[kk * ld + j]);
+    });
+  }
+  __syncthreads();
+  // This CTA's partial (t, m, l) of its slice; m and l from the first slice.
+  const size_t base = ((size_t)bi * a.nsplit + split) * a.R + row0;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (r < rows) {
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        const int j = threadIdx.x + cc * kThreads;
+        if (j < rvs) a.part_t[(base + r) * rk + v0 + j] = acc[r][cc];
+      }
+    }
+  }
+  if (vs == 0)
+    for (int r = threadIdx.x; r < rows; r += kThreads) {
+      a.part_m[base + r] = sm.m[r];
+      a.part_l[base + r] = sm.l[r];
+    }
+}
+
 template <typename Kern>
 int launch(Kern kern, dim3 grid, size_t smem, cudaStream_t st, const RankspaceArgs& a) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -729,14 +918,45 @@ int merge(const RankspaceArgs& a, int b, int rv, void* t_out, void* lse_out, cud
   return (int)cudaGetLastError();
 }
 
+// Shared memory of the K7 / K8 split kernels staging `width` ranks of
+// q_emb and us rows.
+size_t mla_smem(int width, int rope) {
+  return sizeof(SoftmaxSmem) + (size_t)(kRows + kBS) * (width + 8) * sizeof(bf16) +
+         (size_t)(kRows + kBS) * (rope + 8) * sizeof(bf16) + kBS * sizeof(float);
+}
+
+// K7 / K8 past 1024 ranks: as many value slices of at most 1024 ranks (a
+// multiple of 16) as keep the chunks' staging within shared memory.
+template <typename T, bool kMixed>
+int run_mla_wide(const RankspaceArgs& a, int b, cudaStream_t st) {
+  int nvs = (a.rk + 4 * kThreads - 1) / (4 * kThreads), vslice;
+  for (;; ++nvs) {
+    vslice = ((a.rk + nvs - 1) / nvs + 15) / 16 * 16;
+    if (mla_smem(vslice, a.rope) <= (size_t)kMaxSmemB) break;
+    if (vslice <= 16) return (int)cudaErrorInvalidValue;
+  }
+  nvs = (a.rk + vslice - 1) / vslice;
+  const size_t smem = mla_smem(vslice, a.rope);
+  auto kern = mla_wide_split_kernel<T, kMixed>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(a.nsplit * nvs, (a.R + kRows - 1) / kRows, b), kThreads, smem, st>>>(a, vslice);
+  return (int)cudaGetLastError();
+}
+
 // K7 / K8 split kernel for the launch's rank, then the merge.
 template <typename T, bool kMixed>
 int run_mla(const RankspaceArgs& a, int b, void* t_out, void* lse_out, void* stream) {
-  if (a.rk % 16 != 0 || a.rope % 16 != 0 || a.rk > 4 * kThreads || a.nsplit < 1)
+  if (a.rk % 16 != 0 || a.rope % 16 != 0 || a.rk < 16 || a.nsplit < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(SoftmaxSmem) + (size_t)(kRows + kBS) * (a.rk + 8) * sizeof(bf16) +
-                      (size_t)(kRows + kBS) * (a.rope + 8) * sizeof(bf16) + kBS * sizeof(float);
+  if (a.rk > 4 * kThreads) {
+    const int err = run_mla_wide<T, kMixed>(a, b, st);
+    if (err != 0) return err;
+    return merge(a, b, a.rk, t_out, lse_out, st);
+  }
+  const size_t smem = mla_smem(a.rk, a.rope);
   const dim3 grid(a.nsplit, (a.R + kRows - 1) / kRows, b);
   int err;
   switch ((a.rk + kThreads - 1) / kThreads) {
@@ -752,7 +972,7 @@ int run_mla(const RankspaceArgs& a, int b, void* t_out, void* lse_out, void* str
 
 // K2, K4, K6: encode the launch's tensor maps, then the split kernel and
 // the merge.
-template <int kMode, int kVPanels>
+template <int kMode, int kVPanels, bool kQRing>
 int run_split(const RankspaceArgs& a, int b, void* t_out, void* lse_out, cudaStream_t st) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
@@ -776,9 +996,9 @@ int run_split(const RankspaceArgs& a, int b, void* t_out, void* lse_out, cudaStr
   const long long qb = 2LL * a.rk;
   if (!byte_map(enc, &tm[4], a.q_emb, qb, a.R, b, qb, (long long)a.R * qb, 128, kRows, true))
     return (int)cudaErrorInvalidValue;
-  const RsLayout lay(a.rk, kMode);
+  const RsLayout lay(a.rk, kMode, kQRing);
   if (lay.stages < 2 || lay.total > kMaxSmemB) return (int)cudaErrorInvalidValue;
-  auto kern = rankspace_tma_split_kernel<kMode, kVPanels>;
+  auto kern = rankspace_tma_split_kernel<kMode, kVPanels, kQRing>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
   if (e != cudaSuccess) return (int)e;
@@ -797,18 +1017,26 @@ int run_split(const RankspaceArgs& a, int b, void* t_out, void* lse_out, cudaStr
 }
 
 // One 32-row tile: 256-rank value slices, so a b = 1 step fills the SMs.
-// Several tiles: every value rank in each CTA, so each tile reads the
-// factors once (at R 128 the slices would read k_us twelve times).
+// Several tiles: every value rank in each CTA up to 1024, so each tile
+// reads the factors once (at R 128 the slices would read k_us twelve
+// times); past 1024 value ranks, slices of 1024. q_emb streams only where
+// its panels do not fit (q_streams).
+template <int kMode, bool kQRing>
+int run_ring(const RankspaceArgs& a, int b, void* t_out, void* lse_out, cudaStream_t st) {
+  return a.R <= kRows ? run_split<kMode, kSliceVP, kQRing>(a, b, t_out, lse_out, st)
+                      : run_split<kMode, kMaxVPanels, kQRing>(a, b, t_out, lse_out, st);
+}
+
 template <int kMode>
 int run_mode(const RankspaceArgs& a, int b, void* t_out, void* lse_out, cudaStream_t st) {
-  return a.R <= kRows ? run_split<kMode, kSliceVP>(a, b, t_out, lse_out, st)
-                      : run_split<kMode, kMaxVPanels>(a, b, t_out, lse_out, st);
+  return q_streams(a.rk, kMode) ? run_ring<kMode, true>(a, b, t_out, lse_out, st)
+                                : run_ring<kMode, false>(a, b, t_out, lse_out, st);
 }
 
 // The shape rules of K2, K4 and K6, then the launch in the factors' mode.
 int run(const RankspaceArgs& a, int b, int mode, void* t_out, void* lse_out, void* stream) {
   if (b < 1 || a.R < 1 || a.s_p < 1 || a.rk < 16 || a.rk % 16 != 0 || a.rv < 16 ||
-      a.rv % 16 != 0 || a.rv > 1024 || a.nsplit < 1)
+      a.rv % 16 != 0 || a.nsplit < 1)
     return (int)cudaErrorInvalidValue;
   if (a.ids != nullptr && (a.chunk % kBS != 0 || a.chunk <= 0 || a.n_sel < 1))
     return (int)cudaErrorInvalidValue;

@@ -203,16 +203,17 @@ def sparse_lowrank_kernel_plain(
 
 HEAD_DIMS = (64, 128)
 # Query rows of one CTA: the rows of one kv head, in tiles of this many
-# (kHR in csrc/lowrank_attention.cu).
-HEAD_ROW_TILE = 16
+# (kHR in csrc/lowrank_attention.cu); value ranks of one CTA, at most.
+HEAD_ROW_TILE, SLICE_RANKS = 16, 1024
 
 
 def kernel_shapes(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, num_q_heads,
                   num_kv_heads, hd=None):
     """K3's and K5's shape checks, run before the device checks: head size
-    64 or 128, any group size, rk a multiple of 64, rv a multiple of 16 up
-    to 1024. Returns (b, R, hd, s_p, rk, rv). K9, whose qab is the
-    full-width (b, R, 2*hkv*hd), passes ``hd``."""
+    64 or 128, any group size, rk a positive multiple of 64, rv a positive
+    multiple of 16 (past 1024 the kernels take value slices). Returns (b,
+    R, hd, s_p, rk, rv). K9, whose qab is the full-width (b, R,
+    2*hkv*hd), passes ``hd``."""
     b, R, two_hd = qab.shape
     hd = two_hd // 2 if hd is None else hd
     s_p, rk = k_us.shape[1], k_us.shape[2]
@@ -226,8 +227,8 @@ def kernel_shapes(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, num_q_h
                    "vt slices must be (b, rank, hkv*hd)")
     _build.require(tuple(cos_h.shape) == (s_p, hd // 2) and sin_h.shape == cos_h.shape,
                    "half tables must be (s_p, hd/2)")
-    _build.require(rk % 64 == 0 and rk > 0 and rv % 16 == 0 and 0 < rv <= 1024,
-                   f"ranks rk={rk} (multiple of 64), rv={rv} (multiple of 16, <= 1024)")
+    _build.require(rk % 64 == 0 and rk > 0 and rv % 16 == 0 and rv > 0,
+                   f"ranks rk={rk} (multiple of 64), rv={rv} (multiple of 16) must be positive")
     return b, R, hd, s_p, rk, rv
 
 
@@ -283,9 +284,10 @@ def _launch(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale, ids,
         _build.require(ids.dim() == 2 and ids.shape[0] == b, "ids must be (b, n_sel)")
         ids = ids.to(device=dev, dtype=torch.int32).contiguous()
         keys = ids.shape[1] * block
-    # One CTA per (kv head, tile of its rows, split, sequence).
+    # One CTA per (kv head, tile of its rows, split, value slice, sequence).
     tiles = -(-(R // num_kv_heads) // HEAD_ROW_TILE)
-    nsplit = _build.num_splits(keys, b * num_kv_heads * tiles, 1, dev)
+    slices = -(-rv // SLICE_RANKS)
+    nsplit = _build.num_splits(keys, b * num_kv_heads * tiles * slices, 1, dev)
     part_t = torch.empty((b, nsplit, R, rv), dtype=torch.float32, device=dev)
     part_m = torch.empty((b, nsplit, R), dtype=torch.float32, device=dev)
     part_l = torch.empty((b, nsplit, R), dtype=torch.float32, device=dev)

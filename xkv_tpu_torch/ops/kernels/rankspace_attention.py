@@ -49,8 +49,9 @@ mla_launches = 0
 mla_mixed_launches = 0
 
 # K2, K4, K6: rows of a CTA and ranks of a value slice, taken when R fits
-# one CTA (csrc/rankspace_attention.cu).
-CTA_ROWS, SLICE_RANKS = 32, 256
+# one CTA, and of a value slice when it does not (csrc/rankspace_attention.cu).
+# K7, K8: the widest value slice of a CTA.
+CTA_ROWS, SLICE_RANKS, WIDE_SLICE_RANKS = 32, 256, 1024
 
 
 def compute_dtype_for(factor_dtype: torch.dtype) -> torch.dtype:
@@ -229,24 +230,25 @@ def split_count(n_blocks: int, R: int, rv: int, b: int, n_sm: int) -> int:
     """Key splits of a K2/K4/K6 launch: the grid (splits x value slices x
     32-row tiles x sequences) fills the SMs once, and no split is emptier
     than one 64-key block. One row tile (R <= 32) splits the value ranks
-    into 256-rank slices; several tiles keep every rank in each CTA, as the
-    kernel does."""
+    into 256-rank slices; several tiles keep every rank up to 1024 in each
+    CTA and take 1024-rank slices past that, as the kernel does."""
     tiles = -(-R // CTA_ROWS)
-    slices = -(-rv // SLICE_RANKS) if tiles == 1 else 1
+    slices = -(-rv // (SLICE_RANKS if tiles == 1 else WIDE_SLICE_RANKS))
     return max(1, min(n_blocks, n_sm // (b * tiles * slices)))
 
 
 def rankspace_shapes(q_emb, k_us, v_us) -> Tuple[int, int, int, int, int]:
     """K2's and K4's shape rules, checked before any device check: (b, R,
-    s_p, rk, rv). Any b and R; rk and rv multiples of 16, rv <= 1024."""
+    s_p, rk, rv). Any b and R; rk and rv positive multiples of 16, as the
+    Pallas kernels' layout takes them."""
     _build.require(q_emb.dim() == 3 and k_us.dim() == 3 and v_us.dim() == 3,
                    "q_emb, k_us and v_us must be 3-D")
     b, R, rk = q_emb.shape
     s_p, rv = k_us.shape[1], v_us.shape[2]
     _build.require(tuple(k_us.shape) == (b, s_p, rk) and tuple(v_us.shape[:2]) == (b, s_p),
                    "factor shapes do not match q_emb")
-    _build.require(rk % 16 == 0 and rv % 16 == 0 and rk > 0 and 0 < rv <= 1024,
-                   f"ranks rk={rk}, rv={rv} must be multiples of 16, rv <= 1024")
+    _build.require(rk % 16 == 0 and rv % 16 == 0 and rk > 0 and rv > 0,
+                   f"ranks rk={rk}, rv={rv} must be positive multiples of 16")
     return b, R, s_p, rk, rv
 
 
@@ -323,7 +325,7 @@ def mixed_rankspace_kernel(
 def mixed_shapes(q_emb, k_us8, k_us4, v_us8, v_us4) -> Tuple[int, ...]:
     """K6's shape rules, checked before any device check: (b, R, s_p, r8k,
     h4k, r8v, h4v). Any split of int8 and packed int4 ranks whose totals
-    meet K2's rule (rk, rv multiples of 16, rv <= 1024)."""
+    meet K2's rule (rk, rv positive multiples of 16)."""
     _build.require(all(x.dim() == 3 for x in (q_emb, k_us8, k_us4, v_us8, v_us4)),
                    "q_emb and the factors must be 3-D")
     b, R, rk = q_emb.shape
@@ -333,8 +335,8 @@ def mixed_shapes(q_emb, k_us8, k_us4, v_us8, v_us4) -> Tuple[int, ...]:
         _build.require(tuple(t.shape[:2]) == (b, s_p), f"{name} rows do not match k_us8")
     rv = r8v + 2 * h4v
     _build.require(rk == r8k + 2 * h4k, "q_emb width must be r8k + r4k")
-    _build.require(rk % 16 == 0 and rv % 16 == 0 and rk > 0 and 0 < rv <= 1024,
-                   f"total ranks rk={rk}, rv={rv} must be multiples of 16, rv <= 1024")
+    _build.require(rk % 16 == 0 and rv % 16 == 0 and rk > 0 and rv > 0,
+                   f"total ranks rk={rk}, rv={rv} must be positive multiples of 16")
     return b, R, s_p, r8k, h4k, r8v, h4v
 
 
@@ -486,19 +488,47 @@ def mla_mixed_rankspace_kernel_plain(
     return mla_rankspace_kernel_plain(q_emb, q_pe, us, k_pe, r, lengths)
 
 
-def _check_mla(q_emb, q_pe, k_pe, r, b, s_p, rk) -> None:
-    """K7's and K8's operand checks (q_emb of total width rk)."""
-    R = q_emb.shape[1]
-    rope = q_pe.shape[2]
+def mla_shapes(q_emb, q_pe, k_us, k_pe, r, k_us4=None) -> Tuple[int, int, int, int, int]:
+    """K7's and K8's shape rules, checked before any device check: (b, R,
+    s_p, rk, rope), rk the total rank (r8 + 2 * h4 with ``k_us4``). Any b
+    and R; rk and rope positive multiples of 16. Past 1024 ranks the kernel
+    deals t's columns out to value slices (``mla_value_slices``)."""
+    _build.require(all(x.dim() == 3 for x in (q_emb, q_pe, k_us, k_pe)) and r.dim() == 2,
+                   "q_emb, q_pe, k_us and k_pe must be 3-D, r 2-D")
+    b, R, rk = q_emb.shape
+    s_p, rope = k_us.shape[1], q_pe.shape[2]
+    width = k_us.shape[2] + (0 if k_us4 is None else 2 * k_us4.shape[2])
+    _build.require(k_us.shape[0] == b and width == rk, "q_emb width must be the factors' rank")
+    if k_us4 is not None:
+        _build.require(tuple(k_us4.shape[:2]) == (b, s_p), "k_us4 rows do not match k_us")
+    _build.require(tuple(q_pe.shape) == (b, R, rope) and tuple(k_pe.shape) == (b, s_p, rope)
+                   and tuple(r.shape) == (b, s_p),
+                   "q_pe/k_pe/r shapes do not match q_emb and the factors")
+    _build.require(rk % 16 == 0 and rk > 0 and rope % 16 == 0 and rope > 0,
+                   f"ranks rk={rk}, rope={rope} must be positive multiples of 16")
+    return b, R, s_p, rk, rope
+
+
+def mla_value_slices(rk: int) -> int:
+    """Value slices of a K7/K8 launch: 1 up to 1024 ranks, else enough
+    slices of at most 1024 (for the RoPE widths of the configs)."""
+    return -(-rk // WIDE_SLICE_RANKS)
+
+
+def _check_mla(q_emb, q_pe, k_pe, r) -> None:
+    """K7's and K8's device checks."""
     for name, x in (("q_emb", q_emb), ("q_pe", q_pe), ("k_pe", k_pe)):
         _build.require_cuda_tensor(x, name, (torch.bfloat16,), 3)
         _build.require(x.is_contiguous(), f"{name} must be contiguous")
-    _build.require(r.is_cuda and r.dtype == torch.float32 and r.is_contiguous()
-                   and tuple(r.shape) == (b, s_p), "r must be contiguous (b, s_p) fp32 on CUDA")
-    _build.require(tuple(q_pe.shape) == (b, R, rope) and tuple(k_pe.shape) == (b, s_p, rope),
-                   "q_pe/k_pe shapes do not match q_emb and the factors")
-    _build.require(rk % 16 == 0 and rk <= 1024 and rope % 16 == 0,
-                   f"ranks rk={rk} must be a multiple of 16 up to 1024, rope={rope} of 16")
+    _build.require(r.is_cuda and r.dtype == torch.float32 and r.is_contiguous(),
+                   "r must be contiguous fp32 on CUDA")
+
+
+def _mla_splits(s_p, R, rk, b, dev) -> int:
+    """Key splits of a K7/K8 launch: two CTAs an SM where the CTA holds
+    every rank; past 1024 ranks one (the chunks fill shared memory)."""
+    slices = mla_value_slices(rk)
+    return _build.num_splits(s_p, b * -(-R // CTA_ROWS) * slices, 2 if slices == 1 else 1, dev)
 
 
 def mla_rankspace_kernel(
@@ -514,15 +544,13 @@ def mla_rankspace_kernel(
     if k_us.device.type == "cpu":
         return mla_rankspace_kernel_plain(q_emb, q_pe, k_us, k_pe, r, lengths)
     global mla_launches
-    b, R, rk = q_emb.shape
-    s_p = k_us.shape[1]
+    b, R, s_p, rk, _ = mla_shapes(q_emb, q_pe, k_us, k_pe, r)
     _build.require_cuda_tensor(k_us, "k_us", (torch.bfloat16, torch.int8), 3)
-    _build.require(k_us.is_contiguous() and tuple(k_us.shape) == (b, s_p, rk),
-                   "k_us must be contiguous (b, s_p, rk)")
-    _check_mla(q_emb, q_pe, k_pe, r, b, s_p, rk)
+    _build.require(k_us.is_contiguous(), "k_us must be contiguous")
+    _check_mla(q_emb, q_pe, k_pe, r)
     dev = k_us.device
     lens, los = _build.live_range(b, s_p, lengths, None, dev)
-    nsplit = _build.num_splits(s_p, b * -(-R // 32), 2, dev)
+    nsplit = _mla_splits(s_p, R, rk, b, dev)
     part_t, part_m, part_l, t, lse = _split_scratch(b, nsplit, R, rk, dev)
     status = _build.load().xkv_mla_rankspace_decode(
         q_emb.data_ptr(), q_pe.data_ptr(), k_us.data_ptr(), None, k_pe.data_ptr(),
@@ -550,17 +578,15 @@ def mla_mixed_rankspace_kernel(
     if k_us8.device.type == "cpu":
         return mla_mixed_rankspace_kernel_plain(q_emb, q_pe, k_us8, k_us4, k_pe, r, lengths)
     global mla_mixed_launches
-    b, R, rk = q_emb.shape
-    s_p, r8, h4 = k_us8.shape[1], k_us8.shape[2], k_us4.shape[2]
+    b, R, s_p, rk, _ = mla_shapes(q_emb, q_pe, k_us8, k_pe, r, k_us4)
+    r8, h4 = k_us8.shape[2], k_us4.shape[2]
     for name, x in (("k_us8", k_us8), ("k_us4", k_us4)):
         _build.require_cuda_tensor(x, name, (torch.int8,), 3)
-        _build.require(x.is_contiguous() and x.shape[:2] == (b, s_p),
-                       f"{name} must be contiguous with rows (b, s_p)")
-    _build.require(rk == r8 + 2 * h4, "q_emb width must be r8 + r4")
-    _check_mla(q_emb, q_pe, k_pe, r, b, s_p, rk)
+        _build.require(x.is_contiguous(), f"{name} must be contiguous")
+    _check_mla(q_emb, q_pe, k_pe, r)
     dev = k_us8.device
     lens, los = _build.live_range(b, s_p, lengths, None, dev)
-    nsplit = _build.num_splits(s_p, b * -(-R // 32), 2, dev)
+    nsplit = _mla_splits(s_p, R, rk, b, dev)
     part_t, part_m, part_l, t, lse = _split_scratch(b, nsplit, R, rk, dev)
     status = _build.load().xkv_mla_rankspace_decode(
         q_emb.data_ptr(), q_pe.data_ptr(), k_us8.data_ptr(), k_us4.data_ptr(),
