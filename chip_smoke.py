@@ -15,11 +15,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
              time kernel, plain version, library call and bound (K2 also
              over int8 factors, K2 and K6 also at R 128, four tokens of 32
              heads, as a speculative verify pass runs them);
+  2a. wide   K2-K8 at the widest ranks the JAX kernels' layout gives the
+             repo's models (K2, K4, K6 at rank 4096, K3, K5 at value rank
+             4096, K7, K8 at rank 2048; value slices, streamed q_emb),
+             against their plain versions, each timed;
   2b. tools  the kernel-study kernels: K9 (design variants of K3's score
              stage) against K3's plain version at K3's shapes, K10 (K3's
              stage ablation) in every stage set against its plain version,
              K11 (tensor-core rate probe) in bf16, int8 and int4 against its
-             plain version, each timed; then the four tools
+             plain version, each timed beside the library's calls and in
+             clusters of 8 and 16; then the four tools
              (``xkv_tpu_torch.scripts``) run once through their ``main()``
              at their default sizes, with the launch counts read around
              them;
@@ -28,8 +33,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
              ``InferenceEngine.generate`` in every mode, sparse top-k and
              int4 included, checking launch counts, factored-vs-fake and
              all-chunks-sparse-vs-dense logits and refactorisations; then
-             Llama-3.2-1B (head_dim 64) in mode none through K1 and in
-             factored pre (xKV-4, bf16 factors) through K3;
+             Llama-3.2-1B (head_dim 64) in mode none through K1, in
+             factored pre (xKV-4, bf16 factors) through K3, and at rank_k
+             1024 / rank_v 1536 in fake and factored pre (K3) and post
+             (K2), factored against fake;
   4. anchor  teacher-force the golden tokens of the JAX engine on the
              in-repo checkpoint and compare per-step logits (pre, post,
              sparse pre, sparse post, int4 post);
@@ -625,8 +632,177 @@ def check_mla(gen, results):
                 worst[key], timing[key])
 
 
+# ------------------------------------------------------------ wide ranks
+# The widest ranks the JAX kernels' layout gives the repo's models: K2, K4
+# and K6 at rk = rv = 4096 (Llama-3.1-8B xKV-4's full rank, 4 layers x 8
+# kv heads x 128) and rv 1536 at R 128; K3 and K5 at rv 1536 and 4096 (head
+# sizes 128 and 64, the main path's rank_k); K7 and K8 at rank 2048
+# (DeepSeek-V2-Lite's full rank in groups of 4). All at s_p 8192.
+WIDE_S = 8192
+
+
+def _wide_time(results, key, label, run, plain, in_bytes, ops_s):
+    """Time one wide case beside its plain version and bound; kept in the
+    kernel's record under ``wide``."""
+    t = dict(ms=cuda_time_ms(run, iters=5, warmup=1),
+             plain_ms=cuda_time_ms(plain, iters=3, warmup=1),
+             bound=bound_ms(in_bytes, ops_s))
+    results[key].setdefault("wide", {})[label] = _row(t)
+    log(f"{key} wide {label} ms: {_row(t)}")
+
+
+def check_wide(gen, results):
+    """K2-K8 past the ranks their single CTA holds (value slices; K2/K4/K6
+    q_emb streamed beside the key panels at rk 4096), held against their
+    plain versions with the main path's limits, and timed."""
+    import torch
+
+    from xkv_tpu_torch.cache import vt_layer_slice
+    from xkv_tpu_torch.compress.quant import pack_int4_pairs, unpack_int4_rows
+    from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
+    from xkv_tpu_torch.ops.kernels import rankspace_attention as k2
+    from xkv_tpu_torch.ops.rope import rope_cos_sin
+
+    dev, bf, s_p = "cuda", torch.bfloat16, WIDE_S
+    worst = {key: {"abs": 0.0, "rel": 0.0, "lse": 0.0}
+             for key in ("K2", "K3", "K4", "K5", "K6", "K7", "K8")}
+
+    def ints(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev).to(torch.int8)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    ids = torch.tensor([[0, 5, 11, 15]], dtype=torch.int32, device=dev)
+    # K2, K4: (R, rk, rv), bf16 and int8 factors; scores of a few tenths.
+    for R, rk, rv in ((32, 4096, 4096), (128, 512, 1536)):
+        for dtype in ("bf16", "int8"):
+            if dtype == "bf16":
+                k_us, v_us, sc = randn(1, s_p, rk).to(bf), randn(1, s_p, rv).to(bf), 0.5
+            else:
+                k_us, v_us = ints((1, s_p, rk), -127, 128), ints((1, s_p, rv), -127, 128)
+                sc = 0.5 / 73
+            q = (randn(1, R, rk) * (sc / rk ** 0.5)).to(bf)
+            label = f"{dtype} R {R} rk {rk} rv {rv}"
+            t, lse = k2.rankspace_kernel(q, k_us, v_us, torch.tensor([s_p - 37], device=dev))
+            tr, lr = k2.rankspace_kernel_plain(q, k_us, v_us,
+                                               torch.tensor([s_p - 37], device=dev))
+            torch.cuda.synchronize()
+            _hold("K2", label, t, tr, lse, lr, worst["K2"])
+            _wide_time(results, "K2", label, lambda: k2.rankspace_kernel(q, k_us, v_us),
+                       lambda: k2.rankspace_kernel_plain(q, k_us, v_us),
+                       nbytes(q, k_us, v_us, t, lse), 2.0 * R * s_p * (rk + rv) / BF16_OPS_PER_S)
+            if R == 32:
+                a4 = (q, k_us, v_us, ids, 512)
+                t4, l4 = k2.sparse_rankspace_kernel(*a4)
+                t4r, l4r = k2.sparse_rankspace_kernel_plain(*a4)
+                torch.cuda.synchronize()
+                _hold("K4", label, t4, t4r, l4, l4r, worst["K4"])
+                live = 4 * 512
+                _wide_time(results, "K4", label, lambda: k2.sparse_rankspace_kernel(*a4),
+                           lambda: k2.sparse_rankspace_kernel_plain(*a4),
+                           nbytes(q, ids, t4, l4) + live * bytes_per_row(k_us, v_us),
+                           2.0 * R * live * (rk + rv) / BF16_OPS_PER_S)
+    # K6: rk = rv = 4096 as 2048 int8 + 2048 int4 ranks each, R 32.
+    k8, k4 = ints((1, s_p, 2048), -127, 128), pack_int4_pairs(ints((1, s_p, 2048), -7, 8))
+    v8, v4 = ints((1, s_p, 2048), -127, 128), pack_int4_pairs(ints((1, s_p, 2048), -7, 8))
+    q = (randn(1, 32, 4096) * (0.5 / 64 / 40)).to(bf)
+    a6 = (q, k8, k4, v8, v4)
+    t6, l6 = k2.mixed_rankspace_kernel(*a6)
+    t6r, l6r = k2.mixed_rankspace_kernel_plain(*a6)
+    torch.cuda.synchronize()
+    _hold("K6", "R 32 rk 4096 rv 4096", t6, t6r, l6, l6r, worst["K6"])
+    _wide_time(results, "K6", "R 32 rk 4096 rv 4096", lambda: k2.mixed_rankspace_kernel(*a6),
+               lambda: k2.mixed_rankspace_kernel_plain(*a6), nbytes(*a6, t6, l6),
+               2.0 * 32 * s_p * 8192 / BF16_OPS_PER_S)
+    del k8, k4, v8, v4, a6
+    # K3, K5: (hq, hkv, hd, rk, rv) at head sizes 128 and 64, layer 1 of a
+    # 4-layer group, query embeds at position s_p + 5 as check_decode's.
+    for hq, hkv, hd, rk, rv in ((32, 8, 128, 512, 1536), (32, 8, 128, 512, 4096),
+                                (32, 8, 64, 256, 1536), (32, 8, 64, 256, 4096)):
+        m = hkv * hd
+        cos_p, sin_p = rope_cos_sin(torch.arange(s_p, device=dev), hd, 500000.0)
+        cos_t, sin_t = rope_cos_sin(s_p + 5 + torch.arange(1, device=dev)[None], hd, 500000.0)
+        for dtype in ("bf16", "int8"):
+            f = _decode_inputs(gen, s_p, rk, rv, m, dtype)
+            vt_k = vt_layer_slice(f["k_vt"], 1, hkv, hd)
+            vt_v = vt_layer_slice(f["v_vt"], 1, hkv, hd)
+            k_scale = None if f["k_scale"] is None else vt_layer_slice(f["k_scale"], 1, hkv, hd)
+            cos_h, sin_h = k3.half_tables(cos_p, sin_p, f["k_us"].dtype)
+            q = randn(1, hq, 1, hd).to(bf)
+            qab = k3._query_embeds(q, cos_t, sin_t, hkv, 1.0 / math.sqrt(hd), k_scale)
+            kw = dict(num_q_heads=hq, num_kv_heads=hkv)
+            a = (qab, f["k_us"], vt_k, f["v_us"], vt_v, cos_h, sin_h, f["v_scale"])
+            label = f"{dtype} hd {hd} rk {rk} rv {rv}"
+            lengths = torch.tensor([s_p - 300], device=dev)
+            o3, l3 = k3.lowrank_kernel(*a, lengths, None, **kw)
+            o3r, l3r = k3.lowrank_kernel_plain(*a, lengths, None, **kw)
+            o5, l5 = k3.sparse_lowrank_kernel(*a, ids, 512, None, None, **kw)
+            o5r, l5r = k3.sparse_lowrank_kernel_plain(*a, ids, 512, None, None, **kw)
+            torch.cuda.synchronize()
+            _hold("K3", label, o3, o3r, l3, l3r, worst["K3"])
+            _hold("K5", label, o5, o5r, l5, l5r, worst["K5"])
+            if dtype == "bf16":
+                slices = -(-rv // 1024)
+                recon = 2.0 * s_p * rk * m
+                _wide_time(results, "K3", label, lambda: k3.lowrank_kernel(*a, None, None, **kw),
+                           lambda: k3.lowrank_kernel_plain(*a, None, None, **kw),
+                           nbytes(qab, f["k_us"], f["v_us"], cos_h, sin_h, o3, l3)
+                           + (rk + rv) * m * 2,
+                           (recon + 2.0 * hq * s_p * (2 * hd + rv)) / BF16_OPS_PER_S)
+                results["K3"]["wide"][label]["value_slices"] = slices
+                live = 4 * 512
+                _wide_time(results, "K5", label,
+                           lambda: k3.sparse_lowrank_kernel(*a, ids, 512, None, None, **kw),
+                           lambda: k3.sparse_lowrank_kernel_plain(*a, ids, 512, None, None, **kw),
+                           nbytes(qab, ids, o5, l5) + (rk + rv) * m * 2
+                           + live * bytes_per_row(f["k_us"], f["v_us"], cos_h, sin_h),
+                           (2.0 * live * rk * m + 2.0 * hq * live * (2 * hd + rv))
+                           / BF16_OPS_PER_S)
+                results["K5"]["wide"][label]["value_slices"] = slices
+            del f, a
+    # K7 (bf16, int8) and K8 (1024 int8 + 1024 int4) at rank 2048, 16 heads.
+    nh, rope, rk = 16, 64, 2048
+    k_pe, r = randn(1, s_p, rope).to(bf), torch.rand((1, s_p), generator=gen, device=dev) + 0.5
+    us8 = ints((1, s_p, rk), -127, 128)
+    mixed = (ints((1, s_p, 1024), -127, 128), pack_int4_pairs(ints((1, s_p, 1024), -7, 8)))
+    factors = {"bf16": ("K7", randn(1, s_p, rk).to(bf), None), "int8": ("K7", us8, None),
+               "int8+int4": ("K8",) + mixed}
+    for dtype, (key, us, us4) in factors.items():
+        us_all = us if us4 is None else torch.cat([us, unpack_int4_rows(us4)], dim=-1)
+        sigma = 1.5 / (math.sqrt(rk) * us_all.float().std().item())
+        for ql in (1, 2):
+            R = ql * nh
+            qe = (randn(1, R, rk) * sigma).to(bf)
+            qp = (randn(1, R, rope) * 0.1).to(bf)
+            if us4 is None:
+                args = (qe, qp, us, k_pe, r, torch.tensor([s_p - 300], device=dev))
+                run, plain = k2.mla_rankspace_kernel, k2.mla_rankspace_kernel_plain
+            else:
+                args = (qe, qp, us, us4, k_pe, r, torch.tensor([s_p - 300], device=dev))
+                run, plain = k2.mla_mixed_rankspace_kernel, k2.mla_mixed_rankspace_kernel_plain
+            label = f"{dtype} ql {ql} rank {rk}"
+            t, lse = run(*args)
+            tr, lr = plain(*args)
+            torch.cuda.synchronize()
+            _hold(key, label, t, tr, lse, lr, worst[key])
+            if ql == 1 and dtype != "int8":
+                _wide_time(results, key, label, lambda: run(*args), lambda: plain(*args),
+                           nbytes(qe, qp, us, us4, k_pe, r, t, lse),
+                           2.0 * R * s_p * (2 * rk + rope) / BF16_OPS_PER_S)
+    for key, w in worst.items():
+        results[key]["wide_max_rel_err"] = w["rel"]
+        results[key]["wide_max_lse_err"] = w["lse"]
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ kernel tools
 K9_VARIANTS = ("two_gemm", "scratch_ab", "b16")
+K11_DESIGN = ("redesigned: a cluster of CTAs per 64-row tile of x, each CTA's column slice "
+              "of w resident in shared memory, x_{i+1} exchanged through distributed shared "
+              "memory with one cluster barrier per product; wgmma (bf16 m64nNk16, s8 "
+              "m64nNk32), mma.sync m16n8k64 s4 for int4; the record's ms at the default "
+              "cluster (CLUSTERS[0])")
 
 
 def check_variants(gen, results):
@@ -743,8 +919,9 @@ def check_ablation(gen, results, k3_int8_ms):
 
 def check_probe(results):
     """K11: bf16, int8 and int4 chains of 256 products at M = K = 512 (the
-    probe's shape) and at an M that gives every SM two CTAs, held against
-    the plain version and timed; the rate against the published peak."""
+    probe's shape) and at an M that gives every SM two 32-row tiles, in
+    clusters of 8 and 16 CTAs, held against the plain version and timed
+    beside the library's calls; the rate against the published peak."""
     import torch
 
     from xkv_tpu_torch.ops.kernels import probe_int4 as k11
@@ -758,37 +935,42 @@ def check_probe(results):
     for m in (512, 2 * 32 * n_sm):
         for kind in ("bf16", "int8", "int4"):
             x, w = tool.inputs(kind, torch.device("cuda"), m, k)
-            got = k11.gemm_chain(x, w, reps, kind)
             ref = k11.gemm_chain_plain(x, w, reps, kind)
-            torch.cuda.synchronize()
-            a, r = max_abs_err(got, ref), row_rel_err(got, ref)
-            exact = bool(torch.equal(got, ref))
-            ok = r <= TOL["K11"] if kind == "bf16" else exact
-            log(f"K11 {kind} M={m} K={k} reps={reps}: max_abs_err={a:.3e} max_rel_err={r:.3e} "
-                f"({'limit ' + format(TOL['K11'], '.3e') if kind == 'bf16' else 'bit-exact'}: "
-                f"{ok})")
-            if not ok:
-                raise AssertionError(f"K11 {kind} M={m} disagrees with its plain version")
-            worst["abs"], worst["rel"] = max(worst["abs"], a), max(worst["rel"], r)
-            ms = cuda_time_ms(lambda: k11.gemm_chain(x, w, reps, kind), iters=5, warmup=1)
+            row = {}
+            for cluster in k11.CLUSTERS:
+                got = k11.gemm_chain(x, w, reps, kind, cluster)
+                torch.cuda.synchronize()
+                a, r = max_abs_err(got, ref), row_rel_err(got, ref)
+                ok = r <= TOL["K11"] if kind == "bf16" else bool(torch.equal(got, ref))
+                rule = f"limit {TOL['K11']:.3e}" if kind == "bf16" else "bit-exact"
+                log(f"K11 {kind} M={m} K={k} reps={reps} cluster {cluster}: "
+                    f"max_abs_err={a:.3e} max_rel_err={r:.3e} ({rule}: {ok})")
+                if not ok:
+                    raise AssertionError(f"K11 {kind} M={m} cluster {cluster} disagrees with its "
+                                         "plain version")
+                worst["abs"], worst["rel"] = max(worst["abs"], a), max(worst["rel"], r)
+                row[f"cluster {cluster} ms"] = cuda_time_ms(
+                    lambda: k11.gemm_chain(x, w, reps, kind, cluster), iters=5, warmup=1)
+            ms = row[f"cluster {k11.CLUSTERS[0]} ms"]
             ops = 2.0 * m * k * k * reps
             rate = ops / (ms * 1e-3)
             share = rate / peak[kind] if peak[kind] else None
-            row = dict(ms=ms, us_per_gemm=ms * 1e3 / reps, tops=rate / 1e12, peak_share=share)
+            row.update(ms=ms, us_per_gemm=ms * 1e3 / reps, tops=rate / 1e12, peak_share=share)
+            if kind == "bf16":
+                row["library_ms"] = cuda_time_ms(
+                    lambda: [torch.matmul(x, w) for _ in range(reps)], iters=3, warmup=1)
+            elif kind == "int8":
+                wc = w.t().contiguous().t()  # column-major, cuBLASLt's int8 layout
+                row["library_ms"] = cuda_time_ms(
+                    lambda: [torch._int_mm(x, wc) for _ in range(reps)], iters=3, warmup=1)
             if m == 512:
                 row["plain_ms"] = cuda_time_ms(
                     lambda: k11.gemm_chain_plain(x, w, reps, kind), iters=3, warmup=1)
-                if kind == "bf16":
-                    row["library_ms"] = cuda_time_ms(
-                        lambda: [torch.matmul(x, w) for _ in range(reps)], iters=3, warmup=1)
-                elif kind == "int8":
-                    wc = w.t().contiguous().t()  # column-major, cuBLASLt's int8 layout
-                    row["library_ms"] = cuda_time_ms(
-                        lambda: [torch._int_mm(x, wc) for _ in range(reps)], iters=3, warmup=1)
-                row["bound"] = (bound_ms(nbytes(x, w, got), ops / peak[kind]) if peak[kind]
+                row["bound"] = (bound_ms(nbytes(x, w, ref), ops / peak[kind]) if peak[kind]
                                 else None)
             rows[f"{kind} M={m}"] = row
-            log(f"K11 {kind} M={m}: {row['us_per_gemm']:.3f} us/GEMM, {row['tops']:.1f} TOP/s"
+            log(f"K11 {kind} M={m}: {json.dumps(row)}; {row['us_per_gemm']:.3f} us/GEMM, "
+                f"{row['tops']:.1f} TOP/s"
                 + (f", {share:.1%} of the published peak" if share else ", no published peak"))
     base = rows["int8 M=512"]
     results["K11"] = dict(
@@ -799,7 +981,7 @@ def check_probe(results):
         ms=base["ms"], plain_ms=base["plain_ms"], bound_ms=base["bound"][0],
         bound_by=base["bound"][1],
         library_ms=base["library_ms"], library="256 torch._int_mm calls on the same inputs",
-        cases=rows)
+        design=K11_DESIGN, cases=rows)
 
 
 def tools_path(results) -> dict:
@@ -1022,13 +1204,23 @@ def main_path(results):
     return totals
 
 
+# Llama-3.2-1B at wide ranks: past one CTA's 1024 value ranks in K2
+# (post) and K3 (pre), and factored-vs-fake first-step logits held to the
+# main path's rule.
+WIDE_1B_RANKS = (1024, 1536)
+
+
 def llama_1b_path(results):
     """Llama-3.2-1B (head_dim 64) at full width and depth, random bf16
     weights from the seed, one 8192-token prompt: mode none, 8 greedy
     tokens (every prefill layer runs K1 at head size 64); then factored
     pre, xKV-4 over all 16 layers at rank_k 256 / rank_v 384 (the 8B
     config's ranks at the same fraction of the group width), 32 greedy
-    tokens (every decode step runs K3 at head size 64 in every layer)."""
+    tokens (every decode step runs K3 at head size 64 in every layer);
+    then, at rank_k 1024 / rank_v 1536 (``WIDE_1B_RANKS``), fake and
+    factored pre (K3), fake and factored post (K2), 8 tokens each; each
+    factored run's first-step logits must agree with its fake run's as the
+    8B's do."""
     import torch
 
     from xkv_tpu_torch.configs import generate_consecutive_xkv_config
@@ -1048,22 +1240,42 @@ def llama_1b_path(results):
     totals = {key: 0 for key in COUNTERS}
     rows = []
     _, rk, rv = LOWRANK_SHAPES["1B"][3:]
-    xkv = generate_consecutive_xkv_config(
-        group_size=4, rank_k=rk, rank_v=rv, num_layers=cfg.num_layers,
-        end_layer=cfg.num_layers - 1, extra_kwargs={"rope_mode": "pre"})
-    for label, mode, n_new, per_step in (("1B none", "none", 8, {}),
-                                         ("1B factored pre bf16", "factored", 32,
-                                          {"K3": cfg.num_layers})):
-        eng = InferenceEngine(params, cfg, xkv if mode == "factored" else None, mode=mode,
-                              tail_max=128, prefill_logits="last", device="cuda")
+    wk, wv = WIDE_1B_RANKS
+
+    def xkv(rope, rank_k, rank_v):
+        return generate_consecutive_xkv_config(
+            group_size=4, rank_k=rank_k, rank_v=rank_v, num_layers=cfg.num_layers,
+            end_layer=cfg.num_layers - 1, extra_kwargs={"rope_mode": rope})
+
+    L = cfg.num_layers
+    wide = f"rank {wk}/{wv}"
+    first = {}
+    for label, mode, rope, ranks, n_new, per_step in (
+            ("1B none", "none", "pre", None, 8, {}),
+            ("1B factored pre bf16", "factored", "pre", (rk, rv), 32, {"K3": L}),
+            (f"1B fake pre {wide}", "fake", "pre", (wk, wv), 8, {}),
+            (f"1B factored pre bf16 {wide}", "factored", "pre", (wk, wv), 8, {"K3": L}),
+            (f"1B fake post {wide}", "fake", "post", (wk, wv), 8, {}),
+            (f"1B factored post bf16 {wide}", "factored", "post", (wk, wv), 8, {"K2": L})):
+        eng = InferenceEngine(params, cfg, None if ranks is None else xkv(rope, *ranks),
+                              mode=mode, tail_max=128, prefill_logits="last", device="cuda")
         want = {key: per_step.get(key, 0) * (n_new - 1) for key in COUNTERS}
-        want["K1"] = cfg.num_layers
-        row, counts, _ = serve(eng, cfg, prompt, label, n_new, want, mode == "factored")
+        want["K1"] = L
+        row, counts, first[label] = serve(eng, cfg, prompt, label, n_new, want,
+                                          label == "1B factored pre bf16")
         rows.append(row)
         for key in totals:
             totals[key] += counts[key]
         del eng
         torch.cuda.empty_cache()
+    for rope in ("pre", "post"):
+        ref = first[f"1B fake {rope} {wide}"]
+        diff = (first[f"1B factored {rope} bf16 {wide}"] - ref).abs().max().item()
+        log(f"1B {wide} factored {rope} vs fake first-step logits: max_abs_diff={diff:.4e} "
+            f"(limit {TOL_FACTORED_VS_FAKE:.4e}; max |logit| {ref.abs().max().item():.4e})")
+        if not diff <= TOL_FACTORED_VS_FAKE:
+            raise AssertionError(f"1B {wide}: factored {rope} and fake first-step logits "
+                                 "disagree")
     results["llama_1b_runs"] = rows
     del params
     torch.cuda.empty_cache()
@@ -1338,6 +1550,9 @@ def main() -> int:
     check_decode(gen, results, bl)
     check_sparse_and_mixed(gen, results, bl)
     check_mla(gen, results)
+    t0 = time.time()
+    check_wide(gen, results)
+    log(f"wide-rank phase: {time.time() - t0:.1f} s")
     t0 = time.time()
     k3_int8_ms = check_variants(gen, results)
     check_ablation(gen, results, k3_int8_ms)

@@ -9,12 +9,14 @@ port's dependencies; ``tests/conftest.py`` imports JAX, so there run it as
 K1 is held at the 8B shape's group size 4 and at group sizes 1, 3 and 7
 and head sizes 64 and 128, with and without a sliding window. K3 and K5
 likewise at head sizes 64 and 128, group size 7 with several row tiles,
-the 8B ranks, and ranks whose k_vt slice streams through the ring. K2, K4
-and K6 at the 8B layer (R 32 and 128, bf16, int8 and the mixed split) and
-at the edges of their ring and splits: s_p not a multiple of 64, a
-valid_len inside one CTA's run of blocks, win_lo inside a block, two
-sequences of different lengths, R 84, rv 16 and 1024, a -1 chunk id, a
-ragged last chunk, and K6 splits that are not whole 64-byte boxes.
+the 8B ranks, ranks whose k_vt slice streams through the ring, and value
+ranks past 1024 (1536, 4096). K2, K4 and K6 at the 8B layer (R 32 and 128,
+bf16, int8 and the mixed split) and at the edges of their ring and splits:
+s_p not a multiple of 64, a valid_len inside one CTA's run of blocks,
+win_lo inside a block, two sequences of different lengths, R 84, rv 16 and
+1024, a -1 chunk id, a ragged last chunk, K6 splits that are not whole
+64-byte boxes, and the wide ranks (rk and rv up to 4096). K7 and K8 at rank
+64 and 2048.
 
 Tolerances: each output row is held against its own largest value, since
 a row that averages many keys has small values. K1 and K3 round P to bf16
@@ -199,8 +201,9 @@ def test_sparse_kernels_match_plain(cuda, int8, ids, lens, lo):
 
 # K3 and K5 beyond the main shape: head size 64 (Llama-3.2-1B's 32/8
 # reduced to 8/2), group size 7 (Qwen2-7B's 28/4) with ql 3 (21 rows of a
-# head: two row tiles), the 8B ranks at a ragged length, and ranks whose
-# k_vt slice does not fit in shared memory (streamed through the ring).
+# head: two row tiles), the 8B ranks at a ragged length, ranks whose k_vt
+# slice does not fit in shared memory (streamed through the ring), and
+# value ranks past 1024.
 # The vt slices are layer 1 of a 4-layer group's wider basis, as on the
 # main path. (hq, hkv, hd, s_p, rk, rv, int8, ql, valid_len, win_lo)
 LOWRANK_SHAPES = [
@@ -214,6 +217,13 @@ LOWRANK_SHAPES = [
     (8, 2, 128, 300, 1024, 256, False, 1, None, None),
     (8, 2, 128, 300, 1408, 96, True, 1, 250, None),
     (8, 2, 64, 300, 1280, 128, False, 1, None, 40),
+    # Past 1024 value ranks (value slices), at both head sizes, resident and
+    # streamed k_vt.
+    (8, 2, 64, 300, 256, 1536, False, 1, None, None),
+    (8, 2, 64, 300, 256, 1536, True, 2, 250, 20),
+    (8, 2, 128, 300, 512, 1536, False, 2, 280, None),
+    (8, 2, 128, 300, 512, 1536, True, 1, None, 30),
+    (8, 2, 128, 200, 1024, 4096, False, 1, 190, None),
 ]
 
 
@@ -304,23 +314,31 @@ def test_mixed_kernel_matches_plain(cuda, r8k, r4k, r8v, r4v, lens, lo):
     assert _row_rel_err(t6, t6r) <= TOL_T and _lse_err(l6, l6r) <= TOL_LSE
 
 
+# (kind, ql, valid_len, rank): rank 64, then 2048 (the full rank of
+# DeepSeek-V2-Lite's groups of 4 layers; value slices on the card).
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind,ql,lens", [("bf16", 1, None), ("bf16", 2, 150),
-                                          ("int8", 1, 37), ("int8+int4", 1, None),
-                                          ("int8+int4", 2, 190)])
-def test_mla_kernels_match_plain(cuda, kind, ql, lens):
+@pytest.mark.parametrize("kind,ql,lens,rk", [("bf16", 1, None, 64), ("bf16", 2, 150, 64),
+                                             ("int8", 1, 37, 64), ("int8+int4", 1, None, 64),
+                                             ("int8+int4", 2, 190, 64),
+                                             ("bf16", 1, None, 2048), ("bf16", 2, 150, 2048),
+                                             ("int8", 2, 37, 2048),
+                                             ("int8+int4", 1, 190, 2048),
+                                             ("int8+int4", 2, None, 2048)])
+def test_mla_kernels_match_plain(cuda, kind, ql, lens, rk):
     gen = torch.Generator(device=cuda)
     gen.manual_seed(5)
-    s_p, rk, rope, nh = 200, 64, 16, 8
+    s_p, rope, nh = 200, 16, 8
     bf = torch.bfloat16
     R = ql * nh
-    q_emb = (torch.randn((1, R, rk), generator=gen, device=cuda) * 0.05).to(bf)
+    q_emb = (torch.randn((1, R, rk), generator=gen, device=cuda) * 0.4 / rk ** 0.5).to(bf)
     q_pe = (torch.randn((1, R, rope), generator=gen, device=cuda) * 0.1).to(bf)
     k_pe = torch.randn((1, s_p, rope), generator=gen, device=cuda).to(bf)
     r = torch.rand((1, s_p), generator=gen, device=cuda) + 0.5
     lengths = None if lens is None else torch.tensor([lens], device=cuda)
     if kind == "int8+int4":
-        us8, us4 = _mixed(gen, cuda, s_p, 16, 48)
+        # Rank 2048 at ql 2: a split whose parts are not whole 16-byte units.
+        r8 = 16 if rk == 64 else 1024 + 8 * (ql - 1)
+        us8, us4 = _mixed(gen, cuda, s_p, r8, rk - r8)
         args = (q_emb * 0.02, q_pe, us8, us4, k_pe, r, lengths)
         run, plain, counter = (k2.mla_mixed_rankspace_kernel,
                                k2.mla_mixed_rankspace_kernel_plain, "mla_mixed_launches")
@@ -391,10 +409,19 @@ def test_ablation_kernel_matches_plain(cuda, name):
     assert _lse_err(m[~inf], m_ref[~inf]) <= TOL_LSE if (~inf).any() else True
 
 
+# (kind, M, K, CTAs a cluster): small and ragged M, then at every K and
+# kind the probe's M 512, chip_smoke.py's 2 * 32 * 132 = 8448 and a ragged
+# 777, and at K 512 the cluster of 16.
+PROBE_CASES = ([("bf16", 64, 128, 8), ("int8", 100, 256, 8), ("int4", 70, 512, 8),
+                ("int8", 40, 512, 8), ("bf16", 33, 512, 8)]
+               + [(kind, m, k, 8) for kind in ("bf16", "int8", "int4")
+                  for k in (128, 256, 512) for m in (512, 8448, 777)]
+               + [(kind, m, 512, 16) for kind in ("bf16", "int8", "int4") for m in (512, 777)])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind,m,k", [("bf16", 64, 128), ("int8", 100, 256), ("int4", 70, 512),
-                                      ("int8", 40, 512), ("bf16", 33, 512)])
-def test_probe_kernel_matches_plain(cuda, kind, m, k):
+@pytest.mark.parametrize("kind,m,k,cluster", PROBE_CASES)
+def test_probe_kernel_matches_plain(cuda, kind, m, k, cluster):
     gen = torch.Generator(device=cuda)
     gen.manual_seed(8)
     if kind == "bf16":
@@ -404,7 +431,7 @@ def test_probe_kernel_matches_plain(cuda, kind, m, k):
         x = torch.randint(-8, 8, (m, k), generator=gen, device=cuda, dtype=torch.int8)
         w = torch.randint(-8, 8, (k, k), generator=gen, device=cuda, dtype=torch.int8)
     before = k11.launches
-    got = k11.gemm_chain(x, w, 7, kind)
+    got = k11.gemm_chain(x, w, 7, kind, cluster)
     assert k11.launches == before + 1
     ref = k11.gemm_chain_plain(x, w, 7, kind)
     if kind == "bf16":
@@ -436,7 +463,8 @@ def _live(cuda, vals):
 # bf16 and int8, then the edges of the ring and of the splits: s_p not a
 # multiple of 64, a valid_len inside one CTA's run of blocks, win_lo inside
 # a block, two sequences of different lengths, R 84 (28 heads x ql 3), rv
-# 16 and 1024, rk 16. (dtype, b, R, s_p, rk, rv, valid_len, win_lo)
+# 16 and 1024, rk 16; then the wide ranks.
+# (dtype, b, R, s_p, rk, rv, valid_len, win_lo)
 RS_CASES = [
     ("bf16", 1, 32, 8192, 512, 768, None, None),
     ("int8", 1, 32, 8192, 512, 768, None, None),
@@ -450,6 +478,13 @@ RS_CASES = [
     ("bf16", 1, 32, 1000, 64, 16, None, None),
     ("int8", 1, 32, 1000, 256, 1024, None, [10]),
     ("bf16", 1, 32, 100, 16, 1024, [77], None),
+    # rk = rv = 4096 (q_emb streams beside the key panels), and rv 1536 at R
+    # 128 (two 1024-rank value slices).
+    ("bf16", 1, 32, 1000, 4096, 4096, None, None),
+    ("int8", 1, 32, 1000, 4096, 4096, [900], [10]),
+    ("bf16", 1, 128, 1000, 512, 1536, None, [70]),
+    ("int8", 1, 128, 1000, 512, 1536, [999], None),
+    ("bf16", 2, 64, 300, 3072, 1040, [300, 200], None),
 ]
 
 
@@ -495,13 +530,16 @@ def test_sparse_rankspace_kernel_ragged_chunks(cuda, dtype, ids, lens, lo):
 
 # K6 at the 8B split (256 + 256 int8/int4 K ranks, 256 + 512 V ranks), at
 # ql 1 and 4 and R 84, and a split of no whole 64-byte boxes (gathered
-# panels) over two sequences and at R 64 (two row tiles).
+# panels) over two sequences and at R 64 (two row tiles); rk 4096 with rv
+# 2048 in boxes and, gathered, at R 64 (streamed q_emb, value slices).
 # (r8k, r4k, r8v, r4v, b, R, s_p, valid_len, win_lo)
 K6_CASES = [(256, 256, 256, 512, 1, 32, 8192, None, None),
             (256, 256, 256, 512, 1, 128, 8192, [8100], [1000]),
             (256, 256, 256, 512, 2, 84, 1000, [1000, 333], [0, 40]),
             (16, 48, 24, 72, 2, 32, 1000, [999, 64], None),
-            (16, 48, 24, 72, 1, 64, 300, None, [70])]
+            (16, 48, 24, 72, 1, 64, 300, None, [70]),
+            (2048, 2048, 1024, 1024, 1, 32, 1000, None, None),
+            (16, 4080, 24, 2024, 1, 64, 300, [290], [70])]
 
 
 @pytest.mark.gpu
@@ -523,3 +561,26 @@ def test_mixed_kernel_shapes(cuda, r8k, r4k, r8v, r4v, b, R, s_p, lens, lo):
     t6r, l6r = k2.mixed_rankspace_kernel_plain(q_emb, us8, k4, v8, v4, lengths, win_lo)
     assert t6.shape == (b, R, r8v + r4v)
     assert _row_rel_err(t6, t6r) <= TOL_T and _lse_err(l6, l6r) <= TOL_LSE
+
+
+# K4 past 1024 value ranks: the top-4 of 512-row chunks at R 32 (256-rank
+# slices) and R 128 (1024-rank slices), and rk 4096. (dtype, R, rk, rv)
+K4_WIDE = [("bf16", 32, 512, 1536), ("int8", 32, 512, 1536), ("bf16", 128, 512, 1536),
+           ("int8", 32, 4096, 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,R,rk,rv", K4_WIDE)
+def test_sparse_rankspace_kernel_wide_ranks(cuda, dtype, R, rk, rv):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(14)
+    s_p = 4000
+    k_us, v_us, scale = _rs_factors(gen, cuda, 1, s_p, rk, rv, dtype)
+    q_emb = (torch.randn((1, R, rk), generator=gen, device=cuda) * scale).to(torch.bfloat16)
+    ids = torch.tensor([[7, 0, 3, -1]], device=cuda, dtype=torch.int32)
+    before = k2.sparse_launches
+    t4, l4 = k2.sparse_rankspace_kernel(q_emb, k_us, v_us, ids, 512, None, None)
+    assert k2.sparse_launches == before + 1
+    t4r, l4r = k2.sparse_rankspace_kernel_plain(q_emb, k_us, v_us, ids, 512, None, None)
+    assert t4.shape == (1, R, rv)
+    assert _row_rel_err(t4, t4r) <= TOL_T and _lse_err(l4, l4r) <= TOL_LSE

@@ -136,10 +136,40 @@ __device__ __forceinline__ void stage_mixed(bf16* dst, int ld, const int8_t* k8,
   }
 }
 
-// stage_mixed's logical columns [c0, c0 + w) only.
+// stage_mixed's logical columns [c0, c0 + w) only (c0 and w multiples of
+// 16). Where r8 and h4 are multiples of 16, each 16 columns lie in one
+// part and arrive in one 16-byte load; else byte by byte.
 __device__ __forceinline__ void stage_mixed_cols(bf16* dst, int ld, const int8_t* k8,
                                                  const int8_t* k4, int r8, int h4, int valid,
                                                  int c0, int w) {
+  if ((r8 | h4) % 16 == 0) {
+    const int per_row = w / 16;
+    for (int i = threadIdx.x; i < kBS * per_row; i += kThreads) {
+      const int row = i / per_row, col = (i % per_row) * 16, j = c0 + col;
+      const int part = j < r8 ? 0 : (j < r8 + h4 ? 1 : 2);  // int8, hi, lo nibbles
+      const int8_t* src = part == 0 ? k8 + (size_t)row * r8 + j
+                                    : k4 + (size_t)row * h4 + j - r8 - (part == 2 ? h4 : 0);
+      int4 x = make_int4(0, 0, 0, 0);
+      if (row < valid) x = *reinterpret_cast<const int4*>(src);
+      const int8_t* b = reinterpret_cast<const int8_t*>(&x);
+      uint32_t o[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        int v0 = b[2 * e], v1 = b[2 * e + 1];
+        if (part == 1) {
+          v0 >>= 4;
+          v1 >>= 4;
+        } else if (part == 2) {
+          v0 = ((v0 & 0xF) ^ 8) - 8;
+          v1 = ((v1 & 0xF) ^ 8) - 8;
+        }
+        o[e] = pack_bf16((float)v0, (float)v1);
+      }
+      *reinterpret_cast<uint4*>(dst + row * ld + col) = make_uint4(o[0], o[1], o[2], o[3]);
+      *reinterpret_cast<uint4*>(dst + row * ld + col + 8) = make_uint4(o[4], o[5], o[6], o[7]);
+    }
+    return;
+  }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int row = warp; row < kBS; row += kThreads / 32) {
     bf16* d = dst + row * ld;

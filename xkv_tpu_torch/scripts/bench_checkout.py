@@ -1,23 +1,34 @@
-"""Time the post-RoPE rank-space decode kernels K2, K4 and K6 of one
-checkout on the card, at the Llama-3.1-8B xKV-4 layer's shapes.
+"""Time the decode kernels K2-K8 and the probe K11 of one checkout on the
+card, at the main path's shapes.
 
-    python xkv_tpu_torch/scripts/bench_rankspace.py [--root DIR] [--label NAME]
+    python xkv_tpu_torch/scripts/bench_checkout.py [--root DIR] [--label NAME]
 
 ``--root`` names the checkout whose ``xkv_tpu_torch`` is timed (default:
 the one holding this file), so two versions of the kernels can be timed in
 turns on one card, each process building its own library:
 
-    python xkv_tpu_torch/scripts/bench_rankspace.py --root build/parent --label parent
-    python xkv_tpu_torch/scripts/bench_rankspace.py --label change
+    python xkv_tpu_torch/scripts/bench_checkout.py --root build/parent --label parent
+    python xkv_tpu_torch/scripts/bench_checkout.py --label change
 
 Run it as a file, not with ``-m``: with ``-m`` the package of the working
-directory is imported first. Shapes: b 1, s_p 8192, rank_k 512, rank_v 768,
-R 32 (one token, 32 heads) and 128 (ql 4); K2 over bf16 and int8 factors,
-K6 over the 8B split (256 int8 + 256 int4 K ranks, 256 + 512 V ranks), K4
-over the top-4 of 512-row chunks. The inputs come from one seed, so every
-checkout sees the same. Times are ``cuda_time_ms``'s cold-L2 mean of 10
-calls of the wrapper (its merge included). Prints one JSON line, with the
-card's name and power limit.
+directory is imported first. (PR 8's records name it ``bench_rankspace.py``,
+which timed K2, K4 and K6 only.) Shapes, b 1, s_p 8192:
+  * K2 at the Llama-3.1-8B xKV-4 layer (rank_k 512, rank_v 768), R 32 (one
+    token, 32 heads) and 128 (ql 4), over bf16 and int8 factors; K6 over
+    the 8B split (256 int8 + 256 int4 K ranks, 256 + 512 V ranks); K4 over
+    the top-4 of 512-row chunks;
+  * K3 and K5 (top-4) at the 8B layer (32/8 heads, head size 128) and the
+    Llama-3.2-1B one (32/8 heads, head size 64, rank_k 256, rank_v 384),
+    bf16 and int8, the vt slices layer 1 of a group's wider basis;
+  * K7 at DeepSeek-V2-Lite (16 heads, rank 512, RoPE key 64), bf16 and
+    int8; K8 over 256 int8 + 256 int4 ranks;
+  * K11, 256 chained products, bf16, int8 and int4, at M = K = 512 and at
+    M = 2 * 32 * (the card's SMs); beside it the library's 256
+    ``torch.matmul`` (bf16) and ``torch._int_mm`` (int8) calls.
+The inputs come from one seed, so every checkout sees the same. Times are
+``cuda_time_ms``'s cold-L2 mean of 10 calls of the wrapper (its merge
+included; K11 5 calls). Prints one JSON line, with the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -38,37 +49,94 @@ def main() -> int:
     import torch
 
     from xkv_tpu_torch.compress.quant import pack_int4_pairs
+    from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
+    from xkv_tpu_torch.ops.kernels import probe_int4 as k11
     from xkv_tpu_torch.ops.kernels import rankspace_attention as k2
     from xkv_tpu_torch.scripts.timing import card_line, cuda_time_ms
 
     if not torch.cuda.is_available():
-        raise SystemExit("bench_rankspace: no CUDA device")
+        raise SystemExit("bench_checkout: no CUDA device")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     s_p, rk, rv = 8192, 512, 768
+    bf = torch.bfloat16
 
     def ints(shape, lo, hi):
         return torch.randint(lo, hi, shape, generator=gen, device=dev).to(torch.int8)
 
-    bf = dict(k=torch.randn((1, s_p, rk), generator=gen, device=dev).to(torch.bfloat16),
-              v=torch.randn((1, s_p, rv), generator=gen, device=dev).to(torch.bfloat16))
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    times = {}
+    # K2, K4, K6.
+    fac = dict(k=randn(1, s_p, rk).to(bf), v=randn(1, s_p, rv).to(bf))
     i8 = dict(k=ints((1, s_p, rk), -127, 128), v=ints((1, s_p, rv), -127, 128))
     mixed = (ints((1, s_p, 256), -127, 128), pack_int4_pairs(ints((1, s_p, 256), -7, 8)),
              ints((1, s_p, 256), -127, 128), pack_int4_pairs(ints((1, s_p, 512), -7, 8)))
     ids = torch.tensor([[0, 5, 11, 15]], dtype=torch.int32, device=dev)
-    times = {}
     for R in (32, 128):
-        q = (torch.randn((1, R, rk), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
-        q8 = (q.float() / 73).to(torch.bfloat16)
-        times[f"K2 bf16 R{R}"] = cuda_time_ms(lambda: k2.rankspace_kernel(q, bf["k"], bf["v"]))
+        q = (randn(1, R, rk) * 0.02).to(bf)
+        q8 = (q.float() / 73).to(bf)
+        times[f"K2 bf16 R{R}"] = cuda_time_ms(lambda: k2.rankspace_kernel(q, fac["k"], fac["v"]))
         times[f"K2 int8 R{R}"] = cuda_time_ms(lambda: k2.rankspace_kernel(q8, i8["k"], i8["v"]))
         times[f"K6 R{R}"] = cuda_time_ms(lambda: k2.mixed_rankspace_kernel(q8, *mixed))
         if R == 32:
             times["K4 bf16 top-4"] = cuda_time_ms(
-                lambda: k2.sparse_rankspace_kernel(q, bf["k"], bf["v"], ids, 512))
+                lambda: k2.sparse_rankspace_kernel(q, fac["k"], fac["v"], ids, 512))
             times["K4 int8 top-4"] = cuda_time_ms(
                 lambda: k2.sparse_rankspace_kernel(q8, i8["k"], i8["v"], ids, 512))
+    # K3, K5: (hq, hkv, hd, rank_k, rank_v) of the 8B and 1B layers.
+    for shape, (hq, hkv, hd, rk3, rv3) in {"8B": (32, 8, 128, 512, 768),
+                                           "1B": (32, 8, 64, 256, 384)}.items():
+        m = hkv * hd
+        theta = torch.arange(s_p, device=dev)[:, None] * 1e-3 * torch.arange(
+            1, hd // 2 + 1, device=dev)[None]
+        cos_h, sin_h = theta.cos().to(bf), theta.sin().to(bf)
+        for dtype in ("bf16", "int8"):
+            if dtype == "bf16":
+                k_us, v_us = randn(1, s_p, rk3).to(bf), randn(1, s_p, rv3).to(bf)
+                k_vt, scale, v_scale = (randn(1, rk3, 4 * m) * 0.05).to(bf), 1.0, None
+            else:
+                k_us, v_us = ints((1, s_p, rk3), -127, 128), ints((1, s_p, rv3), -127, 128)
+                k_vt, scale = ints((1, rk3, 4 * m), -127, 128), 2e-4
+                v_scale = torch.full((1, 1, rv3), 1e-2, device=dev)
+            v_vt = (randn(1, rv3, 4 * m) * 0.05).to(bf)
+            vt_k, vt_v = k_vt[:, :, m:2 * m], v_vt[:, :, m:2 * m]
+            qab = (randn(1, hq, 2 * hd) * 0.05 * scale).to(bf)
+            kw = dict(num_q_heads=hq, num_kv_heads=hkv)
+            a = (qab, k_us, vt_k, v_us, vt_v, cos_h, sin_h, v_scale)
+            times[f"K3 {shape} {dtype}"] = cuda_time_ms(lambda: k3.lowrank_kernel(*a, None, None,
+                                                                                  **kw))
+            times[f"K5 {shape} {dtype} top-4"] = cuda_time_ms(
+                lambda: k3.sparse_lowrank_kernel(*a, ids, 512, None, None, **kw))
+    # K7, K8 at DeepSeek-V2-Lite.
+    nh, rope = 16, 64
+    qe, qp = (randn(1, nh, rk) * 0.02).to(bf), (randn(1, nh, rope) * 0.1).to(bf)
+    k_pe, r = randn(1, s_p, rope).to(bf), torch.rand((1, s_p), generator=gen, device=dev) + 0.5
+    us = {"bf16": randn(1, s_p, rk).to(bf), "int8": ints((1, s_p, rk), -127, 128)}
+    for dtype, u in us.items():
+        times[f"K7 {dtype}"] = cuda_time_ms(lambda: k2.mla_rankspace_kernel(qe, qp, u, k_pe, r))
+    us8, us4 = ints((1, s_p, 256), -127, 128), pack_int4_pairs(ints((1, s_p, 256), -7, 8))
+    times["K8"] = cuda_time_ms(lambda: k2.mla_mixed_rankspace_kernel(qe, qp, us8, us4, k_pe, r))
+    # K11 and the library's calls.
+    reps, k = 256, 512
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for M in (512, 2 * 32 * n_sm):
+        for kind in ("bf16", "int8", "int4"):
+            if kind == "bf16":
+                x, w = randn(M, k).to(bf), randn(k, k).to(bf)
+            else:
+                x, w = ints((M, k), -8, 8), ints((k, k), -8, 8)
+            times[f"K11 {kind} M{M}"] = cuda_time_ms(lambda: k11.gemm_chain(x, w, reps, kind),
+                                                     iters=5, warmup=1)
+            if kind == "bf16":
+                times[f"library bf16 M{M}"] = cuda_time_ms(
+                    lambda: [torch.matmul(x, w) for _ in range(reps)], iters=5, warmup=1)
+            elif kind == "int8":
+                wc = w.t().contiguous().t()  # column-major, cuBLASLt's int8 layout
+                times[f"library int8 M{M}"] = cuda_time_ms(
+                    lambda: [torch._int_mm(x, wc) for _ in range(reps)], iters=5, warmup=1)
     print(json.dumps({"label": args.label, "root": args.root, "card": card_line(dev),
                       "ms": times}), flush=True)
     return 0
