@@ -23,8 +23,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
              stage) against K3's plain version at K3's shapes, K10 (K3's
              stage ablation) in every stage set against its plain version,
              K11 (tensor-core rate probe) in bf16, int8 and int4 against its
-             plain version, each timed beside the library's calls and in
-             clusters of 8 and 16; then the four tools
+             plain version, each timed beside the library's calls; then
+             the four tools
              (``xkv_tpu_torch.scripts``) run once through their ``main()``
              at their default sizes, with the launch counts read around
              them;
@@ -798,11 +798,11 @@ def check_wide(gen, results):
 
 # ------------------------------------------------------------ kernel tools
 K9_VARIANTS = ("two_gemm", "scratch_ab", "b16")
-K11_DESIGN = ("redesigned: a cluster of CTAs per 64-row tile of x, each CTA's column slice "
-              "of w resident in shared memory, x_{i+1} exchanged through distributed shared "
-              "memory with one cluster barrier per product; wgmma (bf16 m64nNk16, s8 "
-              "m64nNk32), mma.sync m16n8k64 s4 for int4; the record's ms at the default "
-              "cluster (CLUSTERS[0])")
+K11_DESIGN = ("redesigned: a cluster of 8 CTAs per 64-row tile of x, each CTA's column "
+              "slice of w resident in shared memory, its columns of x_{i+1} sent to every "
+              "peer by st.async stores counted on the peer's mbarrier (no cluster barrier "
+              "per product); wgmma (bf16 m64nNk16, s8 m64nNk32), mma.sync m16n8k64 s4 for "
+              "int4")
 
 
 def check_variants(gen, results):
@@ -919,9 +919,9 @@ def check_ablation(gen, results, k3_int8_ms):
 
 def check_probe(results):
     """K11: bf16, int8 and int4 chains of 256 products at M = K = 512 (the
-    probe's shape) and at an M that gives every SM two 32-row tiles, in
-    clusters of 8 and 16 CTAs, held against the plain version and timed
-    beside the library's calls; the rate against the published peak."""
+    probe's shape) and at an M that gives every SM two 32-row tiles, held
+    against the plain version and timed beside the library's calls; the
+    rate against the published peak."""
     import torch
 
     from xkv_tpu_torch.ops.kernels import probe_int4 as k11
@@ -935,27 +935,22 @@ def check_probe(results):
     for m in (512, 2 * 32 * n_sm):
         for kind in ("bf16", "int8", "int4"):
             x, w = tool.inputs(kind, torch.device("cuda"), m, k)
+            got = k11.gemm_chain(x, w, reps, kind)
             ref = k11.gemm_chain_plain(x, w, reps, kind)
-            row = {}
-            for cluster in k11.CLUSTERS:
-                got = k11.gemm_chain(x, w, reps, kind, cluster)
-                torch.cuda.synchronize()
-                a, r = max_abs_err(got, ref), row_rel_err(got, ref)
-                ok = r <= TOL["K11"] if kind == "bf16" else bool(torch.equal(got, ref))
-                rule = f"limit {TOL['K11']:.3e}" if kind == "bf16" else "bit-exact"
-                log(f"K11 {kind} M={m} K={k} reps={reps} cluster {cluster}: "
-                    f"max_abs_err={a:.3e} max_rel_err={r:.3e} ({rule}: {ok})")
-                if not ok:
-                    raise AssertionError(f"K11 {kind} M={m} cluster {cluster} disagrees with its "
-                                         "plain version")
-                worst["abs"], worst["rel"] = max(worst["abs"], a), max(worst["rel"], r)
-                row[f"cluster {cluster} ms"] = cuda_time_ms(
-                    lambda: k11.gemm_chain(x, w, reps, kind, cluster), iters=5, warmup=1)
-            ms = row[f"cluster {k11.CLUSTERS[0]} ms"]
+            torch.cuda.synchronize()
+            a, r = max_abs_err(got, ref), row_rel_err(got, ref)
+            ok = r <= TOL["K11"] if kind == "bf16" else bool(torch.equal(got, ref))
+            rule = f"limit {TOL['K11']:.3e}" if kind == "bf16" else "bit-exact"
+            log(f"K11 {kind} M={m} K={k} reps={reps}: max_abs_err={a:.3e} max_rel_err={r:.3e} "
+                f"({rule}: {ok})")
+            if not ok:
+                raise AssertionError(f"K11 {kind} M={m} disagrees with its plain version")
+            worst["abs"], worst["rel"] = max(worst["abs"], a), max(worst["rel"], r)
+            ms = cuda_time_ms(lambda: k11.gemm_chain(x, w, reps, kind), iters=5, warmup=1)
             ops = 2.0 * m * k * k * reps
             rate = ops / (ms * 1e-3)
             share = rate / peak[kind] if peak[kind] else None
-            row.update(ms=ms, us_per_gemm=ms * 1e3 / reps, tops=rate / 1e12, peak_share=share)
+            row = dict(ms=ms, us_per_gemm=ms * 1e3 / reps, tops=rate / 1e12, peak_share=share)
             if kind == "bf16":
                 row["library_ms"] = cuda_time_ms(
                     lambda: [torch.matmul(x, w) for _ in range(reps)], iters=3, warmup=1)

@@ -409,19 +409,16 @@ def test_ablation_kernel_matches_plain(cuda, name):
     assert _lse_err(m[~inf], m_ref[~inf]) <= TOL_LSE if (~inf).any() else True
 
 
-# (kind, M, K, CTAs a cluster): small and ragged M, then at every K and
-# kind the probe's M 512, chip_smoke.py's 2 * 32 * 132 = 8448 and a ragged
-# 777, and at K 512 the cluster of 16.
-PROBE_CASES = ([("bf16", 64, 128, 8), ("int8", 100, 256, 8), ("int4", 70, 512, 8),
-                ("int8", 40, 512, 8), ("bf16", 33, 512, 8)]
-               + [(kind, m, k, 8) for kind in ("bf16", "int8", "int4")
-                  for k in (128, 256, 512) for m in (512, 8448, 777)]
-               + [(kind, m, 512, 16) for kind in ("bf16", "int8", "int4") for m in (512, 777)])
+# (kind, M, K): small and ragged M, then at every K and kind the probe's M
+# 512, chip_smoke.py's 2 * 32 * 132 = 8448 and a ragged 777.
+PROBE_CASES = [("bf16", 64, 128), ("int8", 100, 256), ("int4", 70, 512), ("int8", 40, 512),
+               ("bf16", 33, 512)] + [(kind, m, k) for kind in ("bf16", "int8", "int4")
+                                     for k in (128, 256, 512) for m in (512, 8448, 777)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind,m,k,cluster", PROBE_CASES)
-def test_probe_kernel_matches_plain(cuda, kind, m, k, cluster):
+@pytest.mark.parametrize("kind,m,k", PROBE_CASES)
+def test_probe_kernel_matches_plain(cuda, kind, m, k):
     gen = torch.Generator(device=cuda)
     gen.manual_seed(8)
     if kind == "bf16":
@@ -431,7 +428,7 @@ def test_probe_kernel_matches_plain(cuda, kind, m, k, cluster):
         x = torch.randint(-8, 8, (m, k), generator=gen, device=cuda, dtype=torch.int8)
         w = torch.randint(-8, 8, (k, k), generator=gen, device=cuda, dtype=torch.int8)
     before = k11.launches
-    got = k11.gemm_chain(x, w, 7, kind, cluster)
+    got = k11.gemm_chain(x, w, 7, kind)
     assert k11.launches == before + 1
     ref = k11.gemm_chain_plain(x, w, 7, kind)
     if kind == "bf16":

@@ -37,7 +37,10 @@
 //   s4 from padded rows, in the same resident-w, exchanged-x structure.
 // - The slices and the first x arrive by cp.async (zero past M: a ragged
 //   last tile's extra rows stay 0 and are not written out).
-// Cluster size: 8, or 16 at K = 512 (`cluster`; a non-portable size).
+// - 8 CTAs a cluster (int4 at K = 128: 4, so that a CTA's columns of a row
+//   stay a whole 16-byte unit): at M = 512 that is 64 CTAs. 16 CTAs, all
+//   128 SMs busy, were slower in bf16 and int8: each CTA receives as many
+//   bytes a product and does half the products.
 #include <type_traits>
 
 #include "common.cuh"
@@ -356,10 +359,6 @@ int launch(const void* x, const void* wt, void* out, int M, int reps, cudaStream
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
   if (e != cudaSuccess) return (int)e;
-  if (CS > 8) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return (int)e;
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((M + kTileRows - 1) / kTileRows * CS);
   cfg.blockDim = dim3(kThreadsP);
@@ -378,19 +377,15 @@ int launch(const void* x, const void* wt, void* out, int M, int reps, cudaStream
   return (int)cudaGetLastError();
 }
 
-// Cluster size 8 (int4 at K = 128: 4, so a CTA's columns stay a 16-byte
-// unit of a row), or 16 at K = 512 when asked.
 template <int KIND>
-int dispatch_k(int K, int cluster, const void* x, const void* wt, void* out, int M, int reps,
+int dispatch_k(int K, const void* x, const void* wt, void* out, int M, int reps,
                cudaStream_t st) {
   switch (K) {
     case 128:
       if constexpr (KIND == 2) return launch<KIND, 128, 4>(x, wt, out, M, reps, st);
       else return launch<KIND, 128, 8>(x, wt, out, M, reps, st);
     case 256: return launch<KIND, 256, 8>(x, wt, out, M, reps, st);
-    case 512:
-      return cluster == 16 ? launch<KIND, 512, 16>(x, wt, out, M, reps, st)
-                           : launch<KIND, 512, 8>(x, wt, out, M, reps, st);
+    case 512: return launch<KIND, 512, 8>(x, wt, out, M, reps, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -398,18 +393,16 @@ int dispatch_k(int K, int cluster, const void* x, const void* wt, void* out, int
 }  // namespace
 
 // x (M, K) and wt = w^T (K, K), row-major: bf16 (kind 0), int8 (kind 1), or
-// int4 packed two to a byte along K (kind 2). K is 128, 256 or 512;
-// cluster 8, or 16 CTAs a cluster at K = 512. Writes out (M, K) fp32 = sum
-// over `reps` chained products.
+// int4 packed two to a byte along K (kind 2). K is 128, 256 or 512. Writes
+// out (M, K) fp32 = sum over `reps` chained products.
 extern "C" int xkv_probe_gemm_chain(const void* x, const void* wt, void* out, int M, int K,
-                                    int reps, int kind, int cluster, void* stream) {
-  if (M < 1 || reps < 1 || (cluster != 8 && cluster != 16) || (cluster == 16 && K != 512))
-    return (int)cudaErrorInvalidValue;
+                                    int reps, int kind, void* stream) {
+  if (M < 1 || reps < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (kind) {
-    case 0: return dispatch_k<0>(K, cluster, x, wt, out, M, reps, st);
-    case 1: return dispatch_k<1>(K, cluster, x, wt, out, M, reps, st);
-    case 2: return dispatch_k<2>(K, cluster, x, wt, out, M, reps, st);
+    case 0: return dispatch_k<0>(K, x, wt, out, M, reps, st);
+    case 1: return dispatch_k<1>(K, x, wt, out, M, reps, st);
+    case 2: return dispatch_k<2>(K, x, wt, out, M, reps, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

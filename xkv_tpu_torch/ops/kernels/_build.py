@@ -51,7 +51,7 @@ SIGNATURES = {
                                  + [_I] * 12 + [_P],
     "xkv_lowrank_streams_kvt": [_I, _I, _I],
     "xkv_mla_rankspace_decode": [_P] * 13 + [_I] * 8 + [_P],
-    "xkv_probe_gemm_chain": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "xkv_probe_gemm_chain": [_P, _P, _P, _I, _I, _I, _I, _P],
     "xkv_ablation_step": [_P] * 12 + [_I] * 8 + [_F, _I, _I, _P],
     "xkv_variant_decode": [_P, _P, _P, _L, _L, _P, _P, _L, _L] + [_P] * 10 + [_I] * 12 + [_P],
 }

@@ -11,8 +11,7 @@ and runs ``gemm_chain_plain`` for CPU tensors.
 int4 operands are int8 tensors holding values in [-8, 7]; the wrapper packs
 them two to a byte for the kernel's s4 tensor-core products. The kernel
 runs a cluster of CTAs per 64-row tile of x, each keeping its column slice
-of w resident and exchanging x; ``cluster`` picks 16 CTAs a cluster in
-place of 8 at K = 512.
+of w resident and exchanging x.
 """
 
 from __future__ import annotations
@@ -55,14 +54,9 @@ def pack_int4(x: torch.Tensor) -> torch.Tensor:
     return (lo | (hi << 4)).to(torch.uint8).contiguous()
 
 
-CLUSTERS = (8, 16)  # CTAs a cluster; 16 only at K = 512
-
-
-def gemm_chain(x: torch.Tensor, w: torch.Tensor, reps: int, kind: str,
-               cluster: int = 8) -> torch.Tensor:
+def gemm_chain(x: torch.Tensor, w: torch.Tensor, reps: int, kind: str) -> torch.Tensor:
     """K11: (M, K) fp32 sum of ``reps`` chained products (see module)."""
     _build.require(kind in KINDS, f"kind {kind!r} not in {tuple(KINDS)}")
-    _build.require(cluster in CLUSTERS, f"cluster {cluster} not in {CLUSTERS}")
     if x.device.type == "cpu":
         return gemm_chain_plain(x, w, reps, kind)
     global launches
@@ -72,7 +66,6 @@ def gemm_chain(x: torch.Tensor, w: torch.Tensor, reps: int, kind: str,
     m, k = x.shape
     _build.require(w.shape == (k, k), f"w must be (K, K) = ({k}, {k}), got {tuple(w.shape)}")
     _build.require(k in (128, 256, 512), f"K {k} not in (128, 256, 512)")
-    _build.require(cluster == 8 or k == 512, "a cluster of 16 needs K = 512")
     _build.require(reps >= 1 and m >= 1, "reps and M must be positive")
     wt = w.t().contiguous()
     x = x.contiguous()
@@ -82,7 +75,7 @@ def gemm_chain(x: torch.Tensor, w: torch.Tensor, reps: int, kind: str,
         x, wt = pack_int4(x), pack_int4(wt)
     out = torch.empty((m, k), dtype=torch.float32, device=x.device)
     status = _build.load().xkv_probe_gemm_chain(
-        x.data_ptr(), wt.data_ptr(), out.data_ptr(), m, k, reps, KINDS[kind], cluster,
+        x.data_ptr(), wt.data_ptr(), out.data_ptr(), m, k, reps, KINDS[kind],
         _build.stream_ptr(x.device))
     _build.check(status, "gemm_chain")
     launches += 1
