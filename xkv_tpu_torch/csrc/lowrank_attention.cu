@@ -153,7 +153,9 @@ __device__ __forceinline__ uint32_t gather4(const unsigned char* p, int ld) {
 // resident): one CTA per (kv head, row tile, key split, sequence), every
 // chunk loaded by cp.async into a 4-stage ring of (64 rows x 128 bytes)
 // chunks, the k_us chunks beside the k_vt rank chunk they multiply.
-template <typename T, int HD>
+// kSliced: value slices of `vslice` ranks on the grid (rv > 1024); without,
+// one slice of every rank, the code of the main path's shapes.
+template <typename T, int HD, bool kSliced>
 __global__ void __launch_bounds__(kT, 1) lowrank_stream_split_kernel(
     const bf16* __restrict__ qab, const T* __restrict__ k_us, const T* __restrict__ k_vt,
     const T* __restrict__ v_us, const bf16* __restrict__ cos_h,
@@ -176,10 +178,11 @@ __global__ void __launch_bounds__(kT, 1) lowrank_stream_split_kernel(
   float* l_s = m_s + kHR;
   float* a_s = l_s + kHR;
 
-  // Value slice vs holds ranks [v0, v0 + rvs); one slice up to 1024 ranks.
-  const int nvs = (rv + vslice - 1) / vslice;
-  const int split = blockIdx.x / nvs, vs = blockIdx.x % nvs, bi = blockIdx.z;
-  const int v0 = vs * vslice, rvs = min(vslice, rv - v0);
+  // Value slice vs holds ranks [v0, v0 + rvs).
+  const int nvs = kSliced ? (rv + vslice - 1) / vslice : 1;
+  const int split = kSliced ? blockIdx.x / nvs : blockIdx.x, bi = blockIdx.z;
+  const int vs = kSliced ? blockIdx.x % nvs : 0;
+  const int v0 = vs * vslice, rvs = kSliced ? min(vslice, rv - v0) : rv;
   const int hk = blockIdx.y / ntiles, rt = blockIdx.y % ntiles;
   const int gsz = hq / hkv;
   const int head_rows = (R / hq) * gsz;
@@ -515,8 +518,8 @@ __device__ __forceinline__ void wgmma_rebuild(int (&d)[32], uint64_t da, uint64_
 // consume: per block the k_us chunks (rebuild against the resident k_vt:
 // wgmma at hd 128, one m64n64 product per warpgroup and column half;
 // mma.sync at hd 64), [cos | sin] (scores), softmax, the v_us chunks
-// (t += P @ v_us).
-template <typename T, int HD>
+// (t += P @ v_us). kSliced as the streamed kernel's.
+template <typename T, int HD, bool kSliced>
 __global__ void __launch_bounds__(kTP, 1) lowrank_tma_split_kernel(
     const __grid_constant__ CUtensorMap tm_kus, const __grid_constant__ CUtensorMap tm_vus,
     const __grid_constant__ CUtensorMap tm_cos, const __grid_constant__ CUtensorMap tm_sin,
@@ -545,10 +548,11 @@ __global__ void __launch_bounds__(kTP, 1) lowrank_tma_split_kernel(
   const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + kCStages);
 
   const int hk = blockIdx.y / ntiles, rt = blockIdx.y % ntiles;
-  // Value slice vs holds ranks [v0, v0 + rvs); one slice up to 1024 ranks.
-  const int nvs = (rv + vslice - 1) / vslice;
-  const int split = blockIdx.x / nvs, vs = blockIdx.x % nvs, bi = blockIdx.z;
-  const int v0 = vs * vslice, rvs = min(vslice, rv - v0);
+  // Value slice vs holds ranks [v0, v0 + rvs).
+  const int nvs = kSliced ? (rv + vslice - 1) / vslice : 1;
+  const int split = kSliced ? blockIdx.x / nvs : blockIdx.x, bi = blockIdx.z;
+  const int vs = kSliced ? blockIdx.x % nvs : 0;
+  const int v0 = vs * vslice, rvs = kSliced ? min(vslice, rv - v0) : rv;
   const int gsz = hq / hkv;
   const int head_rows = (R / hq) * gsz;
   const int nrows = min(kHR, head_rows - rt * kHR);
@@ -871,7 +875,7 @@ __global__ void __launch_bounds__(kTP, 1) lowrank_tma_split_kernel(
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kSliced>
 int launch_tma(cudaStream_t st, const void* qab, const void* k_us, const void* k_vt,
                const void* v_us, const void* cos_h, const void* sin_h, const int* lens,
                const int* los, const int* ids, int n_sel, int chunk, void* part_t,
@@ -889,7 +893,7 @@ int launch_tma(cudaStream_t st, const void* qab, const void* k_us, const void* k
     return (int)cudaErrorInvalidValue;
   const int smem = TmaLayout<T, HD>::smem(rk);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kern = lowrank_tma_split_kernel<T, HD>;
+  auto kern = lowrank_tma_split_kernel<T, HD, kSliced>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int nvs = (rv + vslice - 1) / vslice;
@@ -1014,7 +1018,7 @@ __global__ void __launch_bounds__(kT) lowrank_merge_chunk_kernel(
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kSliced>
 int launch_stream(cudaStream_t st, const void* qab, const void* k_us, const void* k_vt,
                   const void* v_us, const void* cos_h, const void* sin_h, const int* lens,
                   const int* los, const int* ids, int n_sel, int chunk, void* part_t,
@@ -1023,7 +1027,7 @@ int launch_stream(cudaStream_t st, const void* qab, const void* k_us, const void
                   int vslice) {
   constexpr int smem = Layout<T, HD>::kStreamSmem;
   static_assert(smem <= kMaxSmem, "streamed ring too large");
-  auto kern = lowrank_stream_split_kernel<T, HD>;
+  auto kern = lowrank_stream_split_kernel<T, HD, kSliced>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int nvs = (rv + vslice - 1) / vslice;
@@ -1052,8 +1056,11 @@ int dispatch_split(cudaStream_t st, const void* qab, const void* k_us, const voi
                    void* part_m, void* part_l, int* done, int b, int R, int hq, int hkv, int s_p,
                    int rk, int rv, long long sb_kvt, long long ld_kvt, int nsplit, int ntiles,
                    int vslice) {
-  return streams<T, HD>(rk) ? launch_stream<T, HD>(XKV_SPLIT_ARGS)
-                            : launch_tma<T, HD>(XKV_SPLIT_ARGS);
+  if (vslice < rv)
+    return streams<T, HD>(rk) ? launch_stream<T, HD, true>(XKV_SPLIT_ARGS)
+                              : launch_tma<T, HD, true>(XKV_SPLIT_ARGS);
+  return streams<T, HD>(rk) ? launch_stream<T, HD, false>(XKV_SPLIT_ARGS)
+                            : launch_tma<T, HD, false>(XKV_SPLIT_ARGS);
 }
 
 template <int HD>
