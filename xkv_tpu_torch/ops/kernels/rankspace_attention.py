@@ -492,7 +492,7 @@ def mla_shapes(q_emb, q_pe, k_us, k_pe, r, k_us4=None) -> Tuple[int, int, int, i
     """K7's and K8's shape rules, checked before any device check: (b, R,
     s_p, rk, rope), rk the total rank (r8 + 2 * h4 with ``k_us4``). Any b
     and R; rk and rope positive multiples of 16. Past 1024 ranks the kernel
-    deals t's columns out to value slices (``mla_value_slices``)."""
+    deals t's columns out to value slices of at most 1024."""
     _build.require(all(x.dim() == 3 for x in (q_emb, q_pe, k_us, k_pe)) and r.dim() == 2,
                    "q_emb, q_pe, k_us and k_pe must be 3-D, r 2-D")
     b, R, rk = q_emb.shape
@@ -509,12 +509,6 @@ def mla_shapes(q_emb, q_pe, k_us, k_pe, r, k_us4=None) -> Tuple[int, int, int, i
     return b, R, s_p, rk, rope
 
 
-def mla_value_slices(rk: int) -> int:
-    """Value slices of a K7/K8 launch: 1 up to 1024 ranks, else enough
-    slices of at most 1024 (for the RoPE widths of the configs)."""
-    return -(-rk // WIDE_SLICE_RANKS)
-
-
 def _check_mla(q_emb, q_pe, k_pe, r) -> None:
     """K7's and K8's device checks."""
     for name, x in (("q_emb", q_emb), ("q_pe", q_pe), ("k_pe", k_pe)):
@@ -525,9 +519,10 @@ def _check_mla(q_emb, q_pe, k_pe, r) -> None:
 
 
 def _mla_splits(s_p, R, rk, b, dev) -> int:
-    """Key splits of a K7/K8 launch: two CTAs an SM where the CTA holds
-    every rank; past 1024 ranks one (the chunks fill shared memory)."""
-    slices = mla_value_slices(rk)
+    """Key splits of a K7/K8 launch over its value slices (one up to 1024
+    ranks): two CTAs an SM where the CTA holds every rank, else one (the
+    rank chunks fill shared memory)."""
+    slices = -(-rk // WIDE_SLICE_RANKS)
     return _build.num_splits(s_p, b * -(-R // CTA_ROWS) * slices, 2 if slices == 1 else 1, dev)
 
 

@@ -11,8 +11,8 @@ turns on one card, each process building its own library:
     python xkv_tpu_torch/scripts/bench_checkout.py --label change
 
 Run it as a file, not with ``-m``: with ``-m`` the package of the working
-directory is imported first. (PR 8's records name it ``bench_rankspace.py``,
-which timed K2, K4 and K6 only.) Shapes, b 1, s_p 8192:
+directory is imported first. (Its earlier form, ``bench_rankspace.py``,
+timed K2, K4 and K6 only.) Shapes, b 1, s_p 8192:
   * K2 at the Llama-3.1-8B xKV-4 layer (rank_k 512, rank_v 768), R 32 (one
     token, 32 heads) and 128 (ql 4), over bf16 and int8 factors; K6 over
     the 8B split (256 int8 + 256 int4 K ranks, 256 + 512 V ranks); K4 over
