@@ -250,6 +250,15 @@ K2_DESIGN = ("stage 2 (the Hopper design; PR 8 measured a stage-1 mma.sync kerne
              "scores s^T = k_us . q_emb^T and t^T += v_us^T . P^T on wgmma (keys and ranks on "
              "M, tnspA), splits filling the SMs once; merge per (64-rank chunk, row); K4 and K6 "
              "run the same kernel")
+MLA_DESIGN = ("stage 2 (the Hopper design; the first port was mma.sync scores and a "
+              "CUDA-core value product over blocks staged in shared memory): K2's producer "
+              "warp, TMA ring and two wgmma warpgroups, each 64-key block's k_pe and us panels "
+              "in the ring, "
+              "s^T = (us . q_emb^T) * r + k_pe . q_pe^T with r applied per key in registers, "
+              "round_bf16(P * r) as wgmma's B operand of t^T += us^T . (P r)^T (tnspA); the "
+              "block's us panels held in shared memory between the two products at one value "
+              "slice (int8 / int4 widened to bf16 once), reloaded per 1024-rank value slice "
+              "past 512 ranks; mla_split_count's splits; K2's merge per (64-rank chunk, row)")
 K3_DESIGN = ("stage 2 (the Hopper design; stage 1 was mma.sync with a cp.async ring): one CTA "
              "per (kv head, 16-row tile, key split), the head's k_vt slice resident in shared "
              "memory, a producer warp filling a 4-stage TMA ring of k_us, [cos | sin] and v_us "
@@ -607,29 +616,40 @@ def check_mla(gen, results):
             t_ref, lse_ref = plain(*args)
             torch.cuda.synchronize()
             _hold(key, f"{dtype} ql={ql} valid_len={lens}", t, t_ref, lse, lse_ref, worst[key])
-            if ql == 1 and lens is None and dtype != "int8":
-                # The main path's shapes (bf16 factors, int4 run). Library:
-                # SDPA on prebuilt operands, q = [q_emb | q_pe],
-                # k = [r * us | k_pe], v = r * us, scale 1.
+            if lens is not None:
+                continue
+            # Timed at full length: the main path's shapes (bf16 factors
+            # and the int4 run at ql 1); int8 and ql 2 as extra rows. K7
+            # has SDPA beside it on prebuilt operands, q = [q_emb | q_pe],
+            # k = [r * us | k_pe], v = r * us, scale 1; K8 none, as K6:
+            # no one call takes the packed int4 ranks.
+            ops = 2.0 * R * s_p * (2 * rk + rope)
+            row = dict(ms=cuda_time_ms(lambda: run(*args)),
+                       plain_ms=cuda_time_ms(lambda: plain(*args)),
+                       bound=bound_ms(nbytes(qe, qp, us, us4, k_pe, r, t, lse),
+                                      ops / BF16_OPS_PER_S))
+            if ql == 1 and dtype == "int8+int4":
+                timing[key] = row
+            elif ql == 1 and dtype == "bf16":
                 rus = (r[..., None] * us_all.float()).to(bf)
                 lq = torch.cat([qe, qp], dim=-1)[:, None]
                 lk = torch.cat([rus, k_pe], dim=-1)[:, None]
                 lv = rus[:, None]
-                ops = 2.0 * R * s_p * (2 * rk + rope)
-                timing[key] = dict(
-                    ms=cuda_time_ms(lambda: run(*args)),
-                    plain_ms=cuda_time_ms(lambda: plain(*args)),
-                    library_ms=cuda_time_ms(
-                        lambda: F.scaled_dot_product_attention(lq, lk, lv, scale=1.0)),
-                    bound=bound_ms(nbytes(qe, qp, us, us4, k_pe, r, t, lse),
-                                   ops / BF16_OPS_PER_S))
+                row["library_ms"] = cuda_time_ms(
+                    lambda: F.scaled_dot_product_attention(lq, lk, lv, scale=1.0))
+                timing[key] = row
+            else:
+                timing[f"{key} {dtype} ql {ql}"] = _row(row)
     rs = "xkv_tpu/ops/pallas/rankspace_attention.py"
     for key, name, rep in (
-        ("K7", "mla_rankspace_decode_attention", f"{rs}:681"),
-        ("K8", "mla_rankspace_decode_attention (mixed int8+int4)", f"{rs}:598"),
+        ("K7", "mla_rankspace_decode_attention", f"{rs}:788"),
+        ("K8", "mla_rankspace_decode_attention (mixed int8+int4)", f"{rs}:766"),
     ):
         _report(results, key, name, "xkv_tpu_torch/csrc/rankspace_attention.cu", rep,
                 worst[key], timing[key])
+        results[key].update(design=MLA_DESIGN, **{
+            label.split(" ", 1)[1]: row for label, row in timing.items()
+            if label.startswith(key + " ")})
 
 
 # ------------------------------------------------------------ wide ranks
@@ -1301,9 +1321,10 @@ def profile_decode(eng, cache, tok, pos, step_ms: float, steps: int = 4) -> dict
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]
     # The decode kernels' split and merge passes by name (K2/K4/K6:
-    # rankspace_tma_split_kernel, rankspace_merge_cols_kernel).
+    # rankspace_tma_split_kernel; K7/K8: mla_tma_split_kernel; both merged
+    # by rankspace_merge_cols_kernel).
     decode = {e.key[:60]: e.self_device_time_total / 1e3 / steps for e in kernels
-              if any(k in e.key for k in ("rankspace", "lowrank", "mla_split"))}
+              if any(k in e.key for k in ("rankspace", "lowrank", "mla_tma_split"))}
     return dict(device_busy_ms_per_step=busy_ms, device_idle_share=1.0 - busy_ms / step_ms,
                 top_kernels_ms_per_step={e.key[:60]: e.self_device_time_total / 1e3 / steps
                                          for e in top},

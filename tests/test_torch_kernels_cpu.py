@@ -293,6 +293,47 @@ def test_rankspace_partials_are_a_small_part_of_the_factors():
     assert nsplit * R * rv * 4 < 0.25 * s_p * (rk + rv) * 2
 
 
+# K7/K8 split counts on a 132-SM card: (64-key blocks, R, rk, b, (splits,
+# value slices)). DeepSeek-V2-Lite at s_p 8192 (128 blocks), rank 512, ql 1,
+# 2 and 3 (R 16, 32, 48: one or two row tiles); two and three sequences;
+# 32768 tokens; a segment of 7 blocks; ranks 1088, 2048 and 4096 (two and
+# four value slices of at most 1024); a grid too large for one split per
+# SM.
+MLA_SPLIT_CASES = [(128, 16, 512, 1, (128, 1)), (128, 32, 512, 1, (128, 1)),
+                   (128, 48, 512, 1, (66, 1)), (128, 16, 512, 2, (66, 1)),
+                   (128, 16, 512, 3, (44, 1)), (512, 16, 512, 1, (132, 1)),
+                   (7, 16, 512, 1, (7, 1)), (128, 16, 1088, 1, (66, 2)),
+                   (128, 16, 2048, 1, (66, 2)), (128, 32, 4096, 1, (33, 4)),
+                   (1, 2000, 512, 4, (1, 1))]
+
+
+@pytest.mark.parametrize("n_blocks,R,rk,b,want", MLA_SPLIT_CASES)
+def test_mla_split_count(n_blocks, R, rk, b, want):
+    """The K7/K8 grid (splits x value slices x 32-row tiles x sequences)
+    fills the SMs once with at least one 64-key block a split; value
+    slices of at most 1024 ranks, none empty, as the kernel requires."""
+    nsplit, slices = k2.mla_split_count(n_blocks, R, rk, b, 132)
+    assert (nsplit, slices) == want
+    assert 1 <= nsplit <= n_blocks
+    panels = -(-rk // 64)
+    per = -(-panels // slices)
+    assert per <= 16 and (slices - 1) * per < panels
+
+
+def test_mla_partials_stay_one_cta_a_sm():
+    """At DeepSeek-V2-Lite (16 heads, rank 512, b 1) the fp32 partials that
+    the split kernel writes and the merge reads are at most one CTA's rows
+    a SM (132 x 16 x 512 x 4 B = 4.3 MB) at any length: half the bf16
+    latent's 8.4 MB at 8192 tokens, under a seventh at 32768."""
+    R, rk, n_sm = 16, 512, 132
+    for s_p, share in ((8192, 0.5), (32768, 1 / 7)):
+        nsplit, slices = k2.mla_split_count(s_p // 64, R, rk, 1, n_sm)
+        partials = nsplit * R * rk * 4
+        assert nsplit * slices <= n_sm
+        assert partials <= n_sm * R * rk * 4
+        assert partials <= share * s_p * rk * 2
+
+
 def _rankspace_meta(b, R, s_p, rk, rv, dtype=torch.bfloat16):
     meta = dict(device="meta")
     return (torch.empty((b, R, rk), dtype=torch.bfloat16, **meta),

@@ -16,7 +16,8 @@ s_p not a multiple of 64, a valid_len inside one CTA's run of blocks,
 win_lo inside a block, two sequences of different lengths, R 84, rv 16 and
 1024, a -1 chunk id, a ragged last chunk, K6 splits that are not whole
 64-byte boxes, and the wide ranks (rk and rv up to 4096). K7 and K8 at rank
-64 and 2048.
+64, at DeepSeek-V2-Lite's widths (rank 512, RoPE 64, 16 heads, ql 1-3,
+ragged and two-sequence lengths), and at ranks 1088 and 2048.
 
 Tolerances: each output row is held against its own largest value, since
 a row that averages many keys has small values. K1 and K3 round P to bf16
@@ -314,36 +315,54 @@ def test_mixed_kernel_matches_plain(cuda, r8k, r4k, r8v, r4v, lens, lo):
     assert _row_rel_err(t6, t6r) <= TOL_T and _lse_err(l6, l6r) <= TOL_LSE
 
 
-# (kind, ql, valid_len, rank): rank 64, then 2048 (the full rank of
-# DeepSeek-V2-Lite's groups of 4 layers; value slices on the card).
+# (kind, ql, valid_len(s), rank, heads, RoPE width, b), s_p 200 (not a
+# multiple of 64): rank 64 at 8 heads and RoPE 16; DeepSeek-V2-Lite's
+# widths (16 heads, RoPE 64, rank 512: bf16, int8, 256 int8 + 256 int4) at
+# ql 1, 2, 3 (R 16, 32, 48: several row tiles), a length shorter than one
+# block and two sequences of different lengths; rank 1088 (two value
+# slices) and 2048 (the full rank of V2-Lite's groups of 4 layers).
+MLA_CASES = [("bf16", 1, None, 64, 8, 16, 1), ("bf16", 2, 150, 64, 8, 16, 1),
+             ("int8", 1, 37, 64, 8, 16, 1), ("int8+int4", 1, None, 64, 8, 16, 1),
+             ("int8+int4", 2, 190, 64, 8, 16, 1),
+             ("bf16", 1, None, 512, 16, 64, 1), ("bf16", 2, 150, 512, 16, 64, 1),
+             ("bf16", 3, 37, 512, 16, 64, 1), ("int8", 1, 190, 512, 16, 64, 1),
+             ("int8", 3, None, 512, 16, 64, 1), ("int8+int4", 1, None, 512, 16, 64, 1),
+             ("int8+int4", 2, 37, 512, 16, 64, 1), ("bf16", 1, (200, 45), 512, 16, 64, 2),
+             ("int8", 2, (70, 199), 512, 16, 64, 2), ("int8+int4", 3, (30, 200), 512, 16, 64, 2),
+             ("bf16", 1, 150, 1088, 16, 64, 1), ("int8", 2, None, 1088, 16, 64, 1),
+             ("int8+int4", 1, 190, 1088, 16, 64, 1),
+             ("bf16", 1, None, 2048, 8, 16, 1), ("bf16", 2, 150, 2048, 8, 16, 1),
+             ("int8", 2, 37, 2048, 8, 16, 1), ("int8+int4", 1, 190, 2048, 8, 16, 1),
+             ("int8+int4", 2, None, 2048, 8, 16, 1), ("bf16", 3, 199, 2048, 16, 64, 1)]
+# The mixed splits: whole 64-byte boxes (TMA) except at rank 64 and at
+# rank 2048 ql 2, whose parts are not whole 16-byte units (gathered).
+MLA_INT8_RANKS = {64: 16, 512: 256, 1088: 576, 2048: 1024}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind,ql,lens,rk", [("bf16", 1, None, 64), ("bf16", 2, 150, 64),
-                                             ("int8", 1, 37, 64), ("int8+int4", 1, None, 64),
-                                             ("int8+int4", 2, 190, 64),
-                                             ("bf16", 1, None, 2048), ("bf16", 2, 150, 2048),
-                                             ("int8", 2, 37, 2048),
-                                             ("int8+int4", 1, 190, 2048),
-                                             ("int8+int4", 2, None, 2048)])
-def test_mla_kernels_match_plain(cuda, kind, ql, lens, rk):
+@pytest.mark.parametrize("kind,ql,lens,rk,nh,rope,b", MLA_CASES)
+def test_mla_kernels_match_plain(cuda, kind, ql, lens, rk, nh, rope, b):
     gen = torch.Generator(device=cuda)
     gen.manual_seed(5)
-    s_p, rope, nh = 200, 16, 8
+    s_p = 200
     bf = torch.bfloat16
     R = ql * nh
-    q_emb = (torch.randn((1, R, rk), generator=gen, device=cuda) * 0.4 / rk ** 0.5).to(bf)
-    q_pe = (torch.randn((1, R, rope), generator=gen, device=cuda) * 0.1).to(bf)
-    k_pe = torch.randn((1, s_p, rope), generator=gen, device=cuda).to(bf)
-    r = torch.rand((1, s_p), generator=gen, device=cuda) + 0.5
-    lengths = None if lens is None else torch.tensor([lens], device=cuda)
+    q_emb = (torch.randn((b, R, rk), generator=gen, device=cuda) * 0.4 / rk ** 0.5).to(bf)
+    q_pe = (torch.randn((b, R, rope), generator=gen, device=cuda) * 0.1).to(bf)
+    k_pe = torch.randn((b, s_p, rope), generator=gen, device=cuda).to(bf)
+    r = torch.rand((b, s_p), generator=gen, device=cuda) + 0.5
+    lengths = None if lens is None else torch.tensor(
+        lens if isinstance(lens, tuple) else [lens], device=cuda)
     if kind == "int8+int4":
-        # Rank 2048 at ql 2: a split whose parts are not whole 16-byte units.
-        r8 = 16 if rk == 64 else 1024 + 8 * (ql - 1)
-        us8, us4 = _mixed(gen, cuda, s_p, r8, rk - r8)
+        r8 = MLA_INT8_RANKS[rk] + (8 * (ql - 1) if rk == 2048 else 0)
+        us8 = torch.randint(-127, 128, (b, s_p, r8), generator=gen, device=cuda).to(torch.int8)
+        us4 = pack_int4_pairs(torch.randint(-7, 8, (b, s_p, rk - r8), generator=gen,
+                                            device=cuda))
         args = (q_emb * 0.02, q_pe, us8, us4, k_pe, r, lengths)
         run, plain, counter = (k2.mla_mixed_rankspace_kernel,
                                k2.mla_mixed_rankspace_kernel_plain, "mla_mixed_launches")
     else:
-        us = torch.randn((1, s_p, rk), generator=gen, device=cuda)
+        us = torch.randn((b, s_p, rk), generator=gen, device=cuda)
         if kind == "int8":
             us, q_emb = (us * 40).round().clamp(-127, 127).to(torch.int8), q_emb * 0.02
         args = (q_emb, q_pe, us.to(bf) if kind == "bf16" else us, k_pe, r, lengths)
@@ -353,6 +372,7 @@ def test_mla_kernels_match_plain(cuda, kind, ql, lens, rk):
     t, lse = run(*args)
     assert getattr(k2, counter) == before + 1
     t_ref, lse_ref = plain(*args)
+    assert t.shape == (b, R, rk) and lse.shape == (b, R)
     assert _row_rel_err(t, t_ref) <= TOL_T and _lse_err(lse, lse_ref) <= TOL_LSE
 
 

@@ -1,6 +1,6 @@
 // Split-sequence (flash-decoding) machinery shared by the decode kernels:
-// K7, K8 (rankspace_attention.cu), K9, K10 and, for the block walk alone,
-// K2, K4, K6 (rankspace_attention.cu) and K3, K5 (lowrank_attention.cu).
+// K9, K10; the block walk also K2, K4, K6, K7, K8 (rankspace_attention.cu),
+// and the block walk and the merge of a row K3, K5 (lowrank_attention.cu).
 //
 // A decode step has b = 1 on the main path, so one CTA per sequence would
 // use one SM of 132. The key blocks of each sequence (kBS keys each) are
@@ -80,37 +80,11 @@ __device__ __forceinline__ void softmax_init(SoftmaxSmem& sm) {
   }
 }
 
-// The warp's share of a (kRows x kBS) score tile in shared memory:
-// c[j] += A . B_j^T over `depth` columns (a multiple of 16), j = 0, 1, with
-// A the 16 query rows whose fragment starts at qa (row mt * 16 + g, column
-// tq * 2) and B_j the 8 key rows (nt0 + j) * 8 + g.. of ks; both of row
-// stride ld elements.
-__device__ __forceinline__ void mma_rows_x_keys(float (&c)[2][4], const bf16* qa, int ld,
-                                                const bf16* ks, int nt0, int g, int tq,
-                                                int depth) {
-  for (int kk = 0; kk < depth / 16; ++kk) {
-    const bf16* qk = qa + kk * 16;
-    const uint32_t af[4] = {*reinterpret_cast<const uint32_t*>(qk),
-                            *reinterpret_cast<const uint32_t*>(qk + 8 * ld),
-                            *reinterpret_cast<const uint32_t*>(qk + 8),
-                            *reinterpret_cast<const uint32_t*>(qk + 8 * ld + 8)};
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const bf16* kr = ks + ((nt0 + j) * 8 + g) * ld + kk * 16 + tq * 2;
-      mma_bf16_16816(c[j], af, *reinterpret_cast<const uint32_t*>(kr),
-                     *reinterpret_cast<const uint32_t*>(kr + 8));
-    }
-  }
-}
-
 // One block's online-softmax update. Masked columns (outside [lo, hi))
-// take NEG_INF and probability exactly 0. The probabilities kept for the
-// value product are P, or P * pscale[col] (K7, K8: the latent's per-row
-// inverse RMS), rounded to bf16; the sum l takes P. Ends with
-// __syncthreads().
+// take NEG_INF and probability exactly 0; the probabilities are kept for
+// the value product rounded to bf16. Ends with __syncthreads().
 __device__ __forceinline__ void softmax_block(SoftmaxSmem& sm, int rows, int key0,
-                                              int lo, int hi,
-                                              const float* pscale = nullptr) {
+                                              int lo, int hi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < kRows; r += kThreads / 32) {
     const int c0 = key0 + lane, c1 = key0 + lane + 32;
@@ -124,8 +98,8 @@ __device__ __forceinline__ void softmax_block(SoftmaxSmem& sm, int rows, int key
     const float p1 = live1 ? __expf(x1 - m_new) : 0.f;
     const float psum = warp_sum(p0 + p1);
     const float alpha = __expf(m_old - m_new);
-    sm.pT[lane][r] = round_bf16(pscale ? p0 * pscale[lane] : p0);
-    sm.pT[lane + 32][r] = round_bf16(pscale ? p1 * pscale[lane + 32] : p1);
+    sm.pT[lane][r] = round_bf16(p0);
+    sm.pT[lane + 32][r] = round_bf16(p1);
     if (lane == 0) {
       sm.m[r] = m_new;
       sm.l[r] = alpha * sm.l[r] + psum;
@@ -135,12 +109,12 @@ __device__ __forceinline__ void softmax_block(SoftmaxSmem& sm, int rows, int key
   __syncthreads();
 }
 
-// t[r][c] = alpha[r] * t[r][c] + sum_k pT[k][r] * v(k, j_c), j_c =
-// threadIdx.x + c * kThreads, where load(k, j) reads value rank j of the
-// block's key row k.
-template <int NC, typename Load>
-__device__ __forceinline__ void pv_block_with(float (&acc)[kRows][NC], const SoftmaxSmem& sm,
-                                              int rv, int nkeys, Load load) {
+// t[r][c] = alpha[r] * t[r][c] + sum_k pT[k][r] * v[k][j_c], j_c =
+// threadIdx.x + c * kThreads, over rv-wide rows of T; v points at the
+// block's first row.
+template <typename T, int NC>
+__device__ __forceinline__ void pv_block(float (&acc)[kRows][NC], const SoftmaxSmem& sm,
+                                         const T* __restrict__ v, int rv, int nkeys) {
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const float a = sm.alpha[r];
@@ -152,7 +126,7 @@ __device__ __forceinline__ void pv_block_with(float (&acc)[kRows][NC], const Sof
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int j = threadIdx.x + c * kThreads;
-      vv[c] = j < rv ? load(kk, j) : 0.f;
+      vv[c] = j < rv ? to_float(v[(size_t)kk * rv + j]) : 0.f;
     }
     const float4* pr = reinterpret_cast<const float4*>(sm.pT[kk]);
 #pragma unroll
@@ -167,14 +141,6 @@ __device__ __forceinline__ void pv_block_with(float (&acc)[kRows][NC], const Sof
       }
     }
   }
-}
-
-// pv_block_with over rv-wide rows of T; v points at the block's first row.
-template <typename T, int NC>
-__device__ __forceinline__ void pv_block(float (&acc)[kRows][NC], const SoftmaxSmem& sm,
-                                         const T* __restrict__ v, int rv, int nkeys) {
-  pv_block_with<NC>(acc, sm, rv, nkeys,
-                    [=](int kk, int j) { return to_float(v[(size_t)kk * rv + j]); });
 }
 
 // Write this CTA's partial (t, m, l) for rows [row0, row0 + rows).
@@ -239,46 +205,6 @@ __device__ __forceinline__ float merge_row(const float* part_t, const float* par
   }
   __syncthreads();
   return M + logf(fmaxf(L, 1e-30f));
-}
-
-// Stage `rows` rows of `cols` elements of T (bf16 or int8; cols a multiple
-// of 16) from global (row stride src_ld elements) into shared memory as
-// bf16 (row stride dst_ld elements, a multiple of 8). Rows at or past
-// `valid` are zero.
-template <typename T>
-__device__ __forceinline__ void stage_as_bf16(bf16* dst, int dst_ld, const T* src,
-                                              size_t src_ld, int rows, int cols,
-                                              int valid);
-
-template <>
-__device__ __forceinline__ void stage_as_bf16<bf16>(bf16* dst, int dst_ld, const bf16* src,
-                                                    size_t src_ld, int rows, int cols,
-                                                    int valid) {
-  const int per_row = cols / 8;
-  for (int c = threadIdx.x; c < rows * per_row; c += kThreads) {
-    const int row = c / per_row, col = (c % per_row) * 8;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (row < valid) x = *reinterpret_cast<const uint4*>(src + row * src_ld + col);
-    *reinterpret_cast<uint4*>(dst + row * dst_ld + col) = x;
-  }
-}
-
-template <>
-__device__ __forceinline__ void stage_as_bf16<int8_t>(bf16* dst, int dst_ld,
-                                                      const int8_t* src, size_t src_ld,
-                                                      int rows, int cols, int valid) {
-  const int per_row = cols / 16;
-  for (int c = threadIdx.x; c < rows * per_row; c += kThreads) {
-    const int row = c / per_row, col = (c % per_row) * 16;
-    int4 x = make_int4(0, 0, 0, 0);
-    if (row < valid) x = *reinterpret_cast<const int4*>(src + row * src_ld + col);
-    const int8_t* b = reinterpret_cast<const int8_t*>(&x);
-    uint32_t o[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) o[i] = pack_bf16((float)b[2 * i], (float)b[2 * i + 1]);
-    *reinterpret_cast<uint4*>(dst + row * dst_ld + col) = make_uint4(o[0], o[1], o[2], o[3]);
-    *reinterpret_cast<uint4*>(dst + row * dst_ld + col + 8) = make_uint4(o[4], o[5], o[6], o[7]);
-  }
 }
 
 }  // namespace xkv

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) helpers shared by the warp-specialised kernels: K1
-// (flash_attention.cu), K3/K5 (lowrank_attention.cu) and K2/K4/K6
+// (flash_attention.cu), K3/K5 (lowrank_attention.cu) and K2/K4/K6/K7/K8
 // (rankspace_attention.cu).
 //   - mbarriers (init, expect_tx, arrive, parity wait);
 //   - TMA: a 3-D tensor-map box into shared memory, counted on a barrier;

@@ -74,20 +74,20 @@
 // Masked scores are the finite NEG_INF, masked probabilities are exactly
 // 0, and a row with no live key gets t = 0.
 //
-// K7 and K8 (mla_split_kernel, on decode_common.cuh's machinery): the key
-// blocks of 64 are dealt out to `nsplit` CTAs per (32-row chunk,
-// sequence); per block a CTA stages the rows in shared memory as bf16,
-// computes the scores on mma.sync, runs the online softmax and
-// accumulates t += P @ us with each thread owning rank columns of t in
-// registers; a second kernel merges the splits by log-sum-exp.
-// They differ from K2's arithmetic in three ways. V is the latent's
-// own us rows: each 64-key block of us is staged to shared memory once (int8
-// upcast, int4 unpacked to [hi | evens | odds]) and read there by both the
-// score product and P @ us, so us crosses device memory once. A second,
-// rope-wide score product runs against the block's k_pe rows. The block's
-// r (per-row inverse RMS of the latent) multiplies the nope scores, and P
+// K7 and K8 (mla_tma_split_kernel) run on the same machinery: a producer
+// warp, a TMA ring of 64-key panels, two consumer warpgroups on wgmma, the
+// same merge. They differ from K2's arithmetic in three ways. V is the
+// latent's own us rows: with one value slice the block's us panels stay in
+// shared memory from the score product to the value product (bf16: their
+// ring stages; int8 / int4: widened to bf16 once), so us crosses to shared
+// memory once and is read there twice. A second, RoPE-wide score product
+// runs against the block's k_pe panels. The block's r (per-row inverse RMS
+// of the latent) scales the latent scores row by row in registers, and P
 // before the value product: s = (q_emb . us^T) * r + q_pe . k_pe^T,
-// t += round_bf16(P * r) @ us, as the Pallas kernels compute it.
+// t += round_bf16(P * r) @ us, as the Pallas kernels compute it. Value
+// slices (past 1024 ranks, or where the caller's split rule asks for them)
+// take every us panel for the scores and their own panels again for the
+// value product.
 #include "decode_common.cuh"
 #include "hopper.cuh"
 
@@ -116,79 +116,8 @@ struct RankspaceArgs {
   float* part_m;
   float* part_l;
   int R, s_p, rk, rv, r8k, h4k, r8v, h4v, nsplit;
+  int vslices;  // K7, K8: value slices of the latent's ranks
 };
-
-// Stage `valid` key rows of mixed factors (r8 int8 ranks, h4 packed int4
-// bytes) as bf16 rows [hi | evens | odds]; rows at or past `valid` are 0.
-__device__ __forceinline__ void stage_mixed(bf16* dst, int ld, const int8_t* k8,
-                                            const int8_t* k4, int r8, int h4, int valid) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int row = warp; row < kBS; row += kThreads / 32) {
-    const bool ok = row < valid;
-    bf16* d = dst + row * ld;
-    for (int c = lane; c < r8; c += 32)
-      d[c] = __float2bfloat16_rn(ok ? (float)k8[(size_t)row * r8 + c] : 0.f);
-    for (int c = lane; c < h4; c += 32) {
-      const int x = ok ? (int)k4[(size_t)row * h4 + c] : 0;
-      d[r8 + c] = __float2bfloat16_rn((float)(x >> 4));
-      d[r8 + h4 + c] = __float2bfloat16_rn((float)(((x & 0xF) ^ 8) - 8));
-    }
-  }
-}
-
-// stage_mixed's logical columns [c0, c0 + w) only (c0 and w multiples of
-// 16). Where r8 and h4 are multiples of 16, each 16 columns lie in one
-// part and arrive in one 16-byte load; else byte by byte.
-__device__ __forceinline__ void stage_mixed_cols(bf16* dst, int ld, const int8_t* k8,
-                                                 const int8_t* k4, int r8, int h4, int valid,
-                                                 int c0, int w) {
-  if ((r8 | h4) % 16 == 0) {
-    const int per_row = w / 16;
-    for (int i = threadIdx.x; i < kBS * per_row; i += kThreads) {
-      const int row = i / per_row, col = (i % per_row) * 16, j = c0 + col;
-      const int part = j < r8 ? 0 : (j < r8 + h4 ? 1 : 2);  // int8, hi, lo nibbles
-      const int8_t* src = part == 0 ? k8 + (size_t)row * r8 + j
-                                    : k4 + (size_t)row * h4 + j - r8 - (part == 2 ? h4 : 0);
-      int4 x = make_int4(0, 0, 0, 0);
-      if (row < valid) x = *reinterpret_cast<const int4*>(src);
-      const int8_t* b = reinterpret_cast<const int8_t*>(&x);
-      uint32_t o[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        int v0 = b[2 * e], v1 = b[2 * e + 1];
-        if (part == 1) {
-          v0 >>= 4;
-          v1 >>= 4;
-        } else if (part == 2) {
-          v0 = ((v0 & 0xF) ^ 8) - 8;
-          v1 = ((v1 & 0xF) ^ 8) - 8;
-        }
-        o[e] = pack_bf16((float)v0, (float)v1);
-      }
-      *reinterpret_cast<uint4*>(dst + row * ld + col) = make_uint4(o[0], o[1], o[2], o[3]);
-      *reinterpret_cast<uint4*>(dst + row * ld + col + 8) = make_uint4(o[4], o[5], o[6], o[7]);
-    }
-    return;
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int row = warp; row < kBS; row += kThreads / 32) {
-    bf16* d = dst + row * ld;
-    for (int c = lane; c < w; c += 32) {
-      const int j = c0 + c;
-      int x = 0;
-      if (row < valid) {
-        if (j < r8) {
-          x = k8[(size_t)row * r8 + j];
-        } else if (j < r8 + h4) {
-          x = k4[(size_t)row * h4 + j - r8] >> 4;
-        } else {
-          x = ((k4[(size_t)row * h4 + j - r8 - h4] & 0xF) ^ 8) - 8;
-        }
-      }
-      d[c] = __float2bfloat16_rn((float)x);
-    }
-  }
-}
 
 // ---- K2, K4, K6: one CTA per (key split, value slice, 32-row tile,
 // sequence); a producer warp fills a TMA ring of 64-key x 64-rank panels;
@@ -667,23 +596,27 @@ __global__ void __launch_bounds__(kTP, 1) rankspace_tma_split_kernel(
 // splits' (t, m, l) by log-sum-exp into the normalised t and, from the
 // first chunk, lse = M + log(max(L, 1e-30)). A thread per (rank, quarter
 // of the splits), the quarters summed in shared memory, so each thread
-// waits on a few loads.
+// waits on a few loads; the splits' weights exp(m - M) and L are taken
+// once per CTA, a thread per split.
 constexpr int kMergeCols = 64;
 __global__ void __launch_bounds__(kCT) rankspace_merge_cols_kernel(
     const float* __restrict__ part_t, const float* __restrict__ part_m,
     const float* __restrict__ part_l, float* __restrict__ t_out,
     float* __restrict__ lse_out, int R, int rv, int nsplit) {
-  extern __shared__ __align__(16) float m_sm[];  // nsplit m, nsplit l, then the quarters
-  float* l_sm = m_sm + nsplit;
+  // nsplit weights (m until M is known), nsplit l, the quarters, 8 floats
+  // of reduction scratch.
+  extern __shared__ __align__(16) float w_sm[];
+  float* l_sm = w_sm + nsplit;
   float* q_sm = l_sm + nsplit;  // [3][kMergeCols]
+  float* red = q_sm + kCT - kMergeCols;
   const int c0 = blockIdx.x * kMergeCols, r = blockIdx.y, bi = blockIdx.z;
   const int tid = threadIdx.x, col = tid % kMergeCols, quarter = tid / kMergeCols;
   constexpr int kQuarters = kCT / kMergeCols;
-  // The thread's partials (splits quarter, quarter + 4, ...) are loaded
-  // before the statistics arrive, so the merge waits on one round trip.
   const int j = c0 + col;
   const float* pt = part_t + ((size_t)bi * nsplit * R + r) * rv + j;
   const size_t ss = (size_t)R * rv;  // split stride
+  // The thread's partials (splits quarter, quarter + 4, ...) are loaded
+  // before the statistics arrive, so the merge waits on one round trip.
   constexpr int kPer = 16;
   float v[kPer];
 #pragma unroll
@@ -691,313 +624,471 @@ __global__ void __launch_bounds__(kCT) rankspace_merge_cols_kernel(
     const int s = quarter + kQuarters * k;
     v[k] = s < nsplit && j < rv ? pt[s * ss] : 0.f;
   }
+  float mx = kNegInf;
   for (int s = tid; s < nsplit; s += kCT) {
     const size_t idx = ((size_t)bi * nsplit + s) * R + r;
-    m_sm[s] = part_m[idx];
+    w_sm[s] = part_m[idx];
     l_sm[s] = part_l[idx];
+    mx = fmaxf(mx, w_sm[s]);
   }
-  __syncthreads();
-  float M = kNegInf;
-  for (int s = 0; s < nsplit; ++s) M = fmaxf(M, m_sm[s]);
+  const float M = block_reduce(mx, true, red);
+  float ls = 0.f;
+  for (int s = tid; s < nsplit; s += kCT) {
+    const float w = __expf(w_sm[s] - M);
+    w_sm[s] = w;
+    ls += w * l_sm[s];
+  }
+  const float L = block_reduce(ls, false, red);  // also orders the weights' writes
   float acc = 0.f;
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
     const int s = quarter + kQuarters * k;
-    if (s < nsplit) acc += __expf(m_sm[s] - M) * v[k];
+    if (s < nsplit) acc += w_sm[s] * v[k];
   }
   if (j < rv)
     for (int s = quarter + kQuarters * kPer; s < nsplit; s += kQuarters)
-      acc += __expf(m_sm[s] - M) * pt[s * ss];
+      acc += w_sm[s] * pt[s * ss];
   if (quarter > 0) q_sm[(quarter - 1) * kMergeCols + col] = acc;
   __syncthreads();
   if (quarter == 0) {
-    float L = 0.f;
-    for (int s = 0; s < nsplit; ++s) L += __expf(m_sm[s] - M) * l_sm[s];
     for (int q = 0; q < kQuarters - 1; ++q) acc += q_sm[q * kMergeCols + col];
     if (j < rv) t_out[((size_t)bi * R + r) * rv + j] = acc * (L > 0.f ? 1.f / L : 0.f);
     if (blockIdx.x == 0 && tid == 0) lse_out[(size_t)bi * R + r] = M + logf(fmaxf(L, 1e-30f));
   }
 }
 
-// K7 and K8: the merge of the splits, one CTA per (row, sequence).
-__global__ void __launch_bounds__(kThreads) rankspace_merge_kernel(
-    const float* __restrict__ part_t, const float* __restrict__ part_m,
-    const float* __restrict__ part_l, float* __restrict__ t_out,
-    float* __restrict__ lse_out, int R, int rv, int nsplit) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* red = reinterpret_cast<float*>(smem);
-  float* w = red + 8;
-  const int r = blockIdx.x, bi = blockIdx.y;
-  const float lse = merge_row(part_t, part_m, part_l, bi, r, R, rv, nsplit, w, red,
-                              t_out + ((size_t)bi * R + r) * rv);
-  if (threadIdx.x == 0) lse_out[(size_t)bi * R + r] = lse;
+// Launch the merge of the splits of a K2-K8 launch: t_out (b, R, rv),
+// lse_out (b, R).
+int merge_cols(const RankspaceArgs& a, int b, int rv, void* t_out, void* lse_out,
+               cudaStream_t st) {
+  const size_t msmem = (2 * a.nsplit + kCT - kMergeCols + 8) * sizeof(float);
+  rankspace_merge_cols_kernel<<<dim3((rv + kMergeCols - 1) / kMergeCols, a.R, b), kCT, msmem,
+                                st>>>((const float*)a.part_t, (const float*)a.part_m,
+                                      (const float*)a.part_l, (float*)t_out, (float*)lse_out,
+                                      a.R, rv, a.nsplit);
+  return (int)cudaGetLastError();
 }
 
-// K7 and K8: split kernel. rk is the total rank (the width of q_emb, us
-// and t); for K8 r8k int8 ranks and h4k packed bytes per row.
-template <typename T, int NC, bool kMixed>
-__global__ void __launch_bounds__(kThreads) mla_split_kernel(const RankspaceArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  SoftmaxSmem& sm = *reinterpret_cast<SoftmaxSmem*>(smem);
-  const int rk = a.rk, rope = a.rope, s_p = a.s_p;
-  const int ld = rk + 8, ldp = rope + 8;
-  bf16* qs = reinterpret_cast<bf16*>(smem + sizeof(SoftmaxSmem));
-  bf16* us = qs + kRows * ld;     // kBS x ld: the block's us rows, K and V
-  bf16* qps = us + kBS * ld;      // kRows x ldp
-  bf16* kps = qps + kRows * ldp;  // kBS x ldp
-  float* rs = reinterpret_cast<float*>(kps + kBS * ldp);  // kBS
-
-  const int split = blockIdx.x, bi = blockIdx.z;
-  const int row0 = blockIdx.y * kRows;
-  const int rows = min(kRows, a.R - row0);
-  const BlockWalk walk =
-      block_walk(a.lens, a.los, nullptr, 0, 0, bi, s_p, split, a.nsplit);
-
-  const size_t qrow = (size_t)bi * a.R + row0;
-  stage_as_bf16<bf16>(qs, ld, a.q_emb + qrow * rk, rk, kRows, rk, rows);
-  stage_as_bf16<bf16>(qps, ldp, a.q_pe + qrow * rope, rope, kRows, rope, rows);
-  softmax_init(sm);
-  float acc[kRows][NC];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int mt = warp & 1, nt0 = (warp >> 1) * 2;
-
-  for (int v = walk.begin; v < walk.end; ++v) {
-    const int key0 = walk.key0(v);
-    const int nkeys = min(kBS, s_p - key0);
-    const size_t row_base = (size_t)bi * s_p + key0;
-    __syncthreads();
-    if constexpr (kMixed) {
-      stage_mixed(us, ld, reinterpret_cast<const int8_t*>(a.k_us) + row_base * a.r8k,
-                  a.k_us4 + row_base * a.h4k, a.r8k, a.h4k, nkeys);
-    } else {
-      stage_as_bf16<T>(us, ld, reinterpret_cast<const T*>(a.k_us) + row_base * rk, rk, kBS,
-                       rk, nkeys);
-    }
-    stage_as_bf16<bf16>(kps, ldp, a.k_pe + row_base * rope, rope, kBS, rope, nkeys);
-    for (int c = threadIdx.x; c < kBS; c += kThreads)
-      rs[c] = c < nkeys ? a.r[row_base + c] : 0.f;
-    __syncthreads();
-
-    // (32 x 64) nope scores against us and pe scores against k_pe.
-    float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    float cp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    mma_rows_x_keys(c, qs + (mt * 16 + g) * ld + tq * 2, ld, us, nt0, g, tq, rk);
-    mma_rows_x_keys(cp, qps + (mt * 16 + g) * ldp + tq * 2, ldp, kps, nt0, g, tq, rope);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = (nt0 + j) * 8 + tq * 2;
-      const float r0 = rs[col], r1 = rs[col + 1];
-      sm.sc[mt * 16 + g][col] = c[j][0] * r0 + cp[j][0];
-      sm.sc[mt * 16 + g][col + 1] = c[j][1] * r1 + cp[j][1];
-      sm.sc[mt * 16 + g + 8][col] = c[j][2] * r0 + cp[j][2];
-      sm.sc[mt * 16 + g + 8][col + 1] = c[j][3] * r1 + cp[j][3];
-    }
-    __syncthreads();
-    softmax_block(sm, rows, key0, walk.lo, walk.hi, rs);
-    const bf16* ub = us;
-    pv_block_with<NC>(acc, sm, rk, nkeys, [=](int kk, int j) -> float {
-      return __bfloat162float(ub[kk * ld + j]);
-    });
+// ---- K7, K8: one CTA per (key split, value slice, 32-row tile,
+// sequence), on K2's producer warp, ring and warpgroups. The ring's stages
+// are 8 KB: a bf16 panel (64 keys x 64 ranks, or 64 keys x 64 RoPE
+// columns of k_pe) or, in the first half, a 64-byte int8 / int4 box.
+//
+// Shared memory, in bytes from a 1024-aligned base: the held widened us
+// panels (kHold, int8 / int4: every us panel of the block, widened once
+// and read by both products), each warpgroup's two widened panels (reload,
+// int8 / int4), q_emb's panels (or the q ring), q_pe's panels, P, the
+// ring, the partial scores, the statistics and the barriers.
+struct MlaLayout {
+  int held, cv, q, qpe, p, ring, stages, sc, stats, bars, total;
+  __host__ __device__ MlaLayout(int npk, int nrp, int mode, bool hold, bool qring) {
+    const bool widen = mode != kBf16;
+    held = 0;
+    cv = held + (hold && widen ? npk * kPanelB : 0);
+    q = cv + (!hold && widen ? kGroups * 2 * kPanelB : 0);
+    qpe = q + (qring ? kQStages : npk) * kQPanelB;
+    p = qpe + nrp * kQPanelB;
+    ring = p + kQPanelB;
+    const int nbars = 2 * kMaxStages + 1 + (qring ? 2 * kQStages : 0);
+    const int rest = kGroups * kRows * kScLd * 4 + 3 * kRows * 4 + nbars * 8;
+    stages = min(kMaxStages, (kMaxSmemB - 1024 - ring - rest) / kPanelB);
+    sc = ring + max(stages, 0) * kPanelB;
+    stats = sc + kGroups * kRows * kScLd * 4;
+    bars = stats + 3 * kRows * 4;
+    total = bars + nbars * 8 + 1024;  // slack: the base is aligned to 1024
   }
-  __syncthreads();
-  write_partial<NC>(acc, sm, a.part_t, a.part_m, a.part_l, bi, split, a.nsplit, a.R, row0,
-                    rows, rk);
-}
+  // Stages the kernel needs: holding, every ring panel of a block at once
+  // (a held panel, or a k_pe panel released after all the scores, never
+  // stalls a load of its own block); else 2.
+  __host__ __device__ static int min_stages(int npk, int nrp, bool hold) {
+    return hold ? npk + nrp : 2;
+  }
+};
 
-// K7 and K8 past 1024 ranks: t's columns are dealt out in value slices of
-// `vslice` ranks (<= 1024), one CTA per (key split, value slice, 32-row
-// chunk, sequence), so t's share of a thread stays 4 columns of registers.
-// The scores need every rank, and q_emb's and us's rows of that width do
-// not fit in shared memory: per block both are staged in chunks of vslice
-// ranks, in rank order, each chunk's products added to the same fragments
-// as the one-chunk kernel adds them, so every slice computes the same
-// scores. The CTA's own slice of us is staged again for P @ us unless it
-// was the last chunk. (Every slice reads all of us: past 1024 ranks K7
-// reads the latent nvs times, from L2 after the first.)
-template <typename T, bool kMixed>
-__global__ void __launch_bounds__(kThreads) mla_wide_split_kernel(const RankspaceArgs a,
-                                                                  int vslice) {
-  constexpr int NC = 4;
-  extern __shared__ __align__(16) unsigned char smem[];
-  SoftmaxSmem& sm = *reinterpret_cast<SoftmaxSmem*>(smem);
-  const int rk = a.rk, rope = a.rope, s_p = a.s_p;
-  const int ld = vslice + 8, ldp = rope + 8;
-  bf16* qs = reinterpret_cast<bf16*>(smem + sizeof(SoftmaxSmem));
-  bf16* us = qs + kRows * ld;     // kBS x ld: a chunk of the block's us rows
-  bf16* qps = us + kBS * ld;      // kRows x ldp
-  bf16* kps = qps + kRows * ldp;  // kBS x ldp
-  float* rs = reinterpret_cast<float*>(kps + kBS * ldp);  // kBS
+// Value panels of a CTA that holds its us panels: 512 ranks.
+constexpr int kHoldPanels = 8;
 
-  const int nvs = (rk + vslice - 1) / vslice;
+// Per 64-key block the ring carries the block's k_pe panels, its us
+// panels, and (reload) the CTA's value panels of us again; gathered int4
+// splits (kMixedGather) carry k_pe only. Scores are taken transposed, keys
+// on wgmma's 64-row M, as K2's: warpgroup c takes the us panels c, c + 2,
+// ... against q_emb's panels into s and the k_pe panels j with (npk + j)
+// % 2 == c against q_pe's into sp, then s = s * r + sp, each accumulator
+// row scaled by its key's r; the warpgroups' partials meet in shared
+// memory for the fp32 online softmax, which writes round_bf16(P * r) as
+// the K-major B operand of t^T (64 ranks x 32 rows) += us^T . (P r)^T,
+// the us panel read MN-major (tnspA).
+// kHold (one value slice of at most 512 ranks, where it fits): the us
+// panels of a block stay in shared memory from the score product to the
+// value product (bf16: their ring stages are released after it; int8 /
+// int4: widened once into the held panels), each read twice by the
+// warpgroup that took it; so us crosses to shared memory once, and each
+// phase's products are issued together and waited for once. Else (value
+// slices, wider ranks) the slice's panels come through the ring again
+// after the softmax, from L2. kQRing: q_emb's panels through a ring of
+// their own, as K2's.
+template <int kMode, bool kHold, bool kQRing>
+__global__ void __launch_bounds__(kTP, 1) mla_tma_split_kernel(
+    const __grid_constant__ CUtensorMap tm_u, const __grid_constant__ CUtensorMap tm_u4,
+    const __grid_constant__ CUtensorMap tm_pe, const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_qpe, const RankspaceArgs a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int rk = a.rk, s_p = a.s_p;
+  const int npk = (rk + 63) / 64, nrp = (a.rope + 63) / 64;
+  const MlaLayout lay(npk, nrp, kMode, kHold, kQRing);
+  unsigned char* ring = smem + lay.ring;
+  const int S = lay.stages;
+  float* sc = reinterpret_cast<float*>(smem + lay.sc);
+  float* m_s = reinterpret_cast<float*>(smem + lay.stats);
+  float* l_s = m_s + kRows;
+  float* a_s = l_s + kRows;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + kMaxStages);
+  const uint32_t q_bar = smem_u32(bars + 2 * kMaxStages);
+  const uint32_t qfull0 = smem_u32(bars + 2 * kMaxStages + 1);
+  const uint32_t qempty0 = qfull0 + 8 * kQStages;
+
+  const int nvs = a.vslices, vpp = (npk + nvs - 1) / nvs;
   const int split = blockIdx.x / nvs, vs = blockIdx.x % nvs;
-  const int v0 = vs * vslice, rvs = min(vslice, rk - v0);
+  const int v0 = vs * vpp, nvp = min(vpp, npk - v0);  // the slice's first panel, its panels
   const int bi = blockIdx.z, row0 = blockIdx.y * kRows;
   const int rows = min(kRows, a.R - row0);
-  const BlockWalk walk =
-      block_walk(a.lens, a.los, nullptr, 0, 0, bi, s_p, split, a.nsplit);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  constexpr bool kRingUs = kMode != kMixedGather;
+  const int per_block = nrp + (kRingUs ? npk + (kHold ? 0 : nvp) : 0);  // ring panels
+  const BlockWalk walk = rs_walk(a, bi, split);
 
-  const size_t qrow = (size_t)bi * a.R + row0;
-  stage_as_bf16<bf16>(qps, ldp, a.q_pe + qrow * rope, rope, kRows, rope, rows);
-  softmax_init(sm);
-  float acc[kRows][NC];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int mt = warp & 1, nt0 = (warp >> 1) * 2;
-
-  for (int v = walk.begin; v < walk.end; ++v) {
-    const int key0 = walk.key0(v);
-    const int nkeys = min(kBS, s_p - key0);
-    const size_t row_base = (size_t)bi * s_p + key0;
-    // Columns [c0, c0 + w) of the block's us rows as bf16.
-    auto stage_us = [&](int c0, int w) {
-      if constexpr (kMixed) {
-        stage_mixed_cols(us, ld, reinterpret_cast<const int8_t*>(a.k_us) + row_base * a.r8k,
-                         a.k_us4 + row_base * a.h4k, a.r8k, a.h4k, nkeys, c0, w);
-      } else {
-        stage_as_bf16<T>(us, ld, reinterpret_cast<const T*>(a.k_us) + row_base * rk + c0, rk,
-                         kBS, w, nkeys);
+  if (tid == kCT) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4);
+    }
+    mbar_init(q_bar, 1);
+    if constexpr (kQRing) {
+      for (int s = 0; s < kQStages; ++s) {
+        mbar_init(qfull0 + 8 * s, 1);
+        mbar_init(qempty0 + 8 * s, 4);
       }
-    };
-    __syncthreads();
-    stage_as_bf16<bf16>(kps, ldp, a.k_pe + row_base * rope, rope, kBS, rope, nkeys);
-    for (int c = threadIdx.x; c < kBS; c += kThreads)
-      rs[c] = c < nkeys ? a.r[row_base + c] : 0.f;
-
-    // (32 x 64) nope scores over the rank chunks, then pe scores.
-    float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    float cp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    for (int c0 = 0; c0 < rk; c0 += vslice) {
-      const int w = min(vslice, rk - c0);
-      if (c0 > 0) __syncthreads();  // the previous chunk's products are done
-      stage_as_bf16<bf16>(qs, ld, a.q_emb + qrow * rk + c0, rk, kRows, w, rows);
-      stage_us(c0, w);
-      __syncthreads();
-      mma_rows_x_keys(c, qs + (mt * 16 + g) * ld + tq * 2, ld, us, nt0, g, tq, w);
     }
-    mma_rows_x_keys(cp, qps + (mt * 16 + g) * ldp + tq * 2, ldp, kps, nt0, g, tq, rope);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = (nt0 + j) * 8 + tq * 2;
-      const float r0 = rs[col], r1 = rs[col + 1];
-      sm.sc[mt * 16 + g][col] = c[j][0] * r0 + cp[j][0];
-      sm.sc[mt * 16 + g][col + 1] = c[j][1] * r1 + cp[j][1];
-      sm.sc[mt * 16 + g + 8][col] = c[j][2] * r0 + cp[j][2];
-      sm.sc[mt * 16 + g + 8][col + 1] = c[j][3] * r1 + cp[j][3];
-    }
-    __syncthreads();
-    softmax_block(sm, rows, key0, walk.lo, walk.hi, rs);  // ends with __syncthreads
-    if (vs != nvs - 1) {
-      stage_us(v0, rvs);
-      __syncthreads();
-    }
-    const bf16* ub = us;
-    pv_block_with<NC>(acc, sm, rvs, nkeys, [=](int kk, int j) -> float {
-      return __bfloat162float(ub[kk * ld + j]);
-    });
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  // This CTA's partial (t, m, l) of its slice; m and l from the first slice.
+  if (warp == kCW) {
+    // Producer: ring panel n into stage n % S once its reader has released
+    // that stage's previous panel. First the row tile's q_pe (and q_emb,
+    // unless it streams) as swizzled panels of 32 rows.
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, ((kQRing ? 0 : npk) + nrp) * kQPanelB);
+      if (!kQRing)
+        for (int p = 0; p < npk; ++p)
+          tma_box(smem_u32(smem + lay.q + p * kQPanelB), &tm_q, q_bar, p * 128, row0, bi);
+      for (int j = 0; j < nrp; ++j)
+        tma_box(smem_u32(smem + lay.qpe + j * kQPanelB), &tm_qpe, q_bar, j * 128, row0, bi);
+      int n = 0, nq = 0;
+      auto put = [&](const CUtensorMap* tm, int x, int key0, int bytes) {
+        const int s = n % S;
+        if (n >= S) mbar_wait(empty0 + 8 * s, (n / S - 1) & 1);
+        mbar_expect_tx(full0 + 8 * s, bytes);
+        tma_box(smem_u32(ring + s * kPanelB), tm, full0 + 8 * s, x, key0, bi);
+        ++n;
+      };
+      auto put_us = [&](int p, int key0) {
+        int map, x;
+        panel_src<kMode>(p, a.r8k, a.h4k, map, x);
+        put(map ? &tm_u4 : &tm_u, x, key0, kMode == kBf16 ? kPanelB : kRawB);
+      };
+      for (int v = walk.begin; v < walk.end; ++v) {
+        const int key0 = walk.key0(v);
+        for (int j = 0; j < nrp; ++j) put(&tm_pe, j * 128, key0, kPanelB);
+        for (int p = 0; p < npk; ++p) {
+          if constexpr (kQRing) {
+            const int sq = nq % kQStages;
+            if (nq >= kQStages) mbar_wait(qempty0 + 8 * sq, (nq / kQStages - 1) & 1);
+            mbar_expect_tx(qfull0 + 8 * sq, kQPanelB);
+            tma_box(smem_u32(smem + lay.q + sq * kQPanelB), &tm_q, qfull0 + 8 * sq, p * 128,
+                    row0, bi);
+            ++nq;
+          }
+          if constexpr (kRingUs) put_us(p, key0);
+        }
+        if constexpr (kRingUs && !kHold)
+          for (int i = 0; i < nvp; ++i) put_us(v0 + i, key0);
+      }
+    }
+    return;
+  }
+
+  if (tid < kRows) {
+    m_s[tid] = kNegInf;
+    l_s[tid] = 0.f;
+  }
+  rs_consumers_sync();
+  mbar_wait(q_bar, 0);
+
+  const int grp = warp >> 2, wg_tid = tid & 127, wq = warp & 3;  // warpgroup, its warp
+  const int g = lane >> 2, tq = lane & 3;
+  unsigned char* held = smem + lay.held;
+  unsigned char* cv = smem + lay.cv + grp * 2 * kPanelB;
+  int ncv = 0;
+  // us panel p (ring panel n) of the block at key0 as a bf16 wgmma operand
+  // in shared memory: bf16, the ring stage, released by release() once
+  // read; else widened (or gathered) into dst, the raw stage released at
+  // once.
+  auto acquire = [&](int n, int p, int key0, unsigned char* dst) -> uint32_t {
+    if constexpr (kMode == kMixedGather) {
+      gather_half(dst, reinterpret_cast<const int8_t*>(a.k_us), a.k_us4, a.r8k, a.h4k,
+                  (size_t)bi * s_p + key0, min(kBS, s_p - key0), p, wg_tid >> 1, wg_tid & 1);
+      fence_async_smem();
+      group_sync(grp);
+      return smem_u32(dst);
+    } else {
+      const int s = n % S;
+      mbar_wait(full0 + 8 * s, (n / S) & 1);
+      const unsigned char* st = ring + s * kPanelB;
+      if constexpr (kMode == kBf16) return smem_u32(st);
+      int map, x;
+      const Src src = panel_src<kMode>(p, a.r8k, a.h4k, map, x);
+      widen_half(dst, st, src, wg_tid >> 1, wg_tid & 1);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);
+      fence_async_smem();
+      group_sync(grp);
+      return smem_u32(dst);
+    }
+  };
+  auto release = [&](int n) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * (n % S));
+  };
+
+  // t^T of the warpgroup's value panels c and c + 2, ...: ranks 16 wq + g
+  // (+ 8) x rows 8 i + 2 tq (+ 1) in acc[j][4 i + e].
+  constexpr int kVJ = (kHold ? kHoldPanels : kMaxVPanels) / kGroups;
+  float acc[kVJ][16];
+#pragma unroll
+  for (int j = 0; j < kVJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[j][e] = 0.f;
+
+  const uint32_t q_a = smem_u32(smem + lay.q), qpe_a = smem_u32(smem + lay.qpe);
+  const uint32_t p_a = smem_u32(smem + lay.p);
+  unsigned char* p_s = smem + lay.p;
+  // r of the thread's keys in a block: its score rows 16 wq + g (+ 8) and
+  // its softmax lanes (lane, lane + 32); the next block's are loaded while
+  // this one's products run.
+  const float* r_row = a.r + (size_t)bi * s_p;
+  auto load_r = [&](int key0, float (&rr)[4]) {
+    const int k[4] = {key0 + 16 * wq + g, key0 + 16 * wq + g + 8, key0 + lane, key0 + lane + 32};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) rr[i] = k[i] < s_p ? __ldg(r_row + k[i]) : 0.f;
+  };
+  float r_next[4] = {0.f, 0.f, 0.f, 0.f};
+  if (walk.begin < walk.end) load_r(walk.key0(walk.begin), r_next);
+  int n0 = 0;   // the block's first ring panel
+  int nq0 = 0;  // kQRing: the block's first q panel
+  for (int v = walk.begin; v < walk.end; ++v, n0 += per_block, nq0 += npk) {
+    const int key0 = walk.key0(v);
+    float r_cur[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r_cur[i] = r_next[i];
+    if (v + 1 < walk.end) load_r(walk.key0(v + 1), r_next);
+    float s[16], sp[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) s[e] = sp[e] = 0.f;
+    // RoPE scores over the warpgroup's k_pe panels (first in the ring),
+    // then latent scores over its us panels. kHold: all in flight at once,
+    // one wait; else each waited for, and its stage released, in turn.
+    fence_regs(s);
+    fence_regs(sp);
+    for (int j = (npk + grp) & 1; j < nrp; j += kGroups) {
+      const int n = n0 + j, st = n % S;
+      mbar_wait(full0 + 8 * st, (n / S) & 1);
+      const uint32_t kp = smem_u32(ring + st * kPanelB), qp = qpe_a + j * kQPanelB;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_n32<0>(sp, desc_b128(kp + ks * 32, 16, 1024), desc_b128(qp + ks * 32, 16, 1024));
+      if constexpr (!kHold) {
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sp);
+        release(n);
+      }
+    }
+    for (int p = grp; p < npk; p += kGroups) {
+      uint32_t qp = q_a + p * kQPanelB;
+      if constexpr (kQRing) {
+        const int nq = nq0 + p, sq = nq % kQStages;
+        mbar_wait(qfull0 + 8 * sq, (nq / kQStages) & 1);
+        qp = q_a + sq * kQPanelB;
+      }
+      const uint32_t kp = acquire(n0 + nrp + p, p, key0,
+                                  kHold ? held + p * kPanelB : cv + (ncv++ & 1) * kPanelB);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_n32<0>(s, desc_b128(kp + ks * 32, 16, 1024), desc_b128(qp + ks * 32, 16, 1024));
+      if constexpr (!kHold) {
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        if (kMode == kBf16) release(n0 + nrp + p);
+        if constexpr (kQRing) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(qempty0 + 8 * ((nq0 + p) % kQStages));
+        }
+      }
+    }
+    if constexpr (kHold) {
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(sp);
+      for (int j = (npk + grp) & 1; j < nrp; j += kGroups) release(n0 + j);
+    }
+    // s = s * r + sp, rows (keys) 16 wq + g (+ 8); every warpgroup has a
+    // panel (npk, nrp >= 1), so both partials meet in shared memory.
+    {
+      float* scp = sc + grp * kRows * kScLd;
+      const int key = 16 * wq + g;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 8 * i + 2 * tq;
+        scp[r * kScLd + key] = s[4 * i] * r_cur[0] + sp[4 * i];
+        scp[(r + 1) * kScLd + key] = s[4 * i + 1] * r_cur[0] + sp[4 * i + 1];
+        scp[r * kScLd + key + 8] = s[4 * i + 2] * r_cur[1] + sp[4 * i + 2];
+        scp[(r + 1) * kScLd + key + 8] = s[4 * i + 3] * r_cur[1] + sp[4 * i + 3];
+      }
+    }
+    rs_consumers_sync();
+    // Online softmax over the summed partials: rows warp, warp + 8, ...,
+    // the warp's rows side by side so their shuffle reductions overlap;
+    // lanes over the 64 keys. P * r goes to its swizzled panel as bf16;
+    // l sums P.
+    {
+      constexpr int kRW = kRows / kCW;  // rows of a warp
+      const int c0 = key0 + lane, c1 = c0 + 32;
+      float x0[kRW], x1[kRW], mx[kRW], ps[kRW];
+      bool live0[kRW], live1[kRW];
+#pragma unroll
+      for (int i = 0; i < kRW; ++i) {
+        const int r = warp + kCW * i;
+        live0[i] = r < rows && c0 >= walk.lo && c0 < walk.hi;
+        live1[i] = r < rows && c1 >= walk.lo && c1 < walk.hi;
+        x0[i] = live0[i] ? sc[r * kScLd + lane] + sc[(kRows + r) * kScLd + lane] : kNegInf;
+        x1[i] = live1[i] ? sc[r * kScLd + lane + 32] + sc[(kRows + r) * kScLd + lane + 32]
+                         : kNegInf;
+        mx[i] = fmaxf(x0[i], x1[i]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int i = 0; i < kRW; ++i)
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], o));
+#pragma unroll
+      for (int i = 0; i < kRW; ++i) {
+        const int r = warp + kCW * i;
+        const float m_new = fmaxf(m_s[r], mx[i]);
+        mx[i] = m_new;
+        x0[i] = live0[i] ? __expf(x0[i] - m_new) : 0.f;  // masked: exactly 0
+        x1[i] = live1[i] ? __expf(x1[i] - m_new) : 0.f;
+        ps[i] = x0[i] + x1[i];
+        *reinterpret_cast<bf16*>(p_s + swz(r, lane * 2)) = __float2bfloat16_rn(x0[i] * r_cur[2]);
+        *reinterpret_cast<bf16*>(p_s + swz(r, lane * 2 + 64)) =
+            __float2bfloat16_rn(x1[i] * r_cur[3]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int i = 0; i < kRW; ++i) ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], o);
+      if (lane == 0) {
+#pragma unroll
+        for (int i = 0; i < kRW; ++i) {
+          const int r = warp + kCW * i;
+          const float alpha = __expf(m_s[r] - mx[i]);
+          m_s[r] = mx[i];
+          l_s[r] = alpha * l_s[r] + ps[i];
+          a_s[r] = alpha;
+        }
+      }
+    }
+    fence_async_smem();
+    rs_consumers_sync();
+    // t^T += us^T . (P r)^T over the warpgroup's value panels.
+#pragma unroll
+    for (int j = 0; j < kVJ; ++j) {
+      if (grp + kGroups * j < nvp) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float a0 = a_s[8 * i + 2 * tq], a1 = a_s[8 * i + 2 * tq + 1];
+          acc[j][4 * i] *= a0;
+          acc[j][4 * i + 1] *= a1;
+          acc[j][4 * i + 2] *= a0;
+          acc[j][4 * i + 3] *= a1;
+        }
+      }
+    }
+    // kHold: the panels this warpgroup read for the scores, all in flight
+    // at once; else the slice's panels again, each waited for in turn.
+    if constexpr (kHold) {
+#pragma unroll
+      for (int j = 0; j < kVJ; ++j) fence_regs(acc[j]);
+      wgmma_fence();
+    }
+#pragma unroll
+    for (int j = 0; j < kVJ; ++j) {
+      const int vp = grp + kGroups * j;
+      if (vp < nvp) {
+        const int n = n0 + nrp + (kHold ? vp : npk + vp);
+        uint32_t up;
+        if constexpr (kHold) {
+          up = smem_u32(kMode == kBf16 ? ring + (n % S) * kPanelB : held + vp * kPanelB);
+        } else {
+          up = acquire(n, v0 + vp, key0, cv + (ncv++ & 1) * kPanelB);
+          fence_regs(acc[j]);
+          wgmma_fence();
+        }
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_n32<1>(acc[j], desc_b128(up + ks * 16 * 128, kPanelB, 1024),
+                       desc_b128(p_a + ks * 32, 16, 1024));
+        if constexpr (!kHold) {
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc[j]);
+          if (kMode == kBf16) release(n);
+        }
+      }
+    }
+    if constexpr (kHold) {
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < kVJ; ++j) fence_regs(acc[j]);
+      if (kMode == kBf16)
+        for (int vp = grp; vp < nvp; vp += kGroups) release(n0 + nrp + vp);
+    }
+  }
+  // This CTA's partial (t, m, l); m and l from the first value slice.
   const size_t base = ((size_t)bi * a.nsplit + split) * a.R + row0;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (r < rows) {
+  for (int j = 0; j < kVJ; ++j) {
+    const int vp = grp + kGroups * j;
+    if (vp < nvp) {
 #pragma unroll
-      for (int cc = 0; cc < NC; ++cc) {
-        const int j = threadIdx.x + cc * kThreads;
-        if (j < rvs) a.part_t[(base + r) * rk + v0 + j] = acc[r][cc];
+      for (int e = 0; e < 16; ++e) {
+        const int r = 8 * (e >> 2) + 2 * tq + (e & 1);
+        const int col = (v0 + vp) * 64 + 16 * wq + g + 8 * ((e >> 1) & 1);
+        if (r < rows && col < rk) a.part_t[(base + r) * rk + col] = acc[j][e];
       }
     }
   }
-  if (vs == 0)
-    for (int r = threadIdx.x; r < rows; r += kThreads) {
-      a.part_m[base + r] = sm.m[r];
-      a.part_l[base + r] = sm.l[r];
-    }
-}
-
-template <typename Kern>
-int launch(Kern kern, dim3 grid, size_t smem, cudaStream_t st, const RankspaceArgs& a) {
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<grid, kThreads, smem, st>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int NC, bool kMixed>
-int launch_mla(dim3 grid, size_t smem, cudaStream_t st, const RankspaceArgs& a) {
-  return launch(mla_split_kernel<T, NC, kMixed>, grid, smem, st, a);
-}
-
-// Merge the splits of every row into t_out (b, R, rv) and lse_out (b, R).
-int merge(const RankspaceArgs& a, int b, int rv, void* t_out, void* lse_out, cudaStream_t st) {
-  const size_t msmem = (8 + (size_t)a.nsplit) * sizeof(float);
-  rankspace_merge_kernel<<<dim3(a.R, b), kThreads, msmem, st>>>(
-      a.part_t, a.part_m, a.part_l, (float*)t_out, (float*)lse_out, a.R, rv, a.nsplit);
-  return (int)cudaGetLastError();
-}
-
-// Shared memory of the K7 / K8 split kernels staging `width` ranks of
-// q_emb and us rows.
-size_t mla_smem(int width, int rope) {
-  return sizeof(SoftmaxSmem) + (size_t)(kRows + kBS) * (width + 8) * sizeof(bf16) +
-         (size_t)(kRows + kBS) * (rope + 8) * sizeof(bf16) + kBS * sizeof(float);
-}
-
-// K7 / K8 past 1024 ranks: as many value slices of at most 1024 ranks (a
-// multiple of 16) as keep the chunks' staging within shared memory.
-template <typename T, bool kMixed>
-int run_mla_wide(const RankspaceArgs& a, int b, cudaStream_t st) {
-  int nvs = (a.rk + 4 * kThreads - 1) / (4 * kThreads), vslice;
-  for (;; ++nvs) {
-    vslice = ((a.rk + nvs - 1) / nvs + 15) / 16 * 16;
-    if (mla_smem(vslice, a.rope) <= (size_t)kMaxSmemB) break;
-    if (vslice <= 16) return (int)cudaErrorInvalidValue;
+  if (vs == 0 && tid < rows) {
+    a.part_m[base + tid] = m_s[tid];
+    a.part_l[base + tid] = l_s[tid];
   }
-  nvs = (a.rk + vslice - 1) / vslice;
-  const size_t smem = mla_smem(vslice, a.rope);
-  auto kern = mla_wide_split_kernel<T, kMixed>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<dim3(a.nsplit * nvs, (a.R + kRows - 1) / kRows, b), kThreads, smem, st>>>(a, vslice);
-  return (int)cudaGetLastError();
-}
-
-// K7 / K8 split kernel for the launch's rank, then the merge.
-template <typename T, bool kMixed>
-int run_mla(const RankspaceArgs& a, int b, void* t_out, void* lse_out, void* stream) {
-  if (a.rk % 16 != 0 || a.rope % 16 != 0 || a.rk < 16 || a.nsplit < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (a.rk > 4 * kThreads) {
-    const int err = run_mla_wide<T, kMixed>(a, b, st);
-    if (err != 0) return err;
-    return merge(a, b, a.rk, t_out, lse_out, st);
-  }
-  const size_t smem = mla_smem(a.rk, a.rope);
-  const dim3 grid(a.nsplit, (a.R + kRows - 1) / kRows, b);
-  int err;
-  switch ((a.rk + kThreads - 1) / kThreads) {
-    case 1: err = launch_mla<T, 1, kMixed>(grid, smem, st, a); break;
-    case 2: err = launch_mla<T, 2, kMixed>(grid, smem, st, a); break;
-    case 3: err = launch_mla<T, 3, kMixed>(grid, smem, st, a); break;
-    case 4: err = launch_mla<T, 4, kMixed>(grid, smem, st, a); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err != 0) return err;
-  return merge(a, b, a.rk, t_out, lse_out, st);
 }
 
 // K2, K4, K6: encode the launch's tensor maps, then the split kernel and
@@ -1037,13 +1128,7 @@ int run_split(const RankspaceArgs& a, int b, void* t_out, void* lse_out, cudaStr
   kern<<<dim3(a.nsplit * nvs, ntiles, b), kTP, lay.total, st>>>(tm[0], tm[1], tm[2], tm[3],
                                                                  tm[4], a);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  const size_t msmem = (2 * a.nsplit + kCT - kMergeCols) * sizeof(float);
-  rankspace_merge_cols_kernel<<<dim3((a.rv + kMergeCols - 1) / kMergeCols, a.R, b), kCT, msmem,
-                                st>>>((const float*)a.part_t, (const float*)a.part_m,
-                                      (const float*)a.part_l, (float*)t_out, (float*)lse_out,
-                                      a.R, a.rv, a.nsplit);
-  return (int)cudaGetLastError();
+  return merge_cols(a, b, a.rv, t_out, lse_out, st);
 }
 
 // One 32-row tile: 256-rank value slices, so a b = 1 step fills the SMs.
@@ -1084,6 +1169,65 @@ int run(const RankspaceArgs& a, int b, int mode, void* t_out, void* lse_out, voi
 // of 64-byte boxes (the configs' splits), else gathered.
 int mixed_mode(int r8k, int h4k, int r8v, int h4v) {
   return (r8k % 64 | h4k % 64 | r8v % 64 | h4v % 64) == 0 ? kMixedTma : kMixedGather;
+}
+
+// K7 / K8: encode the launch's tensor maps, then the split kernel and the
+// merge.
+template <int kMode, bool kHold, bool kQRing>
+int run_mla_split(const RankspaceArgs& a, int b, void* t_out, void* lse_out, cudaStream_t st) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const long long sp = a.s_p;
+  CUtensorMap tm[5] = {};  // us (bf16 or int8), us4, k_pe, q_emb, q_pe
+  if constexpr (kMode == kBf16) {
+    const long long ub = 2LL * a.rk;
+    if (!byte_map(enc, &tm[0], a.k_us, ub, sp, b, ub, sp * ub))
+      return (int)cudaErrorInvalidValue;
+  } else if constexpr (kMode != kMixedGather) {
+    // Unswizzled 64-byte boxes of int8 (and packed int4) bytes.
+    const void* ptr[2] = {a.k_us, a.k_us4};
+    const long long w[2] = {a.r8k, a.h4k};
+    for (int i = 0; i < 2; ++i) {
+      if (w[i] == 0) continue;
+      if (!byte_map(enc, &tm[i], ptr[i], w[i], sp, b, w[i], sp * w[i], 64, kBS, false))
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  const long long pb = 2LL * a.rope, qb = 2LL * a.rk;
+  if (!byte_map(enc, &tm[2], a.k_pe, pb, sp, b, pb, sp * pb) ||
+      !byte_map(enc, &tm[3], a.q_emb, qb, a.R, b, qb, (long long)a.R * qb, 128, kRows, true) ||
+      !byte_map(enc, &tm[4], a.q_pe, pb, a.R, b, pb, (long long)a.R * pb, 128, kRows, true))
+    return (int)cudaErrorInvalidValue;
+  const int npk = (a.rk + 63) / 64, nrp = (a.rope + 63) / 64;
+  const MlaLayout lay(npk, nrp, kMode, kHold, kQRing);
+  if (lay.stages < MlaLayout::min_stages(npk, nrp, kHold) || lay.total > kMaxSmemB)
+    return (int)cudaErrorInvalidValue;
+  auto kern = mla_tma_split_kernel<kMode, kHold, kQRing>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
+  if (e != cudaSuccess) return (int)e;
+  const int ntiles = (a.R + kRows - 1) / kRows;
+  kern<<<dim3(a.nsplit * a.vslices, ntiles, b), kTP, lay.total, st>>>(tm[0], tm[1], tm[2],
+                                                                      tm[3], tm[4], a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  return merge_cols(a, b, a.rk, t_out, lse_out, st);
+}
+
+// The us panels held from the score product to the value product where
+// there is one value slice of at most 512 ranks and they fit; else the
+// slice's panels come again, with q_emb resident where the ring keeps 2
+// stages beside it.
+template <int kMode>
+int run_mla_mode(const RankspaceArgs& a, int b, void* t_out, void* lse_out, cudaStream_t st) {
+  const int npk = (a.rk + 63) / 64, nrp = (a.rope + 63) / 64;
+  if constexpr (kMode != kMixedGather) {
+    if (a.vslices == 1 && npk <= kHoldPanels &&
+        MlaLayout(npk, nrp, kMode, true, false).stages >= MlaLayout::min_stages(npk, nrp, true))
+      return run_mla_split<kMode, true, false>(a, b, t_out, lse_out, st);
+  }
+  if (MlaLayout(npk, nrp, kMode, false, false).stages >= 2)
+    return run_mla_split<kMode, false, false>(a, b, t_out, lse_out, st);
+  return run_mla_split<kMode, false, true>(a, b, t_out, lse_out, st);
 }
 
 RankspaceArgs base_args(const void* q_emb, const void* k_us, const void* v_us,
@@ -1167,15 +1311,18 @@ extern "C" int xkv_mixed_rankspace_decode(const void* q_emb, const void* k_us8,
 // (is_int8). K8 (k_us4 set): q_emb (b, R, r8 + 2 * h4) in [hi | lo-eo]
 // column order, k_us (b, s_p, r8) int8 and k_us4 (b, s_p, h4) packed int4
 // pairs. Both: q_pe (b, R, rope) and k_pe (b, s_p, rope) bf16, r (b, s_p)
-// fp32, all contiguous; lens/los (b,) int32 live range [los, lens);
-// scratch as K2's. Writes t_out (b, R, rk) in q_emb's rank order and
-// lse_out (b, R) fp32. Returns cudaGetLastError().
+// fp32, all contiguous; lens/los (b,) int32 live range [los, lens), or null for s_p / 0;
+// scratch as K2's with rv = rk. nsplit key splits, each of `vslices`
+// value slices of ceil(npk / vslices) 64-rank panels (at most 16, none
+// empty; npk = ceil(rk / 64)). Writes t_out (b, R, rk) in q_emb's rank
+// order and lse_out (b, R) fp32. Returns cudaGetLastError().
 extern "C" int xkv_mla_rankspace_decode(const void* q_emb, const void* q_pe, const void* k_us,
                                         const void* k_us4, const void* k_pe, const void* r,
                                         const int* lens, const int* los, void* part_t,
                                         void* part_m, void* part_l, void* t_out,
                                         void* lse_out, int b, int R, int s_p, int r8, int h4,
-                                        int rope, int nsplit, int is_int8, void* stream) {
+                                        int rope, int nsplit, int vslices, int is_int8,
+                                        void* stream) {
   RankspaceArgs a = base_args(q_emb, k_us, nullptr, lens, los, part_t, part_m, part_l, R, s_p,
                               r8 + 2 * h4, 0, nsplit);
   a.q_pe = (const bf16*)q_pe;
@@ -1185,10 +1332,17 @@ extern "C" int xkv_mla_rankspace_decode(const void* q_emb, const void* q_pe, con
   a.r8k = r8;
   a.h4k = h4;
   a.k_us4 = (const int8_t*)k_us4;
-  if (k_us4 != nullptr) {
-    if (!is_int8) return (int)cudaErrorInvalidValue;
-    return run_mla<int8_t, true>(a, b, t_out, lse_out, stream);
-  }
-  return is_int8 ? run_mla<int8_t, false>(a, b, t_out, lse_out, stream)
-                 : run_mla<bf16, false>(a, b, t_out, lse_out, stream);
+  a.vslices = vslices;
+  const int npk = (a.rk + 63) / 64, vpp = vslices > 0 ? (npk + vslices - 1) / vslices : 0;
+  if (b < 1 || R < 1 || s_p < 1 || a.rk < 16 || a.rk % 16 != 0 || rope < 16 || rope % 16 != 0 ||
+      nsplit < 1 || vslices < 1 || vpp > kMaxVPanels || (vslices - 1) * vpp >= npk ||
+      (k_us4 != nullptr && !is_int8))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (k_us4 != nullptr)
+    return mixed_mode(r8, h4, 0, 0) == kMixedTma
+               ? run_mla_mode<kMixedTma>(a, b, t_out, lse_out, st)
+               : run_mla_mode<kMixedGather>(a, b, t_out, lse_out, st);
+  return is_int8 ? run_mla_mode<kInt8>(a, b, t_out, lse_out, st)
+                 : run_mla_mode<kBf16>(a, b, t_out, lse_out, st);
 }

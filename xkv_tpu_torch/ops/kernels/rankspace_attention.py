@@ -49,7 +49,7 @@ mla_launches = 0
 mla_mixed_launches = 0
 
 # K2, K4, K6: rows of a CTA and ranks of a value slice, taken when R fits
-# one CTA, and of a value slice when it does not (csrc/rankspace_attention.cu).
+# one CTA, and of a value slice when it does not (csrc/rankspace_attention.cu);
 # K7, K8: the widest value slice of a CTA.
 CTA_ROWS, SLICE_RANKS, WIDE_SLICE_RANKS = 32, 256, 1024
 
@@ -492,7 +492,8 @@ def mla_shapes(q_emb, q_pe, k_us, k_pe, r, k_us4=None) -> Tuple[int, int, int, i
     """K7's and K8's shape rules, checked before any device check: (b, R,
     s_p, rk, rope), rk the total rank (r8 + 2 * h4 with ``k_us4``). Any b
     and R; rk and rope positive multiples of 16. Past 1024 ranks the kernel
-    deals t's columns out to value slices of at most 1024."""
+    deals t's columns out to value slices of at most 1024
+    (``mla_split_count``)."""
     _build.require(all(x.dim() == 3 for x in (q_emb, q_pe, k_us, k_pe)) and r.dim() == 2,
                    "q_emb, q_pe, k_us and k_pe must be 3-D, r 2-D")
     b, R, rk = q_emb.shape
@@ -518,12 +519,34 @@ def _check_mla(q_emb, q_pe, k_pe, r) -> None:
                    "r must be contiguous fp32 on CUDA")
 
 
-def _mla_splits(s_p, R, rk, b, dev) -> int:
-    """Key splits of a K7/K8 launch over its value slices (one up to 1024
-    ranks): two CTAs an SM where the CTA holds every rank, else one (the
-    rank chunks fill shared memory)."""
-    slices = -(-rk // WIDE_SLICE_RANKS)
-    return _build.num_splits(s_p, b * -(-R // CTA_ROWS) * slices, 2 if slices == 1 else 1, dev)
+def mla_split_count(n_blocks: int, R: int, rk: int, b: int, n_sm: int) -> Tuple[int, int]:
+    """(key splits, value slices) of a K7/K8 launch. The value slices are
+    the fewest of at most 1024 ranks (64-rank panels dealt out evenly).
+    The grid (splits x value slices x 32-row tiles x sequences) fills the
+    SMs once, with at least one 64-key block a split: each SM takes one
+    CTA, whose fp32 partials are its rows of t, however long the segment."""
+    panels = -(-rk // 64)
+    slices = -(-panels // (WIDE_SLICE_RANKS // 64))
+    tiles = -(-R // CTA_ROWS)
+    return max(1, min(n_blocks, n_sm // (b * tiles * slices))), slices
+
+
+def _mla_launch(name, q_emb, q_pe, k_us, k_us4, k_pe, r, lengths, r8, h4, is_int8):
+    """Launch K7 (``k_us4`` None) or K8 at ``mla_split_count``'s splits."""
+    b, R, rk = q_emb.shape
+    s_p = k_us.shape[1]
+    dev = k_us.device
+    lens, los = _live_range_or_none(b, lengths, None, dev)
+    nsplit, vslices = mla_split_count(-(-s_p // 64), R, rk, b, _build.sm_count(dev))
+    part_t, part_m, part_l, t, lse = _split_scratch(b, nsplit, R, rk, dev)
+    status = _build.load().xkv_mla_rankspace_decode(
+        q_emb.data_ptr(), q_pe.data_ptr(), k_us.data_ptr(), _ptr(k_us4), k_pe.data_ptr(),
+        r.data_ptr(), _ptr(lens), _ptr(los), part_t.data_ptr(), part_m.data_ptr(),
+        part_l.data_ptr(), t.data_ptr(), lse.data_ptr(), b, R, s_p, r8, h4,
+        q_pe.shape[2], nsplit, vslices, is_int8, _build.stream_ptr(dev),
+    )
+    _build.check(status, name)
+    return t, lse
 
 
 def mla_rankspace_kernel(
@@ -539,21 +562,12 @@ def mla_rankspace_kernel(
     if k_us.device.type == "cpu":
         return mla_rankspace_kernel_plain(q_emb, q_pe, k_us, k_pe, r, lengths)
     global mla_launches
-    b, R, s_p, rk, _ = mla_shapes(q_emb, q_pe, k_us, k_pe, r)
+    rk = mla_shapes(q_emb, q_pe, k_us, k_pe, r)[3]
     _build.require_cuda_tensor(k_us, "k_us", (torch.bfloat16, torch.int8), 3)
     _build.require(k_us.is_contiguous(), "k_us must be contiguous")
     _check_mla(q_emb, q_pe, k_pe, r)
-    dev = k_us.device
-    lens, los = _build.live_range(b, s_p, lengths, None, dev)
-    nsplit = _mla_splits(s_p, R, rk, b, dev)
-    part_t, part_m, part_l, t, lse = _split_scratch(b, nsplit, R, rk, dev)
-    status = _build.load().xkv_mla_rankspace_decode(
-        q_emb.data_ptr(), q_pe.data_ptr(), k_us.data_ptr(), None, k_pe.data_ptr(),
-        r.data_ptr(), lens.data_ptr(), los.data_ptr(), part_t.data_ptr(), part_m.data_ptr(),
-        part_l.data_ptr(), t.data_ptr(), lse.data_ptr(), b, R, s_p, rk, 0,
-        q_pe.shape[2], nsplit, int(k_us.dtype == torch.int8), _build.stream_ptr(dev),
-    )
-    _build.check(status, "mla_rankspace_kernel")
+    t, lse = _mla_launch("mla_rankspace_kernel", q_emb, q_pe, k_us, None, k_pe, r, lengths, rk,
+                         0, int(k_us.dtype == torch.int8))
     mla_launches += 1
     return t, lse
 
@@ -573,23 +587,14 @@ def mla_mixed_rankspace_kernel(
     if k_us8.device.type == "cpu":
         return mla_mixed_rankspace_kernel_plain(q_emb, q_pe, k_us8, k_us4, k_pe, r, lengths)
     global mla_mixed_launches
-    b, R, s_p, rk, _ = mla_shapes(q_emb, q_pe, k_us8, k_pe, r, k_us4)
+    mla_shapes(q_emb, q_pe, k_us8, k_pe, r, k_us4)
     r8, h4 = k_us8.shape[2], k_us4.shape[2]
     for name, x in (("k_us8", k_us8), ("k_us4", k_us4)):
         _build.require_cuda_tensor(x, name, (torch.int8,), 3)
         _build.require(x.is_contiguous(), f"{name} must be contiguous")
     _check_mla(q_emb, q_pe, k_pe, r)
-    dev = k_us8.device
-    lens, los = _build.live_range(b, s_p, lengths, None, dev)
-    nsplit = _mla_splits(s_p, R, rk, b, dev)
-    part_t, part_m, part_l, t, lse = _split_scratch(b, nsplit, R, rk, dev)
-    status = _build.load().xkv_mla_rankspace_decode(
-        q_emb.data_ptr(), q_pe.data_ptr(), k_us8.data_ptr(), k_us4.data_ptr(),
-        k_pe.data_ptr(), r.data_ptr(), lens.data_ptr(), los.data_ptr(), part_t.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), t.data_ptr(), lse.data_ptr(), b, R, s_p, r8,
-        h4, q_pe.shape[2], nsplit, 1, _build.stream_ptr(dev),
-    )
-    _build.check(status, "mla_mixed_rankspace_kernel")
+    t, lse = _mla_launch("mla_mixed_rankspace_kernel", q_emb, q_pe, k_us8, k_us4, k_pe, r,
+                         lengths, r8, h4, 1)
     mla_mixed_launches += 1
     return t, lse
 

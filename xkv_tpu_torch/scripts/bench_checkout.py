@@ -21,7 +21,10 @@ timed K2, K4 and K6 only.) Shapes, b 1, s_p 8192:
     Llama-3.2-1B one (32/8 heads, head size 64, rank_k 256, rank_v 384),
     bf16 and int8, the vt slices layer 1 of a group's wider basis;
   * K7 at DeepSeek-V2-Lite (16 heads, rank 512, RoPE key 64), bf16 and
-    int8; K8 over 256 int8 + 256 int4 ranks;
+    int8, at ql 1 and 2; K8 over 256 int8 + 256 int4 ranks; the same at
+    rank 2048 (1024 int8 + 1024 int4), ql 1; where the checkout has
+    ``mla_split_count``, K7 and K8 at ql 1 also under each split rule of
+    ``SPLIT_ALTERNATIVES``;
   * K11, 256 chained products, bf16, int8 and int4, at M = K = 512 and at
     M = 2 * 32 * (the card's SMs); beside it the library's 256
     ``torch.matmul`` (bf16) and ``torch._int_mm`` (int8) calls.
@@ -37,6 +40,13 @@ import argparse
 import json
 import os
 import sys
+
+
+# K7/K8 split rules timed beside the shipped one at V2-Lite's rank 512 (b
+# 1, s_p 8192: 128 blocks of 64 keys), as (key splits, value slices): a
+# split per block, two, three and four blocks a split, and 256- and
+# 128-rank value slices that fill the SMs with fewer splits.
+SPLIT_ALTERNATIVES = ((128, 1), (64, 1), (43, 1), (32, 1), (66, 2), (33, 4))
 
 
 def main() -> int:
@@ -110,15 +120,34 @@ def main() -> int:
                                                                                   **kw))
             times[f"K5 {shape} {dtype} top-4"] = cuda_time_ms(
                 lambda: k3.sparse_lowrank_kernel(*a, ids, 512, None, None, **kw))
-    # K7, K8 at DeepSeek-V2-Lite.
+    # K7, K8 at DeepSeek-V2-Lite: ql 1 and 2 at rank 512, ql 1 at rank 2048.
     nh, rope = 16, 64
-    qe, qp = (randn(1, nh, rk) * 0.02).to(bf), (randn(1, nh, rope) * 0.1).to(bf)
     k_pe, r = randn(1, s_p, rope).to(bf), torch.rand((1, s_p), generator=gen, device=dev) + 0.5
-    us = {"bf16": randn(1, s_p, rk).to(bf), "int8": ints((1, s_p, rk), -127, 128)}
-    for dtype, u in us.items():
-        times[f"K7 {dtype}"] = cuda_time_ms(lambda: k2.mla_rankspace_kernel(qe, qp, u, k_pe, r))
-    us8, us4 = ints((1, s_p, 256), -127, 128), pack_int4_pairs(ints((1, s_p, 256), -7, 8))
-    times["K8"] = cuda_time_ms(lambda: k2.mla_mixed_rankspace_kernel(qe, qp, us8, us4, k_pe, r))
+    for rk7 in (512, 2048):
+        us = {"bf16": randn(1, s_p, rk7).to(bf), "int8": ints((1, s_p, rk7), -127, 128)}
+        us8 = ints((1, s_p, rk7 // 2), -127, 128)
+        us4 = pack_int4_pairs(ints((1, s_p, rk7 // 2), -7, 8))
+        for ql in ((1, 2) if rk7 == 512 else (1,)):
+            tag = ("" if ql == 1 else f" ql{ql}") + ("" if rk7 == 512 else f" rank {rk7}")
+            qe = (randn(1, ql * nh, rk7) * 0.02 * (512 / rk7) ** 0.5).to(bf)
+            qp = (randn(1, ql * nh, rope) * 0.1).to(bf)
+            for dtype, u in us.items():
+                times[f"K7 {dtype}{tag}"] = cuda_time_ms(
+                    lambda: k2.mla_rankspace_kernel(qe, qp, u, k_pe, r))
+            times[f"K8{tag}"] = cuda_time_ms(
+                lambda: k2.mla_mixed_rankspace_kernel(qe, qp, us8, us4, k_pe, r))
+            if rk7 == 512 and ql == 1 and hasattr(k2, "mla_split_count"):
+                # The split rule's alternatives, (key splits, value slices).
+                rule = k2.mla_split_count
+                for ns, nv in SPLIT_ALTERNATIVES:
+                    k2.mla_split_count = lambda *_: (ns, nv)
+                    for dtype, u in us.items():
+                        times[f"K7 {dtype} split {ns}x{nv}"] = cuda_time_ms(
+                            lambda: k2.mla_rankspace_kernel(qe, qp, u, k_pe, r))
+                    times[f"K8 split {ns}x{nv}"] = cuda_time_ms(
+                        lambda: k2.mla_mixed_rankspace_kernel(qe, qp, us8, us4, k_pe, r))
+                k2.mla_split_count = rule
+        del us, us8, us4
     # K11 and the library's calls.
     reps, k = 256, 512
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
