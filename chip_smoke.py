@@ -15,11 +15,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
              time kernel, plain version, library call and bound (K2 also
              over int8 factors, K2 and K6 also at R 128, four tokens of 32
              heads, as a speculative verify pass runs them);
-  2a. wide   K2-K8 at the widest ranks the JAX kernels' layout gives the
+  2a. limits K4 and K5 at chunk widths 16, 24, 100 and 512, and K1, K3
+             and K5 at head sizes 16, 24 and 32 (zero-padded to 64 by
+             their wrappers), against their plain versions; K4, K5 timed
+             at widths 16 and 512;
+  2b. wide   K2-K8 at the widest ranks the JAX kernels' layout gives the
              repo's models (K2, K4, K6 at rank 4096, K3, K5 at value rank
              4096, K7, K8 at rank 2048; value slices, streamed q_emb),
              against their plain versions, each timed;
-  2b. tools  the kernel-study kernels: K9 (design variants of K3's score
+  2c. tools  the kernel-study kernels: K9 (design variants of K3's score
              stage) against K3's plain version at K3's shapes, K10 (K3's
              stage ablation) in every stage set against its plain version,
              K11 (tensor-core rate probe) in bf16, int8 and int4 against its
@@ -36,7 +40,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
              Llama-3.2-1B (head_dim 64) in mode none through K1, in
              factored pre (xKV-4, bf16 factors) through K3, and at rank_k
              1024 / rank_v 1536 in fake and factored pre (K3) and post
-             (K2), factored against fake;
+             (K2), factored against fake; then tiny_llama_config (head
+             size 16) in factored pre and sparse pre / post at chunk widths
+             16, 24 and 100, each held against the same engine on the CPU;
   4. anchor  teacher-force the golden tokens of the JAX engine on the
              in-repo checkpoint and compare per-step logits (pre, post,
              sparse pre, sparse post, int4 post);
@@ -816,6 +822,143 @@ def check_wide(gen, results):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------- repaired limits
+# K4/K5 chunk widths: each selected chunk is walked as ceil(width / 64)
+# blocks of 64 keys masked at the chunk's end; at every width 2048 rows are
+# selected, as by the main path's top-4 of 512-row chunks. Head sizes other
+# than 64 and 128, which K1, K3 and K5 take zero-padded to 64: those of
+# tiny_llama_config (16) and of the examples (24, 32).
+CHUNK_WIDTHS = (16, 24, 100, 512)
+PADDED_HEADS = (16, 24, 32)
+
+
+def check_chunk_widths(gen, results):
+    """K4 and K5 at the 8B shapes over chunks of 16, 24, 100 and 512 rows
+    (2048 selected rows; the last chunk, ragged past s_p where the width
+    does not divide it, always among them; int8 also with a valid_len and
+    a window inside chunks) against their plain versions, and timed at
+    widths 16 and 512 (bf16)."""
+    import torch
+
+    from xkv_tpu_torch.cache import vt_layer_slice
+    from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
+    from xkv_tpu_torch.ops.kernels import rankspace_attention as k2
+    from xkv_tpu_torch.ops.rope import rope_cos_sin
+
+    hq, hkv, hd, s_p, rk, rv = LOWRANK_SHAPES["8B"]
+    m = hkv * hd
+    scale = 1.0 / math.sqrt(hd)
+    dev = "cuda"
+    cos_p, sin_p = rope_cos_sin(torch.arange(s_p, device=dev), hd, 500000.0)
+    cos_t, sin_t = rope_cos_sin(s_p + 5 + torch.arange(1, device=dev)[None], hd, 500000.0)
+    worst = {key: {"abs": 0.0, "rel": 0.0, "lse": 0.0} for key in ("K4", "K5")}
+    times = {}
+    pick = torch.Generator().manual_seed(SEED)
+    for dtype in ("bf16", "int8"):
+        f = _decode_inputs(gen, s_p, rk, rv, m, dtype)
+        vt_k = vt_layer_slice(f["k_vt"], 1, hkv, hd)
+        vt_v = vt_layer_slice(f["v_vt"], 1, hkv, hd)
+        k_scale = None if f["k_scale"] is None else vt_layer_slice(f["k_scale"], 1, hkv, hd)
+        q = torch.randn((1, hq, 1, hd), generator=gen, device=dev).to(torch.bfloat16)
+        q_emb = k2._project_q(q, vt_k, hkv, scale, k_scale, torch.bfloat16)
+        cos_h, sin_h = k3.half_tables(cos_p, sin_p, f["k_us"].dtype)
+        qab = k3._query_embeds(q, cos_t, sin_t, hkv, scale, k_scale)
+        kw = dict(num_q_heads=hq, num_kv_heads=hkv)
+        for width in CHUNK_WIDTHS:
+            n_chunks = -(-s_p // width)
+            ids = torch.randperm(n_chunks, generator=pick)[:2048 // width]
+            ids[0] = n_chunks - 1
+            ids = ids.to(device=dev, dtype=torch.int32)[None]
+            lengths = None if dtype == "bf16" else torch.tensor([s_p - 37], device=dev)
+            win_lo = None if dtype == "bf16" else torch.tensor([100], device=dev)
+            a4 = (q_emb, f["k_us"], f["v_us"], ids, width, lengths, win_lo)
+            a5 = (qab, f["k_us"], vt_k, f["v_us"], vt_v, cos_h, sin_h, f["v_scale"], ids, width,
+                  lengths, win_lo)
+            t4, l4 = k2.sparse_rankspace_kernel(*a4)
+            t4r, l4r = k2.sparse_rankspace_kernel_plain(*a4)
+            o5, l5 = k3.sparse_lowrank_kernel(*a5, **kw)
+            o5r, l5r = k3.sparse_lowrank_kernel_plain(*a5, **kw)
+            torch.cuda.synchronize()
+            label = f"{dtype} width {width}, {ids.shape[1]} chunks, valid_len={lengths}"
+            _hold("K4", label, t4, t4r, l4, l4r, worst["K4"])
+            _hold("K5", label, o5, o5r, l5, l5r, worst["K5"])
+            if dtype == "bf16" and width in (16, 512):
+                times[f"K4 width {width}"] = cuda_time_ms(lambda: k2.sparse_rankspace_kernel(*a4))
+                times[f"K5 width {width}"] = cuda_time_ms(
+                    lambda: k3.sparse_lowrank_kernel(*a5, **kw))
+    log(f"K4/K5 over 2048 selected rows by chunk width (bf16, ms): {times}")
+    for key in ("K4", "K5"):
+        results[key]["chunk_widths"] = dict(
+            widths=CHUNK_WIDTHS, rows_selected=2048, max_rel_err=worst[key]["rel"],
+            max_lse_err=worst[key]["lse"],
+            ms={w: times[f"{key} width {w}"] for w in (16, 512)})
+
+
+def check_head_sizes(gen, results):
+    """K1, K3 and K5 at head sizes 16, 24 and 32, which their wrappers
+    zero-pad to 64 (K1 at the end of each head, K3 and K5 per RoPE half),
+    against their plain versions at the unpadded size: K1 at 32/8 heads,
+    s 2048, with and without a 512 window; K3 and K5 at 32/8 heads, s_p
+    8192, rank_k 512 / rank_v 768, bf16 and int8, K5 over the 2048 rows of
+    85 chunks of 24 (the last one ragged past s_p), as many rows as the
+    main path's top-4 of 512-row chunks selects."""
+    import torch
+
+    from xkv_tpu_torch.cache import vt_layer_slice
+    from xkv_tpu_torch.ops.kernels import flash_attention as k1
+    from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
+    from xkv_tpu_torch.ops.rope import rope_cos_sin
+
+    hq, hkv, _, s_p, rk, rv = LOWRANK_SHAPES["8B"]
+    dev = "cuda"
+    bf = torch.bfloat16
+    worst = {key: {"abs": 0.0, "rel": 0.0, "lse": 0.0} for key in ("K1", "K3", "K5")}
+    pick = torch.Generator().manual_seed(SEED)
+    for hd in PADDED_HEADS:
+        scale = 1.0 / math.sqrt(hd)
+        for window in (None, 512):
+            q = torch.randn((1, hq, 2048, hd), generator=gen, device=dev).to(bf)
+            k = torch.randn((1, hkv, 2048, hd), generator=gen, device=dev).to(bf)
+            v = torch.randn((1, hkv, 2048, hd), generator=gen, device=dev).to(bf)
+            out = k1.flash_attention(q, k, v, scale=scale, window=window)
+            ref = k1.flash_attention_plain(q, k, v, scale=scale, window=window)
+            torch.cuda.synchronize()
+            a, r = max_abs_err(out, ref), row_rel_err(out, ref)
+            log(f"K1 hd {hd} window {window}: max_abs_err={a:.3e} max_rel_err={r:.3e} "
+                f"(limit {TOL['K1']:.3e})")
+            if not (tuple(out.shape) == (1, 2048, hq, hd) and r <= TOL["K1"]):
+                raise AssertionError(f"K1 at head size {hd} disagrees with its plain version")
+            worst["K1"]["abs"] = max(worst["K1"]["abs"], a)
+            worst["K1"]["rel"] = max(worst["K1"]["rel"], r)
+        m = hkv * hd
+        cos_p, sin_p = rope_cos_sin(torch.arange(s_p, device=dev), hd, 500000.0)
+        cos_t, sin_t = rope_cos_sin(s_p + 5 + torch.arange(1, device=dev)[None], hd, 500000.0)
+        for dtype in ("bf16", "int8"):
+            f = _decode_inputs(gen, s_p, rk, rv, m, dtype)
+            vt_k = vt_layer_slice(f["k_vt"], 1, hkv, hd)
+            vt_v = vt_layer_slice(f["v_vt"], 1, hkv, hd)
+            k_scale = None if f["k_scale"] is None else vt_layer_slice(f["k_scale"], 1, hkv, hd)
+            q = torch.randn((1, hq, 1, hd), generator=gen, device=dev).to(bf)
+            cos_h, sin_h = k3.half_tables(cos_p, sin_p, f["k_us"].dtype)
+            qab = k3._query_embeds(q, cos_t, sin_t, hkv, scale, k_scale)
+            kw = dict(num_q_heads=hq, num_kv_heads=hkv)
+            rest = (f["k_us"], vt_k, f["v_us"], vt_v, cos_h, sin_h, f["v_scale"])
+            o3, l3 = k3.lowrank_kernel(qab, *rest, None, None, **kw)
+            o3r, l3r = k3.lowrank_kernel_plain(qab, *rest, None, None, **kw)
+            ids = torch.randperm(-(-s_p // 24), generator=pick)[:2048 // 24]
+            ids[0] = -(-s_p // 24) - 1
+            ids = ids.to(device=dev, dtype=torch.int32)[None]
+            o5, l5 = k3.sparse_lowrank_kernel(qab, *rest, ids, 24, None, None, **kw)
+            o5r, l5r = k3.sparse_lowrank_kernel_plain(qab, *rest, ids, 24, None, None, **kw)
+            torch.cuda.synchronize()
+            _hold("K3", f"hd {hd} {dtype}", o3, o3r, l3, l3r, worst["K3"])
+            _hold("K5", f"hd {hd} {dtype} width 24", o5, o5r, l5, l5r, worst["K5"])
+    for key in ("K1", "K3", "K5"):
+        results[key]["padded_head_sizes"] = dict(
+            head_dims=PADDED_HEADS, padded_to=64, max_rel_err=worst[key]["rel"],
+            max_lse_err=worst[key]["lse"] if key != "K1" else None)
+
+
 # ------------------------------------------------------------ kernel tools
 K9_VARIANTS = ("two_gemm", "scratch_ab", "b16")
 K11_DESIGN = ("redesigned: a cluster of 8 CTAs per 64-row tile of x, each CTA's column "
@@ -883,6 +1026,14 @@ def check_variants(gen, results):
     return times[("prod", "int8")]
 
 
+K10_DESIGN = ("redesigned on K3's machinery: one CTA per key split, a producer warp loading "
+              "the query panels once and per 64-key block the k_us rows and tables, then a "
+              "4-stage TMA ring of k_vt panels (transposed to K-major once per call) and "
+              "v_us rows; per kv head the rebuild on wgmma m64n128k32 s8, scale and RoPE in "
+              "the accumulator registers, the rotated keys as the register A operand of "
+              "S^T += K_h . q_h^T (wgmma m64n32k16); P @ v_us on wgmma; a merge over 128 CTAs")
+
+
 def check_ablation(gen, results, k3_int8_ms):
     """K10: every stage set at b 1, s 8192 over int8 factors, held against
     its plain version at the kernel's split count and timed; prints what
@@ -922,6 +1073,21 @@ def check_ablation(gen, results, k3_int8_ms):
             op_time = (2.0 * s * rk * m / INT8_OPS_PER_S
                        + 2.0 * hq * s * (m + rv) / BF16_OPS_PER_S)
             bound = bound_ms(nbytes(*ops, *tabs, out, mx), op_time)
+    # Where a `full` call's device time goes: the k_vt transpose, the split
+    # kernel and the merge, from the profiler's kernel records (warm L2).
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    a_full = (*ops, *k10.tables(s, hd, k10.ALL, "cuda"), k10.ALL)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            k10.ablation_step(*a_full, num_kv_heads=hkv, nsplit=nsplit)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    by_kernel = {k: sum(e.self_device_time_total for e in events if k in e.key) / 10
+                 for k in ("transpose_kvt_kernel", "ablation_split_kernel",
+                           "ablation_merge_kernel")}
+    log(f"K10 full, device us per call by kernel: {by_kernel}")
     full = times["full"]
     log(f"K10 stage costs (K3 int8 at these shapes {k3_int8_ms:.4f} ms):")
     for name, t in times.items():
@@ -934,7 +1100,8 @@ def check_ablation(gen, results, k3_int8_ms):
         max_rel_err=worst["rel"], max_m_err=worst["m"],
         tol=f"{TOL['K10']} of each row's max |ref|; m {TOL['lse']} of max(1, |m|)",
         ms=full, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=None,
-        stages_ms=times, k3_int8_ms=k3_int8_ms, nsplit=nsplit)
+        stages_ms=times, k3_int8_ms=k3_int8_ms, nsplit=nsplit, full_us_by_kernel=by_kernel,
+        design=K10_DESIGN)
 
 
 def check_probe(results):
@@ -1297,6 +1464,87 @@ def llama_1b_path(results):
     return totals
 
 
+# tiny_llama_config (head size 16) on the card: factored pre, then sparse
+# decode at chunk widths 16 and 24 (top-4) and 100 (all 10 chunks of the
+# 1000 rows, each walked as two blocks) in pre (K5) and post (K4); group
+# size 2 at full rank (rank_k 64, the width of two layers' keys; rank_v
+# 48). At width 100 top-4 of 10 chunks is no check: the chunk-bound scores
+# that pick them round differently on the card and on the CPU, so the two
+# read different chunks (first-step logits 0.021 apart against 0.0024 with
+# every chunk read). (label, rope, sparse options, kernel launches per
+# decode step)
+SMALL_RUNS = [("tiny factored pre", "pre", {}, "K3")] + [
+    (f"tiny sparse {rope} width {w}", rope, dict(sparse_topk=k, sparse_block=w),
+     "K5" if rope == "pre" else "K4")
+    for w, k in ((16, 4), (24, 4), (100, 10)) for rope in ("pre", "post")]
+# First decode step's logits, card against the same engine on the CPU (the
+# plain versions, the same bf16 weights; cuBLAS and the CPU round the bf16
+# products at other places): twice the readings on an H100.
+TOL_SMALL_VS_CPU = {
+    "tiny factored pre": 2 * 2.4414e-03,
+    "tiny sparse pre width 16": 2 * 2.4414e-03, "tiny sparse post width 16": 2 * 2.9297e-03,
+    "tiny sparse pre width 24": 2 * 2.6855e-03, "tiny sparse post width 24": 2 * 1.9531e-03,
+    "tiny sparse pre width 100": 2 * 2.4109e-03, "tiny sparse post width 100": 2 * 2.9297e-03}
+
+
+def small_engine_path(results):
+    """``tiny_llama_config`` widths (head size 16, which K1, K3 and K5 take
+    zero-padded) at random bf16 weights from the seed, one 1000-token
+    prompt: each run of ``SMALL_RUNS`` served through ``serve`` (launch
+    counts read around ``generate``), its first decode step's logits held
+    against the same engine's on the CPU."""
+    import torch
+
+    from xkv_tpu_torch.configs import generate_consecutive_xkv_config
+    from xkv_tpu_torch.engine import InferenceEngine
+    from xkv_tpu_torch.models.config import tiny_llama_config
+    from xkv_tpu_torch.models.llama import init_params
+
+    cfg = tiny_llama_config()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = init_params(cfg, gen, torch.bfloat16, "cuda")
+    params_cpu = _to_cpu(params)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 1000), generator=gen, device="cuda")
+    totals = {key: 0 for key in COUNTERS}
+    rows, readings = [], {}
+    L, n_new = cfg.num_layers, 4
+    for label, rope, sparse, kernel in SMALL_RUNS:
+        xkv = generate_consecutive_xkv_config(
+            group_size=2, rank_k=64, rank_v=48, num_layers=L, end_layer=L - 1,
+            extra_kwargs={"rope_mode": rope})
+        kw = dict(mode="factored", tail_max=8, **sparse)
+        eng = InferenceEngine(params, cfg, xkv, device="cuda", **kw)
+        want = {key: 0 for key in COUNTERS}
+        want["K1"], want[kernel] = L, L * (n_new - 1)
+        row, counts, first = serve(eng, cfg, prompt, label, n_new, want, False)
+        ref_eng = InferenceEngine(params_cpu, cfg, xkv, device="cpu", **kw)
+        logits, cache = ref_eng.prefill(prompt.cpu())
+        tok = logits[:, -1].argmax(-1)[:, None]
+        ref, _ = ref_eng.decode_step(cache, tok, prompt.shape[1])
+        diff = (first.cpu() - ref[0, -1].float()).abs().max().item()
+        readings[label] = diff
+        limit = TOL_SMALL_VS_CPU[label]
+        log(f"{label}: first-step logits against the CPU: max_abs_diff={diff:.4e} (limit "
+            f"{limit:.4e}; max |logit| {ref.abs().max().item():.4e})")
+        if not diff <= limit:
+            raise AssertionError(f"{label}: the card's logits disagree with the CPU's")
+        rows.append(row)
+        for key in totals:
+            totals[key] += counts[key]
+        del eng, ref_eng, cache, logits
+    results["tiny_runs"] = dict(runs=rows, logits_vs_cpu=readings)
+    return totals
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu() if hasattr(tree, "cpu") else tree
+
+
 PROFILED = ("none", "factored pre bf16", "factored post bf16", "factored post bf16 sparse top-4",
             "factored post int8 sparse-mixed top-4", "factored post int4 sparse-mixed top-4",
             "factored post bf16 sparse top-4 max 8")
@@ -1565,6 +1813,10 @@ def main() -> int:
     bl = build_log if os.path.exists(build_log) else None
     check_decode(gen, results, bl)
     check_sparse_and_mixed(gen, results, bl)
+    t0 = time.time()
+    check_chunk_widths(gen, results)
+    check_head_sizes(gen, results)
+    log(f"chunk-width and head-size phase: {time.time() - t0:.1f} s")
     check_mla(gen, results)
     t0 = time.time()
     check_wide(gen, results)
@@ -1578,8 +1830,11 @@ def main() -> int:
     totals = main_path(results)
     torch.cuda.empty_cache()
     counts_1b = llama_1b_path(results)
+    t0 = time.time()
+    counts_small = small_engine_path(results)
+    log(f"tiny-engine phase: {time.time() - t0:.1f} s")
     for key in totals:
-        totals[key] += tool_counts[key] + counts_1b[key]
+        totals[key] += tool_counts[key] + counts_1b[key] + counts_small[key]
     anchor()
     torch.cuda.empty_cache()
     mla_totals = mla_path(results)

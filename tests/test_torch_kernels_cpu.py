@@ -4,7 +4,8 @@ versions) against the JAX package.
   * K1 ``flash_attention`` against ``flash_attention_fwd`` in interpret
     mode, at the tiny shapes the JAX package's own tests use (fp32; 2e-4,
     as there), and at group sizes 7 and 3 and head size 64; K1's shape
-    checks on ``meta`` tensors (any group size, head sizes 64 and 128).
+    checks on ``meta`` tensors (any group size, every even head size up to
+    128: 64 and 128 as built, the others zero-padded).
   * K2 ``rankspace_decode_attention`` against
     ``rankspace_decode_attention_xla`` and K3 ``lowrank_decode_attention``
     against ``factored_decode_attention_xla``, the oracles the JAX tests
@@ -12,7 +13,11 @@ versions) against the JAX package.
     factors run in bf16 as the kernels do, against fp32 oracles: 1e-2 for
     K2, 3e-2 for K3, which also rounds its rebuilt keys); K3 also at head
     size 64 (fp32, bf16 and int8 factors); K3's and K5's shape checks on
-    ``meta`` tensors (head sizes 64 and 128, any group size).
+    ``meta`` tensors (every even head size up to 128, any group size), and
+    their operands padded per RoPE half through the plain versions against
+    the unpadded ones (head sizes 16, 24, 32; fp32, 1e-6).
+  * K4's and K5's chunk widths on ``meta`` tensors: any positive width
+    passes to the device checks, 0 and negative widths are refused.
 
 The CUDA kernels themselves are held against these plain versions in
 ``test_torch_kernels_gpu.py`` (on a card) and by ``chip_smoke.py``.
@@ -87,22 +92,26 @@ def test_flash_plain_matches_pallas_interpret(s, window, hq, hkv, hd):
 
 
 @pytest.mark.parametrize("hq,hkv,hd", [(24, 8, 128), (28, 4, 128), (12, 2, 128), (32, 8, 64),
-                                       (7, 7, 64), (5, 1, 128)])
+                                       (7, 7, 64), (5, 1, 128), (32, 8, 96), (4, 2, 16),
+                                       (4, 2, 24), (4, 2, 32)])
 def test_flash_kernel_takes_every_group_size(hq, hkv, hd):
     """The kernel's shape checks (run before the device checks) accept any
-    group size hq / hkv and head sizes 64 and 128."""
+    group size hq / hkv and every even head size up to 128: 64 and 128 as
+    built, the others zero-padded to the next of them (16, 24 and 32 are
+    the head sizes of ``tiny_llama_config`` and the examples)."""
     q = torch.empty((2, hq, 40, hd), device="meta")
     k = torch.empty((2, hkv, 40, hd), device="meta")
     assert k1.kernel_shapes(q, k, k) == (2, hq, hkv, 40, hd)
 
 
-@pytest.mark.parametrize("hq,hkv,hd", [(32, 8, 96), (32, 8, 256), (6, 4, 64)])
+@pytest.mark.parametrize("hq,hkv,hd", [(32, 8, 33), (32, 8, 256), (6, 4, 64)])
 def test_flash_kernel_refuses_other_shapes(hq, hkv, hd):
     q = torch.empty((1, hq, 16, hd), device="meta")
     k = torch.empty((1, hkv, 16, hd), device="meta")
-    with pytest.raises(ValueError, match="head_dim" if hq % hkv == 0 else "multiple"):
+    want = "even, at most 128" if hq % hkv == 0 else "multiple"
+    with pytest.raises(ValueError, match=want):
         k1.kernel_shapes(q, k, k)
-    with pytest.raises(ValueError, match="head_dim" if hq % hkv == 0 else "multiple"):
+    with pytest.raises(ValueError, match=want):
         k1.flash_attention(q, k, k, scale=0.1)  # refused before the device checks
 
 
@@ -244,26 +253,69 @@ def _lowrank_meta(hq, hkv, hd, rk=64, rv=32, ql=1, s_p=40):
 @pytest.mark.parametrize("hq,hkv,hd,ql,rk,rv", [
     (32, 8, 64, 1, 64, 32), (32, 8, 128, 1, 64, 32), (24, 8, 128, 1, 64, 32),
     (12, 2, 64, 2, 64, 32), (28, 4, 128, 3, 64, 32), (7, 1, 64, 1, 64, 32),
-    (32, 8, 128, 1, 512, 1088), (32, 8, 64, 1, 256, 4096), (8, 2, 128, 2, 4096, 4096)])
+    (32, 8, 128, 1, 512, 1088), (32, 8, 64, 1, 256, 4096), (8, 2, 128, 2, 4096, 4096),
+    (8, 2, 96, 1, 64, 32), (8, 2, 32, 1, 64, 32), (4, 2, 16, 2, 64, 32), (6, 2, 24, 1, 64, 32)])
 def test_lowrank_kernel_takes_head_and_group_sizes(hq, hkv, hd, ql, rk, rv):
-    """K3's and K5's shape checks (run before the device checks) accept head
-    sizes 64 and 128, any group size hq / hkv (3, 6, 7 included) and any
+    """K3's and K5's shape checks (run before the device checks) accept
+    every even head size up to 128 (64 and 128 as built, the others padded
+    per RoPE half), any group size hq / hkv (3, 6, 7 included) and any
     rank of the JAX kernels' layout (rk a multiple of 64, rv of 16)."""
     ops = _lowrank_meta(hq, hkv, hd, rk=rk, rv=rv, ql=ql)
     assert k3.kernel_shapes(*ops, hq, hkv) == (2, ql * hq, hd, 40, rk, rv)
 
 
-@pytest.mark.parametrize("hd", [96, 256, 32])
+@pytest.mark.parametrize("hd", [130, 256, 17])
 def test_lowrank_kernel_refuses_other_head_sizes(hd):
+    """Refused before the device checks: head sizes past 128, and odd ones
+    (the RoPE halves would be uneven)."""
     ops = _lowrank_meta(8, 2, hd)
-    with pytest.raises(ValueError, match="64 and 128"):
+    with pytest.raises(ValueError, match="even, at most 128"):
         k3.kernel_shapes(*ops, 8, 2)
     kw = dict(num_q_heads=8, num_kv_heads=2)
-    with pytest.raises(ValueError, match="64 and 128"):  # before the device checks
+    with pytest.raises(ValueError, match="even, at most 128"):  # before the device checks
         k3.lowrank_kernel(*ops, None, None, None, **kw)
     ids = torch.zeros((2, 1), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="64 and 128"):
+    with pytest.raises(ValueError, match="even, at most 128"):
         k3.sparse_lowrank_kernel(*ops, None, ids, 64, None, None, **kw)
+
+
+@pytest.mark.parametrize("hd", [16, 24, 32])
+def test_padded_head_operands_match_plain(hd):
+    """The operands K3 and K5 run at head sizes other than 64 and 128,
+    padded per RoPE half to 64 (``pad_head_operands``), give through the
+    plain versions the unpadded plain result once the output is sliced
+    back (fp32 factors: 1e-6; the padded columns add exact zeros, only the
+    order of the sums differs)."""
+    b, hq, hkv, ql, s_p, rk, rv = 2, 4, 2, 2, 40, 12, 10
+    m = hkv * hd
+    qab = t(rnd(1, b, ql * hq, 2 * hd))
+    k_us, v_us = t(rnd(2, b, s_p, rk)), t(rnd(3, b, s_p, rv))
+    k_vt, v_vt = t(rnd(4, b, rk, 3 * m, scale=0.3)), t(rnd(5, b, rv, 3 * m, scale=0.3))
+    k_vt, v_vt = k_vt[:, :, m:2 * m], v_vt[:, :, m:2 * m]  # a layer's slice of its group
+    cos_h, sin_h = t(rnd(6, s_p, hd // 2)), t(rnd(7, s_p, hd // 2))
+    hp = k1.padded_head_dim(hd)
+    assert hp == 64
+    padded = k3.pad_head_operands(qab, k_vt, v_vt, cos_h, sin_h, hp)
+    assert padded[0].shape == (b, ql * hq, 2 * hp) and padded[1].shape == (b, rk, hkv * hp)
+    assert padded[3].shape == (s_p, hp // 2)
+    kw = dict(num_q_heads=hq, num_kv_heads=hkv)
+    lens, lo = torch.tensor([33, 40]), torch.tensor([3, 0])
+    want = k3.lowrank_kernel_plain(qab, k_us, k_vt, v_us, v_vt, cos_h, sin_h, None, lens, lo,
+                                   **kw)
+    q_p, kvt_p, vvt_p, cos_p, sin_p = padded
+    got = k3.lowrank_kernel_plain(q_p, k_us, kvt_p, v_us, vvt_p, cos_p, sin_p, None, lens, lo,
+                                  **kw)
+    np.testing.assert_allclose(k3.unpad_head(got[0], hd).numpy(), want[0].numpy(),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), rtol=1e-6, atol=1e-6)
+    ids = torch.tensor([[1, -1], [0, 2]], dtype=torch.int32)
+    want5 = k3.sparse_lowrank_kernel_plain(qab[:, :hq], k_us, k_vt, v_us, v_vt, cos_h, sin_h,
+                                           None, ids, 16, lens, lo, **kw)
+    got5 = k3.sparse_lowrank_kernel_plain(q_p[:, :hq], k_us, kvt_p, v_us, vvt_p, cos_p, sin_p,
+                                          None, ids, 16, lens, lo, **kw)
+    np.testing.assert_allclose(k3.unpad_head(got5[0], hd).numpy(), want5[0].numpy(),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got5[1].numpy(), want5[1].numpy(), rtol=1e-6, atol=1e-6)
 
 
 # K2/K4/K6 split counts on a 132-SM card: (64-key blocks, R, rv, b, splits).
@@ -370,9 +422,29 @@ def test_rankspace_kernel_refuses_other_ranks(rk, rv):
 def test_sparse_rankspace_kernel_refuses_other_chunks():
     ops = _rankspace_meta(1, 32, 100, 64, 64)
     ids = torch.zeros((1, 2), dtype=torch.int32, device="meta")
-    for block in (32, 100, 0):
-        with pytest.raises(ValueError, match="multiple of 64"):
+    for block in (0, -64):
+        with pytest.raises(ValueError, match="must be positive"):
             k2.sparse_rankspace_kernel(*ops, ids, block)
+    ids3 = torch.zeros((2, 1), dtype=torch.int32, device="meta")
+    kw = dict(num_q_heads=8, num_kv_heads=2)
+    with pytest.raises(ValueError, match="must be positive"):  # before the device checks
+        k3.sparse_lowrank_kernel(*_lowrank_meta(8, 2, 128), None, ids3, 0, None, None, **kw)
+
+
+@pytest.mark.parametrize("block", [32, 100, 16, 24, 8, 512, 576])
+def test_sparse_kernels_take_any_chunk_width(block):
+    """K4 and K5 take any positive chunk width, as the JAX kernels do: each
+    chunk is walked as ceil(block / 64) blocks of 64 keys, the last masked
+    at the chunk's end. On ``meta`` tensors the wrappers pass the chunk
+    check and stop at the device check."""
+    assert k2.chunk_blocks(block) == -(-block // 64)
+    ids = torch.zeros((1, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        k2.sparse_rankspace_kernel(*_rankspace_meta(1, 32, 100, 64, 64), ids, block)
+    ids3 = torch.zeros((2, 1), dtype=torch.int32, device="meta")
+    kw = dict(num_q_heads=8, num_kv_heads=2)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        k3.sparse_lowrank_kernel(*_lowrank_meta(8, 2, 128), None, ids3, block, None, None, **kw)
 
 
 def _mixed_meta(b, R, s_p, r8k, h4k, r8v, h4v):

@@ -17,7 +17,10 @@ win_lo inside a block, two sequences of different lengths, R 84, rv 16 and
 1024, a -1 chunk id, a ragged last chunk, K6 splits that are not whole
 64-byte boxes, and the wide ranks (rk and rv up to 4096). K7 and K8 at rank
 64, at DeepSeek-V2-Lite's widths (rank 512, RoPE 64, 16 heads, ql 1-3,
-ragged and two-sequence lengths), and at ranks 1088 and 2048.
+ragged and two-sequence lengths), and at ranks 1088 and 2048. K4 and K5 at
+chunk widths 16, 24, 100 and 512 (each chunk walked as 64-key blocks
+masked at its end); K1, K3 and K5 at head sizes 16, 24, 32 and 96, which
+their wrappers zero-pad to the built sizes.
 
 Tolerances: each output row is held against its own largest value, since
 a row that averages many keys has small values. K1 and K3 round P to bf16
@@ -32,7 +35,9 @@ place of P: K2's 2^-7. The fp32 lse, whose error grows with the scores:
 
 The kernel-study kernels: K9 (K3's function by other score designs) is
 held against K3's plain version within K3's limits. K10 (stage ablation)
-against its plain version at the kernel's split count: its bf16 output
+against its plain version at the kernel's split count, in every stage set
+at the tool's geometry and at an odd number of kv heads, several blocks a
+split, rk 64 and 128 and ragged value widths: its bf16 output
 rows carry the rounding of P to bf16 (2^-6), its running max m is fp32
 from sums in another order (1e-5 of max(1, |m|), -inf equal to -inf). K11
 (tensor-core probe): integer products are exact, so int8 and int4 equal
@@ -601,3 +606,124 @@ def test_sparse_rankspace_kernel_wide_ranks(cuda, dtype, R, rk, rv):
     t4r, l4r = k2.sparse_rankspace_kernel_plain(q_emb, k_us, v_us, ids, 512, None, None)
     assert t4.shape == (1, R, rv)
     assert _row_rel_err(t4, t4r) <= TOL_T and _lse_err(l4, l4r) <= TOL_LSE
+
+
+# K4 and K5 at chunk widths that are not multiples of 64, each chunk walked
+# as ceil(width / 64) blocks of 64 keys masked at the chunk's end: widths
+# 16 and 24 (the port's engine tests and tiny_llama_config's runs), 100
+# (two blocks, the second ragged), and 512 (the main path's). A -1 id, the
+# last chunk past s_p 1000, a valid_len and a window inside a chunk.
+# (block, dtype, ids, valid_len, win_lo)
+CHUNK_CASES = [(16, "bf16", [[3, 40, 7, -1]], None, None),
+               (16, "int8", [[0, 62, 5, 9]], [1000], [20]),
+               (24, "bf16", [[41, 2, 17, 0]], [990], None),
+               (24, "int8", [[1, -1, 30, 12]], None, [30]),
+               (100, "bf16", [[9, 0, 4, 7]], None, [150]),
+               (100, "int8", [[5, 9, -1, 2]], [950], None),
+               (512, "bf16", [[1, 0]], [1000], [100])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block,dtype,ids,lens,lo", CHUNK_CASES)
+def test_sparse_kernels_any_chunk_width(cuda, block, dtype, ids, lens, lo):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(15)
+    s_p, rk, rv, R = 1000, 512, 768, 32
+    k_us, v_us, scale = _rs_factors(gen, cuda, 1, s_p, rk, rv, dtype)
+    q_emb = (torch.randn((1, R, rk), generator=gen, device=cuda) * scale).to(torch.bfloat16)
+    ids = torch.tensor(ids, device=cuda, dtype=torch.int32)
+    lengths, win_lo = _live(cuda, lens), _live(cuda, lo)
+    before = k2.sparse_launches
+    t4, l4 = k2.sparse_rankspace_kernel(q_emb, k_us, v_us, ids, block, lengths, win_lo)
+    assert k2.sparse_launches == before + 1
+    t4r, l4r = k2.sparse_rankspace_kernel_plain(q_emb, k_us, v_us, ids, block, lengths, win_lo)
+    assert _row_rel_err(t4, t4r) <= TOL_T and _lse_err(l4, l4r) <= TOL_LSE
+    # K5 at the 8B head geometry (8/2 heads), layer 1 of a group's basis.
+    hq, hkv, hd = 8, 2, 128
+    m = hkv * hd
+    k_us5, k_vt, v_us5, v_vt, v_scale = _factors(gen, cuda, s_p, 512, 768, 4 * m,
+                                                 dtype == "int8")
+    k_vt, v_vt = k_vt[:, :, m:2 * m], v_vt[:, :, m:2 * m]
+    cos_h, sin_h = _half_tables(cuda, s_p)
+    qscale = 0.5 / 512 ** 0.5 / (2e4 if dtype == "int8" else 1.0)
+    qab = (torch.randn((1, hq, 2 * hd), generator=gen, device=cuda) * qscale).to(torch.bfloat16)
+    args = (qab, k_us5, k_vt, v_us5, v_vt, cos_h, sin_h, v_scale, ids, block, lengths, win_lo)
+    kw = dict(num_q_heads=hq, num_kv_heads=hkv)
+    before = k3.sparse_launches
+    o5, l5 = k3.sparse_lowrank_kernel(*args, **kw)
+    assert k3.sparse_launches == before + 1
+    o5r, l5r = k3.sparse_lowrank_kernel_plain(*args, **kw)
+    assert _row_rel_err(o5, o5r) <= TOL_BF16_OUT and _lse_err(l5, l5r) <= TOL_LSE
+
+
+# Head sizes other than 64 and 128, which the wrappers zero-pad to the next
+# built size (K1 at the end of each head, K3 and K5 per RoPE half):
+# tiny_llama_config's 16, the examples' 24 and 32, and 96. K1 with and
+# without a window; K3 at ql 2 with a window, K5 over 24-row chunks.
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 24, 32, 96])
+@pytest.mark.parametrize("int8", [False, True])
+def test_padded_head_sizes_match_plain(cuda, hd, int8):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(16)
+    bf = torch.bfloat16
+    hq, hkv = 4, 2
+    if not int8:  # K1 takes bf16 only
+        for window in (None, 40):
+            q = torch.randn((2, hq, 300, hd), generator=gen, device=cuda).to(bf)
+            k = torch.randn((2, hkv, 300, hd), generator=gen, device=cuda).to(bf)
+            v = torch.randn((2, hkv, 300, hd), generator=gen, device=cuda).to(bf)
+            before = k1.launches
+            out = k1.flash_attention(q, k, v, scale=hd ** -0.5, window=window)
+            assert k1.launches == before + 1
+            ref = k1.flash_attention_plain(q, k, v, scale=hd ** -0.5, window=window)
+            assert out.shape == (2, 300, hq, hd) and out.is_contiguous()
+            assert _row_rel_err(out, ref) <= TOL_BF16_OUT
+    s_p, rk, rv, m = 300, 64, 96, hkv * hd
+    k_us, k_vt, v_us, v_vt, v_scale = _factors(gen, cuda, s_p, rk, rv, 4 * m, int8)
+    k_vt, v_vt = k_vt[:, :, m:2 * m], v_vt[:, :, m:2 * m]
+    theta = torch.arange(s_p, device=cuda)[:, None] * 0.01 * torch.arange(
+        1, hd // 2 + 1, device=cuda)[None]
+    cos_h, sin_h = theta.cos().to(bf), theta.sin().to(bf)
+    kw = dict(num_q_heads=hq, num_kv_heads=hkv)
+    scale = 0.5 / rk ** 0.5 / (2e4 if int8 else 1.0)
+    qab = (torch.randn((1, 2 * hq, 2 * hd), generator=gen, device=cuda) * scale).to(bf)
+    lengths, win_lo = torch.tensor([290], device=cuda), torch.tensor([30], device=cuda)
+    args = (qab, k_us, k_vt, v_us, v_vt, cos_h, sin_h, v_scale, lengths, win_lo)
+    before = k3.launches
+    o3, l3 = k3.lowrank_kernel(*args, **kw)
+    assert k3.launches == before + 1
+    o3r, l3r = k3.lowrank_kernel_plain(*args, **kw)
+    assert o3.shape == (1, 2 * hq, hd)
+    assert _row_rel_err(o3, o3r) <= TOL_BF16_OUT and _lse_err(l3, l3r) <= TOL_LSE
+    ids = torch.tensor([[12, 0, -1, 5]], device=cuda, dtype=torch.int32)
+    a5 = (qab[:, :hq], k_us, k_vt, v_us, v_vt, cos_h, sin_h, v_scale, ids, 24, lengths, win_lo)
+    before = k3.sparse_launches
+    o5, l5 = k3.sparse_lowrank_kernel(*a5, **kw)
+    assert k3.sparse_launches == before + 1
+    o5r, l5r = k3.sparse_lowrank_kernel_plain(*a5, **kw)
+    assert o5.shape == (1, hq, hd)
+    assert _row_rel_err(o5, o5r) <= TOL_BF16_OUT and _lse_err(l5, l5r) <= TOL_LSE
+
+
+# K10 beyond the tool's geometry: an odd number of kv heads (one warpgroup
+# takes one head more), hq below 32, several blocks a split (their online
+# softmax and the held k_us buffer across blocks), rk 128 and a ragged value
+# width (a v_us stage of one box); hkv * hd a multiple of rk, as -recon
+# needs. (hq, hkv, s, rk, rv, nsplit)
+ABL_SHAPES = [(8, 3, 640, 128, 208, 3), (32, 8, 1024, 512, 768, 5), (5, 1, 256, 64, 128, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,s,rk,rv,nsplit", ABL_SHAPES)
+@pytest.mark.parametrize("name", [c[0] for c in k10.configs()])
+def test_ablation_kernel_shapes(cuda, name, hq, hkv, s, rk, rv, nsplit):
+    stages = dict(k10.configs())[name]
+    ops = k10.inputs(1, s, hq, hkv, 128, rk, rv, cuda, seed=8)
+    args = (*ops, *k10.tables(s, 128, stages, cuda), stages)
+    out, m = k10.ablation_step(*args, num_kv_heads=hkv, nsplit=nsplit)
+    ref, m_ref = k10.ablation_step_plain(*args, num_kv_heads=hkv, nsplit=nsplit)
+    assert _row_rel_err(out, ref) <= TOL_BF16_OUT
+    inf = torch.isinf(m_ref)
+    assert torch.equal(torch.isinf(m), inf)
+    assert _lse_err(m[~inf], m_ref[~inf]) <= TOL_LSE if (~inf).any() else True

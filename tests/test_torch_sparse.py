@@ -14,7 +14,8 @@
     also at head size 64.
   * The engine, fp32 weights and cache on the in-repo checkpoint: greedy
     tokens equal the JAX engine's in sparse pre, sparse post, sparse post
-    with ``sparse_layers`` and with ``sparse_topk_max``; full coverage
+    with ``sparse_layers`` and with ``sparse_topk_max``, and in pre and post
+    at ``sparse_block`` 24; full coverage
     equals dense factored decode; the JAX golden's sparse runs.
 """
 
@@ -239,11 +240,17 @@ ENGINE_CASES = {
     "post": ("post", dict(sparse_topk=2, sparse_block=16)),
     "post-layers": ("post", dict(sparse_topk=2, sparse_block=16, sparse_layers=(0, 2, 3))),
     "post-adaptive": ("post", dict(sparse_topk=2, sparse_block=8, sparse_topk_max=5)),
+    # A chunk width that is not a power of two (3 chunks of the 72 rows):
+    # on a card K4 and K5 walk each chunk as a 64-key block masked at 24.
+    "pre-24": ("pre", dict(sparse_topk=2, sparse_block=24)),
+    "post-24": ("post", dict(sparse_topk=2, sparse_block=24)),
 }
 
 
 @pytest.mark.parametrize("case", list(ENGINE_CASES))
 def test_sparse_greedy_tokens_match_jax_fp32(ckpt, case):
+    """Greedy tokens (fp32 weights, cache and factors) equal the JAX
+    engine's exactly, token for token."""
     rope, sparse = ENGINE_CASES[case]
     je, te = _engines(ckpt, rope, **sparse)
     prompt = prompt_tokens(72, ckpt[1].vocab_size, seed=21)

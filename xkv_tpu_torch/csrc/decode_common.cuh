@@ -1,6 +1,8 @@
 // Split-sequence (flash-decoding) machinery shared by the decode kernels:
-// K9, K10; the block walk also K2, K4, K6, K7, K8 (rankspace_attention.cu),
-// and the block walk and the merge of a row K3, K5 (lowrank_attention.cu).
+// K9; the block walk also K2, K4, K6, K7, K8 (rankspace_attention.cu), and
+// the block walk and the merge of a row K3, K5 (lowrank_attention.cu); the
+// block and row-tile sizes and the warp reductions K10
+// (kernel_ablation.cu).
 //
 // A decode step has b = 1 on the main path, so one CTA per sequence would
 // use one SM of 132. The key blocks of each sequence (kBS keys each) are
@@ -24,10 +26,13 @@ constexpr int kThreads = 256;  // 8 warps
 // The key blocks of one CTA: entries [begin, end) of its sequence's block
 // list, and the live column range [lo, hi). Dense: entry v is the block at
 // key v * kBS. Sparse: the list holds the selected chunks' blocks in turn,
-// entry v being sub-block v % per of chunk ids[v / per] (per = chunk / kBS);
-// an id < 0 selects nothing.
+// per = ceil(chunk / kBS) of them a chunk, entry v being block v % per of
+// chunk ids[v / per] (an id < 0 selects nothing). Block j of chunk id starts
+// at key id * chunk + j * kBS and its live keys end at the chunk's end, so
+// a chunk of any width is walked; columns past it are masked like any
+// other dead column.
 struct BlockWalk {
-  int lo, hi, begin, end, chunk;
+  int lo, hi, begin, end, chunk, per;
   const int* ids;  // this sequence's chunk ids, or null (dense)
 
   // First key of entry v, or -1 when its block holds no live key (a chunk
@@ -35,35 +40,50 @@ struct BlockWalk {
   // over the CTA.
   __device__ __forceinline__ int key0(int v) const {
     if (ids == nullptr) return v * kBS;
-    const int per = chunk / kBS;
     const int id = ids[v / per];
     if (id < 0) return -1;
     const int k0 = id * chunk + (v % per) * kBS;
-    return (k0 >= hi || k0 + kBS <= lo) ? -1 : k0;
+    return (k0 >= hi || min(k0 + kBS, (id + 1) * chunk) <= lo) ? -1 : k0;
+  }
+
+  // End of entry v's live keys: hi, or its chunk's end if that is sooner.
+  __device__ __forceinline__ int key_hi(int v) const {
+    return ids == nullptr ? hi : min(hi, (ids[v / per] + 1) * chunk);
   }
 };
 
-__device__ __forceinline__ BlockWalk block_walk(const int* lens, const int* los,
-                                                const int* ids, int n_sel, int chunk,
-                                                int bi, int s_p, int split, int nsplit) {
+// The walk of split `split` of `nsplit` over the live range [lo, hi), the
+// blocks of the chunks `ids` (n_sel of them, this sequence's) or, with ids
+// null, the blocks covering [lo, hi).
+__device__ __forceinline__ BlockWalk make_walk(int lo, int hi, const int* ids, int n_sel,
+                                               int chunk, int split, int nsplit) {
   BlockWalk w;
-  w.hi = min(lens[bi], s_p);
-  w.lo = max(los[bi], 0);
+  w.lo = lo;
+  w.hi = hi;
   w.chunk = chunk;
+  w.ids = ids;
   int first, last;
   if (ids != nullptr) {
-    w.ids = ids + (size_t)bi * n_sel;
+    w.per = (chunk + kBS - 1) / kBS;
     first = 0;
-    last = n_sel * (chunk / kBS);
+    last = n_sel * w.per;
   } else {
-    w.ids = nullptr;
-    first = w.lo / kBS;
-    last = w.hi > w.lo ? (w.hi + kBS - 1) / kBS : first;
+    w.per = 1;
+    first = lo / kBS;
+    last = hi > lo ? (hi + kBS - 1) / kBS : first;
   }
   const int per = (last - first + nsplit - 1) / nsplit;
   w.begin = min(first + split * per, last);
   w.end = min(w.begin + per, last);
   return w;
+}
+
+__device__ __forceinline__ BlockWalk block_walk(const int* lens, const int* los,
+                                                const int* ids, int n_sel, int chunk,
+                                                int bi, int s_p, int split, int nsplit) {
+  return make_walk(max(los[bi], 0), min(lens[bi], s_p),
+                   ids != nullptr ? ids + (size_t)bi * n_sel : nullptr, n_sel, chunk, split,
+                   nsplit);
 }
 
 // Shared state of the online softmax for kRows rows.

@@ -359,11 +359,13 @@ __global__ void __launch_bounds__(kT, 1) lowrank_stream_split_kernel(
       }
     }
     __syncthreads();
-    // Online softmax, rows warp and warp + 8; lanes over the 64 keys.
+    // Online softmax, rows warp and warp + 8; lanes over the 64 keys, live
+    // below the block's chunk end (key_hi: read here, where it is used).
+    const int key_hi = walk.key_hi(v);
     for (int r = warp; r < kHR; r += kWarps) {
       const int c0 = key0 + lane, c1 = c0 + 32;
-      const bool live0 = r < nrows && c0 >= walk.lo && c0 < walk.hi;
-      const bool live1 = r < nrows && c1 >= walk.lo && c1 < walk.hi;
+      const bool live0 = r < nrows && c0 >= walk.lo && c0 < key_hi;
+      const bool live1 = r < nrows && c1 >= walk.lo && c1 < key_hi;
       const float x0 = live0 ? sc[r * kBS + lane] + sc[(kHR + r) * kBS + lane] : kNegInf;
       const float x1 = live1 ? sc[r * kBS + lane + 32] + sc[(kHR + r) * kBS + lane + 32] : kNegInf;
       const float m_old = m_s[r];
@@ -518,8 +520,9 @@ __device__ __forceinline__ void wgmma_rebuild(int (&d)[32], uint64_t da, uint64_
 // consume: per block the k_us chunks (rebuild against the resident k_vt:
 // wgmma at hd 128, one m64n64 product per warpgroup and column half;
 // mma.sync at hd 64), [cos | sin] (scores), softmax, the v_us chunks
-// (t += P @ v_us). kSliced as the streamed kernel's.
-template <typename T, int HD, bool kSliced>
+// (t += P @ v_us). kSliced as the streamed kernel's. kSparse: K5, over the
+// chunks `ids`; without, K3, whose code then holds no chunk walk.
+template <typename T, int HD, bool kSliced, bool kSparse>
 __global__ void __launch_bounds__(kTP, 1) lowrank_tma_split_kernel(
     const __grid_constant__ CUtensorMap tm_kus, const __grid_constant__ CUtensorMap tm_vus,
     const __grid_constant__ CUtensorMap tm_cos, const __grid_constant__ CUtensorMap tm_sin,
@@ -559,7 +562,8 @@ __global__ void __launch_bounds__(kTP, 1) lowrank_tma_split_kernel(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int mt = warp & 3, half = (warp >> 2) & 1;  // key tile, column half
-  const BlockWalk walk = block_walk(lens, los, ids, n_sel, chunk, bi, s_p, split, nsplit);
+  const BlockWalk walk =
+      block_walk(lens, los, kSparse ? ids : nullptr, n_sel, chunk, bi, s_p, split, nsplit);
   if (blockIdx.x == 0 && tid == 0) done[((size_t)bi * hkv + hk) * ntiles + rt] = 0;
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");  // the merge may start
   auto grow = [&](int i) {  // the tile's row i -> row of (ql, hq)
@@ -784,11 +788,13 @@ __global__ void __launch_bounds__(kTP, 1) lowrank_tma_split_kernel(
       }
     }
     consumers_sync();
-    // Online softmax, rows warp and warp + 8; lanes over the 64 keys.
+    // Online softmax, rows warp and warp + 8; lanes over the 64 keys, live
+    // below the block's chunk end (key_hi: read here, where it is used).
+    const int key_hi = walk.key_hi(v);
     for (int r = warp; r < kHR; r += kWarps) {
       const int c0 = key0 + lane, c1 = c0 + 32;
-      const bool live0 = r < nrows && c0 >= walk.lo && c0 < walk.hi;
-      const bool live1 = r < nrows && c1 >= walk.lo && c1 < walk.hi;
+      const bool live0 = r < nrows && c0 >= walk.lo && c0 < key_hi;
+      const bool live1 = r < nrows && c1 >= walk.lo && c1 < key_hi;
       const float x0 = live0 ? sc[r * kBS + lane] + sc[(kHR + r) * kBS + lane] : kNegInf;
       const float x1 = live1 ? sc[r * kBS + lane + 32] + sc[(kHR + r) * kBS + lane + 32] : kNegInf;
       const float m_old = m_s[r];
@@ -893,7 +899,8 @@ int launch_tma(cudaStream_t st, const void* qab, const void* k_us, const void* k
     return (int)cudaErrorInvalidValue;
   const int smem = TmaLayout<T, HD>::smem(rk);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kern = lowrank_tma_split_kernel<T, HD, kSliced>;
+  auto kern = ids != nullptr ? lowrank_tma_split_kernel<T, HD, kSliced, true>
+                             : lowrank_tma_split_kernel<T, HD, kSliced, false>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int nvs = (rv + vslice - 1) / vslice;
@@ -1112,7 +1119,7 @@ int run(const void* qab, const void* k_us, const void* k_vt, long long sb_kvt,
   if ((hd != 64 && hd != 128) || rk < 64 || rk % 64 != 0 || rv < 16 || rv % 16 != 0 ||
       nsplit < 1 || hkv < 1 || hq % hkv != 0 || R % hq != 0)
     return (int)cudaErrorInvalidValue;
-  if (ids != nullptr && (chunk <= 0 || chunk % kBS != 0 || n_sel < 1))
+  if (ids != nullptr && (chunk <= 0 || n_sel < 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int ntiles = ((R / hq) * (hq / hkv) + kHR - 1) / kHR;
@@ -1159,8 +1166,8 @@ extern "C" int xkv_lowrank_decode(
 }
 
 // K5. As K3, over the rows of the selected chunks: ids (b, n_sel) int32,
-// chunk id i covering rows [i * chunk, (i + 1) * chunk) (chunk a multiple
-// of 64); an id < 0 selects nothing.
+// chunk id i covering rows [i * chunk, (i + 1) * chunk) (any chunk > 0); an
+// id < 0 selects nothing.
 extern "C" int xkv_sparse_lowrank_decode(
     const void* qab, const void* k_us, const void* k_vt, long long sb_kvt,
     long long ld_kvt, const void* v_us, const void* v_vt, long long sb_vvt,

@@ -1,8 +1,8 @@
 // Pieces of K3's first design (one CTA per 32 rows and key split, all kv
 // heads in turn, k_vt re-streamed per block), kept for the kernel-study
-// kernels built from it: K9 (kernel_variants.cu) and K10
-// (kernel_ablation.cu). K3/K5 themselves (lowrank_attention.cu) no longer
-// use them.
+// kernel built from it: K9 (kernel_variants.cu). K3/K5 themselves
+// (lowrank_attention.cu) and K10 (kernel_ablation.cu, on K3's shipped
+// machinery) no longer use them.
 //
 // - The on-chip key rebuild of one kv head, K = k_us @ k_vt, on mma.sync
 //   tensor cores (bf16 -> fp32 or int8 -> int32), k_vt streamed through

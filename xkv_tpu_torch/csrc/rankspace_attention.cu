@@ -202,24 +202,9 @@ __device__ __forceinline__ Src panel_src(int p, int r8, int h4, int& map, int& x
 // Live range and key blocks of one CTA (block_walk, with a null lens or
 // los read as s_p or 0).
 __device__ __forceinline__ BlockWalk rs_walk(const RankspaceArgs& a, int bi, int split) {
-  BlockWalk w;
-  w.hi = a.lens ? min(a.lens[bi], a.s_p) : a.s_p;
-  w.lo = a.los ? max(a.los[bi], 0) : 0;
-  w.chunk = a.chunk;
-  int first, last;
-  if (a.ids != nullptr) {
-    w.ids = a.ids + (size_t)bi * a.n_sel;
-    first = 0;
-    last = a.n_sel * (a.chunk / kBS);
-  } else {
-    w.ids = nullptr;
-    first = w.lo / kBS;
-    last = w.hi > w.lo ? (w.hi + kBS - 1) / kBS : first;
-  }
-  const int per = (last - first + a.nsplit - 1) / a.nsplit;
-  w.begin = min(first + split * per, last);
-  w.end = min(w.begin + per, last);
-  return w;
+  return make_walk(a.los ? max(a.los[bi], 0) : 0, a.lens ? min(a.lens[bi], a.s_p) : a.s_p,
+                   a.ids != nullptr ? a.ids + (size_t)bi * a.n_sel : nullptr, a.n_sel, a.chunk,
+                   split, a.nsplit);
 }
 
 // Named barriers: 1 for the 8 consumer warps, 2 + c for warpgroup c.
@@ -474,7 +459,7 @@ __global__ void __launch_bounds__(kTP, 1) rankspace_tma_split_kernel(
   int nq0 = 0;                         // kQRing: the block's first q panel
   for (int v = next_live(walk.begin); v < walk.end;
        v = next_live(v + 1), n0 += npk + nvp, nq0 += npk) {
-    const int key0 = walk.key0(v);
+    const int key0 = walk.key0(v), key_hi = walk.key_hi(v);
     const int nkeys = min(kBS, s_p - key0);
     // Partial s^T over the warpgroup's key panels.
     float s[16];
@@ -519,8 +504,8 @@ __global__ void __launch_bounds__(kTP, 1) rankspace_tma_split_kernel(
     // lanes over the 64 keys. P goes to its swizzled panel as bf16.
     for (int r = warp; r < kRows; r += kCW) {
       const int c0 = key0 + lane, c1 = c0 + 32;
-      const bool live0 = r < rows && c0 >= walk.lo && c0 < walk.hi;
-      const bool live1 = r < rows && c1 >= walk.lo && c1 < walk.hi;
+      const bool live0 = r < rows && c0 >= walk.lo && c0 < key_hi;
+      const bool live1 = r < rows && c1 >= walk.lo && c1 < key_hi;
       float s0 = 0.f, s1 = 0.f;
       for (int q = 0; q < nsum; ++q) {
         s0 += sc[(q * kRows + r) * kScLd + lane];
@@ -1153,7 +1138,7 @@ int run(const RankspaceArgs& a, int b, int mode, void* t_out, void* lse_out, voi
   if (b < 1 || a.R < 1 || a.s_p < 1 || a.rk < 16 || a.rk % 16 != 0 || a.rv < 16 ||
       a.rv % 16 != 0 || a.nsplit < 1)
     return (int)cudaErrorInvalidValue;
-  if (a.ids != nullptr && (a.chunk % kBS != 0 || a.chunk <= 0 || a.n_sel < 1))
+  if (a.ids != nullptr && (a.chunk <= 0 || a.n_sel < 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (mode) {
@@ -1268,8 +1253,8 @@ extern "C" int xkv_rankspace_decode(const void* q_emb, const void* k_us, const v
 }
 
 // K4. As K2, over the rows of the selected chunks: ids (b, n_sel) int32,
-// chunk id i covering rows [i * chunk, (i + 1) * chunk) (chunk a multiple
-// of 64); an id < 0 selects nothing.
+// chunk id i covering rows [i * chunk, (i + 1) * chunk) (any chunk > 0),
+// each walked as ceil(chunk / 64) blocks; an id < 0 selects nothing.
 extern "C" int xkv_sparse_rankspace_decode(const void* q_emb, const void* k_us,
                                            const void* v_us, const int* ids, const int* lens,
                                            const int* los, void* part_t, void* part_m,

@@ -17,8 +17,20 @@ from xkv_tpu_torch.ops.kernels import _build
 # Launches of the CUDA kernel since the last reset (plain runs not counted).
 launches = 0
 
-# Head sizes the kernel is built for (those of the Llama-family configs).
+# Head sizes the kernel is built for (those of the Llama-family configs);
+# any other even head size up to 128 is zero-padded to the next of them.
 HEAD_DIMS = (64, 128)
+
+
+def padded_head_dim(hd: int) -> int:
+    """The built head size that runs head size ``hd``: ``hd`` itself, or
+    the next of ``HEAD_DIMS``, the operands zero-padded to it. Takes every
+    even ``hd`` up to 128 (the decode kernels K3 and K5 pad each RoPE half,
+    so they need it even; K1 keeps their rule)."""
+    _build.require(0 < hd <= HEAD_DIMS[-1] and hd % 2 == 0,
+                   f"head_dim {hd} not supported: the kernels take head sizes that are even, "
+                   f"at most {HEAD_DIMS[-1]}")
+    return next(d for d in HEAD_DIMS if d >= hd)
 
 
 def flash_attention_plain(
@@ -39,8 +51,8 @@ def flash_attention_plain(
 def kernel_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[int, ...]:
     """Check the operands' shapes against what the kernel takes and return
     (b, hq, hkv, s, hd): q (b, hq, s, hd), k and v (b, hkv, s, hd), any
-    group size hq / hkv, hd in ``HEAD_DIMS``. Reads shapes only, so it
-    runs on any device (``meta`` included)."""
+    group size hq / hkv, every even hd up to 128 (``padded_head_dim``).
+    Reads shapes only, so it runs on any device (``meta`` included)."""
     _build.require(q.dim() == 4 and k.dim() == 4,
                    f"q and k must have 4 dims, got {tuple(q.shape)}, {tuple(k.shape)}")
     b, hq, s, hd = q.shape
@@ -48,7 +60,7 @@ def kernel_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[in
     _build.require(k.shape == (b, hkv, s, hd) and v.shape == k.shape,
                    "k and v must be (b, hkv, s, hd) with q's b, s and hd")
     _build.require(hkv > 0 and hq % hkv == 0, f"q heads {hq} not a multiple of kv heads {hkv}")
-    _build.require(hd in HEAD_DIMS, f"head_dim {hd} not supported: the kernel takes {HEAD_DIMS}")
+    padded_head_dim(hd)
     return b, hq, hkv, s, hd
 
 
@@ -70,12 +82,15 @@ def flash_attention(
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require_cuda_tensor(t, name, (torch.bfloat16,), 4)
         _build.require(t.is_contiguous(), f"{name} must be contiguous")
-    out = torch.empty((b, s, hq, hd), dtype=q.dtype, device=q.device)
+    hp = padded_head_dim(hd)
+    if hp != hd:  # zero columns add nothing to q . k; the scale stays the caller's
+        q, k, v = (torch.nn.functional.pad(t, (0, hp - hd)) for t in (q, k, v))
+    out = torch.empty((b, s, hq, hp), dtype=q.dtype, device=q.device)
     status = _build.load().xkv_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, hq, hkv, s, hd, float(scale), int(window or 0),
+        b, hq, hkv, s, hp, float(scale), int(window or 0),
         _build.stream_ptr(q.device),
     )
     _build.check(status, "flash_attention")
     launches += 1
-    return out
+    return out if hp == hd else out[..., :hd].contiguous()

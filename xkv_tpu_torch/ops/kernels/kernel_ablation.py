@@ -12,8 +12,11 @@ the final running max (not normalised, no ``v_vt`` product), and the
 running max ``m`` (``-inf`` with the softmax off). Scores contract all
 ``hkv * hd`` columns for every query row (``q_emb`` is (b, hq, hkv*hd)).
 
-The keys are walked in 64-key blocks (K3's); the CUDA kernel deals them out
-to ``nsplit`` CTAs and merges the parts as ``t = sum_j t_j exp(m_j - m)``.
+The keys are walked in 64-key blocks (K3's); the CUDA kernel, built on
+K3's machinery (a producer warp's TMA ring, the key rebuild on ``wgmma``
+s8, rotation in registers, scores and value product on ``wgmma``), deals
+them out to ``nsplit`` CTAs and merges the parts as
+``t = sum_j t_j exp(m_j - m)``.
 The block structure is part of the function (``-vpath`` adds each block's
 first ``v_us`` row), so the plain version takes the same ``nsplit``; with
 ``nsplit = 1`` it is the TPU kernel's function at ``block_s = 64``.
@@ -244,10 +247,10 @@ def ablation_step(
     tw = hd if full_width_tables(stages) else hd // 2
     _build.require(hd == 128 and m <= 1024, f"head_dim {hd} != 128 or hkv*hd {m} > 1024")
     _build.require(1 <= hq <= 32, f"hq {hq} not in [1, 32]")
-    _build.require(s % BLOCK == 0, f"s {s} must be a multiple of {BLOCK}")
-    _build.require(rk % 64 == 0 and 512 < rv <= 768 and rv % 16 == 0,
-                   f"rk {rk} (multiple of 64), rv {rv} (multiple of 16 in (512, 768]: "
-                   "the one value width built)")
+    _build.require(s % BLOCK == 0 and s > 0, f"s {s} must be a positive multiple of {BLOCK}")
+    _build.require(rk % 64 == 0 and 0 < rk <= 512 and hd <= rv <= 768 and rv % 16 == 0,
+                   f"rk {rk} (a multiple of 64 up to 512, the k_us rows a block holds), rv "
+                   f"{rv} (a multiple of 16 in [hd, 768], the value ranks two warpgroups hold)")
     _build.require("recon" in stages or m % rk == 0, "-recon tiles k_us: hkv*hd % rk == 0")
     _build.require(k_vt.shape == (b, rk, m) and v_us.shape[:2] == (b, s)
                    and k_scale.shape == (b, 1, m), "factor shapes")
@@ -255,15 +258,16 @@ def ablation_step(
                    and trig.shape == (2, hd), f"tables must be (s, {tw}), trig (2, hd)")
     dev = k_us.device
     nsplit = nsplit or num_splits(b, s, dev)
-    part_t = torch.empty((b, nsplit, hq, rv), dtype=torch.float32, device=dev)
+    kvt_t = torch.empty((b, m, rk), dtype=torch.int8, device=dev)  # k_vt, K-major
+    part_t = torch.empty((b, nsplit, hq, hd), dtype=torch.float32, device=dev)
     part_m = torch.empty((b, nsplit, hq), dtype=torch.float32, device=dev)
     out = torch.empty((b, hq, hd), dtype=torch.bfloat16, device=dev)
     m_out = torch.empty((b, hq), dtype=torch.float32, device=dev)
     status = _build.load().xkv_ablation_step(
         q_emb.data_ptr(), k_us.data_ptr(), k_vt.data_ptr(), v_us.data_ptr(), k_scale.data_ptr(),
-        cos_tab.data_ptr(), sin_tab.data_ptr(), trig.data_ptr(), part_t.data_ptr(),
-        part_m.data_ptr(), out.data_ptr(), m_out.data_ptr(), b, hq, num_kv_heads, hd, s, rk,
-        rv, tw, hd ** -0.5, bits, nsplit, _build.stream_ptr(dev))
+        cos_tab.data_ptr(), sin_tab.data_ptr(), trig.data_ptr(), kvt_t.data_ptr(),
+        part_t.data_ptr(), part_m.data_ptr(), out.data_ptr(), m_out.data_ptr(), b, hq,
+        num_kv_heads, hd, s, rk, rv, tw, hd ** -0.5, bits, nsplit, _build.stream_ptr(dev))
     _build.check(status, "ablation_step")
     launches += 1
     return out, m_out

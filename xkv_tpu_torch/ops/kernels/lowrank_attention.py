@@ -28,7 +28,9 @@ import torch
 
 from xkv_tpu_torch.ops.attention import gather_chunk_rows
 from xkv_tpu_torch.ops.kernels import _build
+from xkv_tpu_torch.ops.kernels.flash_attention import padded_head_dim
 from xkv_tpu_torch.ops.kernels.rankspace_attention import (
+    chunk_blocks,
     compute_dtype_for,
     live_chunk_rows,
     live_columns,
@@ -201,7 +203,6 @@ def sparse_lowrank_kernel_plain(
                          v_scale, live, num_q_heads, num_kv_heads)
 
 
-HEAD_DIMS = (64, 128)
 # Query rows of one CTA: the rows of one kv head, in tiles of this many
 # (kHR in csrc/lowrank_attention.cu); value ranks of one CTA, at most.
 HEAD_ROW_TILE, SLICE_RANKS = 16, 1024
@@ -209,18 +210,18 @@ HEAD_ROW_TILE, SLICE_RANKS = 16, 1024
 
 def kernel_shapes(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, num_q_heads,
                   num_kv_heads, hd=None):
-    """K3's and K5's shape checks, run before the device checks: head size
-    64 or 128, any group size, rk a positive multiple of 64, rv a positive
-    multiple of 16 (past 1024 the kernels take value slices). Returns (b,
-    R, hd, s_p, rk, rv). K9, whose qab is the full-width (b, R,
-    2*hkv*hd), passes ``hd``."""
+    """K3's and K5's shape checks, run before the device checks: every
+    even head size up to 128 (64 and 128 run as they are, the others
+    padded: ``pad_head_operands``), any group size, rk a positive multiple
+    of 64, rv a positive multiple of 16 (past 1024 the kernels take value
+    slices). Returns (b, R, hd, s_p, rk, rv). K9, whose qab is the
+    full-width (b, R, 2*hkv*hd), passes ``hd``."""
     b, R, two_hd = qab.shape
     hd = two_hd // 2 if hd is None else hd
     s_p, rk = k_us.shape[1], k_us.shape[2]
     rv = v_us.shape[2]
     m = num_kv_heads * hd
-    _build.require(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS} (the kernels take 64 "
-                   "and 128)")
+    padded_head_dim(hd)
     _build.require(num_q_heads % num_kv_heads == 0 and R % num_q_heads == 0,
                    "rows must be ql * hq with hq a multiple of hkv")
     _build.require(tuple(k_vt_slice.shape) == (b, rk, m) and tuple(v_vt_slice.shape) == (b, rv, m),
@@ -267,23 +268,56 @@ def streams_kvt(hd: int, rk: int, int8: bool) -> bool:
     return bool(_build.load().xkv_lowrank_streams_kvt(hd, rk, int(int8)))
 
 
+def _pad_halves(x: torch.Tensor, hd: int, hp: int) -> torch.Tensor:
+    """(..., n*hd) -> (..., n*hp): each hd-wide group's two RoPE halves
+    zero-padded on their own from hd/2 to hp/2."""
+    lead = x.shape[:-1]
+    halves = x.reshape(*lead, -1, 2, hd // 2)
+    return torch.nn.functional.pad(halves, (0, (hp - hd) // 2)).reshape(*lead, -1)
+
+
+def pad_head_operands(qab, k_vt_slice, v_vt_slice, cos_h, sin_h, hp):
+    """K3's and K5's operands at head size hd, padded to the built head
+    size ``hp``: the relative-angle RoPE pairs column d with d + hd/2, so
+    each half of each head (both query embeds, the k_vt and v_vt head
+    columns, the half tables) is padded with zeros on its own. The padded
+    key columns are zero, so they add nothing to a score; the output's
+    padded columns are dropped by ``unpad_head``."""
+    hd = qab.shape[2] // 2
+    return (_pad_halves(qab, hd, hp).contiguous(), _pad_halves(k_vt_slice, hd, hp),
+            _pad_halves(v_vt_slice, hd, hp),
+            *(torch.nn.functional.pad(t, (0, (hp - hd) // 2)).contiguous()
+              for t in (cos_h, sin_h)))
+
+
+def unpad_head(out: torch.Tensor, hd: int) -> torch.Tensor:
+    """(b, R, hp) kernel output -> (b, R, hd): the two halves' first
+    hd/2 columns each."""
+    b, R, hp = out.shape
+    return out.reshape(b, R, 2, hp // 2)[..., :hd // 2].reshape(b, R, hd)
+
+
 def _launch(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale, ids, block,
             lengths, win_lo, num_q_heads, num_kv_heads):
     """Check the operands and launch K3 (``ids`` None) or K5 over the
     chunks ``ids`` of ``block`` rows. Returns (out, lse)."""
+    per = None if ids is None else chunk_blocks(block)
     quantized = _check_operands(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h,
                                 v_scale, num_q_heads, num_kv_heads)
     b, R, hd, s_p, rk, rv = kernel_shapes(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h,
                                           sin_h, num_q_heads, num_kv_heads)
+    hp = padded_head_dim(hd)
+    if hp != hd:
+        qab, k_vt_slice, v_vt_slice, cos_h, sin_h = pad_head_operands(
+            qab, k_vt_slice, v_vt_slice, cos_h, sin_h, hp)
     dev = k_us.device
     lens, los = _build.live_range(b, s_p, lengths, win_lo, dev)
     if ids is None:
         keys = s_p
     else:
-        _build.require(block % 64 == 0, f"chunk block {block} must be a multiple of 64")
         _build.require(ids.dim() == 2 and ids.shape[0] == b, "ids must be (b, n_sel)")
         ids = ids.to(device=dev, dtype=torch.int32).contiguous()
-        keys = ids.shape[1] * block
+        keys = ids.shape[1] * per * 64
     # One CTA per (kv head, tile of its rows, split, value slice, sequence).
     tiles = -(-(R // num_kv_heads) // HEAD_ROW_TILE)
     slices = -(-rv // SLICE_RANKS)
@@ -291,9 +325,9 @@ def _launch(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale, ids,
     part_t = torch.empty((b, nsplit, R, rv), dtype=torch.float32, device=dev)
     part_m = torch.empty((b, nsplit, R), dtype=torch.float32, device=dev)
     part_l = torch.empty((b, nsplit, R), dtype=torch.float32, device=dev)
-    part_o = torch.empty((b, -(-rv // 64), R, hd), dtype=torch.float32, device=dev)
+    part_o = torch.empty((b, -(-rv // 64), R, hp), dtype=torch.float32, device=dev)
     done = torch.empty((b * num_kv_heads * tiles,), dtype=torch.int32, device=dev)
-    out = torch.empty((b, R, hd), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((b, R, hp), dtype=torch.bfloat16, device=dev)
     lse = torch.empty((b, R), dtype=torch.float32, device=dev)
     common = (qab.data_ptr(), k_us.data_ptr(), k_vt_slice.data_ptr(),
               k_vt_slice.stride(0), k_vt_slice.stride(1),
@@ -304,7 +338,7 @@ def _launch(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale, ids,
     scratch = (lens.data_ptr(), los.data_ptr(), part_t.data_ptr(), part_m.data_ptr(),
                part_l.data_ptr(), part_o.data_ptr(), done.data_ptr(), out.data_ptr(),
                lse.data_ptr(),
-               b, R, num_q_heads, num_kv_heads, hd, s_p, rk, rv)
+               b, R, num_q_heads, num_kv_heads, hp, s_p, rk, rv)
     lib = _build.load()
     if ids is None:
         status = lib.xkv_lowrank_decode(*common, *scratch, nsplit, int(quantized),
@@ -314,7 +348,7 @@ def _launch(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale, ids,
                                                ids.shape[1], block, nsplit, int(quantized),
                                                _build.stream_ptr(dev))
     _build.check(status, "lowrank_kernel" if ids is None else "sparse_lowrank_kernel")
-    return out, lse
+    return (out if hp == hd else unpad_head(out, hd)), lse
 
 
 def sparse_lowrank_kernel(

@@ -340,6 +340,14 @@ def mixed_shapes(q_emb, k_us8, k_us4, v_us8, v_us4) -> Tuple[int, ...]:
     return b, R, s_p, r8k, h4k, r8v, h4v
 
 
+def chunk_blocks(block: int) -> int:
+    """The 64-key blocks that K4 and K5 walk for each selected chunk of
+    ``block`` rows: ceil(block / 64), the last one masked at the chunk's
+    end. Any positive width is taken, as the JAX kernels take it."""
+    _build.require(block > 0, f"chunk block {block} must be positive")
+    return -(-block // 64)
+
+
 def sparse_rankspace_kernel(
     q_emb: torch.Tensor,
     k_us: torch.Tensor,
@@ -356,15 +364,14 @@ def sparse_rankspace_kernel(
         return sparse_rankspace_kernel_plain(q_emb, k_us, v_us, ids, block, lengths, win_lo)
     global sparse_launches
     b, R, s_p, rk, rv = rankspace_shapes(q_emb, k_us, v_us)
-    _build.require(block % 64 == 0 and block > 0,
-                   f"chunk block {block} must be a multiple of 64")
+    per = chunk_blocks(block)
     _build.require(ids.dim() == 2 and ids.shape[0] == b, "ids must be (b, n_sel)")
     _check_factors(q_emb, k_us, v_us)
     dev = k_us.device
     ids = ids.to(device=dev, dtype=torch.int32).contiguous()
     n_sel = ids.shape[1]
     lens, los = _live_range_or_none(b, lengths, win_lo, dev)
-    nsplit = split_count(n_sel * block // 64, R, rv, b, _build.sm_count(dev))
+    nsplit = split_count(n_sel * per, R, rv, b, _build.sm_count(dev))
     part_t, part_m, part_l, t, lse = _split_scratch(b, nsplit, R, rv, dev)
     status = _build.load().xkv_sparse_rankspace_decode(
         q_emb.data_ptr(), k_us.data_ptr(), v_us.data_ptr(), ids.data_ptr(),

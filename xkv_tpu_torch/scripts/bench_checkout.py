@@ -1,5 +1,5 @@
-"""Time the decode kernels K2-K8 and the probe K11 of one checkout on the
-card, at the main path's shapes.
+"""Time the decode kernels K2-K8, the stage ablation K10 and the probe K11
+of one checkout on the card, at the main path's shapes.
 
     python xkv_tpu_torch/scripts/bench_checkout.py [--root DIR] [--label NAME]
 
@@ -25,6 +25,12 @@ timed K2, K4 and K6 only.) Shapes, b 1, s_p 8192:
     rank 2048 (1024 int8 + 1024 int4), ql 1; where the checkout has
     ``mla_split_count``, K7 and K8 at ql 1 also under each split rule of
     ``SPLIT_ALTERNATIVES``;
+  * K4 and K5 (8B, bf16) over 2048 selected rows at chunk widths 16 (128
+    chunks) and 512 (4 chunks); a checkout whose kernels refuse width 16
+    records null;
+  * K10 in each of its ten stage sets at the tool's geometry (32/8 heads,
+    head size 128, rank_k 512, rank_v 768, int8, s 8192), beside K3 int8 at
+    the same shapes above;
   * K11, 256 chained products, bf16, int8 and int4, at M = K = 512 and at
     M = 2 * 32 * (the card's SMs); beside it the library's 256
     ``torch.matmul`` (bf16) and ``torch._int_mm`` (int8) calls.
@@ -59,6 +65,7 @@ def main() -> int:
     import torch
 
     from xkv_tpu_torch.compress.quant import pack_int4_pairs
+    from xkv_tpu_torch.ops.kernels import kernel_ablation as k10
     from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
     from xkv_tpu_torch.ops.kernels import probe_int4 as k11
     from xkv_tpu_torch.ops.kernels import rankspace_attention as k2
@@ -120,6 +127,20 @@ def main() -> int:
                                                                                   **kw))
             times[f"K5 {shape} {dtype} top-4"] = cuda_time_ms(
                 lambda: k3.sparse_lowrank_kernel(*a, ids, 512, None, None, **kw))
+            if shape == "8B" and dtype == "bf16":
+                # 2048 selected rows at chunk widths 16 and 512 (K4 too).
+                q4 = (randn(1, 32, rk3) * 0.02).to(bf)
+                for width in (16, 512):
+                    pick = torch.randperm(s_p // width, generator=torch.Generator().manual_seed(0))
+                    w_ids = pick[:2048 // width].to(device=dev, dtype=torch.int32)[None]
+                    try:
+                        times[f"K4 bf16 width {width}"] = cuda_time_ms(
+                            lambda: k2.sparse_rankspace_kernel(q4, k_us, v_us, w_ids, width))
+                        times[f"K5 8B bf16 width {width}"] = cuda_time_ms(
+                            lambda: k3.sparse_lowrank_kernel(*a, w_ids, width, None, None, **kw))
+                    except ValueError:  # a checkout whose kernels refuse the width
+                        times[f"K4 bf16 width {width}"] = None
+                        times[f"K5 8B bf16 width {width}"] = None
     # K7, K8 at DeepSeek-V2-Lite: ql 1 and 2 at rank 512, ql 1 at rank 2048.
     nh, rope = 16, 64
     k_pe, r = randn(1, s_p, rope).to(bf), torch.rand((1, s_p), generator=gen, device=dev) + 0.5
@@ -148,6 +169,12 @@ def main() -> int:
                         lambda: k2.mla_mixed_rankspace_kernel(qe, qp, us8, us4, k_pe, r))
                 k2.mla_split_count = rule
         del us, us8, us4
+    # K10 in every stage set (the tool's geometry, int8).
+    abl = k10.inputs(1, s_p, 32, 8, 128, 512, 768, dev, seed=0)
+    for name, stages in k10.configs():
+        a10 = (*abl, *k10.tables(s_p, 128, stages, dev), stages)
+        times[f"K10 {name}"] = cuda_time_ms(lambda: k10.ablation_step(*a10, num_kv_heads=8))
+    del abl
     # K11 and the library's calls.
     reps, k = 256, 512
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count

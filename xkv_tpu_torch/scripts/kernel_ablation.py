@@ -4,10 +4,12 @@
         [--configs full,-recon,...] [--device cuda]
 
 Port of ``scripts/kernel_ablation.py`` (the JAX package's TPU tool). Times
-K10, K3's split kernel with stages switched off at compile time (numerics
-wrong on purpose: a timing tool), for each stage set, at the Llama-3.1-8B
-geometry over int8 factors, and prints ``<name> <ms> ms/call`` with what
-each set saves against ``full``.
+K10, the tool's K3-shaped pass built on the machinery K3 ships (a producer
+warp's TMA ring, the key rebuild on ``wgmma``, RoPE in registers) with
+stages switched off at compile time (numerics wrong on purpose: a timing
+tool), for each stage set, at the Llama-3.1-8B geometry over int8 factors,
+and prints ``<name> <ms> ms/call`` with what each set saves against
+``full``: that stage's cost in K3's design.
 
 Stages: recon (the k_us @ k_vt rebuild), scalemul (the int8 per-column
 scale), rope (rotation of the rebuilt keys), scores (q @ K^T), softmax (the
