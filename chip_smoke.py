@@ -960,7 +960,17 @@ def check_head_sizes(gen, results):
 
 
 # ------------------------------------------------------------ kernel tools
-K9_VARIANTS = ("two_gemm", "scratch_ab", "b16")
+K9_VARIANTS = ("two_gemm", "scratch_ab", "b512", "b2048")
+K9_DESIGN = ("redesigned on K3's machinery: K3's resident split kernel (one CTA per kv head, "
+             "16-row tile and key split, a producer warp keeping a TMA ring of k_us, "
+             "[cos | sin] and v_us chunks full, the head's k_vt slice resident, the rebuild on "
+             "wgmma m64n64, fp32 online softmax, P @ v_us, K3's merge) with another score "
+             "stage, reading the compact embeds of each row's own head: two_gemm feeds K*cos "
+             "and K*sin of each warpgroup's column half as wgmma register A operands (m64n16k16) "
+             "against K-major [qa | qb] panels, the halves meeting in shared memory; scratch_ab "
+             "stores [K*cos | K*sin] into a swizzled 64 x 2 hd panel (3-stage ring) and "
+             "warpgroup 0 issues one wgmma chain of depth 2 hd; b<N> is scratch_ab with N keys "
+             "a split")
 K11_DESIGN = ("redesigned: a cluster of 8 CTAs per 64-row tile of x, each CTA's column "
               "slice of w resident in shared memory, its columns of x_{i+1} sent to every "
               "peer by st.async stores counted on the peer's mbarrier (no cluster barrier "
@@ -968,12 +978,31 @@ K11_DESIGN = ("redesigned: a cluster of 8 CTAs per 64-row tile of x, each CTA's 
               "int4")
 
 
+def split_and_merge_us(prof, cuda) -> dict:
+    """Mean device time of a K3-machinery call's two kernels from a
+    profiler trace: the split kernel's span, and the merge's span past the
+    split's end (the merge is launched as a programmatic dependent, so it
+    starts early and its own span holds its wait for the split)."""
+    kernels = sorted((e for e in prof.events() if e.device_type == cuda),
+                     key=lambda e: e.time_range.start)
+    splits = [e for e in kernels if "split_kernel" in e.name]
+    merges = [e for e in kernels if "merge_chunk_kernel" in e.name]
+    if not splits or len(splits) != len(merges):
+        raise AssertionError(f"profiler: {len(splits)} split and {len(merges)} merge kernels")
+    return dict(split=sum(e.time_range.elapsed_us() for e in splits) / len(splits),
+                merge=sum(max(m.time_range.end - s.time_range.end, 0.0)
+                          for s, m in zip(splits, merges)) / len(splits))
+
+
 def check_variants(gen, results):
     """K9: each design of K3's score stage at K3's main-path shapes (b 1, 32
     rows, s_p 8192, rank_k 512, rank_v 768), bf16 and int8 factors, held
-    against K3's plain version and timed beside K3 (``prod``). Returns K3's
-    time over the int8 factors."""
+    against K3's plain version and timed beside K3 (``prod``) in the same
+    run; each call's device time split into the split kernel and the merge
+    (profiler, warm L2). Returns K3's time over the int8 factors."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     from xkv_tpu_torch.cache import vt_layer_slice
     from xkv_tpu_torch.ops.kernels import kernel_variants as k9
@@ -986,34 +1015,45 @@ def check_variants(gen, results):
     worst = {"abs": 0.0, "rel": 0.0, "lse": 0.0}
     cos_p, sin_p = rope_cos_sin(torch.arange(s_p, device="cuda"), hd, 500000.0)
     cos_t, sin_t = rope_cos_sin(s_p + 5 + torch.arange(1, device="cuda")[None], hd, 500000.0)
-    times = {}
+    times, by_kernel = {}, {}
     for dtype in ("bf16", "int8"):
         f = _decode_inputs(gen, s_p, rk, rv, m, dtype)
         sl = lambda x: None if x is None else vt_layer_slice(x, 1, hkv, hd)  # noqa: E731
         q = torch.randn((1, hq, 1, hd), generator=gen, device="cuda").to(torch.bfloat16)
         cos_h, sin_h = k3.half_tables(cos_p, sin_p, f["k_us"].dtype)
         qab = k3._query_embeds(q, cos_t, sin_t, hkv, scale, sl(f["k_scale"]))
-        full = k9.full_query_embeds(qab, hq, hkv)
         rest = (f["k_us"], sl(f["k_vt"]), f["v_us"], sl(f["v_vt"]), cos_h, sin_h, f["v_scale"])
         kw = dict(num_q_heads=hq, num_kv_heads=hkv)
         o_ref, l_ref = k3.lowrank_kernel_plain(qab, *rest, None, None, **kw)
-        times[("prod", dtype)] = cuda_time_ms(lambda: k3.lowrank_kernel(qab, *rest, None, None,
-                                                                        **kw))
+        calls = {"prod": lambda: k3.lowrank_kernel(qab, *rest, None, None, **kw)}
         for v in K9_VARIANTS:
-            o, lse = k9.variant_kernel(full, *rest, None, variant=v, **kw)
+            calls[v] = lambda v=v: k9.variant_kernel(qab, *rest, None, variant=v, **kw)
+            o, lse = calls[v]()
             torch.cuda.synchronize()
             _hold("K9", f"{v} {dtype}", o, o_ref, lse, l_ref, worst)
-            times[(v, dtype)] = cuda_time_ms(lambda: k9.variant_kernel(full, *rest, None,
-                                                                       variant=v, **kw))
+        for v, call in calls.items():  # K3 and the variants in turns, twice
+            times[(v, dtype)] = cuda_time_ms(call)
+        for v, call in reversed(list(calls.items())):
+            times[(v, dtype)] = (times[(v, dtype)] + cuda_time_ms(call)) / 2
+        for v, call in calls.items():
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    call()
+                torch.cuda.synchronize()
+            by_kernel[f"{v} {dtype}"] = split_and_merge_us(prof, DeviceType.CUDA)
         if dtype == "bf16":
-            plain_ms = cuda_time_ms(lambda: k9.variant_kernel_plain(full, *rest, None, **kw))
+            plain_ms = cuda_time_ms(lambda: k9.variant_kernel_plain(qab, *rest, None, **kw))
             recon = 2.0 * s_p * rk * m
             rest_ops = 2.0 * hq * s_p * (2 * hd + rv) + 2.0 * hq * rv * hd
-            bound = bound_ms(nbytes(full, f["k_us"], f["v_us"], cos_h, sin_h, o, lse)
-                             + (rk + rv) * m * 2, (recon + rest_ops) / BF16_OPS_PER_S)
+            bound = bound_ms(nbytes(qab, *rest, o, lse), (recon + rest_ops) / BF16_OPS_PER_S)
     for dtype in ("bf16", "int8"):
-        log(f"K9 {dtype} ms/call: " + ", ".join(
-            f"{v} {times[(v, dtype)]:.4f}" for v in ("prod",) + K9_VARIANTS))
+        k3_ms = times[("prod", dtype)]
+        log(f"K9 {dtype} ms/call (x K3): " + ", ".join(
+            f"{v} {times[(v, dtype)]:.4f} ({times[(v, dtype)] / k3_ms:.2f})"
+            for v in ("prod",) + K9_VARIANTS))
+        log(f"K9 {dtype} device us per call, split kernel / merge past it (warm L2): " + ", ".join(
+            f"{v} {by_kernel[f'{v} {dtype}']['split']:.1f} / "
+            f"{by_kernel[f'{v} {dtype}']['merge']:.1f}" for v in ("prod",) + K9_VARIANTS))
     results["K9"] = dict(
         name="variant_attention (scratch_ab)", route="cuda",
         source="xkv_tpu_torch/csrc/kernel_variants.cu",
@@ -1022,7 +1062,8 @@ def check_variants(gen, results):
         tol=f"{TOL['K9']} of each row's max |ref| (K3's plain version); lse {TOL['lse']}",
         ms=times[("scratch_ab", "bf16")], plain_ms=plain_ms, bound_ms=bound[0],
         bound_by=bound[1], library_ms=None,
-        variants_ms={f"{v} {d}": t for (v, d), t in times.items()})
+        variants_ms={f"{v} {d}": t for (v, d), t in times.items()},
+        us_by_kernel=by_kernel, design=K9_DESIGN)
     return times[("prod", "int8")]
 
 
@@ -1181,8 +1222,10 @@ def tools_path(results) -> dict:
     bench_kernel.main(["--n", "2"])
     probe_int4.main(["--reps", "16"])
     kernel_ablation.main(["--n", "2"])
-    kernel_variants.main(["--n", "2", "--check"])
+    variants = kernel_variants.main(["--n", "2", "--check"])
     torch.cuda.synchronize()
+    if "b2048" not in variants:  # the JAX tool's default --variants, b2048 included
+        raise AssertionError(f"tools: kernel_variants ran {sorted(variants)}")
     counts = read_counts()
     log(f"tools: {time.time() - t0:.1f} s, launches {counts}")
     for key in ("K3", "K9", "K10", "K11"):

@@ -18,6 +18,8 @@ versions) against the JAX package.
     the unpadded ones (head sizes 16, 24, 32; fp32, 1e-6).
   * K4's and K5's chunk widths on ``meta`` tensors: any positive width
     passes to the device checks, 0 and negative widths are refused.
+  * The ctypes argument lists of ``_build.SIGNATURES`` against the
+    parameters of the sources' ``extern "C"`` entry points.
 
 The CUDA kernels themselves are held against these plain versions in
 ``test_torch_kernels_gpu.py`` (on a card) and by ``chip_smoke.py``.
@@ -570,3 +572,36 @@ def test_wide_rank_plain_matches_pallas_interpret(kernel):
         assert got_t.shape == (b, nh, 1, WIDE)
         assert row_rel_err(got_t, t(want_t)) <= 1e-5
         np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), rtol=1e-5)
+
+
+def _c_entry_points():
+    """{name: [ctypes kind of each parameter]} of every ``extern "C"``
+    function in the CUDA sources: pointers "P", long long "L", int "I",
+    float "F"."""
+    import re
+
+    from xkv_tpu_torch.ops.kernels import _build
+
+    found = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            kinds = []
+            for p in (x.strip() for x in params.split(",")):
+                kinds.append("P" if "*" in p else "L" if p.startswith("long long")
+                             else "F" if p.startswith("float") else "I")
+            found[name] = kinds
+    return found
+
+
+def test_ctypes_signatures_match_the_sources():
+    """Each entry point's ctypes argument list has the C function's
+    parameters, kind for kind: a mismatch passes garbage (or a cut
+    pointer) to the kernel."""
+    from xkv_tpu_torch.ops.kernels import _build
+
+    kind = {_build._P: "P", _build._L: "L", _build._I: "I", _build._F: "F"}
+    entry = _c_entry_points()
+    assert set(entry) == set(_build.SIGNATURES)
+    for name, argtypes in _build.SIGNATURES.items():
+        assert [kind[a] for a in argtypes] == entry[name], name

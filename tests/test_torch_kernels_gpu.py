@@ -33,8 +33,11 @@ over bf16, int8 or int8 + int4 latent factors) round P * r to bf16 in
 place of P: K2's 2^-7. The fp32 lse, whose error grows with the scores:
 1e-5 of max(1, |lse|).
 
-The kernel-study kernels: K9 (K3's function by other score designs) is
-held against K3's plain version within K3's limits. K10 (stage ablation)
+The kernel-study kernels: K9 (K3's function by other score designs, run
+on K3's resident kernel) is held against K3's plain version within K3's
+limits: both designs in bf16 and int8, b64, b512 and b2048, rank_v 640 to
+1024, the largest resident rank_k, lengths inside a block, group size 7
+at ql 3. K10 (stage ablation)
 against its plain version at the kernel's split count, in every stage set
 at the tool's geometry and at an odd number of kv heads, several blocks a
 split, rk 64 and 128 and ragged value widths: its bf16 output
@@ -393,27 +396,49 @@ def test_mla_wrapper_refuses_fp32_factors_on_cuda(cuda):
             torch.ones((1, s_p), device=cuda))
 
 
+# (variant, int8, rk, rv, s_p, lengths, hq, ql): both designs in bf16 and
+# int8, b<N> at 64, 512 (several splits) and 2048 (a last split of one
+# ragged block), rv 640, 768 and 1024, the largest resident rk (512 bf16,
+# 1024 int8), lengths that end inside a block, and group size 7 at ql 3 (two
+# row tiles of a head).
+VARIANT_CASES = [
+    ("two_gemm", False, 64, 640, 200, None, 8, 1), ("two_gemm", True, 64, 640, 200, 170, 8, 1),
+    ("two_gemm", True, 1024, 1024, 300, 299, 8, 1), ("two_gemm", False, 512, 768, 260, 250, 14, 3),
+    ("scratch_ab", False, 512, 1024, 300, 250, 8, 1),
+    ("scratch_ab", True, 1024, 640, 200, None, 8, 1),
+    ("scratch_ab", True, 128, 768, 260, 199, 14, 3),
+    ("b64", False, 64, 640, 200, 150, 8, 1), ("b512", True, 128, 1024, 1100, 1000, 8, 1),
+    ("b512", False, 512, 640, 1100, None, 8, 1), ("b2048", False, 512, 768, 2100, None, 8, 1),
+    ("b2048", True, 1024, 768, 2100, 2090, 8, 1),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("variant,int8,lens", [("two_gemm", False, None), ("two_gemm", True, 170),
-                                               ("scratch_ab", True, None), ("b16", False, 150),
-                                               ("b32", True, 199)])
-def test_variant_kernels_match_k3_plain(cuda, variant, int8, lens):
+@pytest.mark.parametrize("variant,int8,rk,rv,s_p,lens,hq,ql", VARIANT_CASES)
+def test_variant_kernels_match_k3_plain(cuda, variant, int8, rk, rv, s_p, lens, hq, ql):
     gen = torch.Generator(device=cuda)
     gen.manual_seed(6)
-    s_p, rk, rv, hq, hkv = 200, 64, 640, 8, 2
+    hkv = 2
     k_us, k_vt, v_us, v_vt, v_scale = _factors(gen, cuda, s_p, rk, rv, hkv * 128, int8)
     lengths = None if lens is None else torch.tensor([lens], device=cuda)
     cos_h, sin_h = _half_tables(cuda, s_p)
-    qab = torch.randn((1, hq, 256), generator=gen, device=cuda).to(torch.bfloat16) * 0.1
-    full = k9.full_query_embeds(qab, hq, hkv)
+    qab = torch.randn((1, ql * hq, 256), generator=gen, device=cuda).to(torch.bfloat16) * 0.1
     rest = (k_us, k_vt, v_us, v_vt, cos_h, sin_h, v_scale)
     before = k9.launches
-    o, lse = k9.variant_kernel(full, *rest, lengths, num_q_heads=hq, num_kv_heads=hkv,
+    o, lse = k9.variant_kernel(qab, *rest, lengths, num_q_heads=hq, num_kv_heads=hkv,
                                variant=variant)
     assert k9.launches == before + 1
     o_ref, l_ref = k3.lowrank_kernel_plain(qab, *rest, lengths, None, num_q_heads=hq,
                                            num_kv_heads=hkv)
     assert _row_rel_err(o, o_ref) <= TOL_BF16_OUT and _lse_err(lse, l_ref) <= TOL_LSE
+
+
+@pytest.mark.gpu
+def test_variant_resident_ranks_are_k3s(cuda):
+    """K9's rank_k limit is where K3 stops keeping the k_vt slice resident."""
+    for dtype, rk in k9.RESIDENT_RANK_K.items():
+        int8 = dtype == torch.int8
+        assert not k3.streams_kvt(128, rk, int8) and k3.streams_kvt(128, rk + 64, int8)
 
 
 @pytest.mark.gpu

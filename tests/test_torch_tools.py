@@ -13,6 +13,9 @@ Tolerances, each with its reason:
   order of fp32 sums, which can flip a rounding: 2^-6 of each output row's
   largest value (two bf16 units in the last place, K3's limit on the card);
   lse, fp32 on both sides: 1e-5 of max(1, |lse|).
+  Its plain version against K3's (``lowrank_kernel_plain``): fp32 factors
+  differ only in the order of fp32 sums, 1e-5 of a row; int8 factors also
+  round in bf16, 2^-6.
 - K10 (``build_step``): the same stage arithmetic; the scores are sums of
   ~1e5-sized terms in another order and the bf16 output rows can move by
   a unit in the last place: 2^-6 of each row's largest value.
@@ -132,7 +135,7 @@ def test_ablation_plain_splits_merge_to_the_sequential_pass():
 VAR_GEOM = dict(b=1, s=256, hkv=2, hq=8, hd=64, rk=32, rv=48)
 # (port variant, JAX variant, JAX block_s)
 VARIANTS = [("scratch_ab", "scratch_ab", 128), ("two_gemm", "two_gemm", 128),
-            ("b16", "scratch_ab", 64)]
+            ("b128", "scratch_ab", 128)]
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -178,12 +181,81 @@ def test_variants_match_pallas_interpret(interpret, int8, variant, jax_variant, 
 
 
 def test_variant_names():
-    assert k9.parse_variant("two_gemm") == ("two_gemm", 64)
-    assert k9.parse_variant("scratch_ab") == ("scratch_ab", 32)
-    assert k9.parse_variant("b16") == ("scratch_ab", 16)
-    for bad in ("b2048", "b64", "concat"):
-        with pytest.raises(ValueError):
+    assert k9.parse_variant("two_gemm") == ("two_gemm", None)
+    assert k9.parse_variant("scratch_ab") == ("scratch_ab", None)
+    for n in (64, 512, 2048):
+        assert k9.parse_variant(f"b{n}") == ("scratch_ab", n)
+    for bad in ("b16", "b100", "b0"):
+        with pytest.raises(ValueError, match="a positive multiple of 64 keys"):
             k9.parse_variant(bad)
+    with pytest.raises(ValueError, match="unknown variant"):
+        k9.parse_variant("concat")
+
+
+def _k9_operands(device, hd=128, rk=512, rv=768, dtype=torch.bfloat16, hq=8, hkv=2, s_p=64):
+    """Zero operands of K9's shapes (values do not matter to the checks)."""
+    z = functools.partial(torch.zeros, device=device)
+    m = hkv * hd
+    return (z((1, hq, 2 * hd), dtype=torch.bfloat16), z((1, s_p, rk), dtype=dtype),
+            z((1, rk, m), dtype=dtype), z((1, s_p, rv), dtype=dtype),
+            z((1, rv, m), dtype=torch.bfloat16), z((s_p, hd // 2), dtype=torch.bfloat16),
+            z((s_p, hd // 2), dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("kw", [dict(rv=640), dict(rv=1024), dict(rk=512),
+                                dict(rk=1024, dtype=torch.int8)])
+def test_variant_shapes_accept_k3_resident_instance(kw):
+    ops = _k9_operands("cpu", **kw)
+    rk, rv = kw.get("rk", 512), kw.get("rv", 768)
+    assert k9.kernel_shapes(*ops, 8, 2) == (1, 8, 128, 64, rk, rv)
+    # On meta tensors the shape check passes and the device check refuses.
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        k9.variant_kernel(*_k9_operands("meta", **kw), None, None, num_q_heads=8, num_kv_heads=2)
+
+
+@pytest.mark.parametrize("kw,what", [(dict(hd=64), "head size 64"), (dict(rk=640), "rank_k 640"),
+                                     (dict(rk=1088, dtype=torch.int8), "rank_k 1088"),
+                                     (dict(rv=1100), "rv=1100"), (dict(rv=1040), "rank_v 1040")])
+def test_variant_shapes_refuse_before_device_checks(kw, what):
+    with pytest.raises(ValueError, match=what):
+        k9.kernel_shapes(*_k9_operands("cpu", **kw), 8, 2)
+    with pytest.raises(ValueError, match=what):
+        k9.variant_kernel(*_k9_operands("meta", **kw), None, None, num_q_heads=8, num_kv_heads=2,
+                          variant="b512")
+
+
+@pytest.mark.parametrize("int8,lens", [(False, None), (False, 150), (True, 77)])
+def test_variant_plain_equals_k3_plain(int8, lens):
+    """The plain version (full-width embeds, one product of depth 2m) is
+    K3's function: fp32 factors (no bf16 rounding to flip) agree with
+    ``lowrank_kernel_plain`` to fp32 sum order; int8 factors to K3's
+    rounding."""
+    from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
+
+    rng = np.random.default_rng(11)
+    b, s_p, hq, hkv, hd, rk, rv = 1, 200, 8, 2, 32, 64, 48
+
+    def f(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+
+    qab = f(b, hq, 2 * hd) * 0.3
+    k_us, k_vt = f(b, s_p, rk), f(b, rk, hkv * hd) * 0.1
+    v_us, v_vt = f(b, s_p, rv), f(b, rv, hkv * hd)
+    theta = torch.arange(s_p)[:, None] * 0.01 * torch.arange(1, hd // 2 + 1)[None]
+    cos_h, sin_h, v_scale = theta.cos(), theta.sin(), None
+    if int8:
+        k_us, k_vt, v_us = (torch.clamp(torch.round(x * 40), -127, 127).to(torch.int8)
+                            for x in (k_us, k_vt, v_us))
+        qab, v_vt, cos_h, sin_h = (x.to(torch.bfloat16) for x in (qab * 1e-3, v_vt, cos_h, sin_h))
+        v_scale = torch.full((b, 1, rv), 0.02)
+    lengths = None if lens is None else torch.tensor([lens])
+    args = (qab, k_us, k_vt, v_us, v_vt, cos_h, sin_h, v_scale)
+    kw = dict(num_q_heads=hq, num_kv_heads=hkv)
+    o, lse = k9.variant_kernel_plain(*args, lengths, **kw)
+    o_ref, l_ref = k3.lowrank_kernel_plain(*args, lengths, None, **kw)
+    tol = TOL_ROW if int8 else 1e-5
+    assert o.dtype == o_ref.dtype and row_rel_err(o.float().numpy(), o_ref.float().numpy()) <= tol
+    assert float(((lse - l_ref).abs() / l_ref.abs().clamp_min(1.0)).max()) <= 1e-5
 
 
 def test_full_query_embeds_place_each_row_at_its_head():
@@ -262,8 +334,9 @@ def test_variants_entry_point_on_cpu(monkeypatch, capsys):
     res = kernel_variants.main(["--device", "cpu", "--ctx", "128", "--batch", "1", "--n", "1",
                                 "--check"])
     out = capsys.readouterr().out
-    assert set(res) == {"prod", "scratch_ab", "two_gemm"}
-    assert "parity ok: two_gemm" in out and "b2048        UNSUPPORTED" in out
+    assert set(res) == {"prod", "scratch_ab", "two_gemm", "b2048"}
+    assert "parity ok: two_gemm" in out and "UNSUPPORTED" not in out
+    assert "b2048" in out and "ms/call" in out
 
 
 def test_probe_entry_point_on_cpu(monkeypatch, capsys):

@@ -204,20 +204,19 @@ def sparse_lowrank_kernel_plain(
 
 
 # Query rows of one CTA: the rows of one kv head, in tiles of this many
-# (kHR in csrc/lowrank_attention.cu); value ranks of one CTA, at most.
+# (kHR in csrc/lowrank_tma.cuh); value ranks of one CTA, at most.
 HEAD_ROW_TILE, SLICE_RANKS = 16, 1024
 
 
 def kernel_shapes(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, num_q_heads,
-                  num_kv_heads, hd=None):
+                  num_kv_heads):
     """K3's and K5's shape checks, run before the device checks: every
     even head size up to 128 (64 and 128 run as they are, the others
     padded: ``pad_head_operands``), any group size, rk a positive multiple
     of 64, rv a positive multiple of 16 (past 1024 the kernels take value
-    slices). Returns (b, R, hd, s_p, rk, rv). K9, whose qab is the
-    full-width (b, R, 2*hkv*hd), passes ``hd``."""
+    slices). Returns (b, R, hd, s_p, rk, rv)."""
     b, R, two_hd = qab.shape
-    hd = two_hd // 2 if hd is None else hd
+    hd = two_hd // 2
     s_p, rk = k_us.shape[1], k_us.shape[2]
     rv = v_us.shape[2]
     m = num_kv_heads * hd
@@ -234,11 +233,11 @@ def kernel_shapes(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, num_q_h
 
 
 def _check_operands(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale,
-                    num_q_heads, num_kv_heads, hd=None) -> bool:
-    """K3's and K5's operand checks (K9's too, see ``kernel_shapes``);
-    returns whether the factors are int8."""
+                    num_q_heads, num_kv_heads) -> bool:
+    """K3's, K5's and K9's operand checks; returns whether the factors are
+    int8."""
     b, _, _, _, _, rv = kernel_shapes(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h,
-                                      num_q_heads, num_kv_heads, hd)
+                                      num_q_heads, num_kv_heads)
     fdt = (torch.bfloat16, torch.int8)
     _build.require_cuda_tensor(qab, "qab", (torch.bfloat16,), 3)
     _build.require_cuda_tensor(k_us, "k_us", fdt, 3)

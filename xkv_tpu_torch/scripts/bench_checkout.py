@@ -1,5 +1,6 @@
-"""Time the decode kernels K2-K8, the stage ablation K10 and the probe K11
-of one checkout on the card, at the main path's shapes.
+"""Time the decode kernels K2-K8, the score-stage variants K9, the stage
+ablation K10 and the probe K11 of one checkout on the card, at the main
+path's shapes.
 
     python xkv_tpu_torch/scripts/bench_checkout.py [--root DIR] [--label NAME]
 
@@ -25,6 +26,12 @@ timed K2, K4 and K6 only.) Shapes, b 1, s_p 8192:
     rank 2048 (1024 int8 + 1024 int4), ql 1; where the checkout has
     ``mla_split_count``, K7 and K8 at ql 1 also under each split rule of
     ``SPLIT_ALTERNATIVES``;
+  * last, K9 in the variants two_gemm, scratch_ab, b512 and b2048 at K3's
+    8B shapes above, bf16 and int8, beside K3 (``K9 prod``) on the same
+    inputs; a checkout
+    whose ``variant_kernel`` takes the full-width embeds gets them
+    (``full_query_embeds``), and a variant the checkout refuses records
+    null;
   * K4 and K5 (8B, bf16) over 2048 selected rows at chunk widths 16 (128
     chunks) and 512 (4 chunks); a checkout whose kernels refuse width 16
     records null;
@@ -43,6 +50,7 @@ power limit.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import sys
@@ -53,6 +61,8 @@ import sys
 # split per block, two, three and four blocks a split, and 256- and
 # 128-rank value slices that fill the SMs with fewer splits.
 SPLIT_ALTERNATIVES = ((128, 1), (64, 1), (43, 1), (32, 1), (66, 2), (33, 4))
+# K9's variants timed beside K3 (the JAX tool's defaults and b512).
+K9_VARIANTS = ("two_gemm", "scratch_ab", "b512", "b2048")
 
 
 def main() -> int:
@@ -66,6 +76,7 @@ def main() -> int:
 
     from xkv_tpu_torch.compress.quant import pack_int4_pairs
     from xkv_tpu_torch.ops.kernels import kernel_ablation as k10
+    from xkv_tpu_torch.ops.kernels import kernel_variants as k9
     from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
     from xkv_tpu_torch.ops.kernels import probe_int4 as k11
     from xkv_tpu_torch.ops.kernels import rankspace_attention as k2
@@ -86,6 +97,7 @@ def main() -> int:
         return torch.randn(shape, generator=gen, device=dev) * scale
 
     times = {}
+    k9_inputs = {}  # K3's 8B operands by dtype, for K9 (timed last)
     # K2, K4, K6.
     fac = dict(k=randn(1, s_p, rk).to(bf), v=randn(1, s_p, rv).to(bf))
     i8 = dict(k=ints((1, s_p, rk), -127, 128), v=ints((1, s_p, rv), -127, 128))
@@ -127,6 +139,8 @@ def main() -> int:
                                                                                   **kw))
             times[f"K5 {shape} {dtype} top-4"] = cuda_time_ms(
                 lambda: k3.sparse_lowrank_kernel(*a, ids, 512, None, None, **kw))
+            if shape == "8B":
+                k9_inputs[dtype] = (a, kw)
             if shape == "8B" and dtype == "bf16":
                 # 2048 selected rows at chunk widths 16 and 512 (K4 too).
                 q4 = (randn(1, 32, rk3) * 0.02).to(bf)
@@ -193,6 +207,18 @@ def main() -> int:
                 wc = w.t().contiguous().t()  # column-major, cuBLASLt's int8 layout
                 times[f"library int8 M{M}"] = cuda_time_ms(
                     lambda: [torch._int_mm(x, wc) for _ in range(reps)], iters=5, warmup=1)
+    # K9 beside K3 on K3's 8B operands, last, so that the kernels above see
+    # the same allocations in every checkout.
+    full = next(iter(inspect.signature(k9.variant_kernel).parameters)) == "qab_full"
+    for dtype, (a, kw) in k9_inputs.items():
+        times[f"K9 prod {dtype}"] = cuda_time_ms(lambda: k3.lowrank_kernel(*a, None, None, **kw))
+        q9 = k9.full_query_embeds(a[0], kw["num_q_heads"], kw["num_kv_heads"]) if full else a[0]
+        for v in K9_VARIANTS:
+            try:
+                times[f"K9 {v} {dtype}"] = cuda_time_ms(lambda: k9.variant_kernel(
+                    q9, *a[1:], None, variant=v, **kw))
+            except ValueError:  # a checkout whose K9 refuses the variant
+                times[f"K9 {v} {dtype}"] = None
     print(json.dumps({"label": args.label, "root": args.root, "card": card_line(dev),
                       "ms": times}), flush=True)
     return 0

@@ -9,14 +9,14 @@ Port of ``scripts/kernel_variants.py`` (the JAX package's TPU tool). Each
 variant is a full, numerically right kernel (K9) computing K3's function;
 ``--check`` holds each against K3 first. Prints ``<name> <ms> ms/call``.
 
-Variants:
+Variants (K3's resident kernel with another score stage, K9):
   prod        K3, the production kernel (baseline)
-  scratch_ab  [K*cos | K*sin] of all kv heads staged in one shared buffer,
-              one score product of depth 2m (32 keys staged at a time)
-  two_gemm    two score products of depth m, accumulated
-  b<N>        scratch_ab staging N keys at a time; N is 16 or 32 here (the
-              buffer is N x 2m bf16 in a block's 227 KB), so the TPU tool's
-              b2048 and b512 print UNSUPPORTED
+  scratch_ab  [K*cos | K*sin] staged in one shared buffer, one score
+              product of depth 2 hd
+  two_gemm    two score products of depth hd (qa against K*cos, qb against
+              K*sin) from registers, accumulated
+  b<N>        scratch_ab with N keys a split (N a positive multiple of 64),
+              as the TPU tool's block_s; b2048 and b512 as there
 ``--n`` is the number of timed calls (the JAX tool's chain length).
 """
 
@@ -100,10 +100,6 @@ def main(argv=None) -> dict:
         if v == "prod":
             def step():
                 return lowrank_decode_attention(q0, *fargs, **common)
-        elif v[1:].isdigit() and int(v[1:]) not in k9.SCRATCH_AB_BLOCKS:
-            print(f"{v:12s} UNSUPPORTED: scratch_ab stages N keys of (2m) bf16 columns in "
-                  f"a block's 227 KB: N in {k9.SCRATCH_AB_BLOCKS}", flush=True)
-            continue
         else:
             def step(v=v):
                 return k9.variant_attention(q0, *fargs, variant=v, **common)
