@@ -33,9 +33,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
              at their default sizes, with the launch counts read around
              them;
   3. main    serve Llama-3.1-8B (full width and depth, random bf16 weights
-             from a seed) with an 8192-token prompt through
-             ``InferenceEngine.generate`` in every mode, sparse top-k and
-             int4 included, checking launch counts, factored-vs-fake and
+             from a seed) with an 8192-token prompt in every mode, sparse
+             top-k and int4 included: each run's greedy loop eagerly
+             (``decode_step``; one step under the host-sync check), then
+             through ``InferenceEngine.generate``, which replays a captured
+             CUDA graph of the step: equal tokens, launch counts, eager and
+             graph ms/token side by side; factored-vs-fake and
              all-chunks-sparse-vs-dense logits and refactorisations; then
              Llama-3.2-1B (head_dim 64) in mode none through K1, in
              factored pre (xKV-4, bf16 factors) through K3, and at rank_k
@@ -47,8 +50,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
              in-repo checkpoint and compare per-step logits (pre, post,
              sparse pre, sparse post, int4 post);
   5. mla     serve DeepSeek-V2-Lite (MLA + MoE, full width and depth,
-             random bf16 weights from a seed) with an 8192-token prompt
-             through ``InferenceEngine.generate`` in modes none, fake and
+             random bf16 weights from a seed) with an 8192-token prompt,
+             eagerly and on the graph as in phase 3, in modes none, fake and
              factored (bf16, int8: K7; int4 with a refactorisation: K8),
              checking launch counts and factored-vs-fake logits;
   6. mla anchor  teacher-force the JAX engine's golden tokens of a small
@@ -71,6 +74,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+from xkv_tpu_torch.ops.kernels._build import COUNTERS, read_counts, reset_counts  # noqa: E402
 from xkv_tpu_torch.scripts.kernel_variants import lse_err, row_rel_err  # noqa: E402
 from xkv_tpu_torch.scripts.timing import cuda_time_ms  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -1237,33 +1241,6 @@ def tools_path(results) -> dict:
 
 
 # ---------------------------------------------------------------- main path
-# Launch counters of the kernels: (module, attribute) per kernel.
-COUNTERS = {"K1": ("flash_attention", "launches"), "K2": ("rankspace_attention", "launches"),
-            "K3": ("lowrank_attention", "launches"),
-            "K4": ("rankspace_attention", "sparse_launches"),
-            "K5": ("lowrank_attention", "sparse_launches"),
-            "K6": ("rankspace_attention", "mixed_launches"),
-            "K7": ("rankspace_attention", "mla_launches"),
-            "K8": ("rankspace_attention", "mla_mixed_launches"),
-            "K9": ("kernel_variants", "launches"), "K10": ("kernel_ablation", "launches"),
-            "K11": ("probe_int4", "launches")}
-
-
-def _counter_module(name):
-    import importlib
-
-    return importlib.import_module(f"xkv_tpu_torch.ops.kernels.{name}")
-
-
-def reset_counts():
-    for mod, attr in COUNTERS.values():
-        setattr(_counter_module(mod), attr, 0)
-
-
-def read_counts() -> dict:
-    return {key: getattr(_counter_module(mod), attr) for key, (mod, attr) in COUNTERS.items()}
-
-
 def main_runs(n_layers: int) -> list:
     """(label, mode, rope, factor dtype, tail_max, new tokens, engine
     options, kernel launches per decode step). The sparse runs take top-4
@@ -1298,11 +1275,19 @@ def main_runs(n_layers: int) -> list:
     ]
 
 
-def serve(eng, cfg, prompt, label, n_new, want, profiled, sync_check=False):
-    """One run of the main path: prefill alone (timed), the first decode
-    step's logits, the rest of the tail's steps (timed; profiled when
-    ``profiled``), then ``generate`` with the launch counts read around it,
-    which must equal ``want``. Returns (row, counts, first-step logits)."""
+def serve(eng, cfg, prompt, label, n_new, want, profiled):
+    """One run of the main path, eager and then on the captured graph.
+
+    Prefill alone (timed); the eager greedy loop of ``decode_step`` +
+    argmax for ``n_new`` tokens, refactorising a full tail as ``generate``
+    does (its first step's logits kept; its second step run under
+    ``set_sync_debug_mode("error")``, so a step that waits for the device
+    raises; its steps timed on the host clock, the folds left out); when
+    ``profiled``, a few eager steps and graph replays under torch.profiler.
+    Then ``generate``, which replays a captured CUDA graph of the step, with
+    the launch counts read around it, which must equal ``want``, and its
+    tokens, which must equal the eager loop's. Returns (row, counts,
+    first-step logits)."""
     import torch
 
     s = prompt.shape[1]
@@ -1312,29 +1297,34 @@ def serve(eng, cfg, prompt, label, n_new, want, profiled, sync_check=False):
     torch.cuda.synchronize()
     prefill_s = time.time() - t0
     ratio = cache.compression_ratio(cfg)
-    tok = logits[:, -1].argmax(-1)
-    step_logits, cache = eng.decode_step(cache, tok[:, None], s)
-    first = step_logits[0, -1].float()
-    if sync_check:
-        # The adaptive budget is picked on the device: a step that waits
-        # for the device raises here.
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            step_logits, cache = eng.decode_step(cache, tok[:, None], s + cache.tail_len)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        log(f"{label}: one decode step without a host sync")
-    # Decode alone (timed): the rest of the tail's steps on this cache.
-    pos0 = s + cache.tail_len
-    steps = min(n_new, eng.tail_max) - cache.tail_len
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for i in range(steps):
-        step_logits, cache = eng.decode_step(cache, tok[:, None], pos0 + i)
-    torch.cuda.synchronize()
-    decode_ms = (time.time() - t0) * 1e3 / steps
-    profile = (profile_decode(eng, cache, tok[:, None], pos0 + steps, decode_ms)
-               if profiled else None)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    eager, first = [tok], None
+    pos, remaining, decode_s = s, n_new - 1, 0.0
+    while remaining > 0:
+        if cache.tail_count == cache.tail_max:
+            cache = eng.refactorize(cache)
+        n = min(remaining, cache.tail_max - cache.tail_count)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(n):
+            if len(eager) == 2:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                step_logits, cache = eng.decode_step(cache, tok, pos)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if first is None:
+                first = step_logits[0, -1].float()
+            tok = step_logits[:, -1].argmax(-1)[:, None]
+            eager.append(tok)
+            pos += 1
+        torch.cuda.synchronize()
+        decode_s += time.time() - t0
+        remaining -= n
+    eager = torch.cat(eager, dim=1)
+    log(f"{label}: one eager decode step without a host sync")
+    decode_ms = decode_s * 1e3 / (n_new - 1)
+    profiles = profile_decode(eng, cache, tok, pos, decode_ms) if profiled else (None, None)
     del cache, logits, step_logits
     # The entry point a user calls, with the launch counts read around it.
     reset_counts()
@@ -1345,10 +1335,19 @@ def serve(eng, cfg, prompt, label, n_new, want, profiled, sync_check=False):
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
     if tuple(out.shape) != (1, n_new) or not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
         raise AssertionError(f"{label}: bad output tokens {out.shape}")
+    if not torch.equal(out, eager):
+        raise AssertionError(f"{label}: graph tokens {out.tolist()} differ from the eager "
+                             f"loop's {eager.tolist()}")
     if not bool(torch.isfinite(first).all()):
         raise AssertionError(f"{label}: non-finite logits")
+    replayed = [t for t in eng.last_timings if t.start is not None]
+    graph_ms = (sum(t.replay_ms_per_step() * t.replays for t in replayed)
+                / sum(t.replays for t in replayed))
     row = dict(run=label, prefill_s=prefill_s, decode_ms_per_token=decode_ms,
-               compression_ratio=ratio, launches=counts, decode_profile=profile)
+               decode_ms_per_token_graph=graph_ms,
+               capture_ms=[t.capture_ms for t in eng.last_timings if t.capture_ms is not None],
+               compression_ratio=ratio, launches=counts, graph_tokens_equal_eager=True,
+               decode_profile=profiles[0], decode_profile_graph=profiles[1])
     log("main " + json.dumps(row))
     return row, counts, first
 
@@ -1387,8 +1386,7 @@ def main_path(results):
         want = {key: per_step.get(key, 0) * (n_new - 1) for key in COUNTERS}
         want["K1"] = cfg.num_layers
         row, counts, first_logits[label] = serve(
-            eng, cfg, prompt, label, n_new, want, label in PROFILED,
-            sync_check="sparse_topk_max" in kw)
+            eng, cfg, prompt, label, n_new, want, label in PROFILED)
         for key in totals:
             totals[key] += counts[key]
         rows.append(row)
@@ -1593,19 +1591,19 @@ PROFILED = ("none", "factored pre bf16", "factored post bf16", "factored post bf
             "factored post bf16 sparse top-4 max 8")
 
 
-def profile_decode(eng, cache, tok, pos, step_ms: float, steps: int = 4) -> dict:
-    """Device time of a few decode steps under torch.profiler: the summed
-    time of the kernels the device ran per step, its share of the step's
-    wall time ``step_ms`` measured without the profiler, and the kernels
-    that take most of it."""
+def _profile(run_step, steps: int, step_ms: float) -> dict:
+    """Device time of ``steps`` calls of ``run_step`` under torch.profiler:
+    the summed time of the kernels the device ran per step, its share of
+    the step's wall time ``step_ms`` measured without the profiler, and
+    the kernels that take most of it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(steps):
-            _, cache = eng.decode_step(cache, tok, pos + i)
+        for _ in range(steps):
+            run_step()
         torch.cuda.synchronize()
     # Only the device's own events: a CPU op's device time repeats its kernels'.
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -1616,10 +1614,41 @@ def profile_decode(eng, cache, tok, pos, step_ms: float, steps: int = 4) -> dict
     # by rankspace_merge_cols_kernel).
     decode = {e.key[:60]: e.self_device_time_total / 1e3 / steps for e in kernels
               if any(k in e.key for k in ("rankspace", "lowrank", "mla_tma_split"))}
-    return dict(device_busy_ms_per_step=busy_ms, device_idle_share=1.0 - busy_ms / step_ms,
+    return dict(step_ms=step_ms, device_busy_ms_per_step=busy_ms,
+                device_idle_share=1.0 - busy_ms / step_ms,
                 top_kernels_ms_per_step={e.key[:60]: e.self_device_time_total / 1e3 / steps
                                          for e in top},
                 decode_kernels_ms_per_step=decode)
+
+
+def profile_decode(eng, cache, tok, pos, eager_ms: float, steps: int = 4) -> tuple:
+    """(eager, graph) profiles of the decode step on ``cache`` from
+    position ``pos``: ``steps`` eager steps against the eager loop's
+    ms/token ``eager_ms``; then a graph of the step captured on the same
+    cache (``DecodeGraph``, as ``generate`` does), ``steps`` replays timed
+    on the host clock and ``steps`` more profiled against that time."""
+    import torch
+
+    from xkv_tpu_torch.engine.graphs import DecodeGraph
+
+    state = dict(cache=cache, pos=pos)
+
+    def eager_step():
+        _, state["cache"] = eng.decode_step(state["cache"], tok, state["pos"])
+        state["pos"] += 1
+
+    eager = _profile(eager_step, steps, eager_ms)
+    seg = DecodeGraph(eng, state["cache"], state["pos"], 1 + 2 * steps, first_token=tok)
+    seg.warm_up()
+    seg.capture()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    seg.replay(steps)
+    torch.cuda.synchronize()
+    graph_ms = (time.time() - t0) * 1e3 / steps
+    graph = _profile(lambda: seg.replay(1), steps, graph_ms)
+    graph["capture_ms"] = seg.timing.capture_ms
+    return eager, graph
 
 
 def _leaves(tree):

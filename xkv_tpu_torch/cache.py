@@ -12,7 +12,10 @@ tail holding the tokens appended after prefill.
 
 The cache is a plain dataclass of tensors. The decode tail is updated IN
 PLACE (``append_tail`` writes into ``tail_k``/``tail_v``); everything else
-is replaced, never mutated.
+is replaced, never mutated. The tail's fill ``tail_len`` is a 0-d int32
+tensor on the cache's device, as in the JAX package, so a decode step reads
+no value on the host; ``tail_count`` is the same count kept on the host
+(every step's length is known there), which the overflow refusals read.
 """
 
 from __future__ import annotations
@@ -77,7 +80,8 @@ class XKVCache:
              whose K is not factored; dense_v likewise for V.
     tail_k/tail_v: (L, b, hkv, t_max, hd) decode-time K (post-RoPE) and V;
              MLA: the latent and the rotated RoPE key (``init_tail``).
-    tail_len: number of valid tail rows.
+    tail_len: () int32 tensor on the tail's device, the number of valid
+             tail rows; tail_count: the same number on the host.
     """
 
     groups: Tuple[GroupFactors, ...]
@@ -85,7 +89,8 @@ class XKVCache:
     dense_v: Dict[int, torch.Tensor]
     tail_k: torch.Tensor
     tail_v: torch.Tensor
-    tail_len: int = 0
+    tail_len: torch.Tensor
+    tail_count: int = 0
 
     @property
     def prefill_len(self) -> int:
@@ -102,19 +107,22 @@ class XKVCache:
         return self.tail_k.shape[3]
 
     def append_tail(self, layer_idx: int, k: torch.Tensor, v: torch.Tensor) -> "XKVCache":
-        """Write one decode step's K/V (b, hkv, ql, hd) IN PLACE at the
-        current tail position of ``layer_idx``; ``advance`` moves the
-        position once per step."""
-        pos = self.tail_len
+        """Write one decode step's K/V (b, hkv, ql, hd) IN PLACE at tail
+        rows ``tail_len + arange(ql)`` of ``layer_idx`` (an indexed copy on
+        the device); ``advance`` moves the position once per step."""
         ql = k.shape[2]
-        if pos + ql > self.tail_max:
-            raise ValueError(f"tail overflow: {pos} + {ql} > {self.tail_max}")
-        self.tail_k[layer_idx, :, :, pos:pos + ql] = k.to(self.tail_k.dtype)
-        self.tail_v[layer_idx, :, :, pos:pos + ql] = v.to(self.tail_v.dtype)
+        if self.tail_count + ql > self.tail_max:
+            raise ValueError(f"tail overflow: {self.tail_count} + {ql} > {self.tail_max}")
+        rows = self.tail_len.long() + torch.arange(ql, device=self.tail_len.device)
+        self.tail_k[layer_idx].index_copy_(2, rows, k.to(self.tail_k.dtype))
+        self.tail_v[layer_idx].index_copy_(2, rows, v.to(self.tail_v.dtype))
         return self
 
     def advance(self, n: int = 1) -> "XKVCache":
-        return dataclasses.replace(self, tail_len=self.tail_len + n)
+        """The cache ``n`` rows on: a new ``tail_len`` tensor (added on the
+        device) and host count; the tail buffers are shared."""
+        return dataclasses.replace(self, tail_len=self.tail_len + n,
+                                   tail_count=self.tail_count + n)
 
     # ------------------------------------------------------------- memory
     def num_cache_bytes(self) -> int:
@@ -156,6 +164,11 @@ def init_tail(
         k_shape = v_shape = (cfg.num_layers, batch, cfg.num_kv_heads, t_max, cfg.head_dim)
     return (torch.zeros(k_shape, dtype=dtype, device=device),
             torch.zeros(v_shape, dtype=dtype, device=device))
+
+
+def empty_tail_len(device: str | torch.device) -> torch.Tensor:
+    """``tail_len`` of an empty tail: a 0-d int32 zero on ``device``."""
+    return torch.zeros((), dtype=torch.int32, device=device)
 
 
 def layer_group_index(xkv: XKVConfig) -> Dict[int, Tuple[int, int]]:

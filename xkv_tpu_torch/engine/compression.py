@@ -25,7 +25,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from xkv_tpu_torch.cache import GroupFactors, XKVCache, init_tail
+from xkv_tpu_torch.cache import GroupFactors, XKVCache, empty_tail_len, init_tail
 from xkv_tpu_torch.compress.quant import (
     QuantizedKFactors,
     QuantizedKFactorsMixed4,
@@ -323,7 +323,8 @@ def build_cache(
     k0 = kvs[0][0]
     tail_k, tail_v = init_tail(cfg, k0.shape[0], tail_max, cache_dtype, k0.device)
     return XKVCache(groups=tuple(groups), dense_k=dense_k, dense_v=dense_v,
-                    tail_k=tail_k, tail_v=tail_v, tail_len=0)
+                    tail_k=tail_k, tail_v=tail_v,
+                    tail_len=empty_tail_len(tail_k.device))
 
 
 def build_uncompressed_cache(
@@ -342,7 +343,8 @@ def build_uncompressed_cache(
     k0 = kvs[0][0]
     tail_k, tail_v = init_tail(cfg, k0.shape[0], tail_max, cache_dtype, k0.device)
     return XKVCache(groups=(), dense_k=dense_k, dense_v=dense_v,
-                    tail_k=tail_k, tail_v=tail_v, tail_len=0)
+                    tail_k=tail_k, tail_v=tail_v,
+                    tail_len=empty_tail_len(tail_k.device))
 
 
 def refactorize_cache(
@@ -355,7 +357,7 @@ def refactorize_cache(
     """Fold a FULL decode tail back into the compressed cache: re-run the
     merge over [reconstructed prefill ; tail] per group.
 
-    Caller contract: ``tail_len == tail_max``. The tail stores post-RoPE
+    Caller contract: the tail is full (``tail_count == tail_max``). The tail stores post-RoPE
     keys; in "pre" mode they are un-rotated (RoPE by -theta is exact) before
     joining the pre-RoPE factors. The MLA K slot holds the RoPE-free latent,
     which joins as it is; its ``k_rnorm`` is recomputed from the new
@@ -434,4 +436,5 @@ def refactorize_cache(
                    for l, d in cache.dense_v.items()}
     tail_k, tail_v = init_tail(cfg, cache.tail_k.shape[1], t, cache.tail_k.dtype, device)
     return XKVCache(groups=tuple(new_groups), dense_k=new_dense_k, dense_v=new_dense_v,
-                    tail_k=tail_k, tail_v=tail_v, tail_len=0)
+                    tail_k=tail_k, tail_v=tail_v,
+                    tail_len=empty_tail_len(tail_k.device))

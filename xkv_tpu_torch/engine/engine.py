@@ -11,8 +11,13 @@ Modes:
   * "none":     uncompressed baseline.
 
 There is no attention-implementation switch: on a CUDA device the kernels
-run, for CPU tensors their plain versions do. The greedy loop is a Python
-loop; a full tail is folded back into the factors (``refactorize``).
+run, for CPU tensors their plain versions do. ``generate`` and ``score``
+run their decode steps through ``graphs.DecodeGraph``, the counterpart of
+the JAX engine's scanned steps: on a CUDA device a captured CUDA graph of
+one step, replayed once per token; on the CPU the same step, eagerly.
+``decode_step`` is that step, eager; the decode state (the tail's fill and
+the position) lives on the device. A full tail is folded back into the
+factors between segments (``refactorize``).
 
 Sparse top-k decode (``sparse_topk``): each decode step attends to the
 ``sparse_topk`` highest-bounded ``sparse_block``-row chunks of every
@@ -26,7 +31,7 @@ near-maximal chunks (``sparse_adaptive_band``), in post mode.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -37,6 +42,7 @@ from xkv_tpu_torch.engine.compression import (
     build_uncompressed_cache,
     refactorize_cache,
 )
+from xkv_tpu_torch.engine.graphs import DecodeGraph, SegmentTiming
 from xkv_tpu_torch.models import deepseek, llama
 from xkv_tpu_torch.models.config import ModelConfig
 from xkv_tpu_torch.ops.rope import rope_cos_sin
@@ -104,6 +110,8 @@ class InferenceEngine:
             sparse_layers=None if sparse_layers is None else frozenset(sparse_layers),
             sparse_select_max=sparse_topk_max, sparse_adaptive_band=sparse_adaptive_band)
         self._cos_sin: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        # The segments of the last generate or score call.
+        self.last_timings: List[SegmentTiming] = []
 
     def _prefill_cos_sin(self, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """(s, hd) RoPE tables of the prefill positions, computed once per
@@ -139,15 +147,17 @@ class InferenceEngine:
         return logits, cache
 
     @torch.no_grad()
-    def decode_step(self, cache: XKVCache, tokens, pos: int) -> Tuple[torch.Tensor, XKVCache]:
-        """One decode step; the cache's tail is updated in place."""
+    def decode_step(self, cache: XKVCache, tokens,
+                    pos: Union[int, torch.Tensor]) -> Tuple[torch.Tensor, XKVCache]:
+        """One eager decode step at position ``pos`` (an int or a 0-d
+        tensor on the device); the cache's tail is updated in place."""
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
         # The uncompressed cache has no groups, whatever merge plan is set.
         xkv = None if self.mode == "none" else self.xkv
         if self._mla:
-            return deepseek.decode_step(self.params, self.cfg, xkv, cache, tokens, int(pos))
+            return deepseek.decode_step(self.params, self.cfg, xkv, cache, tokens, pos)
         return llama.decode_step(
-            self.params, self.cfg, xkv, cache, tokens, int(pos),
+            self.params, self.cfg, xkv, cache, tokens, pos,
             self._prefill_cos_sin(cache.prefill_len), **self._sparse_kw)
 
     @torch.no_grad()
@@ -157,35 +167,63 @@ class InferenceEngine:
         extended by tail_max."""
         if self.mode != "factored" or self.xkv is None:
             raise ValueError("refactorize requires mode='factored'")
-        if cache.tail_len != cache.tail_max:
-            raise ValueError(f"tail holds {cache.tail_len} of {cache.tail_max} rows")
+        if cache.tail_count != cache.tail_max:
+            raise ValueError(f"tail holds {cache.tail_count} of {cache.tail_max} rows")
         return refactorize_cache(
             cache, self.xkv, self.cfg, factor_dtype=self.factor_dtype,
             sparse_block=self._bound_block)
 
     @torch.no_grad()
-    def generate(self, tokens, max_new_tokens: int) -> torch.Tensor:
-        """Greedy generation. Returns (b, max_new_tokens) token ids."""
+    def generate(self, tokens, max_new_tokens: int,
+                 eos_token_id: Optional[int] = None) -> Union[torch.Tensor, List[torch.Tensor]]:
+        """Greedy generation. Returns (b, max_new_tokens) token ids, prefill's
+        token first; with ``eos_token_id``, a list of per-row token tensors
+        on the host, each cut after its first EOS (the truncation runs on the
+        host after the loop, as in the JAX engine)."""
         can_refactor = self.mode == "factored" and self.xkv is not None
         if max_new_tokens > self.tail_max and not can_refactor:
             raise ValueError(
                 f"max_new_tokens={max_new_tokens} exceeds tail_max={self.tail_max}")
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
         logits, cache = self.prefill(tokens)
-        tok = logits[:, -1, :].argmax(dim=-1)
-        pieces: List[torch.Tensor] = [tok[:, None]]
+        tok = logits[:, -1, :].argmax(dim=-1)[:, None]
+        pieces: List[torch.Tensor] = [tok]
         pos = tokens.shape[1]
         remaining = max_new_tokens - 1
+        self.last_timings = []
         while remaining > 0:
             # Segments of tail capacity; a full tail is folded back into the
-            # factors (periodic refactorisation).
+            # factors (periodic refactorisation), and the next segment's
+            # graph is captured over the new factors.
             n = min(remaining, self.tail_max)
-            for _ in range(n):
-                logits, cache = self.decode_step(cache, tok[:, None], pos)
-                tok = logits[:, -1, :].argmax(dim=-1)
-                pieces.append(tok[:, None])
-                pos += 1
+            seg = DecodeGraph(self, cache, pos, n, first_token=tok)
+            rest, cache = seg.run()
+            self.last_timings.append(seg.timing)
+            pieces.append(rest)
+            tok = rest[:, -1:]
+            pos += n
             remaining -= n
             if remaining > 0:
                 cache = self.refactorize(cache)
-        return torch.cat(pieces, dim=1)
+        out = torch.cat(pieces, dim=1)
+        if eos_token_id is None:
+            return out
+        rows = []
+        for row in out.cpu():
+            hits = (row == eos_token_id).nonzero()
+            rows.append(row[:int(hits[0]) + 1] if len(hits) else row)
+        return rows
+
+    @torch.no_grad()
+    def score(self, cache: XKVCache, tokens,
+              start_pos: Union[int, torch.Tensor]) -> Tuple[torch.Tensor, XKVCache]:
+        """Teacher-forced scoring (the JAX engine's ``score``): feeds
+        tokens[:, i] (b, steps) at position start_pos + i and returns
+        (log-probs (b, steps, V) fp32, row i the log-softmax of the step
+        that read tokens[:, i]; the cache with the steps appended to its
+        tail). Steps past the tail's room are refused before any write."""
+        tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+        seg = DecodeGraph(self, cache, start_pos, tokens.shape[1], teacher=tokens)
+        out = seg.run()
+        self.last_timings = [seg.timing]
+        return out

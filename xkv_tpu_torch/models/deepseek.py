@@ -27,7 +27,7 @@ layers) take the joint softmax over prefill and tail in plain torch.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,7 +37,7 @@ from xkv_tpu_torch.cache import XKVCache, layer_group_index
 from xkv_tpu_torch.configs import XKVConfig
 from xkv_tpu_torch.models.config import ModelConfig
 from xkv_tpu_torch.models.llama import mlp as _ffn
-from xkv_tpu_torch.models.llama import rms_norm, unembed
+from xkv_tpu_torch.models.llama import position_tensor, rms_norm, unembed
 from xkv_tpu_torch.ops.attention import (
     NEG_INF,
     PartialAttention,
@@ -121,11 +121,10 @@ def numpy_params(cfg: ModelConfig, seed: int, scale: float = 0.02) -> Params:
 
 
 # ----------------------------------------------------------------- blocks
-def _moe(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _moe(p: Params, cfg: ModelConfig, x: torch.Tensor, decode: bool = False) -> torch.Tensor:
     """Softmax top-k MoE (DeepSeek-V2 routing): the function of the JAX
     package's dense one-hot dispatch, with each token sent to its own
-    ``num_experts_per_tok`` experts only (the dense formulation reads every
-    expert's weights for every token).
+    ``num_experts_per_tok`` experts only where that reads fewer weights.
 
     Routing in fp32, ties to the lower expert as ``jax.lax.top_k``; then
     ``norm_topk_prob`` and ``routed_scaling_factor``; the combine weights
@@ -135,7 +134,12 @@ def _moe(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     batched products: no host sync, and at most the layer's own expert
     weights are copied. Otherwise the pairs are sorted by expert and each
     expert runs one product over its rows; that needs the per-expert row
-    counts on the host, one sync per layer (prefill).
+    counts on the host, one sync per layer (prefill). A ``decode`` step
+    with more pairs than experts takes the JAX package's dense form
+    instead: every expert over every token, weighted by the one-hot
+    combine. It makes no host sync, so a CUDA graph can capture the step,
+    and by then the sorted path would read nearly every expert's weights
+    anyway.
     """
     b, s, d = x.shape
     n, k = b * s, cfg.num_experts_per_tok
@@ -148,32 +152,39 @@ def _moe(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     topv = (topv * cfg.routed_scaling_factor).to(x.dtype)
     ex = p["experts"]
     flat = ids.reshape(-1)
-    if n * k <= cfg.n_routed_experts:
-        xr = xf.repeat_interleave(k, dim=0)[:, None, :]  # (n*k, 1, d)
-        hid = F.silu(torch.bmm(xr, ex["w_gate"][flat])) * torch.bmm(xr, ex["w_up"][flat])
-        y = torch.bmm(hid, ex["w_down"][flat])[:, 0]  # (n*k, d), (token, slot) order
+    if decode and n * k > cfg.n_routed_experts:
+        combine = torch.zeros((n, cfg.n_routed_experts), dtype=x.dtype, device=x.device)
+        combine.scatter_(1, ids, topv)
+        hid = F.silu(xf @ ex["w_gate"]) * (xf @ ex["w_up"])  # (E, n, inter)
+        routed = torch.einsum("end,ne->nd", (hid @ ex["w_down"]).to(torch.float32),
+                              combine.to(torch.float32))
     else:
-        order = torch.argsort(flat, stable=True)
-        xs = xf[order // k]
-        ys = torch.empty_like(xs)
-        start = 0
-        for e, c in enumerate(torch.bincount(flat, minlength=cfg.n_routed_experts).tolist()):
-            if c:
-                ys[start:start + c] = _ffn({name: w[e] for name, w in ex.items()},
-                                           xs[start:start + c])
-                start += c
-        y = torch.empty_like(ys).index_copy_(0, order, ys)
-    routed = (y.reshape(n, k, d).to(torch.float32)
-              * topv.to(torch.float32)[..., None]).sum(dim=1)
+        if n * k <= cfg.n_routed_experts:
+            xr = xf.repeat_interleave(k, dim=0)[:, None, :]  # (n*k, 1, d)
+            hid = F.silu(torch.bmm(xr, ex["w_gate"][flat])) * torch.bmm(xr, ex["w_up"][flat])
+            y = torch.bmm(hid, ex["w_down"][flat])[:, 0]  # (n*k, d), (token, slot) order
+        else:
+            order = torch.argsort(flat, stable=True)
+            xs = xf[order // k]
+            ys = torch.empty_like(xs)
+            start = 0
+            for e, c in enumerate(torch.bincount(flat, minlength=cfg.n_routed_experts).tolist()):
+                if c:
+                    ys[start:start + c] = _ffn({name: w[e] for name, w in ex.items()},
+                                               xs[start:start + c])
+                    start += c
+            y = torch.empty_like(ys).index_copy_(0, order, ys)
+        routed = (y.reshape(n, k, d).to(torch.float32)
+                  * topv.to(torch.float32)[..., None]).sum(dim=1)
     out = routed.to(x.dtype).reshape(b, s, d)
     if "shared" in p:
         out = out + _ffn(p["shared"], x)
     return out
 
 
-def _mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _mlp(p: Params, cfg: ModelConfig, x: torch.Tensor, decode: bool = False) -> torch.Tensor:
     """FFN or MoE, by the layer's parameters."""
-    return _moe(p, cfg, x) if "router" in p else _ffn(p, x)
+    return _moe(p, cfg, x, decode) if "router" in p else _ffn(p, x)
 
 
 def _q_heads(p: Params, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -291,11 +302,12 @@ def decode_step(
     xkv: Optional[XKVConfig],
     cache: XKVCache,
     tokens: torch.Tensor,
-    pos: int,
+    pos: Union[int, torch.Tensor],
 ) -> Tuple[torch.Tensor, XKVCache]:
     """Absorbed MLA decode over the hybrid latent cache.
 
-    tokens: (b, ql) next token(s); pos: absolute position of tokens[:, 0].
+    tokens: (b, ql) next token(s); pos: absolute position of tokens[:, 0],
+    an int or a 0-d tensor on the device (``llama.decode_step``).
     ``ql > 1`` appends ql rows to the tail, causal among themselves. The
     tail is written in place. Returns (logits (b, ql, V) fp32, cache).
     Per layer the nope scores contract the query (through W_uk) against
@@ -306,7 +318,7 @@ def decode_step(
     b, ql = tokens.shape
     dev = tokens.device
     scale = softmax_scale(cfg)
-    positions = pos + torch.arange(ql, device=dev)[None, :]
+    positions = (position_tensor(pos, dev) + torch.arange(ql, device=dev))[None, :]
     cos, sin = rope_cos_sin(positions, cfg.qk_rope_head_dim, cfg.rope_theta, cfg.rope_scaling)
     grp_index = layer_group_index(xkv) if xkv is not None else {}
     # Query i sees tail rows < tail_len + i + 1.
@@ -363,5 +375,6 @@ def decode_step(
         attn = torch.einsum("bhql,hlv->bhqv", lat_sum, w_uv.to(torch.float32))
         attn = attn.to(h.dtype).permute(0, 2, 1, 3).reshape(b, ql, -1)
         h = resid + attn @ ap["o_proj"]
-        h = h + _mlp(layer["mlp"], cfg, rms_norm(h, layer["post_norm"], cfg.rms_norm_eps))
+        h = h + _mlp(layer["mlp"], cfg, rms_norm(h, layer["post_norm"], cfg.rms_norm_eps),
+                     decode=True)
     return unembed(params, cfg, h), cache.advance(ql)

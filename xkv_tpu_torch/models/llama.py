@@ -22,7 +22,7 @@ kernel for CUDA tensors and its plain version for CPU tensors.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -177,6 +177,15 @@ def prefill(
 
 
 # ----------------------------------------------------------------- decode
+def position_tensor(pos: Union[int, torch.Tensor], device: torch.device) -> torch.Tensor:
+    """A decode position as a 0-d int64 tensor on ``device``: a tensor as
+    it is, an int through a fill (no copy from the host, which would wait
+    for the device)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.long)
+    return torch.full((), pos, dtype=torch.long, device=device)
+
+
 def _chunk_count(gf, block: int) -> int:
     """Chunks of the group's stored bounds; they must be ``block`` rows."""
     nc = gf.k_cmin.shape[1]
@@ -298,7 +307,7 @@ def decode_step(
     xkv: Optional[XKVConfig],
     cache: XKVCache,
     tokens: torch.Tensor,
-    pos: int,
+    pos: Union[int, torch.Tensor],
     prefill_cos_sin: Tuple[torch.Tensor, torch.Tensor],
     sparse_select: Optional[int] = None,
     sparse_block: int = 512,
@@ -308,9 +317,11 @@ def decode_step(
 ) -> Tuple[torch.Tensor, XKVCache]:
     """One decode step over the hybrid factored cache.
 
-    tokens: (b, ql) next token(s); pos: absolute position of tokens[:, 0];
-    prefill_cos_sin: (s_p, hd) RoPE tables of the prefill positions. The
-    tail is written in place. Returns (logits (b, ql, V) fp32, cache).
+    tokens: (b, ql) next token(s); pos: absolute position of tokens[:, 0],
+    an int or a 0-d tensor on the device (the step then reads no value on
+    the host, and a CUDA graph can capture it); prefill_cos_sin: (s_p, hd)
+    RoPE tables of the prefill positions. The tail is written in place.
+    Returns (logits (b, ql, V) fp32, cache).
 
     ``sparse_select``: attend to that many ``sparse_block``-row chunks of
     each factored segment (Quest selection over the stored chunk bounds),
@@ -323,7 +334,8 @@ def decode_step(
     dev = tokens.device
     scale = 1.0 / math.sqrt(cfg.head_dim)
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
-    positions = pos + torch.arange(ql, device=dev)[None, :]
+    pos = position_tensor(pos, dev)
+    positions = (pos + torch.arange(ql, device=dev))[None, :]
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta, cfg.rope_scaling)
     cos_p, sin_p = prefill_cos_sin
     grp_index = layer_group_index(xkv) if xkv is not None else {}
@@ -335,10 +347,9 @@ def decode_step(
     if cfg.sliding_window is not None:
         if ql > 1:
             raise ValueError("multi-token decode with sliding_window is not supported")
-        lo = max(pos - (cfg.sliding_window - 1), 0)
-        win_lo = torch.full((b,), lo, dtype=torch.int32, device=dev)
-        tail_lo = torch.full((b,), max(lo - cache.prefill_len, 0), dtype=torch.int32,
-                             device=dev)
+        lo = (pos - (cfg.sliding_window - 1)).clamp_min(0)
+        win_lo = lo.to(torch.int32).repeat(b)
+        tail_lo = (lo - cache.prefill_len).clamp_min(0).to(torch.int32).repeat(b)
     tail_valid = (cache.tail_len + 1 + torch.arange(ql, dtype=torch.int32, device=dev))
     tail_valid = tail_valid[None, :].expand(b, ql)
 

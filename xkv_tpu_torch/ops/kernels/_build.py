@@ -9,19 +9,27 @@ later process with the same sources reuses the library.
 
 Nothing here runs at import time, and nothing here falls back: a missing
 compiler, a failed build or a non-zero CUDA status raises.
+
+Each wrapper adds one to its kernel's launch counter (``COUNTERS``) where
+it launches the kernel. Under CUDA-graph capture a launch is recorded, not
+run: ``capture_counts`` takes the capture's counts back out, and
+``add_counts`` adds them once per replay, so the counters count the
+launches the device runs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -55,6 +63,56 @@ SIGNATURES = {
     "xkv_ablation_step": [_P] * 13 + [_I] * 8 + [_F, _I, _I, _P],
     "xkv_variant_decode": [_P, _P, _P, _L, _L, _P, _P, _L, _L] + [_P] * 12 + [_I] * 12 + [_P],
 }
+
+
+# Launch counters: (module of ``ops/kernels``, attribute) per kernel.
+COUNTERS = {"K1": ("flash_attention", "launches"), "K2": ("rankspace_attention", "launches"),
+            "K3": ("lowrank_attention", "launches"),
+            "K4": ("rankspace_attention", "sparse_launches"),
+            "K5": ("lowrank_attention", "sparse_launches"),
+            "K6": ("rankspace_attention", "mixed_launches"),
+            "K7": ("rankspace_attention", "mla_launches"),
+            "K8": ("rankspace_attention", "mla_mixed_launches"),
+            "K9": ("kernel_variants", "launches"), "K10": ("kernel_ablation", "launches"),
+            "K11": ("probe_int4", "launches")}
+
+
+def _counter_module(name: str):
+    return importlib.import_module(f"xkv_tpu_torch.ops.kernels.{name}")
+
+
+def read_counts() -> Dict[str, int]:
+    return {key: getattr(_counter_module(mod), attr) for key, (mod, attr) in COUNTERS.items()}
+
+
+def reset_counts() -> None:
+    for mod, attr in COUNTERS.values():
+        setattr(_counter_module(mod), attr, 0)
+
+
+def add_counts(delta: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` to the counters (a graph's launches, once
+    per replay)."""
+    for key, n in delta.items():
+        mod, attr = COUNTERS[key]
+        m = _counter_module(mod)
+        setattr(m, attr, getattr(m, attr) + times * n)
+
+
+@contextlib.contextmanager
+def capture_counts() -> Iterator[Dict[str, int]]:
+    """Around a CUDA-graph capture: the launches the wrappers count inside
+    the block are taken back out of the counters (capture runs nothing on
+    the device) and left in the yielded dict, for ``add_counts`` to add
+    once per replay."""
+    before = read_counts()
+    delta: Dict[str, int] = {}
+    try:
+        yield delta
+    finally:
+        after = read_counts()
+        delta.update({key: after[key] - before[key] for key in before})
+        add_counts(delta, -1)
 
 
 def _nvcc() -> str:
