@@ -11,10 +11,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
              against their plain versions on the card, at the Llama-3.1-8B
              xKV-4 shapes (K1 also at group sizes 3 and 7, head size 64
              and a 4096 window), and K7 (MLA rank-space decode) and K8 (its
-             mixed int8+int4 variant) at the DeepSeek-V2-Lite shapes; and
-             time kernel, plain version, library call and bound (K2 also
-             over int8 factors, K2 and K6 also at R 128, four tokens of 32
-             heads, as a speculative verify pass runs them);
+             mixed int8+int4 variant) at the DeepSeek-V2-Lite shapes, K2,
+             K3, K6 also at ql 8 (R 256) and K7, K8 at ql 8 as a
+             speculative verify pass runs them, K7 also over a draft's
+             view of the factors (their first 128 or 120 columns, read in
+             place); and time kernel, plain version, library call and
+             bound (K2 also over int8 factors, K2 and K6 also at R 128 and
+             R 256);
   2a. limits K4 and K5 at chunk widths 16, 24, 100 and 512, and K1, K3
              and K5 at head sizes 16, 24 and 32 (zero-padded to 64 by
              their wrappers), against their plain versions; K4, K5 timed
@@ -56,7 +59,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
              checking launch counts and factored-vs-fake logits;
   6. mla anchor  teacher-force the JAX engine's golden tokens of a small
              MLA + MoE model (weights from a numpy seed) and compare
-             per-step logits (bf16 factors: K7; int4: K8).
+             per-step logits (bf16 factors: K7; int4: K8);
+  7. spec    speculative decoding and staged prefill, run inside phases 3,
+             5 and after 6 on their models: ``generate_speculative``
+             (draft_k 7, 64 tokens, tail 32: rounds, top-ups and
+             refactorisations) on the 8B in sparse top-4 post (K4 drafts,
+             K2 verify), pre (K5, K3) and int4 sparse-mixed (K6), and on
+             V2-Lite at draft_rank 128 and 120 in bf16 (K7 over the
+             factors' first columns, K7 verify) and 120 in int4 (K7, K8):
+             the run's tokens teacher-forced through the exact steps (each
+             within the near-tie limit of its step's top log-prob, and
+             exact greedy decoding's up to the first near tie), launches
+             against the rounds, one capture of each graph per segment,
+             draft / verify replay ms, ms per emitted token beside the
+             exact step's and generate's, the break-even tokens per round;
+             staged against monolithic 8B prefill (peak
+             allocated memory, seconds, logits, tokens, K1 launches); the
+             in-repo checkpoint in pre and post on the golden prompt and on
+             a copy-induction prompt (tokens per round).
 Then it prints the card's name and power limit, one JSON line of kernel
 records, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -322,7 +342,9 @@ def check_decode(gen, results, build_log=None):
             vt_k = vt_layer_slice(f["k_vt"], 1, hkv, hd)
             vt_v = vt_layer_slice(f["v_vt"], 1, hkv, hd)
             k_scale = None if f["k_scale"] is None else vt_layer_slice(f["k_scale"], 1, hkv, hd)
-            for ql, lens, lo in ((1, None, None), (4, s_p - 300, 1000), (1, s_p - 37, 4100)):
+            # ql 8: a speculative verify pass (draft_k 7), R 256 at 8B.
+            for ql, lens, lo in ((1, None, None), (4, s_p - 300, 1000), (1, s_p - 37, 4100),
+                                 (8, None, None)):
                 lengths = None if lens is None else torch.tensor([lens], device="cuda")
                 win_lo = None if lo is None else torch.tensor([lo], device="cuda")
                 q = torch.randn((1, hq, ql, hd), generator=gen, device="cuda").to(torch.bfloat16)
@@ -351,13 +373,15 @@ def check_decode(gen, results, build_log=None):
                     # The main path's shapes: one query row per head.
                     live = s_p
                     if shape == "8B":
-                        # K2 at R 32 (ql 1) and R 128 (ql 4, a speculative
-                        # verify pass); the library time at R 32, bf16: SDPA
-                        # over the same rank-space operands, scale 1.
-                        q128 = torch.randn((1, hq, 4, hd), generator=gen, device="cuda")
-                        q_emb128 = k2._project_q(q128.to(torch.bfloat16), vt_k, hkv, scale,
-                                                 k_scale, torch.bfloat16)
-                        for qe in (q_emb, q_emb128):
+                        # K2 at R 32 (ql 1), R 128 (ql 4) and R 256 (ql 8, a
+                        # speculative verify pass at draft_k 7); the library
+                        # time at R 32, bf16: SDPA over the same rank-space
+                        # operands, scale 1.
+                        q_more = [k2._project_q(
+                            torch.randn((1, hq, n, hd), generator=gen, device="cuda").to(
+                                torch.bfloat16), vt_k, hkv, scale, k_scale, torch.bfloat16)
+                            for n in (4, 8)]
+                        for qe in [q_emb] + q_more:
                             R = qe.shape[1]
                             t_r, lse_r = k2.rankspace_kernel(qe, f["k_us"], f["v_us"])
                             timing[("K2", dtype, R)] = dict(
@@ -395,6 +419,7 @@ def check_decode(gen, results, build_log=None):
     results["K2"].update(
         int8=_row(timing[("K2", "int8", 32)]),
         r128={dt: _row(timing[("K2", dt, 128)]) for dt in ("bf16", "int8")},
+        r256={dt: _row(timing[("K2", dt, 256)]) for dt in ("bf16", "int8")},
         design=K2_DESIGN,
         ptxas=ptxas_resources(build_log, "rankspace_attention.cu") if build_log else {})
 
@@ -535,7 +560,8 @@ def check_sparse_and_mixed(gen, results, build_log=None):
     qk = quantize_k_factors_mixed4(us_k, vt_kf, 256)
     qv = quantize_v_factors_mixed4(us_v, vt_vf, 256)
     sl = lambda x: vt_layer_slice(x, 1, hkv, hd)  # noqa: E731
-    for ql, lens, lo in ((1, None, None), (4, s_p - 300, 1000), (1, s_p - 37, 4100)):
+    for ql, lens, lo in ((1, None, None), (4, s_p - 300, 1000), (1, s_p - 37, 4100),
+                         (8, None, None)):
         lengths = None if lens is None else torch.tensor([lens], device=dev)
         win_lo = None if lo is None else torch.tensor([lo], device=dev)
         q = torch.randn((1, hq, ql, hd), generator=gen, device=dev).to(torch.bfloat16)
@@ -549,13 +575,16 @@ def check_sparse_and_mixed(gen, results, build_log=None):
         torch.cuda.synchronize()
         _hold("K6", f"ql={ql} valid_len={lens} win_lo={lo}", t6, t6r, l6, l6r, worst["K6"])
         if ql == 1 and lens is None:
-            # R 32 (ql 1) and R 128 (ql 4, a speculative verify pass).
-            q128 = torch.randn((1, hq, 4, hd), generator=gen, device=dev).to(torch.bfloat16)
-            q_emb128 = torch.cat([
-                k2._project_q(q128, sl(qk.vt8), hkv, scale, sl(qk.out_scale), torch.bfloat16),
-                k2._project_q(q128, sl(qk.vt4), hkv, scale, sl(qk.scale4), torch.bfloat16)],
-                dim=2)
-            for qe in (q_emb, q_emb128):
+            # R 32 (ql 1), R 128 (ql 4) and R 256 (ql 8, a speculative
+            # verify pass at draft_k 7).
+            q_more = []
+            for n in (4, 8):
+                qn = torch.randn((1, hq, n, hd), generator=gen, device=dev).to(torch.bfloat16)
+                q_more.append(torch.cat([
+                    k2._project_q(qn, sl(qk.vt8), hkv, scale, sl(qk.out_scale), torch.bfloat16),
+                    k2._project_q(qn, sl(qk.vt4), hkv, scale, sl(qk.scale4), torch.bfloat16)],
+                    dim=2))
+            for qe in [q_emb] + q_more:
                 a = (qe,) + a6[1:]
                 t_r, l_r = k2.mixed_rankspace_kernel(*a)
                 timing[("K6", qe.shape[1])] = dict(
@@ -576,14 +605,18 @@ def check_sparse_and_mixed(gen, results, build_log=None):
     ):
         _report(results, key, name, src, rep, worst[key], timing[key])
     results["K5"].update(_lowrank_extra(timing, "K5", build_log))
-    results["K6"].update(r128=_row(timing[("K6", 128)]), design=K2_DESIGN)
+    results["K6"].update(r128=_row(timing[("K6", 128)]), r256=_row(timing[("K6", 256)]),
+                         design=K2_DESIGN)
     results["K4"].update(design=K2_DESIGN)
 
 
 def check_mla(gen, results):
     """K7 (bf16 and int8 latent factors) and K8 (256 int8 + 256 int4 ranks)
     at the DeepSeek-V2-Lite shapes: 16 heads, rank 512, RoPE key 64, s_p
-    8192, one query row per head; also at a ragged length and ql = 2."""
+    8192, one query row per head; also at a ragged length, ql = 2 and ql =
+    8 (a speculative verify pass at draft_k 7). Then K7 as a speculative
+    draft runs it: over the first 128 and 120 columns of the bf16 and int8
+    factors, read in place."""
     import torch
     import torch.nn.functional as F
 
@@ -611,7 +644,7 @@ def check_mla(gen, results):
         us_all = us if us4 is None else torch.cat([us, unpack_int4_rows(us4)], dim=-1)
         # Scores of a few units: q_emb against us rows of its own scale.
         sigma = 1.5 / (math.sqrt(rk) * us_all.float().std().item())
-        for ql, lens in ((1, None), (1, s_p - 300), (2, None)):
+        for ql, lens in ((1, None), (1, s_p - 300), (2, None), (8, None)):
             R = ql * nh
             lengths = None if lens is None else torch.tensor([lens], device=dev)
             qe = (torch.randn((1, R, rk), generator=gen, device=dev) * sigma).to(bf)
@@ -629,7 +662,7 @@ def check_mla(gen, results):
             if lens is not None:
                 continue
             # Timed at full length: the main path's shapes (bf16 factors
-            # and the int4 run at ql 1); int8 and ql 2 as extra rows. K7
+            # and the int4 run at ql 1); int8, ql 2 and ql 8 as extra rows. K7
             # has SDPA beside it on prebuilt operands, q = [q_emb | q_pe],
             # k = [r * us | k_pe], v = r * us, scale 1; K8 none, as K6:
             # no one call takes the packed int4 ranks.
@@ -650,6 +683,29 @@ def check_mla(gen, results):
                 timing[key] = row
             else:
                 timing[f"{key} {dtype} ql {ql}"] = _row(row)
+    # A draft step's K7 (one token of 16 heads): the factors' first
+    # ``width`` columns through their row stride, q_emb zero past ``width``
+    # up to ``rank_width`` (as ``mla_rankspace_decode_attention`` pads it);
+    # the kernel zero-fills the rank columns past 120.
+    for dtype in ("bf16", "int8"):
+        us = factors[dtype][1]
+        for width in (128, 120):
+            view = us[..., :width]
+            sigma = 1.5 / (math.sqrt(width) * view.float().std().item())
+            qe = F.pad(torch.randn((1, nh, width), generator=gen, device=dev) * sigma,
+                       (0, k2.rank_width(width) - width)).to(bf)
+            qp = (torch.randn((1, nh, rope), generator=gen, device=dev) * 0.1).to(bf)
+            args = (qe, qp, view, k_pe, r)
+            t, lse = k2.mla_rankspace_kernel(*args)
+            t_ref, lse_ref = k2.mla_rankspace_kernel_plain(*args)
+            torch.cuda.synchronize()
+            _hold("K7", f"{dtype} draft view of {width} ranks ql=1", t, t_ref, lse, lse_ref,
+                  worst["K7"])
+            row = dict(ms=cuda_time_ms(lambda: k2.mla_rankspace_kernel(*args)),
+                       plain_ms=cuda_time_ms(lambda: k2.mla_rankspace_kernel_plain(*args)),
+                       bound=bound_ms(nbytes(qe, qp, view, k_pe, r, t, lse),
+                                      2.0 * nh * s_p * (2 * width + rope) / BF16_OPS_PER_S))
+            timing[f"K7 {dtype} draft view {width}"] = _row(row)
     rs = "xkv_tpu/ops/pallas/rankspace_attention.py"
     for key, name, rep in (
         ("K7", "mla_rankspace_decode_attention", f"{rs}:788"),
@@ -1424,6 +1480,9 @@ def main_path(results):
           - first_logits["factored post int8"]).abs().max().item()
     log(f"int4 vs int8 factors (post) first-step logits: max_abs_diff={i4:.4e} (for scale)")
     results["main_runs"] = rows
+    spec_counts = speculative_8b(results, params, cfg, prompt, engine)
+    for key in totals:
+        totals[key] += spec_counts[key]
     return totals
 
 
@@ -1802,6 +1861,9 @@ def mla_path(results):
     if not diff <= tol:
         raise AssertionError("MLA factored and fake first-step logits disagree")
     results["mla_runs"] = rows
+    spec_counts = speculative_mla(results, params, cfg, xkv, prompt)
+    for key in totals:
+        totals[key] += spec_counts[key]
     return totals
 
 
@@ -1854,6 +1916,430 @@ def mla_anchor():
         want_counts[kernel] = cfg.num_layers * (len(toks) - 1)
         if counts != want_counts:
             raise AssertionError(f"mla anchor {run}: launches {counts}, expected {want_counts}")
+
+
+# --------------------------------------------- speculative and staged
+# Speculative runs: draft_k, new tokens and tail (so that each run has
+# rounds, a top-up and a refactorisation); the near-tie limits below which
+# a step's top-2 exact logit gap lets the verify pass (ql = draft_k + 1,
+# bf16) break the tie the other way from generate's single-token step:
+# twice the agreement readings of each model (PERF.md section 6).
+SPEC_K, SPEC_NEW, SPEC_TAIL = 7, 64, 32
+GAP_8B, GAP_MLA, GAP_ANCHOR = TOL_FACTORED_VS_FAKE, TOL_MLA_FACTORED_VS_FAKE, TOL_ANCHOR["decode"]
+# Copy-induction prompt of the in-repo checkpoint's training
+# (scripts/rope_mode_study_production.py make_induction_batch): BOS, noise
+# tokens in [2, 1024), a segment x of 64 such tokens, then x's first 4.
+COPY_LEN, COPY_M, COPY_SHOWN = 256, 64, 4
+
+
+def spec_phase_time(results, part: str, seconds: float) -> None:
+    results.setdefault("spec_phase_s", {})[part] = seconds
+    log(f"speculative-and-staged phase, {part}: {seconds:.1f} s")
+
+
+def reference_pass(eng, prompt, tokens, schedule, profile_ms=None) -> dict:
+    """Two exact references for a speculative run's ``tokens`` (1, n),
+    from one prefill of ``eng``, with no decode options (the step of the
+    exact configuration's ``generate``, and the verify pass's):
+      steps   the exact single-token step teacher-forced over the tokens
+              up to the first refactorisation (one captured segment, as
+              ``generate`` runs it): exact greedy decoding's log-probs;
+      replay  the run's own ``schedule`` (("round", n_out) and ("steps",
+              n) in order) re-run eagerly: a round is one exact pass at ql
+              = draft_k + 1 from the round's start over its emitted tokens
+              (the rows past them, a rejected draft's, are not read) and
+              moves the tail by n_out, a top-up the same captured exact
+              steps, and a full tail is refactorised where the run did it.
+              Its tail rows are written as the run wrote them, so the
+              factors refolded at a refactorisation are the run's own.
+    Before them, on the fresh cache: with ``profile_ms`` (the run's draft
+    and verify replay ms), torch.profiler over replays of a draft and a
+    verify graph (``SpecRounds``, its first round run to capture them);
+    then one exact pass over the first ``SPEC_K + 1`` tokens, a verify
+    pass, held against the steps. Returns both log-prob tables (rows: the
+    distribution each token was chosen from, prefill's first), the
+    largest |difference| of the verify pass from the steps, the steps'
+    device ms per step and the profile."""
+    import torch
+
+    from xkv_tpu_torch.engine.graphs import DecodeGraph, SpecRounds
+    from xkv_tpu_torch.ops.kernels import _build
+
+    def log_probs(x):
+        return torch.log_softmax(x.float(), dim=-1)
+
+    logits, cache = eng.prefill(prompt)
+    first = log_probs(logits[0, -1:])
+    pos, n, k = prompt.shape[1], tokens.shape[1], SPEC_K
+    profile = None
+    if profile_ms is not None:
+        rounds = SpecRounds(eng, cache, tokens[:, :1], pos, k)
+        rounds.round()
+        profile = {"draft": _profile(rounds.draft_graph.replay, 3, profile_ms[0]),
+                   "verify": _profile(rounds.verify_graph.replay, 2, profile_ms[1])}
+        _build.add_counts(rounds.draft_counts, 3)
+        _build.add_counts(rounds.verify_counts, 2)
+        rounds.close()
+        log("spec profile " + json.dumps(profile))
+    verify, _ = eng.step(cache, tokens[:, :k + 1], pos, {})
+    seg = DecodeGraph(eng, cache, pos, min(n - 1, cache.tail_max),
+                      teacher=tokens[:, :min(n - 1, cache.tail_max)], step_kw={})
+    lp, _ = seg.run()
+    steps = torch.cat([first, log_probs(lp[0])])
+    rows = steps[1:1 + k + 1]  # fewer where the run is shorter
+    verify_diff = (log_probs(verify[0])[:len(rows)] - rows).abs().max().item()
+
+    replay, i = [first], 0  # tokens[:, i] starts the next round or top-up
+    for kind, m in schedule:
+        take = min(m, n - 1 - i)
+        if take <= 0:
+            break
+        if cache.tail_count == cache.tail_max:
+            cache = eng.refactorize(cache)
+        if kind == "round":
+            inp = tokens[:, i:i + k + 1]
+            inp = torch.cat([inp, inp[:, -1:].expand(1, k + 1 - inp.shape[1])], dim=1)
+            out, _ = eng.step(cache, inp, pos, {})
+            replay.append(log_probs(out[0, :take]))
+            cache = cache.advance(m)
+        else:
+            top_up = DecodeGraph(eng, cache, pos, take, teacher=tokens[:, i:i + take],
+                                 step_kw={})
+            out, cache = top_up.run()
+            replay.append(log_probs(out[0]))
+        pos, i = pos + m, i + m
+    return dict(steps=steps, replay=torch.cat(replay), verify_diff=verify_diff,
+                step_ms=seg.timing.replay_ms_per_step(), profile=profile)
+
+
+def speculate(label, spec, prompt, n_new, gap, per_step, first_k1, exact=None,
+              generate_ms=None, profiled=False):
+    """One speculative run: ``generate_speculative`` with the launch counts
+    read around it, which must equal what its rounds imply (``per_step``:
+    kernel -> (launches per draft step, per exact step); ``first_k1``:
+    prefill's K1); then the same engine's exact references
+    (``reference_pass``). In the replay of the run's schedule every
+    emitted token's log-prob must be within ``gap`` of its row's top one:
+    this holds the captured rounds, top-ups, refactorisations and the
+    next segments' graphs to an eager run of the same exact passes. Up to
+    the first refactorisation, the same against exact greedy decoding's
+    steps, and the tokens must be exact greedy decoding's (the exact
+    configuration's ``generate``'s) up to the first step whose top-2 gap
+    is below ``gap`` (there the verify pass, ql = draft_k + 1, may break a
+    near tie the other way from a single-token step). Past a
+    refactorisation the single-token steps are no reference: the run's
+    tail rows come from verify passes, whose rounding differs from a
+    step's, and the refolded factors follow them (int4 factors quantise
+    them anew). The verify pass on the fresh cache must agree with the
+    steps within ``gap``. ``generate_ms``: the exact
+    configuration's ``generate`` graph ms/token from the served runs of
+    the same call; or ``exact``, that configuration's engine, whose
+    ``generate`` runs here first (its tokens must equal the run's up to the
+    first near tie). Returns (row, launches of the whole run, generate's
+    tokens or None)."""
+    import torch
+
+    from xkv_tpu_torch.engine.graphs import RoundTiming
+
+    want, gen_counts = None, {key: 0 for key in COUNTERS}
+    if exact is not None:
+        reset_counts()
+        want = exact.generate(prompt, n_new)
+        replayed = [t for t in exact.last_timings if t.start is not None]
+        generate_ms = (sum(t.replay_ms_per_step() * t.replays for t in replayed)
+                       / sum(t.replays for t in replayed))
+        gen_counts = read_counts()
+    reset_counts()
+    t0 = time.time()
+    got, stats = spec.generate_speculative(prompt, n_new, draft_k=SPEC_K, return_stats=True)
+    torch.cuda.synchronize()
+    spec_s = time.time() - t0
+    counts = read_counts()
+    k, rounds, plain = SPEC_K, stats["rounds"], stats["plain_steps"]
+    expect = {key: 0 for key in COUNTERS}
+    expect["K1"] = first_k1
+    for key, (per_draft, per_exact) in per_step.items():
+        expect[key] += per_draft * k * rounds + per_exact * (rounds + plain)
+    if counts != expect:
+        raise AssertionError(f"{label}: launches {counts}, the rounds imply {expect}")
+    if tuple(got.shape) != (1, n_new):
+        raise AssertionError(f"{label}: speculative tokens of shape {tuple(got.shape)}")
+    segs = [t for t in spec.last_timings if isinstance(t, RoundTiming)]
+    top_ups = [t for t in spec.last_timings if not isinstance(t, RoundTiming)]
+    for t in segs:  # one capture of each graph per segment, replays after
+        if t.draft_capture_ms is None or t.verify_capture_ms is None or \
+                len(t.events) != t.rounds - 1:
+            raise AssertionError(f"{label}: a segment's graphs were not captured once")
+    draft_ms = verify_ms = 0.0
+    replayed_rounds = replayed_tokens = 0
+    for t in segs:
+        d, v, n = t.replayed()
+        draft_ms, verify_ms = draft_ms + d, verify_ms + v
+        replayed_rounds, replayed_tokens = replayed_rounds + len(t.events), replayed_tokens + n
+    # Device ms of one draft replay and of one verify replay (None where
+    # every segment ended after its first, capturing round).
+    draft_1 = draft_ms / (replayed_rounds * k) if replayed_rounds else None
+    verify_1 = verify_ms / replayed_rounds if replayed_rounds else None
+
+    reset_counts()
+    t0 = time.time()
+    schedule = [("round", m) if isinstance(t, RoundTiming) else ("steps", t.steps)
+                for t in spec.last_timings
+                for m in (t.emitted if isinstance(t, RoundTiming) else [None])]
+    ref = reference_pass(spec, prompt, got.to(spec.device), schedule,
+                         (draft_1, verify_1) if profiled and replayed_rounds else None)
+    ref_s = time.time() - t0
+    ref_counts = read_counts()
+    if not ref["verify_diff"] <= gap:
+        raise AssertionError(f"{label}: a verify pass's log-probs differ from the exact "
+                             f"steps' by {ref['verify_diff']:.4e} (limit {gap:.4e})")
+    if tuple(ref["replay"].shape[:1]) != (n_new,):
+        raise AssertionError(f"{label}: the replay gave {ref['replay'].shape[0]} rows")
+    tok = got[0].to(spec.device)
+
+    def below_top(lp):
+        """Each token's log-prob below its row's top; the top-2 gaps."""
+        top = lp.topk(2, dim=-1).values
+        behind = top[:, 0] - lp.gather(1, tok[:len(lp), None])[:, 0]
+        return behind.tolist(), (top[:, 0] - top[:, 1]).tolist()
+
+    replay_behind, _ = below_top(ref["replay"])
+    steps_behind, gaps = below_top(ref["steps"])
+    n_steps = len(steps_behind)
+    tie = next((i for i, g in enumerate(gaps) if i > 0 and g < gap), None)
+    n_cmp = n_steps if tie is None else tie
+    equal = int((tok[:n_steps] == ref["steps"].argmax(-1)).long().cumprod(0).sum())
+    if want is not None:
+        equal = min(equal, int((got[0] == want[0].cpu()).long().cumprod(0).sum()))
+    worst_r = max(range(n_new), key=lambda i: replay_behind[i])
+    worst_s = max(range(n_steps), key=lambda i: steps_behind[i])
+    if equal < n_cmp or steps_behind[worst_s] > gap or replay_behind[worst_r] > gap:
+        raise AssertionError(
+            f"{label}: speculative tokens {got.tolist()} leave exact greedy decoding "
+            f"before step {n_cmp} (equal through {equal}), or a token is below its "
+            f"top log-prob by more than {gap:.4e}: in the replay of the run "
+            f"{replay_behind[worst_r]:.4e} (step {worst_r}), against the exact steps "
+            f"{steps_behind[worst_s]:.4e} (step {worst_s})")
+    row = dict(
+        run=label, tokens_equal_exact_greedy_through_step=equal, first_near_tie_step=tie,
+        near_tie_limit=gap, replay_max_logprob_below_top=replay_behind[worst_r],
+        replay_at_step=worst_r, steps_compared=n_steps,
+        steps_max_logprob_below_top=steps_behind[worst_s], steps_at_step=worst_s,
+        verify_vs_steps_max_abs_logprob_diff=ref["verify_diff"], rounds=rounds,
+        round_tokens=stats["round_tokens"], plain_steps=plain,
+        tokens_per_round=stats["tokens_per_round"], segments=len(segs),
+        top_up_segments=len(top_ups), draft_replay_ms=draft_1, verify_replay_ms=verify_1,
+        spec_ms_per_token=(draft_ms + verify_ms) / replayed_tokens if replayed_rounds else None,
+        exact_graph_ms_per_token=ref["step_ms"], generate_graph_ms_per_token=generate_ms,
+        break_even_tokens_per_round=(
+            (k * draft_1 + verify_1) / ref["step_ms"] if replayed_rounds else None),
+        draft_capture_ms=[t.draft_capture_ms for t in segs],
+        verify_capture_ms=[t.verify_capture_ms for t in segs],
+        top_up_capture_ms=[t.capture_ms for t in top_ups], launches=counts,
+        launches_implied=expect, spec_wall_s=spec_s, reference_wall_s=ref_s)
+    if ref["profile"] is not None:
+        row["profile"] = ref["profile"]
+    log("spec " + json.dumps({k: v for k, v in row.items() if k != "profile"}))
+    return row, {key: gen_counts[key] + ref_counts[key] + counts[key] for key in COUNTERS}, want
+
+
+def check_segments(rows) -> None:
+    """Every speculative run of a model refactorised (two segments or more)
+    and one of them at least topped its tail up with exact steps."""
+    if not all(r["segments"] >= 2 for r in rows) or not any(r["plain_steps"] for r in rows):
+        raise AssertionError("speculative runs without a refactorisation or a top-up")
+
+
+def speculative_8b(results, params, cfg, prompt, engine):
+    """Llama-3.1-8B xKV-4, the 8192-token prompt: sparse top-4 post (K4
+    drafts, K2 verify), pre (K5, K3) and post int4 sparse-mixed (K6 in the
+    exact layers of a draft, the sparse ones on the reference's plain
+    sparse x int4 path; K6 verify). Then staged against monolithic
+    prefill. Returns the launches."""
+    import torch
+
+    t0 = time.time()
+    L = cfg.num_layers
+    top4 = dict(sparse_topk=4, sparse_block=512)
+    n_sp = len([l for l in range(L) if (l + 1) % 4 != 0])
+    mixed = dict(top4, sparse_layers=[l for l in range(L) if (l + 1) % 4 != 0])
+    # (label, rope, factor dtype, options, launches a draft / exact step,
+    # the served run of the exact configuration, phase 3)
+    runs = [("8B spec post bf16 sparse top-4", "post", torch.bfloat16, top4,
+             {"K4": (L, 0), "K2": (0, L)}, "factored post bf16"),
+            ("8B spec pre bf16 sparse top-4", "pre", torch.bfloat16, top4,
+             {"K5": (L, 0), "K3": (0, L)}, "factored pre bf16"),
+            ("8B spec post int4 sparse-mixed top-4", "post", "int4", mixed,
+             {"K6": (L - n_sp, L)}, "factored post int4 refactorize")]
+    served = {r["run"]: r["decode_ms_per_token_graph"] for r in results["main_runs"]}
+    totals = {key: 0 for key in COUNTERS}
+    rows = []
+    for label, rope, fdt, kw, per_step, exact_run in runs:
+        spec = engine("factored", rope, fdt, SPEC_TAIL, **kw)
+        row, counts, _ = speculate(label, spec, prompt, SPEC_NEW, GAP_8B, per_step, L,
+                                   generate_ms=served[exact_run],
+                                   profiled=rope == "post" and fdt == torch.bfloat16)
+        rows.append(row)
+        for key in totals:
+            totals[key] += counts[key]
+        del spec
+        torch.cuda.empty_cache()
+    check_segments(rows)
+    results["spec_runs"] = rows
+    staged_counts = staged_8b(results, cfg, prompt, engine)
+    for key in totals:
+        totals[key] += staged_counts[key]
+    spec_phase_time(results, "8B", time.time() - t0)
+    return totals
+
+
+def staged_8b(results, cfg, prompt, engine):
+    """Staged against monolithic prefill, 8B factored pre bf16 at 8192
+    tokens, ``prefill_logits="last"`` in both: peak allocated memory (reset
+    before each prefill), seconds, K1 launches, the last position's logits
+    and greedy tokens from each cache (a captured segment of steps, as
+    ``generate`` runs)."""
+    import torch
+
+    from xkv_tpu_torch.engine.graphs import DecodeGraph
+
+    out = {}
+    totals = {key: 0 for key in COUNTERS}
+    for name in ("staged", "monolithic"):
+        eng = engine("factored", "pre", torch.bfloat16, 128,
+                     staged_prefill=name == "staged")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_counts()
+        t0 = time.time()
+        logits, cache = eng.prefill(prompt)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        peak = torch.cuda.max_memory_allocated()
+        k1 = read_counts()["K1"]
+        tok = logits[:, -1].argmax(-1)[:, None]
+        seg = DecodeGraph(eng, cache, prompt.shape[1], 8, first_token=tok)
+        toks, _ = seg.run()
+        for key, n in read_counts().items():
+            totals[key] += n
+        out[name] = dict(prefill_s=seconds, peak_allocated_gb=peak / 1e9,
+                         peak_above_start_gb=(peak - before) / 1e9, k1_launches=k1,
+                         logits=logits[0, -1].float(), tokens=torch.cat([tok, toks], 1))
+        del eng, cache, logits, seg
+    st, mo = out["staged"], out["monolithic"]
+    diff = (st["logits"] - mo["logits"]).abs().max().item()
+    row = {name: {k: v for k, v in rec.items() if k not in ("logits", "tokens")}
+           for name, rec in out.items()}
+    row.update(last_logits_max_abs_diff=diff, tokens=st["tokens"].tolist(),
+               tokens_equal=bool(torch.equal(st["tokens"], mo["tokens"])),
+               peak_drop_gb=(mo["peak_allocated_gb"] - st["peak_allocated_gb"]))
+    log("staged " + json.dumps(row))
+    if not row["tokens_equal"] or not st["k1_launches"] == mo["k1_launches"] == cfg.num_layers:
+        raise AssertionError("staged prefill: tokens or K1 launches differ from monolithic")
+    if not st["peak_allocated_gb"] < mo["peak_allocated_gb"]:
+        raise AssertionError("staged prefill: peak memory not below monolithic")
+    results["staged_prefill"] = row
+    return totals
+
+
+def speculative_mla(results, params, cfg, xkv, prompt):
+    """DeepSeek-V2-Lite factored, the 8192-token prompt: bf16 drafting at
+    draft_rank 128 and 120 (K7 over the factors' first columns, read in
+    place), int4 at 120 (K7 over the int8 ranks; K8 verify)."""
+    import torch
+
+    from xkv_tpu_torch.engine import InferenceEngine
+
+    t0 = time.time()
+    L = cfg.num_layers
+    runs = [("V2-Lite spec bf16 draft_rank 128", torch.bfloat16, 128, {"K7": (L, L)},
+             "mla factored bf16"),
+            ("V2-Lite spec bf16 draft_rank 120", torch.bfloat16, 120, {"K7": (L, L)},
+             "mla factored bf16"),
+            ("V2-Lite spec int4 draft_rank 120", "int4", 120, {"K7": (L, 0), "K8": (0, L)},
+             "mla factored int4 refactorize")]
+    served = {r["run"]: r["decode_ms_per_token_graph"] for r in results["mla_runs"]}
+    totals = {key: 0 for key in COUNTERS}
+    rows = []
+    for label, fdt, rank, per_step, exact_run in runs:
+        spec = InferenceEngine(params, cfg, xkv, mode="factored", tail_max=SPEC_TAIL,
+                               factor_dtype=fdt, prefill_logits="last", device="cuda",
+                               draft_rank=rank)
+        row, counts, _ = speculate(label, spec, prompt, SPEC_NEW, GAP_MLA, per_step, 0,
+                                   generate_ms=served[exact_run], profiled=rank == 128)
+        rows.append(row)
+        for key in totals:
+            totals[key] += counts[key]
+        torch.cuda.empty_cache()
+    check_segments(rows)
+    results["spec_runs_mla"] = rows
+    spec_phase_time(results, "V2-Lite", time.time() - t0)
+    return totals
+
+
+def speculative_checkpoint(results):
+    """The in-repo trained checkpoint (bf16) in pre and post with the
+    anchor's xKV config, sparse top-2 of 64-row chunks drafting: on the
+    golden prompt, 8 tokens against the card's exact ``generate`` (and
+    beside the golden greedy tokens); then a copy-induction prompt, 32
+    tokens, its tokens per round."""
+    import numpy as np
+    import torch
+
+    from xkv_tpu_torch.configs import generate_consecutive_xkv_config
+    from xkv_tpu_torch.engine import InferenceEngine
+    from xkv_tpu_torch.models.ckpt import load_checkpoint
+
+    t0 = time.time()
+    gold = np.load(os.path.join(ROOT, "xkv_tpu_torch", "testdata",
+                                "production_model_golden.npz"))
+    params, cfg = load_checkpoint(os.path.join(ROOT, "results", "production_model"),
+                                  dtype=torch.bfloat16, device="cuda")
+    golden = torch.as_tensor(gold["prompt"], device="cuda")
+    rng = np.random.default_rng(SEED)
+    x = rng.integers(2, cfg.vocab_size, size=COPY_M)
+    noise = rng.integers(2, cfg.vocab_size, size=COPY_LEN - 1 - COPY_M - COPY_SHOWN)
+    copy = torch.as_tensor(np.concatenate([[1], noise, x, x[:COPY_SHOWN]])[None],
+                           device="cuda")
+    L = cfg.num_layers
+    totals = {key: 0 for key in COUNTERS}
+    rows = []
+    for rope, draft, verify in (("pre", "K5", "K3"), ("post", "K4", "K2")):
+        xkv = generate_consecutive_xkv_config(
+            group_size=int(gold["group_size"]), rank_k=int(gold["rank_k"]),
+            rank_v=int(gold["rank_v"]), num_layers=L, end_layer=L - 1,
+            extra_kwargs={"svd_method": "exact", "rope_mode": rope})
+
+        def engine(**kw):
+            return InferenceEngine(params, cfg, xkv, mode="factored", tail_max=64,
+                                   device="cuda", **kw)
+
+        for prompt, name, n_new in ((golden, "golden", 8), (copy, "copy", 32)):
+            row, counts, want = speculate(
+                f"checkpoint spec {rope} {name}", engine(sparse_topk=2, sparse_block=64),
+                prompt, n_new, GAP_ANCHOR, {draft: (L, 0), verify: (0, L)}, L,
+                exact=engine())
+            want = want[0].cpu().numpy()
+            if name == "golden":
+                row["exact_tokens_equal_golden"] = bool(np.array_equal(
+                    want, gold[f"tokens_{rope}"]))
+                log(f"checkpoint spec {rope} golden: the card's exact tokens equal the "
+                    f"golden tokens_{rope}: {row['exact_tokens_equal_golden']}")
+            else:
+                # The share of the copied segment's next tokens greedy decoding gets.
+                row["copy_tokens_predicted"] = float(
+                    (want == x[COPY_SHOWN:COPY_SHOWN + n_new]).mean())
+                log(f"checkpoint spec {rope} copy: tokens per round "
+                    f"{row['tokens_per_round']:.3f}, copied tokens predicted "
+                    f"{row['copy_tokens_predicted']:.3f}")
+            rows.append(row)
+            for key in totals:
+                totals[key] += counts[key]
+    results["spec_runs_checkpoint"] = rows
+    spec_phase_time(results, "checkpoint", time.time() - t0)
+    return totals
 
 
 def main() -> int:
@@ -1913,6 +2399,10 @@ def main() -> int:
     for key in totals:
         totals[key] += mla_totals[key]
     mla_anchor()
+    ckpt_counts = speculative_checkpoint(results)
+    for key in totals:
+        totals[key] += ckpt_counts[key]
+    log(f"speculative-and-staged phase: {sum(results['spec_phase_s'].values()):.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

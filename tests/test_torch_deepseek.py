@@ -258,6 +258,39 @@ def test_mla_kernel_plain_matches_pallas_interpret(kind, ql, lens):
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), rtol=1e-5)
 
 
+@pytest.mark.parametrize("kind,draft_rank,ql", [("fp32", 8, 1), ("fp32", 20, 2),
+                                                ("int8", 12, 1), ("int8", 16, 2)])
+def test_mla_draft_view_plain_matches_pallas_interpret(kind, draft_rank, ql):
+    """A speculative draft's K7 call: the first ``draft_rank`` columns of
+    wider factors, passed as a view (a rank that need not be a multiple of
+    16: q_emb is padded to ``rank_width`` and t cut back), against the
+    Pallas kernel over the same columns, as the JAX draft calls it."""
+    b, nh, s_p, rk, rope = 2, 4, 40, 32, 16
+    q_emb, q_pe, us, k_pe, r, _ = _mla_inputs(11, kind, b, nh, ql, s_p, rk, rope)
+    q_emb, us_draft = q_emb[..., :draft_rank], us[..., :draft_rank]
+    want_t, want_lse = jax_mla(j(q_emb), j(q_pe), j(us_draft), j(k_pe), j(r), None, None,
+                               block_s=16 if kind == "fp32" else s_p, interpret=True)
+    view = t(us)[..., :draft_rank]
+    assert not view.is_contiguous()
+    got_t, got_lse = k2.mla_rankspace_decode_attention(t(q_emb), t(q_pe), view, t(k_pe), t(r))
+    assert tuple(got_t.shape) == (b, nh, ql, draft_rank)
+    assert row_rel_err(got_t.numpy(), want_t) <= 1e-5
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), rtol=1e-5)
+
+
+def test_mla_shapes_take_a_draft_view():
+    """K7's shape rule: q_emb's width is the view's rank rounded up to 16."""
+    meta = dict(device="meta")
+    us = torch.empty((1, 100, 512), dtype=torch.bfloat16, **meta)[..., :120]
+    args = (torch.empty((1, 16, 128), dtype=torch.bfloat16, **meta),
+            torch.empty((1, 16, 64), dtype=torch.bfloat16, **meta), us,
+            torch.empty((1, 100, 64), dtype=torch.bfloat16, **meta),
+            torch.empty((1, 100), dtype=torch.float32, **meta))
+    assert k2.mla_shapes(*args) == (1, 16, 100, 128, 64)
+    with pytest.raises(ValueError, match="rounded up to 16"):
+        k2.mla_shapes(args[0], args[1], us[..., :100], *args[3:])
+
+
 # ---------------------------------------------------------------- engine
 ENGINE_CASES = [("dense", "none", "fp32"), ("moe", "none", "fp32"),
                 ("dense", "factored", "fp32"), ("moe", "factored", "fp32"),

@@ -752,3 +752,105 @@ def test_ablation_kernel_shapes(cuda, name, hq, hkv, s, rk, rv, nsplit):
     inf = torch.isinf(m_ref)
     assert torch.equal(torch.isinf(m), inf)
     assert _lse_err(m[~inf], m_ref[~inf]) <= TOL_LSE if (~inf).any() else True
+
+
+# The speculative verify pass at the 8B shapes: ql = draft_k + 1 = 8 tokens
+# of 32 query heads (R 256, eight row tiles), s_p 8192, rank_k 512, rank_v
+# 768, 8 kv heads of 128; K6 with the xKV-4 int4 splits (K 256 + 256, V
+# 256 + 512 int8 + int4 ranks). K3 the same rows as pre-RoPE [qa | qb].
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["K2", "K2 int8", "K3", "K6"])
+def test_verify_pass_kernels_at_ql8(cuda, kernel):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(9)
+    s_p, rk, rv, hq, hkv, ql = 8192, 512, 768, 32, 8, 8
+    R = ql * hq
+    lengths = torch.tensor([s_p - 37], device=cuda)
+    if kernel == "K6":
+        k8, k4 = _mixed(gen, cuda, s_p, 256, 256)
+        v8, v4 = _mixed(gen, cuda, s_p, 256, 512)
+        q_emb = (torch.randn((1, R, rk), generator=gen, device=cuda) * 0.002).to(
+            torch.bfloat16)
+        before = k2.mixed_launches
+        t, lse = k2.mixed_rankspace_kernel(q_emb, k8, k4, v8, v4, lengths)
+        assert k2.mixed_launches == before + 1
+        t_ref, lse_ref = k2.mixed_rankspace_kernel_plain(q_emb, k8, k4, v8, v4, lengths)
+        assert t.shape == (1, R, rv)
+        assert _row_rel_err(t, t_ref) <= TOL_T and _lse_err(lse, lse_ref) <= TOL_LSE
+        return
+    k_us, k_vt, v_us, v_vt, v_scale = _factors(gen, cuda, s_p, rk, rv, hkv * 128,
+                                               kernel == "K2 int8")
+    if kernel.startswith("K2"):
+        scale = 0.1 / rk ** 0.5 / (50.0 if kernel == "K2 int8" else 1.0)
+        q_emb = (torch.randn((1, R, rk), generator=gen, device=cuda) * scale).to(
+            torch.bfloat16)
+        before = k2.launches
+        t, lse = k2.rankspace_kernel(q_emb, k_us, v_us, lengths)
+        assert k2.launches == before + 1
+        t_ref, lse_ref = k2.rankspace_kernel_plain(q_emb, k_us, v_us, lengths)
+        assert t.shape == (1, R, rv)
+        assert _row_rel_err(t, t_ref) <= TOL_T and _lse_err(lse, lse_ref) <= TOL_LSE
+        return
+    cos_h, sin_h = _half_tables(cuda, s_p)
+    qab = (torch.randn((1, R, 256), generator=gen, device=cuda) * 0.1).to(torch.bfloat16)
+    args = (qab, k_us, k_vt, v_us, v_vt, cos_h, sin_h, v_scale, lengths, None)
+    before = k3.launches
+    o3, l3 = k3.lowrank_kernel(*args, num_q_heads=hq, num_kv_heads=hkv)
+    assert k3.launches == before + 1
+    o3r, l3r = k3.lowrank_kernel_plain(*args, num_q_heads=hq, num_kv_heads=hkv)
+    assert o3.shape == (1, R, 128)
+    assert _row_rel_err(o3, o3r) <= TOL_BF16_OUT and _lse_err(l3, l3r) <= TOL_LSE
+
+
+# K7 over a speculative draft's view of DeepSeek-V2-Lite's factors (rank
+# 512, 16 heads, RoPE 64): the top draft_rank columns of k_us read in place
+# through its row stride (bf16, and int8 as the int4 factors' int8 ranks
+# draft), at draft ranks 128 and 120 (not a multiple of 16: q_emb padded
+# to 128, the kernel zero-fills k_us's columns past 120); a draft step (ql
+# 1) and a verify-sized call (ql 8, R 128). Then the MLA verify pass itself:
+# K7 and K8 at ql 8 over the whole factors.
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,draft_rank,ql", [("bf16", 128, 1), ("bf16", 120, 1),
+                                                ("bf16", 120, 8), ("int8", 128, 1),
+                                                ("int8", 120, 8), ("bf16", None, 8),
+                                                ("int8", None, 8), ("int8+int4", None, 8)])
+def test_mla_kernels_over_draft_view_and_at_ql8(cuda, kind, draft_rank, ql):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(10)
+    s_p, rk, nh, rope = 8192, 512, 16, 64
+    bf = torch.bfloat16
+    R = ql * nh
+    q_pe = (torch.randn((1, nh, ql, rope), generator=gen, device=cuda) * 0.1).to(bf)
+    k_pe = torch.randn((1, s_p, rope), generator=gen, device=cuda).to(bf)
+    r = torch.rand((1, s_p), generator=gen, device=cuda) + 0.5
+    lengths = torch.tensor([s_p - 5], device=cuda)
+    if kind == "int8+int4":
+        us8, us4 = _mixed(gen, cuda, s_p, 256, 256)
+        q_emb = torch.randn((1, nh, ql, rk), generator=gen, device=cuda) * 0.4 / rk ** 0.5
+        before = k2.mla_mixed_launches
+        t, lse = k2.mla_rankspace_decode_attention(q_emb * 0.02, q_pe, us8, k_pe, r, lengths,
+                                                   k_us4=us4)
+        assert k2.mla_mixed_launches == before + 1
+        t_ref, lse_ref = k2.mla_mixed_rankspace_kernel_plain(
+            (q_emb * 0.02).permute(0, 2, 1, 3).reshape(1, R, rk).to(bf),
+            q_pe.permute(0, 2, 1, 3).reshape(1, R, rope), us8, us4, k_pe, r, lengths)
+    else:
+        us = torch.randn((1, s_p, rk), generator=gen, device=cuda)
+        q_scale = 0.4 / rk ** 0.5
+        if kind == "int8":
+            us, q_scale = (us * 40).round().clamp(-127, 127).to(torch.int8), q_scale * 0.02
+        else:
+            us = us.to(bf)
+        width = rk if draft_rank is None else draft_rank
+        view = us[..., :width]
+        assert draft_rank is None or not view.is_contiguous()
+        q_emb = torch.randn((1, nh, ql, width), generator=gen, device=cuda) * q_scale
+        before = k2.mla_launches
+        t, lse = k2.mla_rankspace_decode_attention(q_emb, q_pe, view, k_pe, r, lengths)
+        assert k2.mla_launches == before + 1
+        t_ref, lse_ref = k2.mla_rankspace_kernel_plain(
+            q_emb.permute(0, 2, 1, 3).reshape(1, R, width).to(bf),
+            q_pe.permute(0, 2, 1, 3).reshape(1, R, rope), view.contiguous(), k_pe, r, lengths)
+    t = t.permute(0, 2, 1, 3).reshape(t_ref.shape)
+    lse = lse.permute(0, 2, 1).reshape(lse_ref.shape)
+    assert _row_rel_err(t, t_ref) <= TOL_T and _lse_err(lse, lse_ref) <= TOL_LSE

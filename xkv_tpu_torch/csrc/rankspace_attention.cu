@@ -117,6 +117,7 @@ struct RankspaceArgs {
   float* part_l;
   int R, s_p, rk, rv, r8k, h4k, r8v, h4v, nsplit;
   int vslices;  // K7, K8: value slices of the latent's ranks
+  int us_w, us_ld;  // K7, K8: k_us's columns and row stride, in elements
 };
 
 // ---- K2, K4, K6: one CTA per (key split, value slice, 32-row tile,
@@ -1164,17 +1165,19 @@ int run_mla_split(const RankspaceArgs& a, int b, void* t_out, void* lse_out, cud
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   const long long sp = a.s_p;
   CUtensorMap tm[5] = {};  // us (bf16 or int8), us4, k_pe, q_emb, q_pe
+  // us: its us_w columns at row stride us_ld (a draft's top ranks read in
+  // place); the box columns past us_w, up to rk, are zero-filled.
   if constexpr (kMode == kBf16) {
-    const long long ub = 2LL * a.rk;
-    if (!byte_map(enc, &tm[0], a.k_us, ub, sp, b, ub, sp * ub))
+    const long long ub = 2LL * a.us_w, ld = 2LL * a.us_ld;
+    if (!byte_map(enc, &tm[0], a.k_us, ub, sp, b, ld, sp * ld))
       return (int)cudaErrorInvalidValue;
   } else if constexpr (kMode != kMixedGather) {
     // Unswizzled 64-byte boxes of int8 (and packed int4) bytes.
     const void* ptr[2] = {a.k_us, a.k_us4};
-    const long long w[2] = {a.r8k, a.h4k};
+    const long long w[2] = {a.us_w, a.h4k}, ld[2] = {a.us_ld, a.h4k};
     for (int i = 0; i < 2; ++i) {
       if (w[i] == 0) continue;
-      if (!byte_map(enc, &tm[i], ptr[i], w[i], sp, b, w[i], sp * w[i], 64, kBS, false))
+      if (!byte_map(enc, &tm[i], ptr[i], w[i], sp, b, ld[i], sp * ld[i], 64, kBS, false))
         return (int)cudaErrorInvalidValue;
     }
   }
@@ -1292,11 +1295,14 @@ extern "C" int xkv_mixed_rankspace_decode(const void* q_emb, const void* k_us8,
   return run(a, b, mixed_mode(r8k, h4k, r8v, h4v), t_out, lse_out, stream);
 }
 
-// K7 (k_us4 null): q_emb (b, R, r8) bf16; k_us (b, s_p, r8) bf16 or int8
-// (is_int8). K8 (k_us4 set): q_emb (b, R, r8 + 2 * h4) in [hi | lo-eo]
-// column order, k_us (b, s_p, r8) int8 and k_us4 (b, s_p, h4) packed int4
-// pairs. Both: q_pe (b, R, rope) and k_pe (b, s_p, rope) bf16, r (b, s_p)
-// fp32, all contiguous; lens/los (b,) int32 live range [los, lens), or null for s_p / 0;
+// K7 (k_us4 null): q_emb (b, R, r8) bf16; k_us (b, s_p, us_w) bf16 or
+// int8 (is_int8), us_w <= r8 < us_w + 16, rows us_ld elements apart (a
+// multiple of 16 bytes; a draft reads the top ranks of wider factors in
+// place), its missing ranks read as zero. K8 (k_us4 set): q_emb (b, R, r8
+// + 2 * h4) in [hi | lo-eo] column order, k_us (b, s_p, r8) int8 (us_w =
+// us_ld = r8) and k_us4 (b, s_p, h4) packed int4 pairs. Both: q_pe (b, R,
+// rope) and k_pe (b, s_p, rope) bf16, r (b, s_p) fp32, contiguous; lens/los
+// (b,) int32 live range [los, lens), or null for s_p / 0;
 // scratch as K2's with rv = rk. nsplit key splits, each of `vslices`
 // value slices of ceil(npk / vslices) 64-rank panels (at most 16, none
 // empty; npk = ceil(rk / 64)). Writes t_out (b, R, rk) in q_emb's rank
@@ -1306,8 +1312,8 @@ extern "C" int xkv_mla_rankspace_decode(const void* q_emb, const void* q_pe, con
                                         const int* lens, const int* los, void* part_t,
                                         void* part_m, void* part_l, void* t_out,
                                         void* lse_out, int b, int R, int s_p, int r8, int h4,
-                                        int rope, int nsplit, int vslices, int is_int8,
-                                        void* stream) {
+                                        int us_w, int us_ld, int rope, int nsplit,
+                                        int vslices, int is_int8, void* stream) {
   RankspaceArgs a = base_args(q_emb, k_us, nullptr, lens, los, part_t, part_m, part_l, R, s_p,
                               r8 + 2 * h4, 0, nsplit);
   a.q_pe = (const bf16*)q_pe;
@@ -1318,10 +1324,13 @@ extern "C" int xkv_mla_rankspace_decode(const void* q_emb, const void* q_pe, con
   a.h4k = h4;
   a.k_us4 = (const int8_t*)k_us4;
   a.vslices = vslices;
+  a.us_w = us_w;
+  a.us_ld = us_ld;
   const int npk = (a.rk + 63) / 64, vpp = vslices > 0 ? (npk + vslices - 1) / vslices : 0;
   if (b < 1 || R < 1 || s_p < 1 || a.rk < 16 || a.rk % 16 != 0 || rope < 16 || rope % 16 != 0 ||
       nsplit < 1 || vslices < 1 || vpp > kMaxVPanels || (vslices - 1) * vpp >= npk ||
-      (k_us4 != nullptr && !is_int8))
+      (k_us4 != nullptr && !is_int8) || us_w < 1 || us_w > r8 || us_w + 16 <= r8 ||
+      us_ld < us_w || (k_us4 != nullptr && (us_w != r8 || us_ld != r8)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (k_us4 != nullptr)

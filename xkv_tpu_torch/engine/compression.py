@@ -21,7 +21,7 @@ contracts against (``latent_rnorm``).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -298,30 +298,60 @@ def build_cache(
     ``fake``: store dense reconstructions instead of factors.
     ``sparse_block``: also store per-chunk key bounds for sparse top-k decode.
     """
+    return build_cache_by_span(
+        lambda layers: [kvs[l] for l in layers], len(kvs), xkv, cfg, cos_p, sin_p, tail_max,
+        fake=fake, factor_dtype=factor_dtype, cache_dtype=cache_dtype,
+        sparse_block=sparse_block)
+
+
+def build_cache_by_span(
+    span_kvs: Callable[[List[int]], List[Tuple[torch.Tensor, torch.Tensor]]],
+    num_layers: int,
+    xkv: XKVConfig,
+    cfg: ModelConfig,
+    cos_p: Optional[torch.Tensor],
+    sin_p: Optional[torch.Tensor],
+    tail_max: int,
+    fake: bool = False,
+    factor_dtype=torch.bfloat16,
+    cache_dtype: torch.dtype = torch.bfloat16,
+    sparse_block: Optional[int] = None,
+) -> XKVCache:
+    """``build_cache`` with the K/V given span by span: ``span_kvs(layers)``
+    returns the (k, v) of ``layers``, a group's or one ungrouped layer's,
+    and is called once for each, in the order of their first layers. What
+    it returns is dropped once stored, so the staged prefill, which runs
+    each span's layers inside ``span_kvs``, holds one group's dense K/V at
+    a time."""
     _check_scheme(xkv)
     rope_dense_keys = _rope_keys(cfg)
-    groups: List[GroupFactors] = []
+    group_at = {min(grp.layers): gi for gi, grp in enumerate(xkv.layer_groups)}
+    covered = {l for grp in xkv.layer_groups for l in grp.layers}
+    groups: List[Optional[GroupFactors]] = [None] * len(xkv.layer_groups)
     dense_k: Dict[int, torch.Tensor] = {}
     dense_v: Dict[int, torch.Tensor] = {}
-    covered = set()
-    for grp in xkv.layer_groups:
-        covered.update(grp.layers)
-        gf, dk, dv = compress_svd_group(
-            [kvs[l][0] for l in grp.layers], [kvs[l][1] for l in grp.layers],
-            grp, xkv, cos_p, sin_p, fake=fake,
-            factor_dtype=factor_dtype, cache_dtype=cache_dtype,
-            rope_dense_keys=rope_dense_keys, sparse_block=sparse_block,
-        )
-        dense_k.update(dk)
-        dense_v.update(dv)
-        groups.append(gf)
-    # Ungrouped layers: plain dense cache, post-RoPE K (MLA: the latent).
-    for l in range(len(kvs)):
-        if l not in covered:
-            dense_k[l] = _dense_key(kvs[l][0], cos_p, sin_p, cache_dtype, rope_dense_keys)
-            dense_v[l] = kvs[l][1].to(cache_dtype)
-    k0 = kvs[0][0]
-    tail_k, tail_v = init_tail(cfg, k0.shape[0], tail_max, cache_dtype, k0.device)
+    for l in range(num_layers):
+        if l in group_at:
+            grp = xkv.layer_groups[group_at[l]]
+            kvs = span_kvs(list(grp.layers))
+            groups[group_at[l]], dk, dv = compress_svd_group(
+                [k for k, _ in kvs], [v for _, v in kvs],
+                grp, xkv, cos_p, sin_p, fake=fake,
+                factor_dtype=factor_dtype, cache_dtype=cache_dtype,
+                rope_dense_keys=rope_dense_keys, sparse_block=sparse_block,
+            )
+            dense_k.update(dk)
+            dense_v.update(dv)
+        elif l not in covered:
+            # Ungrouped layers: plain dense cache, post-RoPE K (MLA: the latent).
+            kvs = span_kvs([l])
+            dense_k[l] = _dense_key(kvs[0][0], cos_p, sin_p, cache_dtype, rope_dense_keys)
+            dense_v[l] = kvs[0][1].to(cache_dtype)
+        else:
+            continue
+        b, dev = kvs[0][0].shape[0], kvs[0][0].device
+        del kvs
+    tail_k, tail_v = init_tail(cfg, b, tail_max, cache_dtype, dev)
     return XKVCache(groups=tuple(groups), dense_k=dense_k, dense_v=dense_v,
                     tail_k=tail_k, tail_v=tail_v,
                     tail_len=empty_tail_len(tail_k.device))

@@ -19,6 +19,14 @@ one step, replayed once per token; on the CPU the same step, eagerly.
 the position) lives on the device. A full tail is folded back into the
 factors between segments (``refactorize``).
 
+``generate_speculative``: greedy decoding by draft and exact verify
+(``graphs.SpecRounds``), the drafts from the sparse top-k step (Llama,
+``sparse_topk``) or from the top ``draft_rank`` ranks of the MLA latent
+factors (``draft_rank``); every emitted token comes from an exact pass.
+``staged_prefill``: the prefill forward one SVD group at a time, each
+group's K/V compressed as soon as its layers finish (peak memory holds one
+group's dense K/V, not every layer's).
+
 Sparse top-k decode (``sparse_topk``): each decode step attends to the
 ``sparse_topk`` highest-bounded ``sparse_block``-row chunks of every
 factored segment (Quest selection; the sink and recency chunks always
@@ -39,10 +47,11 @@ from xkv_tpu_torch.cache import XKVCache
 from xkv_tpu_torch.configs import XKVConfig
 from xkv_tpu_torch.engine.compression import (
     build_cache,
+    build_cache_by_span,
     build_uncompressed_cache,
     refactorize_cache,
 )
-from xkv_tpu_torch.engine.graphs import DecodeGraph, SegmentTiming
+from xkv_tpu_torch.engine.graphs import DecodeGraph, RoundTiming, SegmentTiming, SpecRounds
 from xkv_tpu_torch.models import deepseek, llama
 from xkv_tpu_torch.models.config import ModelConfig
 from xkv_tpu_torch.ops.rope import rope_cos_sin
@@ -65,6 +74,8 @@ class InferenceEngine:
         sparse_layers=None,
         sparse_topk_max: Optional[int] = None,
         sparse_adaptive_band: float = 0.5,
+        draft_rank: Optional[int] = None,
+        staged_prefill: bool = False,
     ):
         if mode not in ("factored", "fake", "none"):
             raise ValueError(f"unknown mode {mode!r}")
@@ -85,12 +96,36 @@ class InferenceEngine:
                 raise ValueError("sparse_topk_max requires sparse_topk")
             if sparse_topk_max <= sparse_topk:
                 raise ValueError("sparse_topk_max must exceed sparse_topk")
+        # Rank-truncated drafts for speculative decoding, draft steps only.
+        if draft_rank is not None:
+            if not mla:
+                raise ValueError("draft_rank drafts are MLA-only "
+                                 "(llama-family speculation drafts with "
+                                 "sparse_topk)")
+            if mode != "factored":
+                raise ValueError("draft_rank requires mode='factored'")
         if mode != "none" and xkv is None:
             raise ValueError("xkv config required unless mode='none'")
         if mla and xkv is not None and xkv.merge_value:
             raise ValueError(
                 "DeepSeek MLA does not support merge_value (the V slot "
                 "holds the uncompressed RoPE key); pass merge_value=False")
+        if staged_prefill:
+            if mode != "factored" or xkv is None:
+                raise ValueError("staged_prefill requires mode='factored'")
+            if xkv.layer_merge_impl != "svd":
+                raise ValueError("staged_prefill supports the svd scheme only")
+            if mla:
+                raise ValueError("staged_prefill is llama-family only")
+            if prefill_logits != "last":
+                raise ValueError("staged_prefill computes last-position "
+                                 "logits only (prefill_logits='last')")
+            for grp in xkv.layer_groups:
+                lo = grp.layers[0]
+                if list(grp.layers) != list(range(lo, lo + len(grp.layers))):
+                    raise ValueError(
+                        "staged_prefill needs contiguous layer groups, got "
+                        f"{grp.layers}")
         if not mla and cfg.model_type not in ("llama", "mistral", "qwen2"):
             raise NotImplementedError(f"model_type {cfg.model_type!r}")
         self._mla = mla
@@ -103,15 +138,21 @@ class InferenceEngine:
         self.cache_dtype = cache_dtype
         self.factor_dtype = factor_dtype
         self.prefill_logits = prefill_logits
+        self.staged_prefill = staged_prefill
         # Chunk width of the key bounds the cache stores (none unless sparse).
         self._bound_block = None if sparse_topk is None else sparse_block
-        self._sparse_kw = {} if sparse_topk is None else dict(
+        # Decode options of the plain step (its sparse top-k) and of a
+        # speculative draft step; the verify step takes none (exact).
+        self.step_kw = {} if sparse_topk is None else dict(
             sparse_select=sparse_topk, sparse_block=sparse_block,
             sparse_layers=None if sparse_layers is None else frozenset(sparse_layers),
             sparse_select_max=sparse_topk_max, sparse_adaptive_band=sparse_adaptive_band)
+        self.draft_kw = self.step_kw if sparse_topk is not None else (
+            {} if draft_rank is None else {"draft_rank": draft_rank})
         self._cos_sin: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
-        # The segments of the last generate or score call.
-        self.last_timings: List[SegmentTiming] = []
+        # The segments of the last generate, score or generate_speculative
+        # call (``RoundTiming`` for a segment's speculative rounds).
+        self.last_timings: List[Union[SegmentTiming, RoundTiming]] = []
 
     def _prefill_cos_sin(self, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """(s, hd) RoPE tables of the prefill positions, computed once per
@@ -128,6 +169,8 @@ class InferenceEngine:
         """tokens (b, s) -> (logits (b, s, V) fp32, or (b, 1, V) with
         prefill_logits="last"; cache)."""
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+        if self.staged_prefill:
+            return self._prefill_staged(tokens)
         s = tokens.shape[1]
         model = deepseek if self._mla else llama
         logits, kvs = model.prefill(
@@ -146,19 +189,55 @@ class InferenceEngine:
                 cache_dtype=self.cache_dtype, sparse_block=self._bound_block)
         return logits, cache
 
+    def _prefill_staged(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, XKVCache]:
+        """The prefill one SVD group at a time (JAX ``_prefill_staged``):
+        ``build_cache_by_span`` asks for each group's K/V (then each
+        ungrouped layer's) in layer order, and gets them from a span of
+        the layers (``llama.prefill_layer_span``) run there; it compresses
+        them and drops them before the next span runs. The same layer body
+        and group compression as the monolithic path; logits of the last
+        position."""
+        cfg = self.cfg
+        s = tokens.shape[1]
+        cos, sin = rope_cos_sin(torch.arange(s, device=self.device)[None, :], cfg.head_dim,
+                                cfg.rope_theta, cfg.rope_scaling)
+        cos_p, sin_p = self._prefill_cos_sin(s)
+        layers = self.params["layers"]
+        # Groups are contiguous (checked at construction), so each span
+        # starts where the activations h stand.
+        state = {"h": self.params["embed"][tokens]}
+
+        def span_kvs(span):
+            state["h"], kvs = llama.prefill_layer_span([layers[l] for l in span], cfg,
+                                                       state["h"], cos, sin)
+            return kvs
+
+        cache = build_cache_by_span(
+            span_kvs, cfg.num_layers, self.xkv, cfg, cos_p, sin_p, self.tail_max,
+            factor_dtype=self.factor_dtype, cache_dtype=self.cache_dtype,
+            sparse_block=self._bound_block)
+        return llama.unembed(self.params, cfg, state["h"][:, -1:]), cache
+
+    def step(self, cache: XKVCache, tokens: torch.Tensor, pos: Union[int, torch.Tensor],
+             step_kw: dict) -> Tuple[torch.Tensor, XKVCache]:
+        """One eager decode step with the decode options ``step_kw``
+        (``step_kw`` the plain step's, ``draft_kw`` a draft's, {} exact)."""
+        # The uncompressed cache has no groups, whatever merge plan is set.
+        xkv = None if self.mode == "none" else self.xkv
+        if self._mla:
+            return deepseek.decode_step(self.params, self.cfg, xkv, cache, tokens, pos,
+                                        **step_kw)
+        return llama.decode_step(
+            self.params, self.cfg, xkv, cache, tokens, pos,
+            self._prefill_cos_sin(cache.prefill_len), **step_kw)
+
     @torch.no_grad()
     def decode_step(self, cache: XKVCache, tokens,
                     pos: Union[int, torch.Tensor]) -> Tuple[torch.Tensor, XKVCache]:
         """One eager decode step at position ``pos`` (an int or a 0-d
         tensor on the device); the cache's tail is updated in place."""
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
-        # The uncompressed cache has no groups, whatever merge plan is set.
-        xkv = None if self.mode == "none" else self.xkv
-        if self._mla:
-            return deepseek.decode_step(self.params, self.cfg, xkv, cache, tokens, pos)
-        return llama.decode_step(
-            self.params, self.cfg, xkv, cache, tokens, pos,
-            self._prefill_cos_sin(cache.prefill_len), **self._sparse_kw)
+        return self.step(cache, tokens, pos, self.step_kw)
 
     @torch.no_grad()
     def refactorize(self, cache: XKVCache) -> XKVCache:
@@ -227,3 +306,78 @@ class InferenceEngine:
         out = seg.run()
         self.last_timings = [seg.timing]
         return out
+
+    @torch.no_grad()
+    def generate_speculative(self, tokens, max_new_tokens: int, draft_k: int = 7,
+                             eos_token_id: Optional[int] = None, return_stats: bool = False):
+        """Greedy generation by draft and exact verify (the JAX engine's
+        ``generate_speculative``): rounds of ``draft_k`` draft steps and one
+        exact pass over them (``graphs.SpecRounds``, captured once per
+        factor segment on CUDA), each emitting the drafts' matching prefix
+        and the verify's next token. Every emitted token comes from an exact
+        pass, so the tokens are exact greedy decoding's. When fewer than
+        ``draft_k + 1`` tail rows are left, exact steps top the tail up to
+        full (emitting tokens too), and it is folded into the factors.
+        Batch 1. Returns (1, n) int64 token ids on the host, n <=
+        ``max_new_tokens`` (cut after the first ``eos_token_id``); with
+        ``return_stats`` also {rounds, round_tokens, plain_steps,
+        tokens_per_round}."""
+        if not self.draft_kw:
+            raise ValueError("generate_speculative requires sparse_topk "
+                             "(llama) or draft_rank (MLA) — the draft path")
+        if self.cfg.sliding_window is not None:
+            raise ValueError(
+                "speculative decoding does not compose with sliding_window "
+                "(the multi-token verify pass has no per-row window bound)")
+        if torch.as_tensor(tokens).shape[0] != 1:
+            raise ValueError("speculative decoding is batch-1 "
+                             "(per-sequence acceptance lengths)")
+        if draft_k + 1 > self.tail_max:
+            raise ValueError(f"draft_k={draft_k} needs tail_max > draft_k")
+        tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+        logits, cache = self.prefill(tokens)
+        tok = logits[:, -1].argmax(dim=-1)[:, None]
+        out = [int(tok)]
+        pos = tokens.shape[1]
+        stats = {"rounds": 0, "round_tokens": 0, "plain_steps": 0}
+        self.last_timings = []
+        rounds: Optional[SpecRounds] = None
+        while len(out) < max_new_tokens:
+            if eos_token_id is not None and out[-1] == eos_token_id:
+                break
+            capacity = self.tail_max - cache.tail_count
+            if capacity < draft_k + 1:
+                if rounds is not None:
+                    tok, cache = rounds.close()
+                    rounds = None
+                if capacity > 0:
+                    # Exact steps (the verify's options) up to a full tail.
+                    seg = DecodeGraph(self, cache, pos, capacity, first_token=tok, step_kw={})
+                    toks, cache = seg.run()
+                    self.last_timings.append(seg.timing)
+                    out.extend(toks[0].tolist())
+                    tok = toks[:, -1:]
+                    pos += capacity
+                    stats["plain_steps"] += capacity
+                if len(out) >= max_new_tokens:
+                    break
+                cache = self.refactorize(cache)
+                continue
+            if rounds is None:
+                rounds = SpecRounds(self, cache, tok, pos, draft_k)
+                self.last_timings.append(rounds.timing)
+            emitted = rounds.round()
+            out.extend(emitted)
+            pos += len(emitted)
+            cache = rounds.cache
+            stats["rounds"] += 1
+            stats["round_tokens"] += len(emitted)
+        out = out[:max_new_tokens]
+        if eos_token_id is not None and eos_token_id in out:
+            out = out[:out.index(eos_token_id) + 1]
+        result = torch.tensor(out, dtype=torch.long)[None, :]
+        if return_stats:
+            stats["tokens_per_round"] = (
+                stats["round_tokens"] / stats["rounds"] if stats["rounds"] else 0.0)
+            return result, stats
+        return result

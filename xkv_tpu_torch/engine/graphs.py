@@ -21,6 +21,13 @@ A graph is bound to the buffers it was captured on: the tail, the factors
 (whose TMA descriptors the kernels encode with their addresses at capture)
 and the static buffers. So one is captured per (cache, segment); after a
 refactorisation the factors are new and the next segment captures again.
+
+``SpecRounds`` is the speculative round of the JAX engine
+(``_spec_round_impl``) on the same machinery: a draft step (one token,
+the engine's draft options) and a verify step (``k + 1`` tokens, exact)
+captured once per factor segment and replayed every round, ``k`` draft
+replays and one verify replay, over static device buffers that carry the
+round's start (tail length, position, token) from one round to the next.
 """
 
 from __future__ import annotations
@@ -28,13 +35,36 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from xkv_tpu_torch.cache import XKVCache
 from xkv_tpu_torch.models.llama import position_tensor
 from xkv_tpu_torch.ops.kernels import _build
+
+
+def run_on_side_stream(body, device: torch.device) -> None:
+    """Run ``body`` eagerly on a side stream (the warm-up that
+    ``torch.cuda.graph`` asks for before a capture)."""
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        body()
+    main.wait_stream(side)
+
+
+def capture_step(body) -> Tuple[torch.cuda.CUDAGraph, dict, float]:
+    """Capture ``body`` (recorded, not run) as a CUDA graph. Returns (the
+    graph, its launch counts, to add once per replay; the capture's host
+    ms). A capture that fails raises."""
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    with _build.capture_counts() as counts:
+        with torch.cuda.graph(graph):
+            body()
+    return graph, counts, (time.perf_counter() - t0) * 1e3
 
 
 @dataclass
@@ -68,13 +98,17 @@ class DecodeGraph:
 
     def __init__(self, engine, cache: XKVCache, pos, steps: int,
                  first_token: Optional[torch.Tensor] = None,
-                 teacher: Optional[torch.Tensor] = None):
+                 teacher: Optional[torch.Tensor] = None,
+                 step_kw: Optional[dict] = None):
         if (first_token is None) == (teacher is None):
             raise ValueError("give exactly one of first_token and teacher")
         if cache.tail_count + steps > cache.tail_max:
             raise ValueError(f"tail overflow: {cache.tail_count} + {steps} > {cache.tail_max}")
         dev = cache.tail_k.device
         self.engine = engine
+        # The step's decode options: the engine's own (its sparse top-k)
+        # unless given ({} is the exact step).
+        self.step_kw = engine.step_kw if step_kw is None else step_kw
         self.steps = steps
         self.graphed = dev.type == "cuda"
         # The segment's own tail_len, which every step updates in place.
@@ -96,7 +130,7 @@ class DecodeGraph:
 
     def _body(self) -> None:
         tok = self.token if self.teacher is None else self.teacher.index_select(1, self.step)
-        logits, stepped = self.engine.decode_step(self.cache, tok, self.pos)
+        logits, stepped = self.engine.step(self.cache, tok, self.pos, self.step_kw)
         last = logits[:, -1]
         if self.teacher is None:
             nxt = last.argmax(dim=-1)[:, None]
@@ -111,25 +145,14 @@ class DecodeGraph:
     def warm_up(self) -> None:
         """The segment's first step, eager (on a side stream on CUDA)."""
         if self.graphed:
-            main = torch.cuda.current_stream(self.pos.device)
-            side = torch.cuda.Stream(self.pos.device)
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                self._body()
-            main.wait_stream(side)
+            run_on_side_stream(self._body, self.pos.device)
         else:
             self._body()
         self.done += 1
 
     def capture(self) -> None:
         """Capture one step; its launches are counted once per replay."""
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        with _build.capture_counts() as counts:
-            with torch.cuda.graph(self.graph):
-                self._body()
-        self.counts = counts
-        self.timing.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.graph, self.counts, self.timing.capture_ms = capture_step(self._body)
 
     def replay(self, n: int) -> None:
         """Replay the captured step ``n`` times, timed by CUDA events."""
@@ -157,3 +180,153 @@ class DecodeGraph:
         self.graph = None  # frees the graph's memory pool
         return self.out, dataclasses.replace(self.cache,
                                              tail_count=self.cache.tail_count + self.done)
+
+
+@dataclass
+class RoundTiming:
+    """The speculative rounds of one factor segment: the tokens each round
+    emitted, the host ms of the draft and verify captures (None on the
+    CPU), and CUDA events around each replayed round's draft replays and
+    its verify replay (every round but the first, which captures)."""
+
+    draft_k: int
+    emitted: List[int] = dataclasses.field(default_factory=list)
+    draft_capture_ms: Optional[float] = None
+    verify_capture_ms: Optional[float] = None
+    events: List[Tuple[torch.cuda.Event, torch.cuda.Event, torch.cuda.Event]] = \
+        dataclasses.field(default_factory=list)
+
+    @property
+    def rounds(self) -> int:
+        return len(self.emitted)
+
+    def replayed(self) -> Tuple[float, float, int]:
+        """Over the replayed rounds: (device ms of the draft replays, of the
+        verify replays, tokens emitted); waits for the last round."""
+        if not self.events:
+            return 0.0, 0.0, 0
+        self.events[-1][2].synchronize()
+        draft = sum(a.elapsed_time(b) for a, b, _ in self.events)
+        verify = sum(b.elapsed_time(c) for _, b, c in self.events)
+        return draft, verify, sum(self.emitted[-len(self.events):])
+
+
+class SpecRounds:
+    """Speculative rounds over one factor segment of ``cache``: each drafts
+    ``draft_k`` tokens with the engine's draft options (``draft_kw``),
+    verifies them with one exact pass at ``ql = draft_k + 1`` from the
+    round's start t0, accepts the matching prefix (``n_acc``) and emits
+    ``n_out = n_acc + 1`` tokens, the last the verify's own
+    (``exact[n_acc]``). The verify re-appends exact K/V over the draft's
+    tail rows, so after a round the tail holds what exact decoding of the
+    emitted tokens writes, and it is ``t0 + n_out`` rows long.
+
+    Device state (static buffers): the round's start token, position and
+    tail length; the draft steps' own token, position and tail length; the
+    drafts; the verify's tokens and ``n_out``. The verify step ends by
+    writing the next round's start into both. On CUDA the first round's
+    draft and verify steps run eagerly (warm-up) and are captured; every
+    later round replays them. ``round`` reads ``n_out`` and the tokens on
+    the host once. The caller's cache keeps its ``tail_len`` tensor; its
+    tail buffers are written. Every round needs ``draft_k + 1`` free tail
+    rows (the caller tops the tail up and refactorises before that)."""
+
+    def __init__(self, engine, cache: XKVCache, token: torch.Tensor, pos, draft_k: int):
+        dev = cache.tail_k.device
+        self.engine = engine
+        self.k = draft_k
+        self.graphed = dev.type == "cuda"
+        self.cache = dataclasses.replace(cache, tail_len=cache.tail_len.clone())
+        self.pos = position_tensor(pos, dev).clone()
+        self.token = token.to(dev, torch.long).reshape(1, 1).clone()
+        self.draft_len = self.cache.tail_len.clone()
+        self.draft_pos = self.pos.clone()
+        self.draft_token = self.token.clone()
+        self.slot = torch.zeros((1,), dtype=torch.long, device=dev)
+        self.drafts = torch.zeros((1, draft_k), dtype=torch.long, device=dev)
+        # n_out, then the verify's k + 1 tokens: read on the host at once.
+        self.result = torch.zeros((draft_k + 2,), dtype=torch.long, device=dev)
+        self.draft_graph = self.verify_graph = None
+        self.draft_counts = self.verify_counts = None
+        self.timing = RoundTiming(draft_k)
+
+    def _draft(self) -> None:
+        # The round's room was checked for all its rows (``round``).
+        step_cache = dataclasses.replace(self.cache, tail_len=self.draft_len)
+        logits, stepped = self.engine.step(step_cache, self.draft_token, self.draft_pos,
+                                           self.engine.draft_kw)
+        nxt = logits[:, -1].argmax(dim=-1)[:, None]
+        self.draft_token.copy_(nxt)
+        self.drafts.index_copy_(1, self.slot, nxt)
+        self.draft_len.copy_(stepped.tail_len)
+        self.draft_pos.add_(1)
+        self.slot.add_(1)
+
+    def _verify(self) -> None:
+        k = self.k
+        inputs = torch.cat([self.token, self.drafts], dim=1)
+        logits, _ = self.engine.step(self.cache, inputs, self.pos, {})
+        exact = logits.argmax(dim=-1)  # (1, k + 1)
+        n_acc = (self.drafts == exact[:, :k]).long().cumprod(dim=1).sum(dim=1)  # (1,)
+        n_out = n_acc + 1
+        self.result[:1].copy_(n_out)
+        self.result[1:].copy_(exact[0])
+        # The next round's start, for both steps.
+        self.cache.tail_len.add_(n_out[0].to(self.cache.tail_len.dtype))
+        self.pos.add_(n_out[0])
+        self.token.copy_(exact.gather(1, n_acc[:, None]))
+        self.draft_len.copy_(self.cache.tail_len)
+        self.draft_pos.copy_(self.pos)
+        self.draft_token.copy_(self.token)
+        self.slot.zero_()
+
+    def _first_round(self) -> None:
+        """Warm-up draft, capture, the other drafts replayed; warm-up
+        verify, capture (the graphs then serve every later round)."""
+        dev = self.pos.device
+        run_on_side_stream(self._draft, dev)
+        self.draft_graph, self.draft_counts, self.timing.draft_capture_ms = capture_step(
+            self._draft)
+        for _ in range(self.k - 1):
+            self.draft_graph.replay()
+        _build.add_counts(self.draft_counts, self.k - 1)
+        run_on_side_stream(self._verify, dev)
+        self.verify_graph, self.verify_counts, self.timing.verify_capture_ms = capture_step(
+            self._verify)
+
+    def _replayed_round(self) -> None:
+        start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        start.record()
+        for _ in range(self.k):
+            self.draft_graph.replay()
+        mid.record()
+        self.verify_graph.replay()
+        end.record()
+        _build.add_counts(self.draft_counts, self.k)
+        _build.add_counts(self.verify_counts, 1)
+        self.timing.events.append((start, mid, end))
+
+    def round(self) -> List[int]:
+        """One round; returns its ``n_out`` tokens (host ints) and moves the
+        cache's host ``tail_count`` by as many."""
+        if self.cache.tail_count + self.k + 1 > self.cache.tail_max:
+            raise ValueError(f"tail overflow: {self.cache.tail_count} + {self.k + 1} > "
+                             f"{self.cache.tail_max}")
+        if not self.graphed:
+            for _ in range(self.k):
+                self._draft()
+            self._verify()
+        elif self.draft_graph is None:
+            self._first_round()
+        else:
+            self._replayed_round()
+        res = self.result.tolist()
+        n = res[0]
+        self.cache = dataclasses.replace(self.cache, tail_count=self.cache.tail_count + n)
+        self.timing.emitted.append(n)
+        return res[1:1 + n]
+
+    def close(self) -> Tuple[torch.Tensor, XKVCache]:
+        """(the next round's start token (1, 1), the cache); frees the graphs."""
+        self.draft_graph = self.verify_graph = None
+        return self.token, self.cache

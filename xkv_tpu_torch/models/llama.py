@@ -153,6 +153,25 @@ def _prefill_layer(
     return h, k_pre, v
 
 
+def prefill_layer_span(
+    layers: List[Params],
+    cfg: ModelConfig,
+    h: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """A contiguous span of the prefill's decoder layers, entered with the
+    activations h (b, s, d): the staged prefill (engine
+    ``staged_prefill``) runs one SVD group's span at a time and compresses
+    its K/V before the next. Returns (h', [(k_pre_rope, v)] per layer)."""
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    for layer in layers:
+        h, k_pre, v = _prefill_layer(layer, cfg, h, cos, sin, scale)
+        kvs.append((k_pre, v))
+    return h, kvs
+
+
 def prefill(
     params: Params,
     cfg: ModelConfig,
@@ -165,12 +184,7 @@ def prefill(
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
-    scale = 1.0 / math.sqrt(cfg.head_dim)
-    h = params["embed"][tokens]
-    kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
-    for layer in params["layers"]:
-        h, k_pre, v = _prefill_layer(layer, cfg, h, cos, sin, scale)
-        kvs.append((k_pre, v))
+    h, kvs = prefill_layer_span(params["layers"], cfg, params["embed"][tokens], cos, sin)
     if logits_position is not None:
         h = h[:, logits_position:logits_position + 1]
     return unembed(params, cfg, h), kvs

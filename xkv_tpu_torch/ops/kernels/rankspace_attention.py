@@ -32,6 +32,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from xkv_tpu_torch.compress.quant import unpack_int4_rows
 from xkv_tpu_torch.ops.attention import chunk_positions, gather_chunk_rows, sparse_row_mask
@@ -465,12 +466,13 @@ def mla_rankspace_kernel_plain(
     RoPE keys in the compute dtype, fp32 scores
     ``(q_emb . us^T) * r + q_pe . k_pe^T`` and softmax, ``P * r`` rounded to
     the compute dtype before the value product with the same ``us`` rows.
-    Columns past ``lengths`` are masked. Returns (t (b, R, rk) fp32
-    normalised, lse (b, R) fp32)."""
-    b, s_p, _ = k_us.shape
+    Columns past ``lengths`` are masked. ``k_us`` may be narrower than
+    ``q_emb`` (a draft's rank, ``mla_shapes``): its missing ranks are zero.
+    Returns (t (b, R, rk) fp32 normalised, lse (b, R) fp32)."""
+    b, s_p, ru = k_us.shape
     cd = q_emb.dtype
     lens, los = _build.live_range(b, s_p, lengths, None, k_us.device)
-    us = k_us.to(cd).to(torch.float32)
+    us = F.pad(k_us.to(cd).to(torch.float32), (0, q_emb.shape[2] - ru))
     rr = r.to(torch.float32)[:, None, :]
     scores = (q_emb.to(torch.float32) @ us.transpose(1, 2)) * rr + (
         q_pe.to(torch.float32) @ k_pe.to(cd).to(torch.float32).transpose(1, 2))
@@ -495,25 +497,34 @@ def mla_mixed_rankspace_kernel_plain(
     return mla_rankspace_kernel_plain(q_emb, q_pe, us, k_pe, r, lengths)
 
 
+def rank_width(rank: int) -> int:
+    """q_emb's width for ``rank`` factor ranks: the next multiple of 16."""
+    return -(-rank // 16) * 16
+
+
 def mla_shapes(q_emb, q_pe, k_us, k_pe, r, k_us4=None) -> Tuple[int, int, int, int, int]:
     """K7's and K8's shape rules, checked before any device check: (b, R,
-    s_p, rk, rope), rk the total rank (r8 + 2 * h4 with ``k_us4``). Any b
-    and R; rk and rope positive multiples of 16. Past 1024 ranks the kernel
-    deals t's columns out to value slices of at most 1024
-    (``mla_split_count``)."""
+    s_p, rk, rope), rk the width of q_emb and t, which is the factors'
+    total rank (r8 + 2 * h4 with ``k_us4``) rounded up to a multiple of 16
+    (``rank_width``; a draft's rank, K7 only, need not be one: the kernel
+    reads ``k_us``'s columns and zero-fills the rest). Any b and R; rope a
+    positive multiple of 16. Past 1024 ranks the kernel deals t's columns
+    out to value slices of at most 1024 (``mla_split_count``)."""
     _build.require(all(x.dim() == 3 for x in (q_emb, q_pe, k_us, k_pe)) and r.dim() == 2,
                    "q_emb, q_pe, k_us and k_pe must be 3-D, r 2-D")
     b, R, rk = q_emb.shape
     s_p, rope = k_us.shape[1], q_pe.shape[2]
     width = k_us.shape[2] + (0 if k_us4 is None else 2 * k_us4.shape[2])
-    _build.require(k_us.shape[0] == b and width == rk, "q_emb width must be the factors' rank")
+    _build.require(rk % 16 == 0 and rk > 0 and rope % 16 == 0 and rope > 0,
+                   f"ranks rk={rk}, rope={rope} must be positive multiples of 16")
+    _build.require(k_us.shape[0] == b and rank_width(width) == rk,
+                   "q_emb width must be the factors' rank, rounded up to 16")
+    _build.require(k_us4 is None or width == rk, "mixed factors' ranks must be a multiple of 16")
     if k_us4 is not None:
         _build.require(tuple(k_us4.shape[:2]) == (b, s_p), "k_us4 rows do not match k_us")
     _build.require(tuple(q_pe.shape) == (b, R, rope) and tuple(k_pe.shape) == (b, s_p, rope)
                    and tuple(r.shape) == (b, s_p),
                    "q_pe/k_pe/r shapes do not match q_emb and the factors")
-    _build.require(rk % 16 == 0 and rk > 0 and rope % 16 == 0 and rope > 0,
-                   f"ranks rk={rk}, rope={rope} must be positive multiples of 16")
     return b, R, s_p, rk, rope
 
 
@@ -539,7 +550,8 @@ def mla_split_count(n_blocks: int, R: int, rk: int, b: int, n_sm: int) -> Tuple[
 
 
 def _mla_launch(name, q_emb, q_pe, k_us, k_us4, k_pe, r, lengths, r8, h4, is_int8):
-    """Launch K7 (``k_us4`` None) or K8 at ``mla_split_count``'s splits."""
+    """Launch K7 (``k_us4`` None) or K8 at ``mla_split_count``'s splits;
+    the kernel reads ``k_us``'s columns through its row stride."""
     b, R, rk = q_emb.shape
     s_p = k_us.shape[1]
     dev = k_us.device
@@ -549,8 +561,8 @@ def _mla_launch(name, q_emb, q_pe, k_us, k_us4, k_pe, r, lengths, r8, h4, is_int
     status = _build.load().xkv_mla_rankspace_decode(
         q_emb.data_ptr(), q_pe.data_ptr(), k_us.data_ptr(), _ptr(k_us4), k_pe.data_ptr(),
         r.data_ptr(), _ptr(lens), _ptr(los), part_t.data_ptr(), part_m.data_ptr(),
-        part_l.data_ptr(), t.data_ptr(), lse.data_ptr(), b, R, s_p, r8, h4,
-        q_pe.shape[2], nsplit, vslices, is_int8, _build.stream_ptr(dev),
+        part_l.data_ptr(), t.data_ptr(), lse.data_ptr(), b, R, s_p, r8, h4, k_us.shape[2],
+        k_us.stride(1), q_pe.shape[2], nsplit, vslices, is_int8, _build.stream_ptr(dev),
     )
     _build.check(status, name)
     return t, lse
@@ -565,13 +577,20 @@ def mla_rankspace_kernel(
     lengths: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7: the absorbed MLA decode over the factored latent. Returns (t (b,
-    R, rk) fp32 normalised, lse (b, R) fp32); live columns [0, lengths)."""
+    R, rk) fp32 normalised, lse (b, R) fp32); live columns [0, lengths).
+    ``k_us`` may be a column slice of wider factors (a draft's top ranks,
+    read in place): unit column stride, a row stride of whole 16 bytes,
+    and sequences one after another."""
     if k_us.device.type == "cpu":
         return mla_rankspace_kernel_plain(q_emb, q_pe, k_us, k_pe, r, lengths)
     global mla_launches
     rk = mla_shapes(q_emb, q_pe, k_us, k_pe, r)[3]
     _build.require_cuda_tensor(k_us, "k_us", (torch.bfloat16, torch.int8), 3)
-    _build.require(k_us.is_contiguous(), "k_us must be contiguous")
+    ld = k_us.stride(1)
+    _build.require(k_us.stride(2) == 1 and (ld * k_us.element_size()) % 16 == 0
+                   and (k_us.shape[0] == 1 or k_us.stride(0) == k_us.shape[1] * ld)
+                   and k_us.data_ptr() % 16 == 0,
+                   "k_us must be rows of unit column stride at a 16-byte row stride")
     _check_mla(q_emb, q_pe, k_pe, r)
     t, lse = _mla_launch("mla_rankspace_kernel", q_emb, q_pe, k_us, None, k_pe, r, lengths, rk,
                          0, int(k_us.dtype == torch.int8))
@@ -622,12 +641,16 @@ def mla_rankspace_decode_attention(
     ``q_emb`` and ``q_pe`` are rounded to it and ``k_pe`` cast. Returns (t
     (b, nh, ql, rk_tot) fp32, normalised within the segment, in the rank
     order of ``q_emb``; lse (b, nh, ql)); the caller projects t through
-    the group's vt and merges with the dense tail."""
+    the group's vt and merges with the dense tail. ``k_us`` may be a
+    column slice of wider factors (``mla_rankspace_kernel``), of any
+    width: q_emb is zero-padded to ``rank_width`` and t cut back."""
     b, nh, ql, rk_q = q_emb.shape
     rope = q_pe.shape[3]
     cd = (torch.float32 if k_us.dtype == torch.float32 and k_us4 is None
           else torch.bfloat16)
-    qe = q_emb.permute(0, 2, 1, 3).reshape(b, ql * nh, rk_q).to(cd).contiguous()
+    width = rank_width(rk_q)
+    qe = F.pad(q_emb.permute(0, 2, 1, 3).reshape(b, ql * nh, rk_q).to(cd), (0, width - rk_q))
+    qe = qe.contiguous()
     qp = q_pe.permute(0, 2, 1, 3).reshape(b, ql * nh, rope).to(cd).contiguous()
     k_pe = k_pe.to(cd).contiguous()
     r = r.to(torch.float32).contiguous()
@@ -635,5 +658,5 @@ def mla_rankspace_decode_attention(
         t, lse = mla_rankspace_kernel(qe, qp, k_us, k_pe, r, lengths)
     else:
         t, lse = mla_mixed_rankspace_kernel(qe, qp, k_us, k_us4, k_pe, r, lengths)
-    t = t.reshape(b, ql, nh, rk_q).permute(0, 2, 1, 3)
+    t = t[..., :rk_q].reshape(b, ql, nh, rk_q).permute(0, 2, 1, 3)
     return t, lse.reshape(b, ql, nh).permute(0, 2, 1)
