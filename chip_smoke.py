@@ -76,7 +76,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
              staged against monolithic 8B prefill (peak
              allocated memory, seconds, logits, tokens, K1 launches); the
              in-repo checkpoint in pre and post on the golden prompt and on
-             a copy-induction prompt (tokens per round).
+             a copy-induction prompt (tokens per round);
+  8. batch   continuous batching, run inside phases 3 and 5 on their
+             models: ``BatchedEngine`` (4 slots, s_max 8704, 64-row tails)
+             serves 8 requests of 1500-8192 tokens on the 8B in factored
+             pre bf16 (K3), post int4 (K6), both admitted through K1, and
+             sparse top-4 post (K4) admitted in 2048-token chunks, and 6
+             on V2-Lite (bf16, K7, chunked): every request's tokens, the
+             captured step against the eager one (16 steps of the first
+             run, and in every run the first step after each refold),
+             launches against the steps, one capture per engine, three
+             requests teacher-forced through the single-stream engine up
+             to their first refold (near-tie limit); tokens/s, replay ms
+             per step beside b = 1, admission and refold s, peak memory.
+             Phase 2 holds K2-K7 at b = 4 (slots of 8192, 5000, 1500 and 0
+             rows) against their plain versions, each timed ("b4").
 Then it prints the card's name and power limit, one JSON line of kernel
 records, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -1481,8 +1495,10 @@ def main_path(results):
     log(f"int4 vs int8 factors (post) first-step logits: max_abs_diff={i4:.4e} (for scale)")
     results["main_runs"] = rows
     spec_counts = speculative_8b(results, params, cfg, prompt, engine)
+    served = {r["run"]: r["decode_ms_per_token_graph"] for r in rows}
+    batch_counts = batched_8b(results, params, cfg, served)
     for key in totals:
-        totals[key] += spec_counts[key]
+        totals[key] += spec_counts[key] + batch_counts[key]
     return totals
 
 
@@ -1650,11 +1666,24 @@ PROFILED = ("none", "factored pre bf16", "factored post bf16", "factored post bf
             "factored post bf16 sparse top-4 max 8")
 
 
+def _union_ms(spans) -> float:
+    """Milliseconds covered by (start, end) microsecond spans, each
+    instant counted once."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total / 1e3
+
+
 def _profile(run_step, steps: int, step_ms: float) -> dict:
     """Device time of ``steps`` calls of ``run_step`` under torch.profiler:
-    the summed time of the kernels the device ran per step, its share of
-    the step's wall time ``step_ms`` measured without the profiler, and
-    the kernels that take most of it."""
+    the time the device ran kernels per step (the union of their spans,
+    so kernels that overlap, such as a merge pass whose span holds its
+    wait for the split, count once), its share of the step's wall time
+    ``step_ms`` measured without the profiler, and the kernels that take
+    most of it (each kernel's summed spans, which may overlap)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1666,18 +1695,27 @@ def _profile(run_step, steps: int, step_ms: float) -> dict:
         torch.cuda.synchronize()
     # Only the device's own events: a CPU op's device time repeats its kernels'.
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = _union_ms((e.time_range.start, e.time_range.end) for e in device_events) / steps
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]
     # The decode kernels' split and merge passes by name (K2/K4/K6:
     # rankspace_tma_split_kernel; K7/K8: mla_tma_split_kernel; both merged
     # by rankspace_merge_cols_kernel).
+    def is_decode(key):
+        return any(k in key for k in ("rankspace", "lowrank", "mla_tma_split"))
+
     decode = {e.key[:60]: e.self_device_time_total / 1e3 / steps for e in kernels
-              if any(k in e.key for k in ("rankspace", "lowrank", "mla_tma_split"))}
+              if is_decode(e.key)}
+    decode_union = _union_ms((e.time_range.start, e.time_range.end) for e in device_events
+                             if is_decode(e.name)) / steps
     return dict(step_ms=step_ms, device_busy_ms_per_step=busy_ms,
                 device_idle_share=1.0 - busy_ms / step_ms,
+                kernel_sum_ms_per_step=sum(e.self_device_time_total for e in kernels)
+                / 1e3 / steps,
                 top_kernels_ms_per_step={e.key[:60]: e.self_device_time_total / 1e3 / steps
                                          for e in top},
-                decode_kernels_ms_per_step=decode)
+                decode_kernels_ms_per_step=decode,
+                decode_kernels_union_ms_per_step=decode_union)
 
 
 def profile_decode(eng, cache, tok, pos, eager_ms: float, steps: int = 4) -> tuple:
@@ -1862,8 +1900,10 @@ def mla_path(results):
         raise AssertionError("MLA factored and fake first-step logits disagree")
     results["mla_runs"] = rows
     spec_counts = speculative_mla(results, params, cfg, xkv, prompt)
+    served = {r["run"]: r["decode_ms_per_token_graph"] for r in rows}
+    batch_counts = batched_mla(results, params, cfg, xkv, served)
     for key in totals:
-        totals[key] += spec_counts[key]
+        totals[key] += spec_counts[key] + batch_counts[key]
     return totals
 
 
@@ -2342,6 +2382,415 @@ def speculative_checkpoint(results):
     return totals
 
 
+# ------------------------------------------------------ continuous batching
+# Phase 2, b = 4: slots of 8192, 5000, 1500 and 0 rows (the last never
+# admitted), as a batched step gives K2-K7 ragged lengths. The empty slot
+# must output exactly 0 with an lse of a finite -inf (the kernels'
+# NEG_INF, -2.4e38, the plain versions' -1e30), which weighs 0 in the
+# merge; the other slots are held to the kernel's limit.
+BATCH_LENS = (8192, 5000, 1500, 0)
+
+
+def _hold_slots(key, label, out, ref, lse, lse_ref, worst):
+    """``_hold`` over the slots with live keys; the empty last slot's
+    output 0 and lse at most -1e29 on both sides."""
+    _hold(key, label, out[:-1], ref[:-1], lse[:-1], lse_ref[:-1], worst)
+    if out[-1].any() or not bool((lse[-1] <= -1e29).all() and (lse_ref[-1] <= -1e29).all()):
+        raise AssertionError(f"{key} {label}: the empty slot's output is not 0 / -inf")
+
+
+def check_batched_kernels(gen, results):
+    """K2-K6 at the 8B xKV-4 shapes and K7 at V2-Lite's, b = 4 over
+    ``BATCH_LENS``, bf16 factors (K6: 256 int8 + 256 int4 ranks), one
+    query row per head, against their plain versions; each timed beside
+    its plain version and its bound over the live rows ("b4" rows of the
+    kernel records)."""
+    import torch
+
+    from xkv_tpu_torch.cache import vt_layer_slice
+    from xkv_tpu_torch.compress.quant import (
+        quantize_k_factors_mixed4,
+        quantize_v_factors_mixed4,
+    )
+    from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
+    from xkv_tpu_torch.ops.kernels import rankspace_attention as k2
+    from xkv_tpu_torch.ops.rope import rope_cos_sin
+
+    dev, bf, b = "cuda", torch.bfloat16, len(BATCH_LENS)
+    lengths = torch.tensor(BATCH_LENS, device=dev)
+    live = sum(BATCH_LENS)
+    worst = {key: {"abs": 0.0, "rel": 0.0, "lse": 0.0} for key in ("K2", "K3", "K4", "K5",
+                                                                    "K6", "K7")}
+    hq, hkv, hd, s_p, rk, rv = LOWRANK_SHAPES["8B"]
+    m, scale, block = hkv * hd, 1.0 / math.sqrt(hd), 512
+    us_k = torch.randn((b, s_p, rk), generator=gen, device=dev)
+    vt_k = torch.randn((b, rk, 4 * m), generator=gen, device=dev) * 0.05
+    us_v = torch.randn((b, s_p, rv), generator=gen, device=dev)
+    vt_v = torch.randn((b, rv, 4 * m), generator=gen, device=dev) * 0.05
+    sl = lambda x: vt_layer_slice(x, 1, hkv, hd)  # noqa: E731
+    k_us, v_us = us_k.to(bf), us_v.to(bf)
+    q = torch.randn((b, hq, 1, hd), generator=gen, device=dev).to(bf)
+    q_emb = k2._project_q(q, sl(vt_k.to(bf)), hkv, scale, None, bf)
+    # Each slot's top-4 among its own chunks (the empty slot's are masked).
+    ids = torch.tensor([[0, 5, 11, 15], [0, 3, 7, 9], [0, 1, 2, -1], [0, 1, 2, 3]],
+                       dtype=torch.int32, device=dev)
+    # The live rows of the selected chunks (what K4 / K5 read).
+    sel_rows = sum(max(0, min((i + 1) * block, n) - i * block)
+                   for row, n in zip(ids.tolist(), BATCH_LENS) for i in row if i >= 0)
+    cos_p, sin_p = rope_cos_sin(torch.arange(s_p, device=dev), hd, 500000.0)
+    cos_t, sin_t = rope_cos_sin(lengths[:, None] + 5, hd, 500000.0)
+    cos_h, sin_h = k3.half_tables(cos_p, sin_p, bf)
+    qab = k3._query_embeds(q, cos_t, sin_t, hkv, scale, None)
+    a3 = (qab, k_us, sl(vt_k.to(bf)), v_us, sl(vt_v.to(bf)), cos_h, sin_h, None)
+    kw3 = dict(num_q_heads=hq, num_kv_heads=hkv)
+    qk = quantize_k_factors_mixed4(us_k, vt_k, 256)
+    qv = quantize_v_factors_mixed4(us_v, vt_v, 256)
+    q6 = torch.cat([k2._project_q(q, sl(qk.vt8), hkv, scale, sl(qk.out_scale), bf),
+                    k2._project_q(q, sl(qk.vt4), hkv, scale, sl(qk.scale4), bf)], dim=2)
+    slice_bytes = b * (rk * m + rv * m) * 2
+    rows = {
+        "K2": (k2.rankspace_kernel, k2.rankspace_kernel_plain, (q_emb, k_us, v_us, lengths),
+               live * bytes_per_row(k_us, v_us) + nbytes(q_emb),
+               2.0 * hq * live * (rk + rv) / BF16_OPS_PER_S),
+        "K4": (k2.sparse_rankspace_kernel, k2.sparse_rankspace_kernel_plain,
+               (q_emb, k_us, v_us, ids, block, lengths),
+               sel_rows * bytes_per_row(k_us, v_us) + nbytes(q_emb, ids),
+               2.0 * hq * sel_rows * (rk + rv) / BF16_OPS_PER_S),
+        "K3": (lambda *a: k3.lowrank_kernel(*a, **kw3),
+               lambda *a: k3.lowrank_kernel_plain(*a, **kw3), a3 + (lengths, None),
+               live * bytes_per_row(k_us, v_us, cos_h, sin_h) + nbytes(qab) + slice_bytes,
+               (2.0 * live * rk * m + 2.0 * hq * live * (2 * hd + rv)) / BF16_OPS_PER_S),
+        "K5": (lambda *a: k3.sparse_lowrank_kernel(*a, **kw3),
+               lambda *a: k3.sparse_lowrank_kernel_plain(*a, **kw3),
+               a3 + (ids, block, lengths, None),
+               sel_rows * bytes_per_row(k_us, v_us, cos_h, sin_h) + nbytes(qab, ids)
+               + slice_bytes,
+               (2.0 * sel_rows * rk * m + 2.0 * hq * sel_rows * (2 * hd + rv))
+               / BF16_OPS_PER_S),
+        "K6": (k2.mixed_rankspace_kernel, k2.mixed_rankspace_kernel_plain,
+               (q6, qk.us8, qk.us4p, qv.us8, qv.us4p, lengths),
+               live * bytes_per_row(qk.us8, qk.us4p, qv.us8, qv.us4p) + nbytes(q6),
+               2.0 * hq * live * (rk + rv) / BF16_OPS_PER_S),
+    }
+    # K7: V2-Lite's 16 heads, rank 512, RoPE 64, bf16 latent factors.
+    nh, rank, rope = 16, 512, 64
+    us7 = torch.randn((b, s_p, rank), generator=gen, device=dev).to(bf)
+    k_pe = torch.randn((b, s_p, rope), generator=gen, device=dev).to(bf)
+    r = torch.rand((b, s_p), generator=gen, device=dev) + 0.5
+    qe7 = (torch.randn((b, nh, rank), generator=gen, device=dev) * 1.5 / rank).to(bf)
+    qp7 = (torch.randn((b, nh, rope), generator=gen, device=dev) * 0.1).to(bf)
+    rows["K7"] = (k2.mla_rankspace_kernel, k2.mla_rankspace_kernel_plain,
+                  (qe7, qp7, us7, k_pe, r, lengths),
+                  live * (bytes_per_row(us7, k_pe) + 4) + nbytes(qe7, qp7),
+                  2.0 * nh * live * (2 * rank + rope) / BF16_OPS_PER_S)
+    for key, (run, plain, args, in_bytes, ops_s) in rows.items():
+        out, lse = run(*args)
+        ref, lse_ref = plain(*args)
+        torch.cuda.synchronize()
+        _hold_slots(key, f"b4 lengths={list(BATCH_LENS)}", out, ref, lse, lse_ref, worst[key])
+        t = dict(ms=cuda_time_ms(lambda: run(*args)),
+                 plain_ms=cuda_time_ms(lambda: plain(*args)),
+                 bound=bound_ms(in_bytes + nbytes(out, lse), ops_s))
+        row = dict(_row(t), lengths=list(BATCH_LENS), max_rel_err=worst[key]["rel"],
+                   max_lse_err=worst[key]["lse"])
+        log(f"{key} b4 ms: {row}")
+        rec = results[key]
+        rec["b4"] = row
+        rec["max_abs_err"] = max(rec["max_abs_err"], worst[key]["abs"])
+        rec["max_rel_err"] = max(rec["max_rel_err"], worst[key]["rel"])
+        rec["max_lse_err"] = max(rec["max_lse_err"], worst[key]["lse"])
+
+
+# Phase 8 requests: (prompt length, new tokens). With 4 slots, 64-row
+# tails and s_max 8704 (17 x 512), slots free and refill mid-run and the
+# requests of 72 new tokens and more fold once.
+BATCH_8B = ((8192, 96), (5000, 40), (3000, 72), (7000, 24), (1500, 128), (8192, 64),
+            (2048, 48), (4000, 80))
+BATCH_MLA = ((8192, 96), (3000, 40), (6000, 72), (1500, 128), (5000, 24), (8192, 64))
+BATCH_ENGINE = dict(num_slots=4, s_max=8704, tail_max=64, prefill_buckets=[2048, 4096, 8192])
+# Requests teacher-forced through the single-stream engine: the longest
+# (refolded), a ragged one (5000 / 3000 rows, no refold) and a refolded
+# short one.
+BATCH_REFS = (0, 1, 4)
+# Steps of the first run checked against the eager batched step.
+BATCH_EAGER_STEPS = 16
+
+
+def batch_phase_time(results, part: str, seconds: float) -> None:
+    results.setdefault("batch_phase_s", {})[part] = seconds
+    log(f"batch phase, {part}: {seconds:.1f} s")
+
+
+def prompt_rows(cache1, s: int, eng):
+    """A request's admitted batch-1 cache (``BatchedEngine._compress_kvs``,
+    ``bucket`` rows, those past the prompt's ``s`` zero) cut to its ``s``
+    rows, with an empty tail of the engine's: the factors the request's
+    slot holds, as a single-stream cache. Chunk bounds keep the chunks
+    that hold rows below ``s``."""
+    import dataclasses
+
+    from xkv_tpu_torch.cache import GroupFactors, XKVCache, empty_tail_len, init_tail
+
+    rows = {"k_us", "v_us", "k_us4", "v_us4"}
+
+    def cut(name, x):
+        if x is None or name not in rows | {"k_rnorm", "k_cmin", "k_cmax"}:
+            return x
+        if name == "k_rnorm":
+            return x[:, :, :s].contiguous()
+        if name in rows:
+            return x[:, :s].contiguous()
+        return x[:, :-(-s // eng.sparse_block)].contiguous()
+
+    groups = tuple(GroupFactors(**{f.name: cut(f.name, getattr(g, f.name))
+                                   for f in dataclasses.fields(GroupFactors)})
+                   for g in cache1.groups)
+    tail_k, tail_v = init_tail(eng.cfg, 1, eng.tail_max, eng.cache_dtype, "cuda")
+    return XKVCache(groups=groups,
+                    dense_k={l: d[:, :, :s].contiguous() for l, d in cache1.dense_k.items()},
+                    dense_v={l: d[:, :, :s].contiguous() for l, d in cache1.dense_v.items()},
+                    tail_k=tail_k, tail_v=tail_v, tail_len=empty_tail_len("cuda"))
+
+
+def serve_batched(label, eng, single, cfg, requests, kernel, gap, b1_ms, gen,
+                  eager_steps=0):
+    """One phase-8 run: every request of ``requests`` through ``eng``
+    (``BatchedEngine.run``, the captured batched step), admissions and
+    refolds timed; then the checks of the module docstring: every
+    request's ``max_new_tokens``, the first ``eager_steps`` steps and the
+    first step after each refold against the eager batched step on the
+    same inputs (tokens equal), launch counts against the
+    steps, one capture, and the ``BATCH_REFS`` requests' tokens
+    teacher-forced through ``single`` (the same configuration,
+    single-stream) up to their first refold, each within ``gap`` of its
+    step's top log-prob. The references decode each request's own
+    admitted factors (``prompt_rows``): a reference that factorised the
+    prompt anew reads other factors (another SVD's rounding, and int4
+    codes that move with it: on an H100 an 8B int4 token of a ragged
+    request sat 1.625 below such a reference's top, where int4 against
+    int8 factors moves the first-step logits by 2.68). Then the step's
+    device time under torch.profiler. Returns (row, launches)."""
+    import torch
+
+    from xkv_tpu_torch.models import deepseek as deepseek_model
+    from xkv_tpu_torch.models import llama as llama_model
+
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda").cpu().numpy()
+               for n, _ in requests]
+    graph = eng.step_graph
+    state = dict(admission_s=0.0, replayed_tokens=0, eager_checked=0, eager_s=0.0,
+                 refolds=0, refold_s=0.0, refold_checked=0, refolded=False)
+    admit, run_step, refactor = eng._admit, graph.run, eng._refactor
+
+    def timed_admit():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        admit()
+        torch.cuda.synchronize()
+        state["admission_s"] += time.time() - t0
+
+    def timed_refactor(slot, plen):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        refactor(slot, plen)
+        torch.cuda.synchronize()
+        state["refold_s"] += time.time() - t0
+        state["refolds"] += 1
+        state["refolded"] = True
+
+    def checked_run():
+        replay, active = graph.graph is not None, len(eng.slot_request)
+        if state["eager_checked"] < eager_steps or state["refolded"]:
+            # The eager step, then the graph's, on the same inputs: the
+            # second writes the same tail rows again. Also the first step
+            # after each refold: the graph reads the refolded factors
+            # through the addresses bound at capture, the eager step
+            # through the tensors as they are.
+            torch.cuda.synchronize()
+            t0 = time.time()
+            eager = graph.run_eager()  # its token read syncs
+            state["eager_s"] += time.time() - t0
+            got = run_step()
+            if not (eager == got).all():
+                raise AssertionError(f"{label}: graph tokens {got} differ from the eager "
+                                     f"batched step's {eager}")
+            state["eager_checked"] += 1
+            state["refold_checked"] += state["refolded"]
+            state["refolded"] = False
+        else:
+            got = run_step()
+        if replay:
+            state["replayed_tokens"] += active
+        return got
+
+    ids = [eng.submit(p, n) for p, (_, n) in zip(prompts, requests)]
+    admitted = {}  # request id -> its batch-1 admitted cache, for the references
+    place = eng._place
+
+    def keep_place(slot, req, cache1, first_token, s):
+        if req.request_id in [ids[i] for i in BATCH_REFS]:
+            admitted[req.request_id] = cache1
+        place(slot, req, cache1, first_token, s)
+
+    eng._admit, eng._place, graph.run = timed_admit, keep_place, checked_run
+    eng._refactor = timed_refactor
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    done = {r.request_id: r for r in eng.run()}
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del eng._admit, eng._place, eng._refactor, graph.run  # the class's own methods again
+    gens = [done[i].generated for i in ids]
+    if [len(g) for g in gens] != [n for _, n in requests]:
+        raise AssertionError(f"{label}: tokens per request {[len(g) for g in gens]}")
+    if not all(0 <= t < cfg.vocab_size for g in gens for t in g):
+        raise AssertionError(f"{label}: a token out of the vocabulary")
+    if not state["refolds"] or state["refold_checked"] < 1:
+        raise AssertionError(f"{label}: {state['refolds']} refolds, "
+                             f"{state['refold_checked']} steps after one checked")
+    replay_ms, replays = graph.replay_ms()
+    # One capture, at the first step; every later step a replay.
+    if graph.capture_ms is None or replays != graph.steps - 1:
+        raise AssertionError(f"{label}: {graph.steps} steps, {replays} replays, "
+                             f"capture {graph.capture_ms}")
+    L = cfg.num_layers
+    want = {key: 0 for key in COUNTERS}
+    want[kernel] = L * (graph.steps + state["eager_checked"])
+    if eng.prefill_chunk is None and not eng._mla:
+        want["K1"] = L * len(requests)
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, the steps imply {want}")
+
+    # Teacher-forced references: the single-stream engine's exact steps over
+    # each referenced request's own admitted factors (the bucket's padding
+    # rows cut off), so they read the cache the batched steps read; its
+    # first token against the model's prefill at the prompt's exact length.
+    model = deepseek_model if eng._mla else llama_model
+    ref_rows, ref_counts, bad = [], {key: 0 for key in COUNTERS}, []
+    t_ref = time.time()
+    for i in BATCH_REFS:
+        tok = torch.as_tensor(gens[i], device="cuda")[None]
+        s = int(prompts[i].shape[0])
+        reset_counts()
+        logits, _ = model.prefill(eng.params, cfg, torch.as_tensor(prompts[i], device="cuda")[None],
+                                  logits_position=s - 1)
+        n = min(tok.shape[1] - 1, single.tail_max)
+        cache = prompt_rows(admitted.pop(ids[i]), s, eng)
+        lp, _ = single.score(cache, tok[:, :n], s)
+        steps = torch.cat([torch.log_softmax(logits[0, -1:].float(), -1), lp[0]])
+        behind = (steps.max(-1).values - steps.gather(1, tok[0, :n + 1, None])[:, 0]).tolist()
+        for key, v in read_counts().items():
+            ref_counts[key] += v
+        worst = max(range(len(behind)), key=lambda j: behind[j])
+        ref_rows.append(dict(request=i, prompt=s, steps=n,
+                             max_logprob_below_top=behind[worst], at_step=worst,
+                             greedy_equal_through=int(
+                                 (tok[0, :n + 1] == steps.argmax(-1)).long().cumprod(0).sum())))
+        del cache, logits
+        if behind[worst] > gap:
+            bad.append(f"request {i}'s token {worst} is {behind[worst]:.4e} below its step's "
+                       f"top log-prob (limit {gap:.4e})")
+    if bad:
+        raise AssertionError(f"{label}: {'; '.join(bad)} ({json.dumps(ref_rows)})")
+    # Device time of the captured step (torch.profiler over replays on the
+    # run's last inputs).
+    profile = _profile(graph.graph.replay, 3, replay_ms / replays)
+    ref_s = time.time() - t_ref
+    emitted = state["replayed_tokens"]
+    step_ms = replay_ms / replays
+    row = dict(run=label, requests=len(requests), slots=eng.num_slots, steps=graph.steps,
+               replays=replays, replay_ms_per_step=step_ms,
+               decode_tokens_per_s=emitted / (replay_ms / 1e3),
+               b1_graph_ms_per_token=b1_ms, b1_tokens_per_s=1e3 / b1_ms,
+               step_vs_b1=step_ms / b1_ms, admission_s=state["admission_s"],
+               refolds=state["refolds"], refold_s=state["refold_s"],
+               eager_check_s=state["eager_s"],
+               # The wall's rest: the first (capture) step, the host's loop
+               # and the steps' token reads (the eager steps' time is
+               # eager_check_s, every replay's is in replay_ms).
+               other_s=(wall_s - state["admission_s"] - state["refold_s"] - state["eager_s"]
+                        - replay_ms / 1e3),
+               # Every token after the first of each request, over the
+               # whole run's host clock (admissions and refolds included).
+               wall_decode_tokens_per_s=sum(len(g) - 1 for g in gens) / wall_s,
+               capture_ms=graph.capture_ms, peak_allocated_gb=peak_gb, wall_s=wall_s,
+               eager_checked_steps=state["eager_checked"],
+               eager_checked_after_refold=state["refold_checked"], launches=counts,
+               references=ref_rows, near_tie_limit=gap, reference_wall_s=ref_s,
+               profile=profile)
+    log("batch " + json.dumps(row))
+    return row, {key: counts[key] + ref_counts[key] for key in COUNTERS}
+
+
+def batched_8b(results, params, cfg, served):
+    """Llama-3.1-8B xKV-4 through ``BatchedEngine`` (4 slots): factored pre
+    bf16 (K3), post int4 (K6), both admitted monolithically (K1), and
+    sparse top-4 post bf16 over 512-row chunks (K4), admitted in
+    2048-token chunks. Returns the launches."""
+    import torch
+
+    from xkv_tpu_torch.configs import generate_consecutive_xkv_config
+    from xkv_tpu_torch.engine import BatchedEngine, InferenceEngine
+
+    t0 = time.time()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8)
+    top4 = dict(sparse_topk=4, sparse_block=512)
+    runs = [("8B batch pre bf16", "pre", torch.bfloat16, {}, "K3", "factored pre bf16"),
+            ("8B batch post int4", "post", "int4", {}, "K6", "factored post int4 refactorize"),
+            ("8B batch post bf16 sparse top-4, chunked admission", "post", torch.bfloat16,
+             dict(top4, prefill_chunk=2048), "K4", "factored post bf16 sparse top-4")]
+    totals = {key: 0 for key in COUNTERS}
+    rows = []
+    for label, rope, fdt, kw, kernel, b1_run in runs:
+        xkv = generate_consecutive_xkv_config(
+            group_size=4, rank_k=512, rank_v=768, num_layers=cfg.num_layers,
+            end_layer=cfg.num_layers - 1, extra_kwargs={"rope_mode": rope})
+        eng = BatchedEngine(params, cfg, xkv, factor_dtype=fdt, device="cuda",
+                            **BATCH_ENGINE, **kw)
+        single_kw = {k: v for k, v in kw.items() if k != "prefill_chunk"}
+        single = InferenceEngine(params, cfg, xkv, tail_max=BATCH_ENGINE["tail_max"],
+                                 factor_dtype=fdt, prefill_logits="last", device="cuda",
+                                 **single_kw)
+        row, counts = serve_batched(label, eng, single, cfg, BATCH_8B, kernel, GAP_8B,
+                                    served[b1_run], gen,
+                                    eager_steps=BATCH_EAGER_STEPS if not rows else 0)
+        rows.append(row)
+        for key in totals:
+            totals[key] += counts[key]
+        del eng, single
+        torch.cuda.empty_cache()
+    results["batch_runs"] = rows
+    batch_phase_time(results, "8B", time.time() - t0)
+    return totals
+
+
+def batched_mla(results, params, cfg, xkv, served):
+    """DeepSeek-V2-Lite factored bf16 (K7) through ``BatchedEngine`` (4
+    slots), admitted in 2048-token chunks. Returns the launches."""
+    import torch
+
+    from xkv_tpu_torch.engine import BatchedEngine, InferenceEngine
+
+    t0 = time.time()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+    eng = BatchedEngine(params, cfg, xkv, device="cuda", prefill_chunk=2048, **BATCH_ENGINE)
+    single = InferenceEngine(params, cfg, xkv, tail_max=BATCH_ENGINE["tail_max"],
+                             prefill_logits="last", device="cuda")
+    row, counts = serve_batched("V2-Lite batch bf16, chunked admission", eng, single, cfg,
+                                BATCH_MLA, "K7", GAP_MLA, served["mla factored bf16"], gen)
+    results["batch_runs_mla"] = [row]
+    del eng, single
+    torch.cuda.empty_cache()
+    batch_phase_time(results, "V2-Lite", time.time() - t0)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2376,6 +2825,7 @@ def main() -> int:
     check_head_sizes(gen, results)
     log(f"chunk-width and head-size phase: {time.time() - t0:.1f} s")
     check_mla(gen, results)
+    check_batched_kernels(gen, results)
     t0 = time.time()
     check_wide(gen, results)
     log(f"wide-rank phase: {time.time() - t0:.1f} s")
@@ -2403,6 +2853,7 @@ def main() -> int:
     for key in totals:
         totals[key] += ckpt_counts[key]
     log(f"speculative-and-staged phase: {sum(results['spec_phase_s'].values()):.1f} s")
+    log(f"batch phase: {sum(results['batch_phase_s'].values()):.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -24,6 +24,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 
 from xkv_tpu_torch.configs import XKVConfig
@@ -118,6 +119,21 @@ class XKVCache:
         self.tail_v[layer_idx].index_copy_(2, rows, v.to(self.tail_v.dtype))
         return self
 
+    def append_slot_tails(self, layer_idx: int, k: torch.Tensor, v: torch.Tensor,
+                          tail_len: torch.Tensor) -> "XKVCache":
+        """Continuous batching: write each slot's K/V (B, h, ql, w) IN PLACE
+        at its own tail rows ``tail_len[b] + arange(ql)`` (``tail_len`` a
+        (B,) tensor on the device; no host value, so a CUDA graph can
+        capture the write). A start past ``tail_max - ql`` is clamped to it,
+        as ``dynamic_update_slice`` clamps in the JAX package: a free slot
+        may stand at a full tail, and what it writes is never read."""
+        ql = k.shape[2]
+        start = torch.clamp(tail_len.long(), max=self.tail_max - ql)
+        rows = (start[:, None] + torch.arange(ql, device=start.device))[:, None, :, None]
+        for dst, src in ((self.tail_k[layer_idx], k), (self.tail_v[layer_idx], v)):
+            dst.scatter_(2, rows.expand(-1, dst.shape[1], -1, dst.shape[3]), src.to(dst.dtype))
+        return self
+
     def advance(self, n: int = 1) -> "XKVCache":
         """The cache ``n`` rows on: a new ``tail_len`` tensor (added on the
         device) and host count; the tail buffers are shared."""
@@ -164,6 +180,38 @@ def init_tail(
         k_shape = v_shape = (cfg.num_layers, batch, cfg.num_kv_heads, t_max, cfg.head_dim)
     return (torch.zeros(k_shape, dtype=dtype, device=device),
             torch.zeros(v_shape, dtype=dtype, device=device))
+
+
+def cache_from_numpy(np_cache, device: str | torch.device = "cuda") -> XKVCache:
+    """The JAX package's ``XKVCache`` with numpy leaves (for example
+    ``jax.tree.map(numpy.asarray, cache)``) as the port's cache on
+    ``device``: the cache's counterpart of ``models/ckpt.py``
+    ``params_from_numpy``. Fields are read by name, so no JAX is imported;
+    dtypes are kept (bf16 arrives as numpy's ml_dtypes bfloat16 and is
+    carried through its bits). Compact MiniCache storage is refused
+    (ROADMAP queue 1 item 15)."""
+
+    def tensor(a):
+        if a is None:
+            return None
+        a = np.array(a)  # a writable copy
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+        return torch.from_numpy(a).to(device)
+
+    groups = []
+    for g in np_cache.groups:
+        if getattr(g, "slerp_k", None) is not None or getattr(g, "slerp_v", None) is not None:
+            raise NotImplementedError("MiniCache slerp: ROADMAP queue 1 item 15")
+        groups.append(GroupFactors(**{f.name: tensor(getattr(g, f.name, None))
+                                      for f in dataclasses.fields(GroupFactors)
+                                      if not f.name.startswith("slerp")}))
+    tail_len = tensor(np_cache.tail_len).to(torch.int32)
+    return XKVCache(groups=tuple(groups),
+                    dense_k={int(l): tensor(a) for l, a in np_cache.dense_k.items()},
+                    dense_v={int(l): tensor(a) for l, a in np_cache.dense_v.items()},
+                    tail_k=tensor(np_cache.tail_k), tail_v=tensor(np_cache.tail_v),
+                    tail_len=tail_len, tail_count=int(tail_len))
 
 
 def empty_tail_len(device: str | torch.device) -> torch.Tensor:

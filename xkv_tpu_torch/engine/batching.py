@@ -1,0 +1,425 @@
+"""Continuous batching: a slot-based scheduler over the factored cache.
+
+Port of ``xkv_tpu/engine/batching.py`` (``BatchedEngine``), speculation
+aside (ROADMAP queue 1 item 21):
+
+  * B fixed decode slots over one slot cache of ``s_max`` rows per slot;
+    all shapes static.
+  * Admission: a request is prefilled alone at its length bucket (right
+    padded; K1 for Llama), compressed (``build_cache``) and written into
+    its slot in place; per-slot valid lengths mask the padding. With
+    ``prefill_chunk`` the prompt is prefilled one chunk per scheduler
+    step (``prefill_chunk``), interleaved with decode steps.
+  * One decode step advances every slot (``graphs.BatchedStep``: on CUDA
+    a graph captured once per engine and replayed every step); finished
+    slots (EOS, ``max_new_tokens``) free at once and the next queued
+    request is admitted, with no batch-wide barrier.
+  * A slot whose tail fills folds it back into its own factors in place
+    (``refactorize_slot_cache``) while its rows last, and finishes
+    otherwise.
+
+Greedy decoding. The slot cache is written only in place (admission,
+refolds), never reallocated: the captured step reads it by address.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from xkv_tpu_torch.cache import GroupFactors, XKVCache, empty_tail_len, init_tail
+from xkv_tpu_torch.configs import XKVConfig
+from xkv_tpu_torch.engine.compression import (
+    build_cache,
+    build_uncompressed_cache,
+    int4_rank_hi,
+    put_slot,
+    refactorize_slot_cache,
+)
+from xkv_tpu_torch.engine.graphs import BatchedStep
+from xkv_tpu_torch.models import deepseek, llama
+from xkv_tpu_torch.models.config import ModelConfig
+from xkv_tpu_torch.ops.rope import rope_cos_sin
+
+
+@dataclass
+class Request:
+    request_id: int
+    tokens: np.ndarray  # (s,) prompt
+    max_new_tokens: int
+    generated: List[int] = field(default_factory=list)
+    done: bool = False
+
+
+class BatchedEngine:
+    """Slot-based continuous batching over the hybrid factored cache (the
+    JAX constructor's surface without ``attention_impl`` and ``mesh``,
+    plus ``device``). ``xkv=None`` serves an uncompressed cache."""
+
+    def __init__(
+        self,
+        params,
+        cfg: ModelConfig,
+        xkv: Optional[XKVConfig],
+        num_slots: int = 4,
+        s_max: int = 2048,
+        tail_max: int = 128,
+        prefill_buckets: Optional[List[int]] = None,
+        eos_token_id: Optional[int] = None,
+        cache_dtype: torch.dtype = torch.bfloat16,
+        factor_dtype=torch.bfloat16,
+        prefill_chunk: Optional[int] = None,
+        sparse_topk: Optional[int] = None,
+        sparse_block: int = 512,
+        sparse_layers=None,
+        speculative_k: Optional[int] = None,
+        draft_rank: Optional[int] = None,
+        device: str | torch.device = "cuda",
+    ):
+        mla = cfg.model_type == "deepseek_v2"
+        if speculative_k is not None or draft_rank is not None:
+            raise ValueError("batched speculation (speculative_k, draft_rank) is ROADMAP "
+                             "queue 1 item 21")
+        if xkv is not None and xkv.layer_merge_impl != "svd":
+            raise ValueError("MiniCache slerp slots are ROADMAP queue 1 item 15")
+        if not mla and cfg.model_type not in ("llama", "mistral", "qwen2"):
+            raise NotImplementedError(f"model_type {cfg.model_type!r}")
+        if mla and xkv is not None and xkv.merge_value:
+            raise ValueError("DeepSeek MLA: pass merge_value=False")
+        if factor_dtype == "int4":
+            if mla:
+                raise ValueError("factor_dtype='int4' is llama-family rope_mode='post' "
+                                 "only; MLA uses int8 factors")
+            if xkv is None or xkv.rope_mode != "post":
+                raise ValueError("factor_dtype='int4' requires rope_mode='post' "
+                                 "(rank-space decode; docs/ROPE_MODES.md)")
+            if not (xkv.merge_key and xkv.merge_value):
+                raise ValueError(
+                    "BatchedEngine factor_dtype='int4' requires merge_key=True and "
+                    "merge_value=True (one-sided int4 is supported by the single-stream "
+                    "InferenceEngine)")
+            max_rank = max(max(g.rank_k or 0, g.rank_v or 0) for g in xkv.layer_groups)
+            min_bucket = min(prefill_buckets or [s_max])
+            if min_bucket < max_rank:
+                # A shorter bucket clamps the SVD rank, and the packed int4
+                # tail would no longer line up with the slot's layout.
+                raise ValueError(
+                    f"factor_dtype='int4' needs every prefill bucket >= the max factor "
+                    f"rank ({max_rank}); got bucket {min_bucket}")
+        buckets = sorted(prefill_buckets or [s_max])
+        if buckets[-1] > s_max:
+            raise ValueError(f"prefill bucket {buckets[-1]} exceeds s_max={s_max}")
+        if prefill_chunk is not None:
+            bad = [b for b in buckets if b % prefill_chunk]
+            if bad:
+                raise ValueError(f"prefill buckets {bad} not multiples of "
+                                 f"prefill_chunk={prefill_chunk}")
+        if sparse_topk is not None and mla:
+            raise ValueError("sparse_topk is llama-family only")
+        self._model = deepseek if mla else llama
+        self._mla = mla
+        self._quantized = factor_dtype in ("int8", torch.int8)
+        self._mixed4 = factor_dtype == "int4"
+        self.device = torch.device(device)
+        self.params = params
+        self.cfg = cfg
+        self.xkv = xkv
+        self.num_slots = num_slots
+        self.s_max = s_max
+        self.tail_max = tail_max
+        self.eos_token_id = eos_token_id
+        self.cache_dtype = cache_dtype
+        self.factor_dtype = factor_dtype
+        self.prefill_buckets = buckets
+        # Chunked admission: at most one in flight, one chunk per step.
+        self.prefill_chunk = prefill_chunk
+        self._admitting: Optional[dict] = None
+        self.sparse_topk = sparse_topk
+        self.sparse_block = sparse_block
+        self.sparse_layers = None if sparse_layers is None else frozenset(sparse_layers)
+        self._sparse_kw = {} if sparse_topk is None else dict(
+            sparse_select=sparse_topk, sparse_block=sparse_block,
+            sparse_layers=self.sparse_layers)
+        # Per-slot refolds: SVD groups fold their tails into their factors.
+        self._can_refactor = xkv is not None and (xkv.merge_key or xkv.merge_value)
+
+        rope_dim = cfg.qk_rope_head_dim if mla else cfg.head_dim
+        self._cos_sin = rope_cos_sin(torch.arange(s_max, device=self.device), rope_dim,
+                                     cfg.rope_theta, cfg.rope_scaling)
+        self.batch_cache = self._empty_batch_cache()
+        self.prefill_len = np.zeros(num_slots, np.int32)
+        self.tail_len = np.zeros(num_slots, np.int32)
+        self.pos = np.zeros(num_slots, np.int32)
+        self.token = np.zeros(num_slots, np.int32)
+        self.slot_request: Dict[int, Request] = {}
+        self.queue: List[Request] = []
+        self._next_id = 0
+        self._finished: List[Request] = []
+        self._tail_capacity_finished: List[Request] = []
+        self.step_graph = BatchedStep(self)
+
+    # ------------------------------------------------------------ structure
+    def _empty_batch_cache(self) -> XKVCache:
+        """Zeroed slot cache: the layout of a batch-1 admitted cache with
+        ``num_slots`` rows and ``s_max`` sequence rows (JAX
+        ``_empty_batch_cache``, SVD groups)."""
+        cfg, xkv, dev = self.cfg, self.xkv, self.device
+        B, S = self.num_slots, self.s_max
+
+        def zeros(*shape, dtype=self.cache_dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        # MLA: the K slot is the latent (one "head" of kv_lora_rank), the V
+        # slot the rotated RoPE key, never merged.
+        hkv, hd = (1, cfg.kv_lora_rank) if self._mla else (cfg.num_kv_heads, cfg.head_dim)
+        v_width = cfg.qk_rope_head_dim if self._mla else hd
+        quantlike = self._quantized or self._mixed4
+        f_dtype = torch.int8 if quantlike else self.factor_dtype
+        groups = []
+        dense_k: Dict[int, torch.Tensor] = {}
+        dense_v: Dict[int, torch.Tensor] = {}
+        covered = set()
+        for grp in (xkv.layer_groups if xkv is not None else []):
+            covered.update(grp.layers)
+            m = len(grp.layers) * hkv * hd
+            kw = {}
+            if xkv.merge_key:
+                r8 = int4_rank_hi(grp.rank_k, xkv.int4_rank_frac) if self._mixed4 else grp.rank_k
+                kw["k_us"], kw["k_vt"] = zeros(B, S, r8, dtype=f_dtype), zeros(B, r8, m,
+                                                                               dtype=f_dtype)
+                if quantlike:
+                    kw["k_scale"] = zeros(B, 1, m, dtype=torch.float32)
+                if self._mixed4:
+                    lo = grp.rank_k - r8
+                    kw["k_us4"] = zeros(B, S, lo // 2, dtype=torch.int8)
+                    kw["k_vt4"] = zeros(B, lo, m, dtype=torch.int8)
+                    kw["k_scale4"] = zeros(B, 1, m, dtype=torch.float32)
+                if self.sparse_topk is not None:
+                    nc = -(-S // self.sparse_block)
+                    kw["k_cmin"], kw["k_cmax"] = zeros(B, nc, m), zeros(B, nc, m)
+                if self._mla:
+                    kw["k_rnorm"] = zeros(B, len(grp.layers), S, dtype=torch.float32)
+            else:
+                for l in grp.layers:
+                    dense_k[l] = zeros(B, hkv, S, hd)
+            if xkv.merge_value:
+                r8 = int4_rank_hi(grp.rank_v, xkv.int4_rank_frac) if self._mixed4 else grp.rank_v
+                kw["v_us"] = zeros(B, S, r8, dtype=f_dtype)
+                # v_vt keeps every rank (bf16, [hi | lo-eo] order if mixed).
+                kw["v_vt"] = zeros(B, grp.rank_v, m,
+                                   dtype=torch.bfloat16 if quantlike else f_dtype)
+                if quantlike:
+                    kw["v_scale"] = zeros(B, 1, grp.rank_v, dtype=torch.float32)
+                if self._mixed4:
+                    kw["v_us4"] = zeros(B, S, (grp.rank_v - r8) // 2, dtype=torch.int8)
+            else:
+                for l in grp.layers:
+                    dense_v[l] = zeros(B, hkv, S, v_width)
+            groups.append(GroupFactors(**kw))
+        for l in range(cfg.num_layers):
+            if l not in covered:
+                dense_k[l] = zeros(B, hkv, S, hd)
+                dense_v[l] = zeros(B, hkv, S, v_width)
+        tail_k, tail_v = init_tail(cfg, B, self.tail_max, self.cache_dtype, dev)
+        return XKVCache(groups=tuple(groups), dense_k=dense_k, dense_v=dense_v,
+                        tail_k=tail_k, tail_v=tail_v, tail_len=empty_tail_len(dev))
+
+    # ------------------------------------------------------------ admission
+    def _compress_kvs(self, kvs, bucket: int, true_len: int) -> XKVCache:
+        """Zero the padded rows and compress into a batch-1 cache. The
+        valid rows attend only among themselves (causal), so their K/V
+        and logits are exact; zero rows cost the SVD no rank and decode
+        masks them by the slot's prefill_len."""
+        mask = (torch.arange(bucket, device=self.device) < true_len)[None, None, :, None]
+        kvs = [(k * mask, v * mask) for k, v in kvs]
+        cos_p, sin_p = (None, None) if self._mla else (x[:bucket] for x in self._cos_sin)
+        if self.xkv is None:
+            return build_uncompressed_cache(kvs, self.cfg, cos_p, sin_p, 1,
+                                            cache_dtype=self.cache_dtype)
+        return build_cache(
+            kvs, self.xkv, self.cfg, cos_p, sin_p, 1, factor_dtype=self.factor_dtype,
+            cache_dtype=self.cache_dtype,
+            sparse_block=self.sparse_block if self.sparse_topk is not None else None)
+
+    def _pick_bucket(self, s: int) -> int:
+        bucket = next((b for b in self.prefill_buckets if b >= s), None)
+        if bucket is None:
+            raise ValueError(f"prompt length {s} exceeds s_max={self.s_max}")
+        return bucket
+
+    def _prefill_one(self, tokens: np.ndarray):
+        """Monolithic prefill + compression at the prompt's bucket; the
+        logits of the last valid position only."""
+        s = tokens.shape[-1]
+        bucket = self._pick_bucket(s)
+        padded = torch.zeros((1, bucket), dtype=torch.long, device=self.device)
+        padded[0, :s] = torch.as_tensor(tokens, device=self.device)
+        logits, kvs = self._model.prefill(self.params, self.cfg, padded, logits_position=s - 1)
+        cache1 = self._compress_kvs(kvs, bucket, s)
+        return cache1, int(logits[0, 0].argmax()), s
+
+    def _start_admission(self, req: Request, slot: int) -> None:
+        s = int(req.tokens.shape[-1])
+        bucket = self._pick_bucket(s)
+        L, dt = self.cfg.num_layers, self.params["embed"].dtype
+        if self._mla:
+            # K scratch: the RoPE-free latent; V scratch: the rotated k_pe.
+            k_shape = (L, 1, 1, bucket, self.cfg.kv_lora_rank)
+            v_shape = (L, 1, 1, bucket, self.cfg.qk_rope_head_dim)
+        else:
+            k_shape = v_shape = (L, 1, self.cfg.num_kv_heads, bucket, self.cfg.head_dim)
+        self._admitting = dict(
+            req=req, slot=slot, bucket=bucket, s=s, ci=0,
+            scratch_k=torch.zeros(k_shape, dtype=dt, device=self.device),
+            scratch_v=torch.zeros(v_shape, dtype=dt, device=self.device))
+
+    def _advance_admission(self) -> None:
+        """Run ONE prefill chunk; after the last, compress and insert."""
+        a = self._admitting
+        C = self.prefill_chunk
+        pos0 = a["ci"] * C
+        s, bucket = a["s"], a["bucket"]
+        valid = min(C, s - pos0)
+        chunk = torch.zeros((1, C), dtype=torch.long, device=self.device)
+        chunk[0, :valid] = torch.as_tensor(a["req"].tokens[pos0:pos0 + valid],
+                                           device=self.device)
+        final = pos0 + C >= s
+        cos_s, sin_s = (x[:bucket] for x in self._cos_sin)
+        logits, _, _ = self._model.prefill_chunk(
+            self.params, self.cfg, chunk, a["scratch_k"], a["scratch_v"], pos0, cos_s, sin_s,
+            valid - 1 if final else C - 1)
+        a["ci"] += 1
+        if final:
+            self._finish_admission(logits)
+
+    def _finish_admission(self, logits: torch.Tensor) -> None:
+        a, self._admitting = self._admitting, None
+        kvs = [(a["scratch_k"][l], a["scratch_v"][l]) for l in range(self.cfg.num_layers)]
+        cache1 = self._compress_kvs(kvs, a["bucket"], a["s"])
+        self._place(a["slot"], a["req"], cache1, int(logits[0, 0].argmax()), a["s"])
+
+    def _insert(self, cache1: XKVCache, slot: int) -> None:
+        """Write one admitted sequence's cache into its slot IN PLACE
+        (JAX ``_insert_impl``): every field of the slot zeroed, then
+        filled from the bucket-sized cache; the slot's tail zeroed."""
+        bc = self.batch_cache
+        for gd, gs in zip(bc.groups, cache1.groups):
+            for name, dst in vars(gd).items():
+                if dst is not None:
+                    put_slot(dst, slot, getattr(gs, name))
+        for dense, src in ((bc.dense_k, cache1.dense_k), (bc.dense_v, cache1.dense_v)):
+            for l, dst in dense.items():
+                put_slot(dst, slot, src[l])
+        bc.tail_k[:, slot].zero_()
+        bc.tail_v[:, slot].zero_()
+
+    def _place(self, slot: int, req: Request, cache1: XKVCache, first_token: int,
+               s: int) -> None:
+        self._insert(cache1, slot)
+        req.generated.append(first_token)
+        self.slot_request[slot] = req
+        self.prefill_len[slot] = s
+        self.tail_len[slot] = 0
+        self.pos[slot] = s
+        self.token[slot] = first_token
+        self._maybe_finish(slot)
+
+    # ------------------------------------------------------------ stepping
+    def step_logits(self, token, pos, prefill_len, tail_len) -> torch.Tensor:
+        """One decode step of every slot on (B,) device tensors (the body
+        ``BatchedStep`` runs and captures); each slot's tail is written in
+        place. Returns logits (B, V) fp32."""
+        logits, _ = self._model.decode_step_batched(
+            self.params, self.cfg, self.xkv, self.batch_cache, token, pos, prefill_len,
+            tail_len, self._cos_sin, **self._sparse_kw)
+        return logits
+
+    def _refactor(self, slot: int, plen: int) -> None:
+        refactorize_slot_cache(
+            self.batch_cache, self.xkv, self.cfg, slot, plen,
+            sparse_block=self.sparse_block if self.sparse_topk is not None else None)
+
+    # ------------------------------------------------------------ public API
+    def submit(self, tokens, max_new_tokens: int) -> int:
+        req = Request(self._next_id, np.asarray(tokens, np.int32).reshape(-1), max_new_tokens)
+        self._next_id += 1
+        self.queue.append(req)
+        return req.request_id
+
+    def _free_slots(self) -> List[int]:
+        return [i for i in range(self.num_slots) if i not in self.slot_request]
+
+    def _admit(self) -> None:
+        if self.prefill_chunk is not None:
+            if self._admitting is None and self.queue and self._free_slots():
+                self._start_admission(self.queue.pop(0), self._free_slots()[0])
+            if self._admitting is not None:
+                self._advance_admission()
+            return
+        for slot in self._free_slots():
+            if not self.queue:
+                break
+            req = self.queue.pop(0)
+            cache1, first_token, s = self._prefill_one(req.tokens)
+            self._place(slot, req, cache1, first_token, s)
+
+    def _maybe_finish(self, slot: int) -> None:
+        req = self.slot_request.get(slot)
+        if req is None:
+            return
+        if (len(req.generated) >= req.max_new_tokens
+                or (self.eos_token_id is not None and req.generated[-1] == self.eos_token_id)):
+            req.done = True
+            del self.slot_request[slot]
+            self._finished.append(req)
+
+    def _handle_full_tail(self, slot: int) -> None:
+        """A slot whose tail filled folds it into its factors in place
+        (generation goes on until the slot's s_max rows are used) or, when
+        that is impossible, finishes early."""
+        if slot not in self.slot_request or self.tail_len[slot] < self.tail_max:
+            return
+        plen = int(self.prefill_len[slot])
+        if self._can_refactor and plen + self.tail_max <= self.s_max:
+            self._refactor(slot, plen)
+            self.prefill_len[slot] = plen + self.tail_max
+            self.tail_len[slot] = 0
+        else:
+            req = self.slot_request.pop(slot)
+            req.done = True
+            self._tail_capacity_finished.append(req)
+
+    @torch.no_grad()
+    def step(self) -> List[Request]:
+        """Admit queued requests (or one admission chunk), run one decode
+        step of every slot, return the requests that finished. A request
+        that finishes at admission (its first token is EOS, or
+        ``max_new_tokens`` is 1) is returned too; the JAX engine drops it
+        (ROADMAP queue 3)."""
+        self._finished = []
+        self._tail_capacity_finished = []
+        self._admit()
+        if self.slot_request:
+            self.step_graph.load(self.token, self.pos, self.prefill_len, self.tail_len)
+            next_tok = self.step_graph.run()
+            for slot, req in list(self.slot_request.items()):
+                self.tail_len[slot] += 1
+                self.pos[slot] += 1
+                tok = int(next_tok[slot])
+                req.generated.append(tok)
+                self.token[slot] = tok
+                self._maybe_finish(slot)
+                if not req.done:
+                    self._handle_full_tail(slot)
+        return self._finished + self._tail_capacity_finished
+
+    @torch.no_grad()
+    def run(self) -> List[Request]:
+        """Drain the queue; returns every finished request."""
+        done: List[Request] = []
+        while self.queue or self.slot_request or self._admitting is not None:
+            done.extend(self.step())
+        return done

@@ -21,6 +21,7 @@ contracts against (``latent_rnorm``).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -83,6 +84,15 @@ def _k_matrix(gf: GroupFactors) -> torch.Tensor:
     if gf.k_scale is not None:
         return dequantize_k(QuantizedKFactors(gf.k_us, gf.k_vt, gf.k_scale))
     return reconstruct(LowRankFactors(gf.k_us, gf.k_vt))
+
+
+def _v_matrix(gf: GroupFactors) -> torch.Tensor:
+    """The fp32 group value matrix the stored V factors hold."""
+    if gf.v_us4 is not None:
+        return dequantize_v_mixed4(QuantizedVFactorsMixed4(gf.v_us, gf.v_us4, gf.v_scale, gf.v_vt))
+    if gf.v_scale is not None:
+        return dequantize_v(QuantizedVFactors(gf.v_us, gf.v_scale, gf.v_vt))
+    return reconstruct(LowRankFactors(gf.v_us, gf.v_vt))
 
 
 def _is_int8(factor_dtype) -> bool:
@@ -377,6 +387,33 @@ def build_uncompressed_cache(
                     tail_len=empty_tail_len(tail_k.device))
 
 
+def _refolded_fields(gf: GroupFactors, grp, cfg: ModelConfig, k_ext: Optional[torch.Tensor],
+                     v_ext: Optional[torch.Tensor], store_k, store_v, svd_kw: dict,
+                     sparse_block: Optional[int], cos_f, sin_f) -> dict:
+    """The stored fields of a group refactorised over its K and V matrices
+    with the tail folded in, ``k_ext`` / ``v_ext`` (b, rows, m) fp32 (None
+    for a side the group does not factor): stored as ``store_k`` /
+    ``store_v``, mixed factors keeping their int8 / int4 rank split; the
+    MLA ``k_rnorm`` from the new stored factors; chunk bounds over
+    ``k_ext`` in ``sparse_block``-row chunks (the JAX package derives the
+    width from the stored chunk count, ceil(rows / nc), which differs from
+    sparse_block once rows are not a multiple of it)."""
+    kw = {}
+    if k_ext is not None:
+        kw.update(_store_k(factorize(k_ext, grp.rank_k, **svd_kw),
+                           "int4" if gf.k_us4 is not None else store_k, gf.k_us.shape[2]))
+        if gf.k_rnorm is not None:
+            kw["k_rnorm"] = latent_rnorm(_k_matrix(GroupFactors(**kw)), len(grp.layers))
+        if gf.k_cmin is not None:
+            cmin, cmax = chunk_bounds(k_ext, cos_f, sin_f, sparse_block,
+                                      len(grp.layers) * cfg.num_kv_heads)
+            kw["k_cmin"], kw["k_cmax"] = cmin.to(gf.k_cmin.dtype), cmax.to(gf.k_cmax.dtype)
+    if v_ext is not None:
+        kw.update(_store_v(factorize(v_ext, grp.rank_v, **svd_kw),
+                           "int4" if gf.v_us4 is not None else store_v, gf.v_us.shape[2]))
+    return kw
+
+
 def refactorize_cache(
     cache: XKVCache,
     xkv: XKVConfig,
@@ -424,40 +461,18 @@ def refactorize_cache(
     new_groups = []
     for grp, gf in zip(xkv.layer_groups, cache.groups):
         layers = grp.layers
-        kw = {}
+        k_ext = v_ext = None
         if gf.k_us is not None:
             tail_pre = _stack_group_matrix(
                 [unrope(cache.tail_k[l].to(torch.float32)) for l in layers])
             k_ext = torch.cat([_k_matrix(gf), tail_pre], dim=1)
-            # Mixed factors keep their rank split.
-            mixed = gf.k_us4 is not None
-            kw.update(_store_k(factorize(k_ext, grp.rank_k, **svd_kw),
-                               "int4" if mixed else store_dtype, gf.k_us.shape[2]))
-            if gf.k_rnorm is not None:
-                kw["k_rnorm"] = latent_rnorm(_k_matrix(GroupFactors(**kw)), len(layers))
-            if gf.k_cmin is not None:
-                # The JAX package derives the chunk width from the stored
-                # chunk count, ceil(s_p / nc), which differs from
-                # sparse_block once s_p is not a multiple of it.
-                cmin, cmax = chunk_bounds(k_ext, cos_f, sin_f, sparse_block,
-                                          len(layers) * cfg.num_kv_heads)
-                kw["k_cmin"] = cmin.to(gf.k_cmin.dtype)
-                kw["k_cmax"] = cmax.to(gf.k_cmax.dtype)
         if gf.v_us is not None:
-            if gf.v_us4 is not None:
-                v_mat = dequantize_v_mixed4(QuantizedVFactorsMixed4(
-                    gf.v_us, gf.v_us4, gf.v_scale, gf.v_vt))
-            elif gf.v_scale is not None:
-                v_mat = dequantize_v(QuantizedVFactors(gf.v_us, gf.v_scale, gf.v_vt))
-            else:
-                v_mat = reconstruct(LowRankFactors(gf.v_us, gf.v_vt))
             tail_v = _stack_group_matrix(
                 [cache.tail_v[l].to(torch.float32) for l in layers])
-            v_ext = torch.cat([v_mat, tail_v], dim=1)
-            mixed = gf.v_us4 is not None
-            kw.update(_store_v(factorize(v_ext, grp.rank_v, **svd_kw),
-                               "int4" if mixed else store_dtype, gf.v_us.shape[2]))
-        new_groups.append(GroupFactors(**kw))
+            v_ext = torch.cat([_v_matrix(gf), tail_v], dim=1)
+        new_groups.append(GroupFactors(**_refolded_fields(
+            gf, grp, cfg, k_ext, v_ext, store_dtype, store_dtype, svd_kw, sparse_block,
+            cos_f, sin_f)))
 
     # Dense segments: concat the (already post-RoPE) tail.
     new_dense_k = {l: torch.cat([d, cache.tail_k[l].to(d.dtype)], dim=2)
@@ -468,3 +483,101 @@ def refactorize_cache(
     return XKVCache(groups=tuple(new_groups), dense_k=new_dense_k, dense_v=new_dense_v,
                     tail_k=tail_k, tail_v=tail_v,
                     tail_len=empty_tail_len(tail_k.device))
+
+
+# ------------------------------------------------------ continuous batching
+def slot_fields(gf: GroupFactors, slot: int) -> GroupFactors:
+    """The group's factors of one slot of a batched (slot) cache: views
+    [slot:slot+1] of every field, so a write into one lands in the slot."""
+    return GroupFactors(**{f.name: (None if getattr(gf, f.name) is None
+                                    else getattr(gf, f.name)[slot:slot + 1])
+                           for f in dataclasses.fields(GroupFactors)})
+
+
+def put_slot(dst: torch.Tensor, slot: int, src: torch.Tensor) -> None:
+    """Write ``src`` (1, ...) into row ``slot`` of ``dst`` (B, ...) IN
+    PLACE: the slot is zeroed, then ``src`` fills its leading corner. A
+    bucket-sized admission so leaves the slot's rows past the bucket (and
+    rank columns past a bucket-clamped rank) zero, as the JAX package's
+    zero padding to ``s_max`` does, whatever an earlier request left
+    there: the refold's SVD reads the slot's whole row space."""
+    view = dst[slot]
+    view.zero_()
+    view[tuple(slice(0, n) for n in src.shape[1:])].copy_(src[0])
+
+
+def refactorize_slot_cache(
+    cache: XKVCache,
+    xkv: XKVConfig,
+    cfg: ModelConfig,
+    slot: int,
+    plen: int,
+    sparse_block: Optional[int] = None,
+) -> XKVCache:
+    """Fold ONE slot's full decode tail back into its factors, IN PLACE
+    within the slot's static row capacity (continuous batching; JAX
+    ``refactorize_slot_cache``).
+
+    The tail rows take rows [plen, plen + tail_max) of the slot's
+    s_max-row factor space; rows past the slot's length are zero (zero
+    rows of U), so they are free to occupy. Every write is a copy into the
+    existing slot tensors, which a captured batched step reads by address:
+    nothing is reallocated. Caller contract: the slot's tail is full and
+    ``plen + tail_max <= s_max``. Groups holding chunk bounds get them
+    recomputed over the slot's keys in ``sparse_block``-row chunks, the
+    width decode gathers (the JAX package re-derives the width as
+    ceil(s_max / n_chunks), another width once s_max is not a multiple of
+    the block: ROADMAP queue 3). Factor shapes, dtypes and the int8 /
+    int4 rank split stay the slot's."""
+    _check_scheme(xkv)
+    t = cache.tail_max
+    s_max = cache.prefill_len
+    if plen + t > s_max:
+        raise ValueError(f"slot refold past s_max: {plen} + {t} > {s_max}")
+    device = cache.tail_k.device
+    rope_keys = _rope_keys(cfg)
+    rope_post = xkv.rope_mode == "post" and rope_keys
+    svd_kw = _svd_kw(xkv)
+    bounded = any(g.k_cmin is not None for g in cache.groups)
+    if bounded and sparse_block is None:
+        raise ValueError("the cache holds chunk bounds: pass sparse_block")
+    cos_f = sin_f = None
+    if bounded and not rope_post:
+        cos_f, sin_f = rope_cos_sin(torch.arange(s_max, device=device), cfg.head_dim,
+                                    cfg.rope_theta, cfg.rope_scaling)
+    cos_t = sin_t = None
+    if rope_keys and not rope_post:
+        cos_t, sin_t = rope_cos_sin(plen + torch.arange(t, device=device), cfg.head_dim,
+                                    cfg.rope_theta, cfg.rope_scaling)
+
+    def unrope(k):
+        return k if cos_t is None else apply_rope(k, cos_t[None], -sin_t[None])
+
+    for grp, gf in zip(xkv.layer_groups, cache.groups):
+        layers = grp.layers
+        one = slot_fields(gf, slot)
+        k_ext = v_ext = None
+        if gf.k_us is not None:
+            k_ext = _k_matrix(one)
+            k_ext[:, plen:plen + t] = _stack_group_matrix(
+                [unrope(cache.tail_k[l][slot:slot + 1].to(torch.float32)) for l in layers])
+        if gf.v_us is not None:
+            v_ext = _v_matrix(one)
+            v_ext[:, plen:plen + t] = _stack_group_matrix(
+                [cache.tail_v[l][slot:slot + 1].to(torch.float32) for l in layers])
+        # The slot's own storage dtypes (int8 scales mark quantised sides).
+        store_k = "int8" if gf.k_scale is not None else getattr(gf.k_us, "dtype", None)
+        store_v = "int8" if gf.v_scale is not None else getattr(gf.v_us, "dtype", None)
+        for name, src in _refolded_fields(gf, grp, cfg, k_ext, v_ext, store_k, store_v, svd_kw,
+                                          sparse_block, cos_f, sin_f).items():
+            put_slot(getattr(gf, name), slot, src)
+
+    # Dense segments hold the tail's storage form already (post-RoPE keys,
+    # MLA: the latent and rotated k_pe): its rows are copied in.
+    for dense, tail in ((cache.dense_k, cache.tail_k), (cache.dense_v, cache.tail_v)):
+        for l, dst in dense.items():
+            dst[slot, :, plen:plen + t].copy_(tail[l][slot])
+    # An empty slot tail keeps rows past the slot's tail_len zero.
+    cache.tail_k[:, slot].zero_()
+    cache.tail_v[:, slot].zero_()
+    return cache

@@ -28,6 +28,10 @@ the engine's draft options) and a verify step (``k + 1`` tokens, exact)
 captured once per factor segment and replayed every round, ``k`` draft
 replays and one verify replay, over static device buffers that carry the
 round's start (tail length, position, token) from one round to the next.
+
+``BatchedStep`` is the continuous-batching step (the JAX
+``BatchedEngine``'s ``_step_jit``): one decode step of every slot of an
+s_max-row slot cache, captured once per engine and replayed every step.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import time
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from xkv_tpu_torch.cache import XKVCache
@@ -330,3 +335,75 @@ class SpecRounds:
         """(the next round's start token (1, 1), the cache); frees the graphs."""
         self.draft_graph = self.verify_graph = None
         return self.token, self.cache
+
+
+class BatchedStep:
+    """The decode step of every slot of a ``BatchedEngine``, captured once
+    (the JAX engine's ``self._step_jit``). The slot cache has static
+    shapes, and admission, insertion and refolds write into it in place,
+    so one capture serves the engine's whole life.
+
+    Device buffers: ``inputs`` (4, B) int64, the rows token, position,
+    prefill length and tail length of each slot, copied in from the
+    host's numpy twins once a step (``load``); ``next_tok`` (B,), the
+    step's greedy tokens, read by the host once a step (``run``): that
+    read is the step's one sync. On CUDA the first ``run`` is the
+    warm-up step, eager on a side stream, and then captures the step;
+    every later ``run`` replays it, timed by CUDA events. A capture that
+    fails raises. On the CPU every ``run`` is the eager step."""
+
+    def __init__(self, engine):
+        dev = engine.device
+        B = engine.num_slots
+        self.engine = engine
+        self.graphed = dev.type == "cuda"
+        self.inputs = torch.zeros((4, B), dtype=torch.long, device=dev)
+        self._staged = torch.zeros((4, B), dtype=torch.long,
+                                   pin_memory=dev.type == "cuda")
+        self.next_tok = torch.zeros((B,), dtype=torch.long, device=dev)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.counts: Optional[dict] = None
+        self.capture_ms: Optional[float] = None
+        self.steps = 0
+        # (start, end) CUDA events around each replay.
+        self.events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
+
+    def load(self, token, pos, prefill_len, tail_len) -> None:
+        """Copy the host's (B,) arrays into the step's input buffer."""
+        for row, arr in zip(self._staged, (token, pos, prefill_len, tail_len)):
+            row.copy_(torch.as_tensor(arr))
+        self.inputs.copy_(self._staged, non_blocking=True)
+
+    def _body(self) -> None:
+        token, pos, prefill_len, tail_len = self.inputs
+        logits = self.engine.step_logits(token, pos, prefill_len, tail_len)
+        self.next_tok.copy_(logits.argmax(dim=-1))
+
+    def run_eager(self) -> np.ndarray:
+        """The step on the loaded inputs, eagerly; its tokens (B,)."""
+        self._body()
+        return self.next_tok.cpu().numpy()
+
+    def run(self) -> np.ndarray:
+        """The step on the loaded inputs; its tokens (B,) on the host."""
+        self.steps += 1
+        if not self.graphed:
+            return self.run_eager()
+        if self.graph is None:
+            run_on_side_stream(self._body, self.inputs.device)
+            self.graph, self.counts, self.capture_ms = capture_step(self._body)
+        else:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            self.graph.replay()
+            end.record()
+            _build.add_counts(self.counts)
+            self.events.append((start, end))
+        return self.next_tok.cpu().numpy()
+
+    def replay_ms(self) -> Tuple[float, int]:
+        """(device ms summed over the replays, their number)."""
+        if not self.events:
+            return 0.0, 0
+        self.events[-1][1].synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events), len(self.events)

@@ -264,6 +264,54 @@ def prefill(
     return unembed(params, cfg, h), kvs
 
 
+def prefill_chunk(
+    params: Params,
+    cfg: ModelConfig,
+    chunk_tokens: torch.Tensor,
+    scratch_latent: torch.Tensor,
+    scratch_kpe: torch.Tensor,
+    pos0: Union[int, torch.Tensor],
+    cos_s: torch.Tensor,
+    sin_s: torch.Tensor,
+    last_idx: Union[int, torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One chunk of a chunked MLA prefill (JAX ``prefill_chunk``), with
+    ``llama.prefill_chunk``'s contract: the chunk's RoPE-free latent and
+    rotated k_pe are written IN PLACE into the scratch (L, b, 1, S, lora)
+    and (L, b, 1, S, rope) at pos0, every read row's latent is
+    up-projected again, and attention is causal over [0, pos0 + C)
+    (plain ``blockwise_causal_attention``). cos_s / sin_s: the
+    interleaved-RoPE tables (S, rope). Returns (logits (b, 1, V) fp32 at
+    chunk row ``last_idx``, scratch_latent, scratch_kpe)."""
+    b, C = chunk_tokens.shape
+    scale = softmax_scale(cfg)
+    rows = torch.arange(C, device=chunk_tokens.device) + pos0
+    kv_valid = pos0 + C
+    n_read = kv_valid if isinstance(kv_valid, int) else scratch_latent.shape[3]
+    cos_c, sin_c = cos_s[rows][None], sin_s[rows][None]
+    h = params["embed"][chunk_tokens]
+    for li, layer in enumerate(params["layers"]):
+        resid = h
+        x = rms_norm(h, layer["input_norm"], cfg.rms_norm_eps)
+        ap = layer["attn"]
+        q_nope, q_pe = _q_heads(ap, cfg, x)
+        latent, k_pe_pre = _latent_and_kpe(ap, cfg, x)
+        q_pe = apply_rope_interleaved(q_pe, cos_c, sin_c)
+        k_pe = apply_rope_interleaved(k_pe_pre, cos_c, sin_c)
+        scratch_latent[li].index_copy_(2, rows, latent.to(scratch_latent.dtype))
+        scratch_kpe[li].index_copy_(2, rows, k_pe.to(scratch_kpe.dtype))
+        k_nope, v = _up_project(ap, cfg, scratch_latent[li, :, 0, :n_read].to(latent.dtype))
+        k_pe_all = scratch_kpe[li, :, :, :n_read].to(k_pe.dtype)
+        q_full = torch.cat([q_nope, q_pe], dim=-1)
+        k_full = torch.cat([k_nope, k_pe_all.expand(-1, k_nope.shape[1], -1, -1)], dim=-1)
+        attn = blockwise_causal_attention(q_full, k_full, v, scale, q_offset=pos0,
+                                          kv_valid=kv_valid).to(h.dtype)
+        h = resid + attn.permute(0, 2, 1, 3).reshape(b, C, -1) @ ap["o_proj"]
+        h = h + _mlp(layer["mlp"], cfg, rms_norm(h, layer["post_norm"], cfg.rms_norm_eps))
+    idx = torch.as_tensor(last_idx, device=h.device).reshape(1)
+    return unembed(params, cfg, h.index_select(1, idx)), scratch_latent, scratch_kpe
+
+
 # ----------------------------------------------------------------- decode
 def _scores(q_abs, q_pe, latent, k_pe, scale) -> torch.Tensor:
     """Absorbed scores (b, nh, ql, s) of q_abs (b, nh, ql, lora) and q_pe
@@ -273,13 +321,16 @@ def _scores(q_abs, q_pe, latent, k_pe, scale) -> torch.Tensor:
 
 
 def _rankspace_part(q_abs, q_pe, gf, gpos, k_pe_p, w, cfg, scale,
-                    draft_rank: Optional[int] = None) -> PartialAttention:
+                    draft_rank: Optional[int] = None,
+                    lengths: Optional[torch.Tensor] = None) -> PartialAttention:
     """Latent-space attention over a factored group's prefill segment, in
     rank space (K7, or K8 for mixed int8+int4 factors): the latent norm's
     row scalar is ``k_rnorm``, its column weight ``w`` (and the int8 column
     scales) fold into the absorbed query and into the output projection.
-    ``draft_rank``: K7 attends over only the top ``draft_rank`` ranks (of
-    the int8 ones for mixed factors), read in place from the factors' own
+    ``lengths`` (b,): each sequence's valid prefill rows (a slot cache),
+    None for all. ``draft_rank``: K7 attends over only the top
+    ``draft_rank`` ranks (of the int8 ones for mixed factors), read in
+    place from the factors' own
     rows; the norms stay those of the full-rank latent. The projections in
     and out of rank space keep the full-rank shapes (the query's other
     ranks dropped, t's zero), which the exact step's products have: at 16
@@ -299,7 +350,7 @@ def _rankspace_part(q_abs, q_pe, gf, gpos, k_pe_p, w, cfg, scale,
     ranks = slice(None, draft_rank)
     t, lse = mla_rankspace_decode_attention(
         q_emb[..., ranks] * scale, q_pe * scale, gf.k_us[..., ranks], k_pe_p,
-        gf.k_rnorm[:, gpos], k_us4=gf.k_us4 if mixed else None)
+        gf.k_rnorm[:, gpos], lengths, k_us4=gf.k_us4 if mixed else None)
     if draft_rank is not None:
         t = F.pad(t, (0, q_emb.shape[-1] - t.shape[-1]))
     out, col = 0, 0
@@ -309,42 +360,18 @@ def _rankspace_part(q_abs, q_pe, gf, gpos, k_pe_p, w, cfg, scale,
     return PartialAttention(out=out, lse=lse)
 
 
-def decode_step(
-    params: Params,
-    cfg: ModelConfig,
-    xkv: Optional[XKVConfig],
-    cache: XKVCache,
-    tokens: torch.Tensor,
-    pos: Union[int, torch.Tensor],
-    draft_rank: Optional[int] = None,
-) -> Tuple[torch.Tensor, XKVCache]:
-    """Absorbed MLA decode over the hybrid latent cache.
-
-    tokens: (b, ql) next token(s); pos: absolute position of tokens[:, 0],
-    an int or a 0-d tensor on the device (``llama.decode_step``).
-    ``ql > 1`` appends ql rows to the tail, causal among themselves (the
-    speculative verify pass). The tail is written in place. Returns
-    (logits (b, ql, V) fp32, cache). Per layer the nope scores contract
-    the query (through W_uk) against the latent, in rank space when the
-    group is factored; the pe scores use the dense k_pe slot; the output
-    recombines through W_uv, then o_proj.
-
-    ``draft_rank``: the speculative draft's step, over the top
-    ``draft_rank`` singular directions of each factored latent (the best
-    rank-r approximation, the factors being SVD-ordered; mixed int8+int4
-    factors draft on their int8 ranks); the tail and the pe scores stay
-    exact.
-    """
+def _decode_layers(params, cfg, xkv, cache, tokens, cos, sin, write_tail, t_mask,
+                   lengths=None, draft_rank=None) -> torch.Tensor:
+    """The decoder layers of an absorbed MLA decode step, shared by
+    ``decode_step`` and ``decode_step_batched``: tokens (b, ql) at the
+    positions of the interleaved-RoPE tables cos/sin (1|b, ql, rope);
+    ``write_tail(li, latent, k_pe)`` writes the new rows into the tail;
+    ``t_mask`` (broadcastable to (b, nh, ql, t_max)) marks each query's
+    live tail rows; ``lengths`` (b,) each sequence's valid prefill rows
+    (None: all). Returns logits (b, ql, V)."""
     b, ql = tokens.shape
-    dev = tokens.device
     scale = softmax_scale(cfg)
-    positions = (position_tensor(pos, dev) + torch.arange(ql, device=dev))[None, :]
-    cos, sin = rope_cos_sin(positions, cfg.qk_rope_head_dim, cfg.rope_theta, cfg.rope_scaling)
     grp_index = layer_group_index(xkv) if xkv is not None else {}
-    # Query i sees tail rows < tail_len + i + 1.
-    t_mask = (torch.arange(cache.tail_max, device=dev)[None, :]
-              < cache.tail_len + 1 + torch.arange(ql, device=dev)[:, None])
-
     h = params["embed"][tokens]
     for li, layer in enumerate(params["layers"]):
         resid = h
@@ -353,7 +380,7 @@ def decode_step(
         q_nope, q_pe = _q_heads(ap, cfg, x)
         latent_new, k_pe_pre = _latent_and_kpe(ap, cfg, x)
         q_pe = apply_rope_interleaved(q_pe, cos, sin).to(torch.float32)
-        cache.append_tail(li, latent_new, apply_rope_interleaved(k_pe_pre, cos, sin))
+        write_tail(li, latent_new, apply_rope_interleaved(k_pe_pre, cos, sin))
 
         w_uk, w_uv = _kv_b_split(ap, cfg)
         q_abs = torch.einsum("bhqd,hld->bhql", q_nope.to(torch.float32), w_uk.to(torch.float32))
@@ -384,13 +411,16 @@ def decode_step(
                 out=(e_t / torch.clamp(l_t, min=1e-30)) @ latent_t[:, None],
                 lse=m_t[..., 0] + torch.log(torch.clamp(l_t[..., 0], min=1e-30)))
             lat_sum = merge_partials(
-                _rankspace_part(q_abs, q_pe, gf, gpos, k_pe_p, w, cfg, scale, draft_rank),
-                tail)
+                _rankspace_part(q_abs, q_pe, gf, gpos, k_pe_p, w, cfg, scale, draft_rank,
+                                lengths), tail)
         else:
             # Dense latent: one softmax over prefill and tail.
             latent_p = norm_latent(cache.dense_k[li][:, 0])
             scores_p = _scores(q_abs, q_pe, latent_p, k_pe_p.to(torch.float32), scale)
             s_p = latent_p.shape[1]
+            if lengths is not None:
+                live = torch.arange(s_p, device=lengths.device)[None, :] < lengths[:, None]
+                scores_p = torch.where(live[:, None, None, :], scores_p, NEG_INF)
             probs = torch.softmax(torch.cat([scores_p, scores_t], dim=-1), dim=-1)
             lat_sum = probs[..., :s_p] @ latent_p[:, None] + probs[..., s_p:] @ latent_t[:, None]
         attn = torch.einsum("bhql,hlv->bhqv", lat_sum, w_uv.to(torch.float32))
@@ -398,4 +428,77 @@ def decode_step(
         h = resid + attn @ ap["o_proj"]
         h = h + _mlp(layer["mlp"], cfg, rms_norm(h, layer["post_norm"], cfg.rms_norm_eps),
                      decode=True)
-    return unembed(params, cfg, h), cache.advance(ql)
+    return unembed(params, cfg, h)
+
+
+def decode_step(
+    params: Params,
+    cfg: ModelConfig,
+    xkv: Optional[XKVConfig],
+    cache: XKVCache,
+    tokens: torch.Tensor,
+    pos: Union[int, torch.Tensor],
+    draft_rank: Optional[int] = None,
+) -> Tuple[torch.Tensor, XKVCache]:
+    """Absorbed MLA decode over the hybrid latent cache.
+
+    tokens: (b, ql) next token(s); pos: absolute position of tokens[:, 0],
+    an int or a 0-d tensor on the device (``llama.decode_step``).
+    ``ql > 1`` appends ql rows to the tail, causal among themselves (the
+    speculative verify pass). The tail is written in place. Returns
+    (logits (b, ql, V) fp32, cache). Per layer the nope scores contract
+    the query (through W_uk) against the latent, in rank space when the
+    group is factored; the pe scores use the dense k_pe slot; the output
+    recombines through W_uv, then o_proj.
+
+    ``draft_rank``: the speculative draft's step, over the top
+    ``draft_rank`` singular directions of each factored latent (the best
+    rank-r approximation, the factors being SVD-ordered; mixed int8+int4
+    factors draft on their int8 ranks); the tail and the pe scores stay
+    exact.
+    """
+    b, ql = tokens.shape
+    dev = tokens.device
+    positions = (position_tensor(pos, dev) + torch.arange(ql, device=dev))[None, :]
+    cos, sin = rope_cos_sin(positions, cfg.qk_rope_head_dim, cfg.rope_theta, cfg.rope_scaling)
+    # Query i sees tail rows < tail_len + i + 1.
+    t_mask = (torch.arange(cache.tail_max, device=dev)[None, :]
+              < cache.tail_len + 1 + torch.arange(ql, device=dev)[:, None])
+    logits = _decode_layers(params, cfg, xkv, cache, tokens, cos, sin, cache.append_tail,
+                            t_mask, draft_rank=draft_rank)
+    return logits, cache.advance(ql)
+
+
+def decode_step_batched(
+    params: Params,
+    cfg: ModelConfig,
+    xkv: Optional[XKVConfig],
+    cache: XKVCache,
+    tokens: torch.Tensor,
+    pos: torch.Tensor,
+    prefill_len: torch.Tensor,
+    tail_len: torch.Tensor,
+    prefill_cos_sin=None,
+) -> Tuple[torch.Tensor, XKVCache]:
+    """Absorbed MLA decode across B independent slots (continuous
+    batching; JAX ``decode_step_batched``): per-slot positions, valid
+    prefill rows of the s_max-row slot cache (``lengths`` of K7/K8 and of
+    the dense latents' mask) and tail fills, each a (B,) tensor on the
+    device; no host read, so a CUDA graph can capture the step. 2-D
+    ``tokens`` (B, ql) run a multi-token pass per slot (logits (B, ql,
+    V)). ``prefill_cos_sin`` is unused (the latent carries no RoPE); it
+    keeps ``llama``'s signature. Returns (logits (B, V) fp32, cache)."""
+    multi = tokens.dim() == 2
+    tokens2 = tokens if multi else tokens[:, None]
+    ql = tokens2.shape[1]
+    dev = tokens2.device
+    positions = pos.long()[:, None] + torch.arange(ql, device=dev)[None, :]
+    cos, sin = rope_cos_sin(positions, cfg.qk_rope_head_dim, cfg.rope_theta, cfg.rope_scaling)
+    t_mask = (torch.arange(cache.tail_max, device=dev)[None, None, :]
+              < (tail_len.long()[:, None] + 1 + torch.arange(ql, device=dev)[None, :])[..., None]
+              )[:, None]  # (B, 1, ql, t_max)
+    logits = _decode_layers(
+        params, cfg, xkv, cache, tokens2, cos, sin,
+        lambda li, k, v: cache.append_slot_tails(li, k, v, tail_len), t_mask,
+        lengths=prefill_len)
+    return (logits if multi else logits[:, 0]), cache

@@ -39,6 +39,7 @@ from xkv_tpu_torch.models.config import ModelConfig
 from xkv_tpu_torch.ops.attention import (
     PartialAttention,
     adaptive_hot_chunks,
+    blockwise_causal_attention,
     chunk_bound_scores,
     dense_decode_attention_ref,
     merge_partials,
@@ -190,6 +191,56 @@ def prefill(
     return unembed(params, cfg, h), kvs
 
 
+def prefill_chunk(
+    params: Params,
+    cfg: ModelConfig,
+    chunk_tokens: torch.Tensor,
+    scratch_k: torch.Tensor,
+    scratch_v: torch.Tensor,
+    pos0: Union[int, torch.Tensor],
+    cos_s: torch.Tensor,
+    sin_s: torch.Tensor,
+    last_idx: Union[int, torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One chunk of a chunked (incremental) prefill (JAX ``prefill_chunk``).
+
+    chunk_tokens (b, C) at absolute positions [pos0, pos0 + C); scratch_k /
+    scratch_v (L, b, hkv, S, hd): the pre-RoPE K and V of the rows before
+    it, written IN PLACE at pos0 for the chunk; cos_s / sin_s (S, hd): the
+    RoPE tables of the scratch rows. Attention is causal over the valid
+    rows [0, pos0 + C) (plain ``blockwise_causal_attention``, fresh keys
+    rotated locally, as the monolithic prefill), so the chunk's logits and
+    K/V equal the monolithic prefill's. ``pos0`` and ``last_idx`` are ints
+    (the scratch is then read only up to pos0 + C) or 0-d tensors on the
+    device (every row read, those past pos0 + C masked). Returns (logits
+    (b, 1, V) fp32 at chunk row ``last_idx``, scratch_k, scratch_v)."""
+    b, C = chunk_tokens.shape
+    hd = cfg.head_dim
+    scale = 1.0 / math.sqrt(hd)
+    rows = torch.arange(C, device=chunk_tokens.device) + pos0
+    kv_valid = pos0 + C
+    # Rows the attention reads: up to the chunk's end when that is known.
+    n_read = kv_valid if isinstance(kv_valid, int) else scratch_k.shape[3]
+    cos_c, sin_c = cos_s[rows][None], sin_s[rows][None]
+    h = params["embed"][chunk_tokens]
+    for li, layer in enumerate(params["layers"]):
+        resid = h
+        x = rms_norm(h, layer["input_norm"], cfg.rms_norm_eps)
+        q, k_pre, v = qkv_proj(layer["attn"], cfg, x)
+        q = apply_rope(q, cos_c, sin_c)
+        scratch_k[li].index_copy_(2, rows, k_pre.to(scratch_k.dtype))
+        scratch_v[li].index_copy_(2, rows, v.to(scratch_v.dtype))
+        k_all = apply_rope(scratch_k[li, :, :, :n_read].to(k_pre.dtype), cos_s[None, :n_read],
+                           sin_s[None, :n_read])
+        attn = blockwise_causal_attention(
+            q, k_all, scratch_v[li, :, :, :n_read].to(v.dtype), scale,
+            window=cfg.sliding_window, q_offset=pos0, kv_valid=kv_valid)
+        h = resid + attn.permute(0, 2, 1, 3).reshape(b, C, -1) @ layer["attn"]["wo"]
+        h = h + mlp(layer["mlp"], rms_norm(h, layer["post_norm"], cfg.rms_norm_eps))
+    idx = torch.as_tensor(last_idx, device=h.device).reshape(1)
+    return unembed(params, cfg, h.index_select(1, idx)), scratch_k, scratch_v
+
+
 # ----------------------------------------------------------------- decode
 def position_tensor(pos: Union[int, torch.Tensor], device: torch.device) -> torch.Tensor:
     """A decode position as a 0-d int64 tensor on ``device``: a tensor as
@@ -221,10 +272,12 @@ def _post_rope_factored_part(
     sparse_block: int = 512,
     sparse_select_max: Optional[int] = None,
     sparse_adaptive_band: float = 0.5,
+    lengths: Optional[torch.Tensor] = None,
 ) -> PartialAttention:
     """Attention over a POST-RoPE factored group in rank space: no
     reconstruction and no trig. K2 reads the whole segment, K6 mixed
-    int8+int4 factors, K4 the Quest-selected chunks when ``sparse_ok``."""
+    int8+int4 factors, K4 the Quest-selected chunks when ``sparse_ok``;
+    ``lengths`` (b,) bounds each sequence's valid rows (None: all)."""
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     vt_k = vt_layer_slice(gf.k_vt, gpos, hkv, hd)
     vt_v = vt_layer_slice(gf.v_vt, gpos, hkv, hd)
@@ -243,18 +296,18 @@ def _post_rope_factored_part(
             # composition as plain XLA on the TPU too (it has no kernel for
             # it), so this is the reference's own path, not a fallback.
             ids = select_topk_chunks(q, cmin_sl, cmax_sl, n_select=n_sel, num_kv_heads=hkv,
-                                     block=sparse_block, win_lo=win_lo)
+                                     valid_len=lengths, block=sparse_block, win_lo=win_lo)
             return sparse_rankspace_decode_attention_ref(
                 q, gf.k_us, vt_k, gf.v_us, vt_v, ids, scale, hkv, block=sparse_block,
-                k_scale_slice=k_scale_slice, v_rank_scale=gf.v_scale, valid_lo=win_lo,
-                **kw4)
+                k_scale_slice=k_scale_slice, v_rank_scale=gf.v_scale, valid_len=lengths,
+                valid_lo=win_lo, **kw4)
         out, lse = rankspace_decode_attention(
-            q, gf.k_us, vt_k, gf.v_us, vt_v, k_scale_slice=k_scale_slice,
+            q, gf.k_us, vt_k, gf.v_us, vt_v, lengths, k_scale_slice=k_scale_slice,
             v_rank_scale=gf.v_scale, win_lo=win_lo, scale=scale, num_kv_heads=hkv, **kw4)
         return PartialAttention(out=out, lse=lse)
     if sparse_ok:
-        sc, live, sc_raw = chunk_bound_scores(q, cmin_sl, cmax_sl, hkv, block=sparse_block,
-                                              win_lo=win_lo)
+        sc, live, sc_raw = chunk_bound_scores(q, cmin_sl, cmax_sl, hkv, valid_len=lengths,
+                                              block=sparse_block, win_lo=win_lo)
         n_hi = min(sparse_select_max, nc) if sparse_select_max else n_sel
         ids = topk_ids(sc, max(n_hi, n_sel))
         if n_hi > n_sel:
@@ -267,12 +320,12 @@ def _post_rope_factored_part(
                       > n_sel).any()
             ids[:, n_sel:] = torch.where(use_hi, ids[:, n_sel:], -1)
         out, lse = sparse_rankspace_decode_attention(
-            q, gf.k_us, vt_k, gf.v_us, vt_v, ids, k_scale_slice=k_scale_slice,
+            q, gf.k_us, vt_k, gf.v_us, vt_v, ids, lengths, k_scale_slice=k_scale_slice,
             v_rank_scale=gf.v_scale, win_lo=win_lo, scale=scale, num_kv_heads=hkv,
             block=sparse_block)
         return PartialAttention(out=out, lse=lse)
     out, lse = rankspace_decode_attention(
-        q, gf.k_us, vt_k, gf.v_us, vt_v,
+        q, gf.k_us, vt_k, gf.v_us, vt_v, lengths,
         k_scale_slice=k_scale_slice, v_rank_scale=gf.v_scale, win_lo=win_lo,
         scale=scale, num_kv_heads=hkv,
     )
@@ -315,6 +368,84 @@ def _dense_prefill_segment(q, gf, gpos, li, cache, cfg, cos_p, sin_p, rope_post)
     return k_prefill, v_prefill
 
 
+def _factored_part(q_pre, q, cos, sin, gf, gpos, li, cfg, rope_post, cos_p, sin_p, scale,
+                   lengths, win_lo, sparse_select=None, sparse_block=512, sparse_layers=None,
+                   sparse_select_max=None, sparse_adaptive_band=0.5) -> PartialAttention:
+    """Attention over a group's factored prefill segment (both sides
+    factored) for one layer: K2/K4/K6 in post mode, K3/K5 in pre mode.
+    ``lengths`` (b,): each sequence's valid prefill rows (a slot cache's
+    rows past them are padding), None for all; ``win_lo`` (b,): the
+    sliding window's lower bound."""
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    ql = q.shape[2]
+    k_scale = None if gf.k_scale is None else vt_layer_slice(gf.k_scale, gpos, hkv, hd)
+    sparse_ok = (sparse_select is not None and gf.k_cmin is not None and ql == 1
+                 and (sparse_layers is None or li in sparse_layers))
+    if rope_post:
+        return _post_rope_factored_part(
+            q, gf, gpos, cfg, scale, k_scale, win_lo, sparse_ok, sparse_select,
+            sparse_block, sparse_select_max, sparse_adaptive_band, lengths=lengths)
+    fargs = (q_pre, gf.k_us, vt_layer_slice(gf.k_vt, gpos, hkv, hd),
+             gf.v_us, vt_layer_slice(gf.v_vt, gpos, hkv, hd), cos_p, sin_p, cos, sin)
+    kw = dict(lengths=lengths, k_scale_slice=k_scale, v_rank_scale=gf.v_scale, win_lo=win_lo,
+              scale=scale, num_kv_heads=hkv)
+    if sparse_ok:
+        nc = _chunk_count(gf, sparse_block)
+        ids = select_topk_chunks(
+            q, vt_layer_slice(gf.k_cmin, gpos, hkv, hd), vt_layer_slice(gf.k_cmax, gpos, hkv, hd),
+            n_select=min(sparse_select, nc), num_kv_heads=hkv, valid_len=lengths,
+            block=sparse_block, win_lo=win_lo)
+        return PartialAttention(*sparse_lowrank_decode_attention(
+            *fargs, ids, block=sparse_block, **kw))
+    return PartialAttention(*lowrank_decode_attention(*fargs, **kw))
+
+
+def _decode_layers(params, cfg, xkv, cache, tokens, cos, sin, cos_p, sin_p, write_tail,
+                   tail_valid, lengths=None, win_lo=None, tail_lo=None,
+                   **sparse_kw) -> torch.Tensor:
+    """The decoder layers of a decode step, shared by ``decode_step`` and
+    ``decode_step_batched``: tokens (b, ql) at the positions of the
+    tables cos/sin (1|b, ql, hd); ``write_tail(li, k, v)`` writes the new
+    K (post-RoPE) and V into the tail; query i sees tail rows <
+    ``tail_valid[:, i]``; ``lengths``/``win_lo``/``tail_lo`` (b,) bound the
+    prefill segment and the tail per sequence. Returns logits (b, ql, V)."""
+    b, ql = tokens.shape
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    grp_index = layer_group_index(xkv) if xkv is not None else {}
+    rope_post = xkv is not None and xkv.rope_mode == "post"
+    h = params["embed"][tokens]
+    for li, layer in enumerate(params["layers"]):
+        resid = h
+        x = rms_norm(h, layer["input_norm"], cfg.rms_norm_eps)
+        q_pre, k_new_pre, v_new = qkv_proj(layer["attn"], cfg, x)
+        q = apply_rope(q_pre, cos, sin)
+        write_tail(li, apply_rope(k_new_pre, cos, sin), v_new)
+
+        gf = gpos = None
+        if li in grp_index:
+            gi, gpos = grp_index[li]
+            gf = cache.groups[gi]
+        if gf is not None and gf.k_us is not None and gf.v_us is not None:
+            prefill_part = _factored_part(q_pre, q, cos, sin, gf, gpos, li, cfg, rope_post,
+                                          cos_p, sin_p, scale, lengths, win_lo, **sparse_kw)
+        else:
+            k_prefill, v_prefill = _dense_prefill_segment(
+                q, gf, gpos, li, cache, cfg, cos_p, sin_p, rope_post)
+            prefill_part = dense_decode_attention_ref(
+                q, k_prefill, v_prefill, scale, valid_len=lengths, valid_lo=win_lo)
+        # Decode tail, this step's token(s) included; causal within the
+        # new rows: query i sees tail rows < tail_len + i + 1.
+        tail_part = dense_decode_attention_ref(
+            q, cache.tail_k[li], cache.tail_v[li], scale, valid_len=tail_valid,
+            valid_lo=tail_lo)
+
+        attn = merge_partials(prefill_part, tail_part).to(h.dtype)
+        attn = attn.permute(0, 2, 1, 3).reshape(b, ql, -1)
+        h = resid + attn @ layer["attn"]["wo"]
+        h = h + mlp(layer["mlp"], rms_norm(h, layer["post_norm"], cfg.rms_norm_eps))
+    return unembed(params, cfg, h)
+
+
 def decode_step(
     params: Params,
     cfg: ModelConfig,
@@ -346,14 +477,10 @@ def decode_step(
     """
     b, ql = tokens.shape
     dev = tokens.device
-    scale = 1.0 / math.sqrt(cfg.head_dim)
-    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     pos = position_tensor(pos, dev)
     positions = (pos + torch.arange(ql, device=dev))[None, :]
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta, cfg.rope_scaling)
-    cos_p, sin_p = prefill_cos_sin
-    grp_index = layer_group_index(xkv) if xkv is not None else {}
-    rope_post = xkv is not None and xkv.rope_mode == "post"
 
     # Sliding window: keys at positions > pos - window are live; tail row j
     # sits at absolute position prefill_len + j.
@@ -366,64 +493,60 @@ def decode_step(
         tail_lo = (lo - cache.prefill_len).clamp_min(0).to(torch.int32).repeat(b)
     tail_valid = (cache.tail_len + 1 + torch.arange(ql, dtype=torch.int32, device=dev))
     tail_valid = tail_valid[None, :].expand(b, ql)
+    logits = _decode_layers(
+        params, cfg, xkv, cache, tokens, cos, sin, *prefill_cos_sin, cache.append_tail,
+        tail_valid, win_lo=win_lo, tail_lo=tail_lo, sparse_select=sparse_select,
+        sparse_block=sparse_block, sparse_layers=sparse_layers,
+        sparse_select_max=sparse_select_max, sparse_adaptive_band=sparse_adaptive_band)
+    return logits, cache.advance(ql)
 
-    h = params["embed"][tokens]
-    for li, layer in enumerate(params["layers"]):
-        resid = h
-        x = rms_norm(h, layer["input_norm"], cfg.rms_norm_eps)
-        q_pre, k_new_pre, v_new = qkv_proj(layer["attn"], cfg, x)
-        q = apply_rope(q_pre, cos, sin)
-        cache.append_tail(li, apply_rope(k_new_pre, cos, sin), v_new)
 
-        parts: List[PartialAttention] = []
-        gf = gpos = None
-        if li in grp_index:
-            gi, gpos = grp_index[li]
-            gf = cache.groups[gi]
-        if gf is not None and gf.k_us is not None and gf.v_us is not None:
-            k_scale = None if gf.k_scale is None else vt_layer_slice(gf.k_scale, gpos, hkv, hd)
-            sparse_ok = (sparse_select is not None and gf.k_cmin is not None and ql == 1
-                         and (sparse_layers is None or li in sparse_layers))
-            if rope_post:
-                parts.append(_post_rope_factored_part(
-                    q, gf, gpos, cfg, scale, k_scale, win_lo, sparse_ok, sparse_select,
-                    sparse_block, sparse_select_max, sparse_adaptive_band))
-            elif sparse_ok:
-                nc = _chunk_count(gf, sparse_block)
-                ids = select_topk_chunks(
-                    q, vt_layer_slice(gf.k_cmin, gpos, hkv, hd),
-                    vt_layer_slice(gf.k_cmax, gpos, hkv, hd), n_select=min(sparse_select, nc),
-                    num_kv_heads=hkv, block=sparse_block, win_lo=win_lo)
-                out_f, lse_f = sparse_lowrank_decode_attention(
-                    q_pre, gf.k_us, vt_layer_slice(gf.k_vt, gpos, hkv, hd),
-                    gf.v_us, vt_layer_slice(gf.v_vt, gpos, hkv, hd),
-                    cos_p, sin_p, cos, sin, ids,
-                    k_scale_slice=k_scale, v_rank_scale=gf.v_scale, win_lo=win_lo,
-                    scale=scale, num_kv_heads=hkv, block=sparse_block,
-                )
-                parts.append(PartialAttention(out=out_f, lse=lse_f))
-            else:
-                out_f, lse_f = lowrank_decode_attention(
-                    q_pre, gf.k_us, vt_layer_slice(gf.k_vt, gpos, hkv, hd),
-                    gf.v_us, vt_layer_slice(gf.v_vt, gpos, hkv, hd),
-                    cos_p, sin_p, cos, sin,
-                    k_scale_slice=k_scale, v_rank_scale=gf.v_scale, win_lo=win_lo,
-                    scale=scale, num_kv_heads=hkv,
-                )
-                parts.append(PartialAttention(out=out_f, lse=lse_f))
-        else:
-            k_prefill, v_prefill = _dense_prefill_segment(
-                q, gf, gpos, li, cache, cfg, cos_p, sin_p, rope_post)
-            parts.append(dense_decode_attention_ref(
-                q, k_prefill, v_prefill, scale, valid_lo=win_lo))
-        # Decode tail, this step's token(s) included; causal within the
-        # new rows: query i sees tail rows < tail_len + i + 1.
-        parts.append(dense_decode_attention_ref(
-            q, cache.tail_k[li], cache.tail_v[li], scale, valid_len=tail_valid,
-            valid_lo=tail_lo))
+def decode_step_batched(
+    params: Params,
+    cfg: ModelConfig,
+    xkv: Optional[XKVConfig],
+    cache: XKVCache,
+    tokens: torch.Tensor,
+    pos: torch.Tensor,
+    prefill_len: torch.Tensor,
+    tail_len: torch.Tensor,
+    prefill_cos_sin: Tuple[torch.Tensor, torch.Tensor],
+    sparse_select: Optional[int] = None,
+    sparse_block: int = 512,
+    sparse_layers: Optional[frozenset] = None,
+) -> Tuple[torch.Tensor, XKVCache]:
+    """One decode step across B independent slots (continuous batching;
+    JAX ``decode_step_batched``).
 
-        attn = merge_partials(*parts).to(h.dtype)
-        attn = attn.permute(0, 2, 1, 3).reshape(b, ql, -1)
-        h = resid + attn @ layer["attn"]["wo"]
-        h = h + mlp(layer["mlp"], rms_norm(h, layer["post_norm"], cfg.rms_norm_eps))
-    return unembed(params, cfg, h), cache.advance(ql)
+    tokens: (B,) one token per slot, or (B, ql) a multi-token pass (the
+    batched speculative verify: ``ql`` exact K/V rows appended at each
+    slot's ``tail_len``, causal among themselves; sparse selection is
+    single-token, so such a pass reads the factors exactly). pos,
+    prefill_len, tail_len: (B,) tensors on the device, each slot's
+    position of tokens[:, 0], valid prefill rows of the s_max-row slot
+    cache and tail fill; the step reads no value on the host, so a CUDA
+    graph can capture it. prefill_cos_sin: (s_max, hd) RoPE tables of the
+    slot rows. The per-layer dispatch is ``decode_step``'s, with
+    ``lengths=prefill_len``; a slot with prefill_len 0 (never admitted)
+    has no live prefill key, and its logits are ignored by the caller.
+    Each slot's tail is written in place. Returns (logits (B, V), or
+    (B, ql, V) for 2-D tokens, fp32; cache)."""
+    multi = tokens.dim() == 2
+    tokens2 = tokens if multi else tokens[:, None]
+    ql = tokens2.shape[1]
+    dev = tokens2.device
+    positions = pos.long()[:, None] + torch.arange(ql, device=dev)[None, :]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    win_lo = tail_lo = None
+    if cfg.sliding_window is not None:
+        if ql > 1:
+            raise ValueError("multi-token decode with sliding_window is not supported")
+        win_lo = (pos.long() - (cfg.sliding_window - 1)).clamp_min(0).to(torch.int32)
+        tail_lo = (win_lo - prefill_len).clamp_min(0).to(torch.int32)
+    tail_valid = tail_len.long()[:, None] + 1 + torch.arange(ql, device=dev)[None, :]
+    logits = _decode_layers(
+        params, cfg, xkv, cache, tokens2, cos, sin, *prefill_cos_sin,
+        lambda li, k, v: cache.append_slot_tails(li, k, v, tail_len), tail_valid,
+        lengths=prefill_len, win_lo=win_lo, tail_lo=tail_lo, sparse_select=sparse_select,
+        sparse_block=sparse_block, sparse_layers=sparse_layers)
+    return (logits if multi else logits[:, 0]), cache
