@@ -90,7 +90,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
              to their first refold (near-tie limit); tokens/s, replay ms
              per step beside b = 1, admission and refold s, peak memory.
              Phase 2 holds K2-K7 at b = 4 (slots of 8192, 5000, 1500 and 0
-             rows) against their plain versions, each timed ("b4").
+             rows) against their plain versions, each timed ("b4");
+  9. batch-spec  batched speculation and prompt-cache persistence, run
+             after phase 2 and inside phases 3 and 5: K2, K3 and K7 at b 4
+             x ql 8 (the verify pass) and K7 over 128- and 120-column
+             views at b 4 (the MLA draft), over phase 8's slots, against
+             their plain versions, each timed ("b4_ql8",
+             "b4_draft_view_<width>"); ``BatchedEngine(speculative_k=7)``
+             on phase 8's engine and first five requests: the 8B in pre
+             and post with sparse top-4 drafts (K5 / K4 drafts, K3 / K2
+             verify and exact top-ups) and V2-Lite at draft_rank 128 (K7):
+             tokens, replayed rounds against eager ones, launches against
+             the rounds, one capture of each graph, three requests
+             teacher-forced (near-tie limit), rounds, tokens a round, draft
+             and verify replay ms, tokens/s beside phase 8's plain step;
+             ``save_cache`` / ``load_cache`` of the 8B factored cache at
+             8192 tokens in bf16 and int8 (file MB, save / load s, the
+             first step's logits bitwise); V2-Lite's legacy reconstruct
+             path (``k_rnorm`` dropped) against the rank-space step.
 Then it prints the card's name and power limit, one JSON line of kernel
 records, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -1497,8 +1514,9 @@ def main_path(results):
     spec_counts = speculative_8b(results, params, cfg, prompt, engine)
     served = {r["run"]: r["decode_ms_per_token_graph"] for r in rows}
     batch_counts = batched_8b(results, params, cfg, served)
+    spec9_counts = batched_spec_8b(results, params, cfg, engine, prompt)
     for key in totals:
-        totals[key] += spec_counts[key] + batch_counts[key]
+        totals[key] += spec_counts[key] + batch_counts[key] + spec9_counts[key]
     return totals
 
 
@@ -1902,8 +1920,9 @@ def mla_path(results):
     spec_counts = speculative_mla(results, params, cfg, xkv, prompt)
     served = {r["run"]: r["decode_ms_per_token_graph"] for r in rows}
     batch_counts = batched_mla(results, params, cfg, xkv, served)
+    spec9_counts = batched_spec_mla(results, params, cfg, xkv, prompt)
     for key in totals:
-        totals[key] += spec_counts[key] + batch_counts[key]
+        totals[key] += spec_counts[key] + batch_counts[key] + spec9_counts[key]
     return totals
 
 
@@ -2552,6 +2571,49 @@ def prompt_rows(cache1, s: int, eng):
                     tail_k=tail_k, tail_v=tail_v, tail_len=empty_tail_len("cuda"))
 
 
+def teacher_force(label, eng, single, cfg, prompts, gens, admitted, ids, gap):
+    """The ``BATCH_REFS`` requests' tokens ``gens`` teacher-forced through
+    ``single`` (the same configuration, single-stream, exact steps) over
+    each request's own admitted factors (``admitted``: request id ->
+    batch-1 cache; the bucket's padding rows cut off, ``prompt_rows``), so
+    they read the cache the batched steps read, up to the first refold;
+    the first token against the model's prefill at the prompt's exact
+    length. Each token must be within ``gap`` of its step's top log-prob.
+    Returns (a row per request, the launches)."""
+    import torch
+
+    from xkv_tpu_torch.models import deepseek as deepseek_model
+    from xkv_tpu_torch.models import llama as llama_model
+
+    model = deepseek_model if eng._mla else llama_model
+    ref_rows, ref_counts, bad = [], {key: 0 for key in COUNTERS}, []
+    for i in BATCH_REFS:
+        tok = torch.as_tensor(gens[i], device="cuda")[None]
+        s = int(prompts[i].shape[0])
+        reset_counts()
+        logits, _ = model.prefill(eng.params, cfg, torch.as_tensor(prompts[i], device="cuda")[None],
+                                  logits_position=s - 1)
+        n = min(tok.shape[1] - 1, single.tail_max)
+        cache = prompt_rows(admitted.pop(ids[i]), s, eng)
+        lp, _ = single.score(cache, tok[:, :n], s)
+        steps = torch.cat([torch.log_softmax(logits[0, -1:].float(), -1), lp[0]])
+        behind = (steps.max(-1).values - steps.gather(1, tok[0, :n + 1, None])[:, 0]).tolist()
+        for key, v in read_counts().items():
+            ref_counts[key] += v
+        worst = max(range(len(behind)), key=lambda j: behind[j])
+        ref_rows.append(dict(request=i, prompt=s, steps=n,
+                             max_logprob_below_top=behind[worst], at_step=worst,
+                             greedy_equal_through=int(
+                                 (tok[0, :n + 1] == steps.argmax(-1)).long().cumprod(0).sum())))
+        del cache, logits
+        if behind[worst] > gap:
+            bad.append(f"request {i}'s token {worst} is {behind[worst]:.4e} below its step's "
+                       f"top log-prob (limit {gap:.4e})")
+    if bad:
+        raise AssertionError(f"{label}: {'; '.join(bad)} ({json.dumps(ref_rows)})")
+    return ref_rows, ref_counts
+
+
 def serve_batched(label, eng, single, cfg, requests, kernel, gap, b1_ms, gen,
                   eager_steps=0):
     """One phase-8 run: every request of ``requests`` through ``eng``
@@ -2571,9 +2633,6 @@ def serve_batched(label, eng, single, cfg, requests, kernel, gap, b1_ms, gen,
     int8 factors moves the first-step logits by 2.68). Then the step's
     device time under torch.profiler. Returns (row, launches)."""
     import torch
-
-    from xkv_tpu_torch.models import deepseek as deepseek_model
-    from xkv_tpu_torch.models import llama as llama_model
 
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda").cpu().numpy()
                for n, _ in requests]
@@ -2665,37 +2724,9 @@ def serve_batched(label, eng, single, cfg, requests, kernel, gap, b1_ms, gen,
     if counts != want:
         raise AssertionError(f"{label}: launches {counts}, the steps imply {want}")
 
-    # Teacher-forced references: the single-stream engine's exact steps over
-    # each referenced request's own admitted factors (the bucket's padding
-    # rows cut off), so they read the cache the batched steps read; its
-    # first token against the model's prefill at the prompt's exact length.
-    model = deepseek_model if eng._mla else llama_model
-    ref_rows, ref_counts, bad = [], {key: 0 for key in COUNTERS}, []
     t_ref = time.time()
-    for i in BATCH_REFS:
-        tok = torch.as_tensor(gens[i], device="cuda")[None]
-        s = int(prompts[i].shape[0])
-        reset_counts()
-        logits, _ = model.prefill(eng.params, cfg, torch.as_tensor(prompts[i], device="cuda")[None],
-                                  logits_position=s - 1)
-        n = min(tok.shape[1] - 1, single.tail_max)
-        cache = prompt_rows(admitted.pop(ids[i]), s, eng)
-        lp, _ = single.score(cache, tok[:, :n], s)
-        steps = torch.cat([torch.log_softmax(logits[0, -1:].float(), -1), lp[0]])
-        behind = (steps.max(-1).values - steps.gather(1, tok[0, :n + 1, None])[:, 0]).tolist()
-        for key, v in read_counts().items():
-            ref_counts[key] += v
-        worst = max(range(len(behind)), key=lambda j: behind[j])
-        ref_rows.append(dict(request=i, prompt=s, steps=n,
-                             max_logprob_below_top=behind[worst], at_step=worst,
-                             greedy_equal_through=int(
-                                 (tok[0, :n + 1] == steps.argmax(-1)).long().cumprod(0).sum())))
-        del cache, logits
-        if behind[worst] > gap:
-            bad.append(f"request {i}'s token {worst} is {behind[worst]:.4e} below its step's "
-                       f"top log-prob (limit {gap:.4e})")
-    if bad:
-        raise AssertionError(f"{label}: {'; '.join(bad)} ({json.dumps(ref_rows)})")
+    ref_rows, ref_counts = teacher_force(label, eng, single, cfg, prompts, gens, admitted, ids,
+                                         gap)
     # Device time of the captured step (torch.profiler over replays on the
     # run's last inputs).
     profile = _profile(graph.graph.replay, 3, replay_ms / replays)
@@ -2791,6 +2822,425 @@ def batched_mla(results, params, cfg, xkv, served):
     return counts
 
 
+# ------------------------------------------------------ batched speculation
+# Phase 9. Kernel holds at the batched round's new shapes: K2 and K3 at b 4
+# x ql 8 (the verify pass of 4 slots at speculative_k 7, R 256 a slot) over
+# BATCH_LENS, K7 at b 4 x ql 8, and K7 over the factors' first 128 and 120
+# columns at b 4 (the batched MLA draft); the empty slot gives 0 / -inf.
+BATCH_SPEC_K = 7
+
+
+def check_batched_spec_kernels(gen, results):
+    """K2 and K3 at the 8B xKV-4 shapes and K7 at V2-Lite's, b = 4 over
+    ``BATCH_LENS``, bf16 factors: the verify pass (ql 8) and K7's draft
+    views, against their plain versions, each timed beside its plain
+    version and its bound over the live rows ("b4_ql8" and
+    "b4_draft_view_<width>" rows of the kernel records)."""
+    import torch
+    import torch.nn.functional as F
+
+    from xkv_tpu_torch.cache import vt_layer_slice
+    from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
+    from xkv_tpu_torch.ops.kernels import rankspace_attention as k2
+    from xkv_tpu_torch.ops.rope import rope_cos_sin
+
+    dev, bf, b, ql = "cuda", torch.bfloat16, len(BATCH_LENS), BATCH_SPEC_K + 1
+    lengths = torch.tensor(BATCH_LENS, device=dev)
+    live = sum(BATCH_LENS)
+    worst = {key: {"abs": 0.0, "rel": 0.0, "lse": 0.0} for key in ("K2", "K3", "K7")}
+    hq, hkv, hd, s_p, rk, rv = LOWRANK_SHAPES["8B"]
+    m, scale = hkv * hd, 1.0 / math.sqrt(hd)
+    us_k = torch.randn((b, s_p, rk), generator=gen, device=dev)
+    vt_k = torch.randn((b, rk, 4 * m), generator=gen, device=dev) * 0.05
+    us_v = torch.randn((b, s_p, rv), generator=gen, device=dev)
+    vt_v = torch.randn((b, rv, 4 * m), generator=gen, device=dev) * 0.05
+    sl = lambda x: vt_layer_slice(x, 1, hkv, hd)  # noqa: E731
+    k_us, v_us = us_k.to(bf), us_v.to(bf)
+    q = torch.randn((b, hq, ql, hd), generator=gen, device=dev).to(bf)
+    q_emb = k2._project_q(q, sl(vt_k.to(bf)), hkv, scale, None, bf)
+    R = q_emb.shape[1]
+    # Each slot's queries at positions valid_len + 5 + i.
+    cos_p, sin_p = rope_cos_sin(torch.arange(s_p, device=dev), hd, 500000.0)
+    cos_t, sin_t = rope_cos_sin(lengths[:, None] + 5 + torch.arange(ql, device=dev)[None], hd,
+                                500000.0)
+    cos_h, sin_h = k3.half_tables(cos_p, sin_p, bf)
+    qab = k3._query_embeds(q, cos_t, sin_t, hkv, scale, None)
+    kw3 = dict(num_q_heads=hq, num_kv_heads=hkv)
+    slice_bytes = b * (rk * m + rv * m) * 2
+    rows = {
+        ("K2", "b4_ql8"): (
+            k2.rankspace_kernel, k2.rankspace_kernel_plain, (q_emb, k_us, v_us, lengths),
+            live * bytes_per_row(k_us, v_us) + nbytes(q_emb),
+            2.0 * R * live * (rk + rv) / BF16_OPS_PER_S),
+        ("K3", "b4_ql8"): (
+            lambda *a: k3.lowrank_kernel(*a, **kw3), lambda *a: k3.lowrank_kernel_plain(*a, **kw3),
+            (qab, k_us, sl(vt_k.to(bf)), v_us, sl(vt_v.to(bf)), cos_h, sin_h, None, lengths,
+             None),
+            live * bytes_per_row(k_us, v_us, cos_h, sin_h) + nbytes(qab) + slice_bytes,
+            (2.0 * live * rk * m + 2.0 * R * live * (2 * hd + rv)) / BF16_OPS_PER_S),
+    }
+    # K7: V2-Lite's 16 heads, rank 512, RoPE 64, bf16 latent factors.
+    nh, rank, rope = 16, 512, 64
+    us7 = torch.randn((b, s_p, rank), generator=gen, device=dev).to(bf)
+    k_pe = torch.randn((b, s_p, rope), generator=gen, device=dev).to(bf)
+    r = torch.rand((b, s_p), generator=gen, device=dev) + 0.5
+    qe7 = (torch.randn((b, ql * nh, rank), generator=gen, device=dev) * 1.5 / rank).to(bf)
+    qp7 = (torch.randn((b, ql * nh, rope), generator=gen, device=dev) * 0.1).to(bf)
+    rows[("K7", "b4_ql8")] = (
+        k2.mla_rankspace_kernel, k2.mla_rankspace_kernel_plain, (qe7, qp7, us7, k_pe, r, lengths),
+        live * (bytes_per_row(us7, k_pe) + 4) + nbytes(qe7, qp7),
+        2.0 * ql * nh * live * (2 * rank + rope) / BF16_OPS_PER_S)
+    # The batched draft: one query row per head, the factors' first
+    # ``width`` columns read in place through their row stride, q_emb zero
+    # past ``width`` up to ``rank_width`` (as the wrapper pads it).
+    for width in (128, 120):
+        view = us7[..., :width]
+        qe = F.pad(torch.randn((b, nh, width), generator=gen, device=dev) * 1.5 / width,
+                   (0, k2.rank_width(width) - width)).to(bf)
+        qp = (torch.randn((b, nh, rope), generator=gen, device=dev) * 0.1).to(bf)
+        rows[("K7", f"b4_draft_view_{width}")] = (
+            k2.mla_rankspace_kernel, k2.mla_rankspace_kernel_plain,
+            (qe, qp, view, k_pe, r, lengths),
+            live * (bytes_per_row(view, k_pe) + 4) + nbytes(qe, qp),
+            2.0 * nh * live * (2 * width + rope) / BF16_OPS_PER_S)
+    for (key, label), (run, plain, args, in_bytes, ops_s) in rows.items():
+        out, lse = run(*args)
+        ref, lse_ref = plain(*args)
+        torch.cuda.synchronize()
+        _hold_slots(key, f"{label} lengths={list(BATCH_LENS)}", out, ref, lse, lse_ref,
+                    worst[key])
+        t = dict(ms=cuda_time_ms(lambda: run(*args)),
+                 plain_ms=cuda_time_ms(lambda: plain(*args)),
+                 bound=bound_ms(in_bytes + nbytes(out, lse), ops_s))
+        row = dict(_row(t), lengths=list(BATCH_LENS), rows_per_slot=args[0].shape[1])
+        log(f"{key} {label} ms: {row}")
+        results[key][label] = row
+    for key in worst:
+        rec = results[key]
+        rec["max_abs_err"] = max(rec["max_abs_err"], worst[key]["abs"])
+        rec["max_rel_err"] = max(rec["max_rel_err"], worst[key]["rel"])
+        rec["max_lse_err"] = max(rec["max_lse_err"], worst[key]["lse"])
+
+
+def spec_phase9_time(results, part: str, seconds: float) -> None:
+    results.setdefault("batch_spec_phase_s", {})[part] = seconds
+    log(f"batched-speculation and persistence phase, {part}: {seconds:.1f} s")
+
+
+# Served runs: phase 8's engine and its first five requests (the
+# referenced ones among them), speculative_k 7.
+BATCH_SPEC_8B = BATCH_8B[:5]
+BATCH_SPEC_MLA = BATCH_MLA[:5]
+# Replayed rounds checked against an eager round on the same inputs, and
+# the first replayed round after each refold.
+BATCH_SPEC_EAGER_ROUNDS = 2
+
+
+def serve_batched_spec(label, eng, single, cfg, requests, draft_kernel, exact_kernel, gap,
+                       plain_row, gen):
+    """One phase-9 run: every request of ``requests`` through ``eng``
+    (``BatchedEngine.run`` with ``speculative_k``: captured draft and
+    verify steps, exact top-ups on the captured plain step); every
+    request's tokens; the first ``BATCH_SPEC_EAGER_ROUNDS`` replayed rounds
+    and the first one after each refold against an eager round on the
+    same inputs (n_out and tokens equal); launches against the rounds and
+    steps (``draft_kernel`` k a round, ``exact_kernel`` one a round and one
+    a top-up, K1 one an admission where it prefills); each graph captured
+    once; the ``BATCH_REFS`` requests' tokens teacher-forced through
+    ``single`` (exact steps) up to their first refold, each within
+    ``gap`` of its step's top log-prob (``teacher_force``). Reports
+    rounds, tokens a round, top-ups, draft and verify replay ms, tokens/s
+    beside ``plain_row`` (phase 8's plain step), capture ms. Returns (row,
+    launches)."""
+    import torch
+
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda").cpu().numpy()
+               for n, _ in requests]
+    spec, step = eng.spec_graph, eng.step_graph
+    k = eng.speculative_k
+    state = dict(admission_s=0.0, refolds=0, refold_s=0.0, checked=0, refold_checked=0,
+                 refolded=False, eager_s=0.0, slot_rounds=0)
+    admit, refactor, run_round = eng._admit, eng._refactor, spec.run
+
+    def timed_admit():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        admit()
+        torch.cuda.synchronize()
+        state["admission_s"] += time.time() - t0
+
+    def timed_refactor(slot, plen):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        refactor(slot, plen)
+        torch.cuda.synchronize()
+        state["refold_s"] += time.time() - t0
+        state["refolds"] += 1
+        state["refolded"] = True
+
+    def checked_round():
+        state["slot_rounds"] += len(eng.slot_request)
+        if spec.draft_graph is not None and (state["checked"] < BATCH_SPEC_EAGER_ROUNDS
+                                             or state["refolded"]):
+            # The round eagerly, then replayed from the same start: the
+            # replay writes the same tail rows again.
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(k):
+                spec._draft()
+            spec._verify()
+            eager = spec.result.cpu().numpy()
+            state["eager_s"] += time.time() - t0
+            spec.load(eng.token, eng.pos, eng.prefill_len, eng.tail_len)
+            n_out, exact = run_round()
+            active = list(eng.slot_request)
+            if not ((eager[active, 0] == n_out[active]).all()
+                    and all((eager[s, 1:1 + n_out[s]] == exact[s, :n_out[s]]).all()
+                            for s in active)):
+                raise AssertionError(f"{label}: a replayed round ({n_out}, {exact}) differs "
+                                     f"from the eager round ({eager})")
+            state["checked"] += 1
+            state["refold_checked"] += state["refolded"]
+            state["refolded"] = False
+            return n_out, exact
+        return run_round()
+
+    ids = [eng.submit(p, n) for p, (_, n) in zip(prompts, requests)]
+    admitted = {}
+    place = eng._place
+
+    def keep_place(slot, req, cache1, first_token, s):
+        if req.request_id in [ids[i] for i in BATCH_REFS]:
+            admitted[req.request_id] = cache1
+        place(slot, req, cache1, first_token, s)
+
+    eng._admit, eng._place, eng._refactor, spec.run = timed_admit, keep_place, timed_refactor, \
+        checked_round
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    done = {r.request_id: r for r in eng.run()}
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del eng._admit, eng._place, eng._refactor, spec.run
+    gens = [done[i].generated for i in ids]
+    if [len(g) for g in gens] != [n for _, n in requests]:
+        raise AssertionError(f"{label}: tokens per request {[len(g) for g in gens]}")
+    if not all(0 <= t < cfg.vocab_size for g in gens for t in g):
+        raise AssertionError(f"{label}: a token out of the vocabulary")
+    stats = dict(eng.spec_stats)
+    rounds, plain = stats["rounds"], stats["plain_steps"]
+    t = spec.timing
+    if (rounds < 2 or t.draft_capture_ms is None or t.verify_capture_ms is None
+            or len(t.events) != rounds - 1):
+        raise AssertionError(f"{label}: {rounds} rounds, {len(t.events)} replayed, captures "
+                             f"{t.draft_capture_ms} / {t.verify_capture_ms}")
+    step_ms, step_replays = step.replay_ms()
+    if plain and (step.capture_ms is None or step_replays != step.steps - 1):
+        raise AssertionError(f"{label}: {step.steps} top-up steps, {step_replays} replays")
+    if not state["refolds"] or state["checked"] < BATCH_SPEC_EAGER_ROUNDS:
+        raise AssertionError(f"{label}: {state['refolds']} refolds, {state['checked']} rounds "
+                             "checked against eager ones")
+    L = cfg.num_layers
+    checked = state["checked"]
+    want = {key: 0 for key in COUNTERS}
+    want[draft_kernel] += L * k * (rounds + checked)
+    want[exact_kernel] += L * (rounds + checked + plain)
+    if eng.prefill_chunk is None and not eng._mla:
+        want["K1"] = L * len(requests)
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, the rounds imply {want}")
+
+    t_ref = time.time()
+    ref_rows, ref_counts = teacher_force(label, eng, single, cfg, prompts, gens, admitted, ids,
+                                         gap)
+    draft_ms, verify_ms, round_tokens = t.replayed()
+    replayed = len(t.events)
+    row = dict(run=label, requests=len(requests), slots=eng.num_slots, speculative_k=k,
+               rounds=rounds, round_tokens=stats["round_tokens"], plain_steps=plain,
+               tokens_per_round=stats["round_tokens"] / rounds,
+               tokens_per_slot_round=stats["round_tokens"] / state["slot_rounds"],
+               replayed_rounds=replayed,
+               draft_replay_ms=draft_ms / (replayed * k), verify_replay_ms=verify_ms / replayed,
+               round_ms=(draft_ms + verify_ms) / replayed,
+               round_tokens_per_s=round_tokens / ((draft_ms + verify_ms) / 1e3),
+               top_up_replay_ms_per_step=step_ms / step_replays if step_replays else None,
+               plain_run=plain_row["run"],
+               plain_replay_ms_per_step=plain_row["replay_ms_per_step"],
+               plain_decode_tokens_per_s=plain_row["decode_tokens_per_s"],
+               draft_capture_ms=t.draft_capture_ms, verify_capture_ms=t.verify_capture_ms,
+               top_up_capture_ms=step.capture_ms, admission_s=state["admission_s"],
+               refolds=state["refolds"], refold_s=state["refold_s"],
+               eager_checked_rounds=checked, eager_checked_after_refold=state["refold_checked"],
+               eager_check_s=state["eager_s"],
+               wall_decode_tokens_per_s=sum(len(g) - 1 for g in gens) / wall_s,
+               wall_s=wall_s, peak_allocated_gb=peak_gb, launches=counts, references=ref_rows,
+               near_tie_limit=gap, reference_wall_s=time.time() - t_ref)
+    row["round_tokens_per_s_vs_plain"] = row["round_tokens_per_s"] / row[
+        "plain_decode_tokens_per_s"]
+    log("batch-spec " + json.dumps(row))
+    return row, {key: counts[key] + ref_counts[key] for key in COUNTERS}
+
+
+def batched_spec_8b(results, params, cfg, engine, prompt):
+    """Phase 9 on Llama-3.1-8B xKV-4: ``BatchedEngine(speculative_k=7)``
+    with sparse top-4 drafts in pre (K5 drafts, K3 verify and top-ups) and
+    post (K4, K2), admitted through K1; then prompt-cache persistence of
+    the 8192-token factored pre cache. Returns the launches."""
+    import torch
+
+    from xkv_tpu_torch.configs import generate_consecutive_xkv_config
+    from xkv_tpu_torch.engine import BatchedEngine, InferenceEngine
+
+    t0 = time.time()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 10)
+    top4 = dict(sparse_topk=4, sparse_block=512)
+    plain = {r["run"]: r for r in results["batch_runs"]}
+    runs = [("8B batch-spec pre bf16 sparse top-4", "pre", "K5", "K3", "8B batch pre bf16"),
+            ("8B batch-spec post bf16 sparse top-4", "post", "K4", "K2",
+             "8B batch post bf16 sparse top-4, chunked admission")]
+    totals = {key: 0 for key in COUNTERS}
+    rows = []
+    for label, rope, draft_kernel, exact_kernel, plain_run in runs:
+        xkv = generate_consecutive_xkv_config(
+            group_size=4, rank_k=512, rank_v=768, num_layers=cfg.num_layers,
+            end_layer=cfg.num_layers - 1, extra_kwargs={"rope_mode": rope})
+        eng = BatchedEngine(params, cfg, xkv, device="cuda", speculative_k=BATCH_SPEC_K,
+                            **BATCH_ENGINE, **top4)
+        single = InferenceEngine(params, cfg, xkv, tail_max=BATCH_ENGINE["tail_max"],
+                                 prefill_logits="last", device="cuda")
+        row, counts = serve_batched_spec(label, eng, single, cfg, BATCH_SPEC_8B, draft_kernel,
+                                         exact_kernel, GAP_8B, plain[plain_run], gen)
+        rows.append(row)
+        for key in totals:
+            totals[key] += counts[key]
+        del eng, single
+        torch.cuda.empty_cache()
+    results["batch_spec_runs"] = rows
+    spec_phase9_time(results, "8B served", time.time() - t0)
+    t0 = time.time()
+    persist_counts = persistence_8b(results, cfg, engine, prompt)
+    for key in totals:
+        totals[key] += persist_counts[key]
+    spec_phase9_time(results, "8B persistence", time.time() - t0)
+    return totals
+
+
+def persistence_8b(results, cfg, engine, prompt):
+    """``save_cache`` / ``load_cache`` of the 8B factored pre cache at 8192
+    tokens, bf16 and int8 factors: file MB against ``num_cache_bytes``
+    (the factors; the file also holds the 128-row tail), save and load s
+    (host clock, the device copies included), every leaf equal bitwise,
+    and the first decode step's logits after the load equal to those
+    before it, bitwise. The files go under build/ and are removed."""
+    import torch
+
+    from xkv_tpu_torch.engine.cache_io import cache_leaves, load_cache, save_cache
+
+    totals = {key: 0 for key in COUNTERS}
+    rows = []
+    s = prompt.shape[1]
+    for fdt, name in ((torch.bfloat16, "bf16"), ("int8", "int8")):
+        eng = engine("factored", "pre", fdt, 128)
+        reset_counts()
+        logits, cache = eng.prefill(prompt)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        path = os.path.join(ROOT, "build", "cache_io", f"8b_pre_{name}")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        save_cache(cache, path, metadata={"prompt_len": s})
+        save_s = time.time() - t0
+        before, _ = eng.decode_step(cache, tok, s)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loaded, meta = load_cache(path, cache)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        after, _ = eng.decode_step(loaded, tok, s)
+        same_leaves = all(torch.equal(a, b) for a, b in zip(cache_leaves(cache),
+                                                             cache_leaves(loaded)))
+        file_bytes = os.path.getsize(path + ".npz")
+        row = dict(factors=name, file_mb=file_bytes / 1e6,
+                   num_cache_mb=cache.num_cache_bytes() / 1e6,
+                   file_vs_num_cache_bytes=file_bytes / cache.num_cache_bytes(),
+                   save_s=save_s, load_s=load_s, leaves_equal=same_leaves,
+                   first_step_logits_equal=bool(torch.equal(before, after)),
+                   metadata=meta)
+        log("persist " + json.dumps(row))
+        for suffix in (".npz", ".json"):
+            os.remove(path + suffix)
+        for key, n in read_counts().items():
+            totals[key] += n
+        rows.append(row)
+        if not (same_leaves and row["first_step_logits_equal"] and meta == {"prompt_len": s}):
+            raise AssertionError(f"persistence {name}: the loaded cache differs ({row})")
+        del eng, cache, loaded, logits, before, after
+        torch.cuda.empty_cache()
+    results["persistence"] = rows
+    return totals
+
+
+def batched_spec_mla(results, params, cfg, xkv, prompt):
+    """Phase 9 on DeepSeek-V2-Lite: ``BatchedEngine(speculative_k=7,
+    draft_rank=128)`` (K7 drafts over the factors' first 128 columns, K7
+    verify and top-ups), admitted in 2048-token chunks; then the legacy
+    reconstruct path: the 8192-token factored cache with ``k_rnorm``
+    dropped, its first decode step's logits against the rank-space path's
+    (K7). Returns the launches."""
+    import dataclasses
+
+    import torch
+
+    from xkv_tpu_torch.engine import BatchedEngine, InferenceEngine
+
+    t0 = time.time()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    eng = BatchedEngine(params, cfg, xkv, device="cuda", prefill_chunk=2048,
+                        speculative_k=BATCH_SPEC_K, draft_rank=128, **BATCH_ENGINE)
+    single = InferenceEngine(params, cfg, xkv, tail_max=BATCH_ENGINE["tail_max"],
+                             prefill_logits="last", device="cuda")
+    row, totals = serve_batched_spec("V2-Lite batch-spec bf16 draft_rank 128, chunked admission",
+                                     eng, single, cfg, BATCH_SPEC_MLA, "K7", "K7", GAP_MLA,
+                                     results["batch_runs_mla"][0], gen)
+    results["batch_spec_runs_mla"] = [row]
+    del eng
+    torch.cuda.empty_cache()
+    spec_phase9_time(results, "V2-Lite served", time.time() - t0)
+
+    t0 = time.time()
+    reset_counts()
+    logits, cache = single.prefill(prompt)
+    tok, s = logits[:, -1].argmax(-1)[:, None], prompt.shape[1]
+    rank_space, _ = single.decode_step(cache, tok, s)
+    legacy_cache = dataclasses.replace(cache, groups=tuple(
+        dataclasses.replace(g, k_rnorm=None) for g in cache.groups))
+    after_k7 = read_counts()
+    legacy, _ = single.decode_step(legacy_cache, tok, s)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    diff = (legacy[0, -1].float() - rank_space[0, -1].float()).abs().max().item()
+    legacy_row = dict(first_step_logits_max_abs_diff=diff, limit=GAP_MLA,
+                      max_abs_logit=rank_space.abs().max().item(),
+                      legacy_step_launches={k: counts[k] - after_k7[k] for k in COUNTERS},
+                      seconds=time.time() - t0)
+    log("legacy " + json.dumps(legacy_row))
+    if not (diff <= GAP_MLA and all(v == 0 for v in legacy_row["legacy_step_launches"].values())
+            and bool(torch.isfinite(legacy).all())):
+        raise AssertionError(f"MLA legacy reconstruct path: {legacy_row}")
+    results["mla_legacy"] = legacy_row
+    for key in totals:
+        totals[key] += counts[key]
+    del single, cache, legacy_cache
+    torch.cuda.empty_cache()
+    spec_phase9_time(results, "V2-Lite legacy path", time.time() - t0)
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -2827,6 +3277,9 @@ def main() -> int:
     check_mla(gen, results)
     check_batched_kernels(gen, results)
     t0 = time.time()
+    check_batched_spec_kernels(gen, results)
+    spec_phase9_time(results, "kernels", time.time() - t0)
+    t0 = time.time()
     check_wide(gen, results)
     log(f"wide-rank phase: {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -2854,6 +3307,8 @@ def main() -> int:
         totals[key] += ckpt_counts[key]
     log(f"speculative-and-staged phase: {sum(results['spec_phase_s'].values()):.1f} s")
     log(f"batch phase: {sum(results['batch_phase_s'].values()):.1f} s")
+    log(f"batched-speculation and persistence phase: "
+        f"{sum(results['batch_spec_phase_s'].values()):.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -12,8 +12,9 @@ single-stream ``InferenceEngine`` (held against the JAX engine in
 capacity finish, EOS, sparse decode over every chunk. Three faults of
 the reference are pinned: stale rank columns in a reused slot, the chunk
 width of a slot refold, and requests that finish at admission lost by
-``run()`` (ROADMAP queue 3). Refusals are held by message
-against the JAX engine's, before any device work (the port's engines are
+``run()`` (ROADMAP queue 3). Refusals, batched speculation's included
+(its engines are held in ``tests/test_torch_batching_spec.py``), are held
+by message against the JAX engine's, before any device work (the port's engines are
 made for "cuda", which this CPU-only machine cannot reach).
 
 Models: ``tiny_llama_config`` (and its Mistral variant, window 10) with
@@ -306,14 +307,24 @@ def refusal_cases(models):
         (("mla", dict(rank_k=24, rank_v=None, merge_value=False), "fp32",
           dict(s_max=16, sparse_topk=2)), "llama-family only"),
         (("mla", dict(rank_k=24, rank_v=24), "fp32", dict(s_max=16)), "merge_value=False"),
+        # Batched speculation.
+        (("llama", pre, "fp32", dict(s_max=16, tail_max=8, speculative_k=3)),
+         "requires sparse_topk"),
+        (("mistral", pre, "fp32", dict(s_max=16, tail_max=8, speculative_k=3, sparse_topk=2,
+                                       sparse_block=8)), "sliding_window"),
+        (("llama", pre, "fp32", dict(s_max=16, tail_max=3, speculative_k=3, sparse_topk=2,
+                                     sparse_block=8)), "needs tail_max > speculative_k"),
+        (("llama", post4, "int4", dict(s_max=16, speculative_k=3, sparse_topk=2,
+                                       sparse_block=8)), "does not compose with batched"),
+        (("llama", pre, "fp32", dict(s_max=16, speculative_k=3, draft_rank=8)), "MLA-only"),
     ]
 
 
 def test_refusals_match_jax(models, monkeypatch):
-    """JAX's validation, with its messages; every refusal comes before the
-    slot cache is made (zeros on "cuda" would raise another error
-    here). Batched speculation (item 21), MiniCache slots (item 15) and a
-    mesh (item 17, no such argument) are refused too."""
+    """JAX's validation, with its messages, batched speculation's
+    included; every refusal comes before the slot cache is made (zeros on
+    "cuda" would raise another error here). MiniCache slots (item 15) and
+    a mesh (item 17, no such argument) are refused too."""
     for (model, opts, factor, kw), msg in refusal_cases(models):
         jcfg, tcfg, np_params = models[model]
         with pytest.raises(ValueError, match=msg):
@@ -324,9 +335,6 @@ def test_refusals_match_jax(models, monkeypatch):
                           factor_dtype=TORCH_DT[factor], **kw)
     _, tcfg, _ = models["llama"]
     xkv = torch_xkv(**xkv_kw(tcfg, dict(rank_k=16, rank_v=16)))
-    for kw in (dict(speculative_k=3, sparse_topk=2), dict(draft_rank=8)):
-        with pytest.raises(ValueError, match="item 21"):
-            BatchedEngine({}, tcfg, xkv, **kw)
     with pytest.raises(ValueError, match="item 15"):
         BatchedEngine({}, tcfg, dataclasses.replace(xkv, layer_merge_impl="slerp"))
     with pytest.raises(TypeError, match="mesh"):

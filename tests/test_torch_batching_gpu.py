@@ -19,7 +19,10 @@ with empty slots.
 Exact checks: the graph engine's tokens and launch counts equal those of
 the same engine stepping eagerly (the same kernels on the same inputs);
 one capture per engine (every step after the first a replay); an eager
-batched step makes no host sync. Kernel checks: K2-K7 against their plain
+batched step makes no host sync. Batched speculation (speculative_k 3,
+tail 8; sparse pre and post drafts, MLA draft_rank 32): the captured
+draft, verify and top-up steps against the same engine run eagerly, one
+capture of each per engine. Kernel checks: K2-K7 against their plain
 versions with the limits of ``tests/test_torch_kernels_gpu.py``.
 """
 
@@ -56,8 +59,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def engine(run, cuda):
+def engine(run, cuda, tail_max=4, **extra):
     rope, kw, _ = RUNS[run]
+    kw = dict(kw, **extra)
     gen = torch.Generator(device=cuda)
     gen.manual_seed(0)
     if rope is None:
@@ -72,7 +76,7 @@ def engine(run, cuda):
         xkv = generate_consecutive_xkv_config(
             group_size=2, rank_k=64, rank_v=48, num_layers=cfg.num_layers,
             end_layer=cfg.num_layers - 1, extra_kwargs={"rope_mode": rope})
-    eng = BatchedEngine(params, cfg, xkv, num_slots=3, s_max=256, tail_max=4,
+    eng = BatchedEngine(params, cfg, xkv, num_slots=3, s_max=256, tail_max=tail_max,
                         prefill_buckets=[64, 128, 256], device=cuda, **kw)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=cuda).cpu().numpy()
                for n in LENGTHS]
@@ -103,6 +107,48 @@ def test_batched_graph_equals_eager_steps(cuda, run):
     # One capture (the first step), every later step a replay.
     replay_ms, replays = eng.step_graph.replay_ms()
     assert eng.step_graph.capture_ms is not None and replays == steps - 1 and replay_ms > 0
+
+
+# Batched speculation (speculative_k 3, tail 8): the draft options and the
+# kernels of a draft step and of the verify and top-up steps.
+SPEC = {"sparse pre": (dict(speculative_k=3), "K5", "K3"),
+        "sparse post": (dict(speculative_k=3), "K4", "K2"),
+        "mla": (dict(speculative_k=3, draft_rank=32), "K7", "K7")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("run", list(SPEC))
+def test_batched_speculation_graphs_equal_eager_rounds(cuda, run):
+    """``BatchedEngine(speculative_k=3)``: the captured draft and verify
+    steps (``BatchedSpecRound``) and the captured top-up step give the
+    tokens, ``spec_stats`` and launch counts of the same engine run
+    eagerly; each graph is captured once per engine and replayed by every
+    later round or top-up; the launches are k drafts and one verify a
+    round and one exact step a top-up."""
+    spec, draft_kernel, exact_kernel = SPEC[run]
+    eager_eng, prompts = engine(run, cuda, tail_max=8, **spec)
+    eager_eng.step_graph.graphed = eager_eng.spec_graph.graphed = False
+    want, eager_counts = serve(eager_eng, prompts)
+    eng, _ = engine(run, cuda, tail_max=8, **spec)
+    got, counts = serve(eng, prompts)
+    assert got == want and [len(g) for g in got] == list(NEW)
+    assert eng.spec_stats == eager_eng.spec_stats and counts == eager_counts
+    rounds, plain = eng.spec_stats["rounds"], eng.spec_stats["plain_steps"]
+    assert rounds > 1
+    L = eng.cfg.num_layers
+    want_counts = {key: 0 for key in counts}
+    want_counts[draft_kernel] += L * 3 * rounds
+    want_counts[exact_kernel] += L * (rounds + plain)
+    want_counts["K1"] = counts["K1"]
+    assert counts == want_counts
+    t = eng.spec_graph.timing
+    assert t.draft_capture_ms is not None and t.verify_capture_ms is not None
+    assert len(t.events) == rounds - 1
+    draft_ms, verify_ms, _ = t.replayed()
+    assert draft_ms > 0 and verify_ms > 0
+    _, replays = eng.step_graph.replay_ms()
+    assert replays == max(plain - 1, 0)
+    assert (eng.step_graph.capture_ms is not None) == (plain > 0)
 
 
 @pytest.mark.gpu

@@ -43,6 +43,7 @@ from xkv_tpu.models.config import ModelConfig as JaxModelConfig
 from xkv_tpu.ops.pallas.rankspace_attention import mla_rankspace_decode_attention as jax_mla
 from xkv_tpu.ops.rope import apply_rope_interleaved as jax_rope_interleaved
 from xkv_tpu.ops.rope import rope_cos_sin as jax_rope_cos_sin
+from xkv_tpu_torch.cache import cache_from_numpy
 from xkv_tpu_torch.compress import quant as tq
 from xkv_tpu_torch.configs import generate_consecutive_xkv_config as torch_xkv
 from xkv_tpu_torch.engine import InferenceEngine
@@ -343,17 +344,30 @@ def test_merge_value_and_sparse_topk_rejected(dense_model):
     InferenceEngine(params, tcfg, tx, mode="factored", factor_dtype="int4", device="cpu")
 
 
-def test_factored_latent_without_rnorm_refused(dense_model):
-    _, tcfg, np_params = dense_model
-    _, tx = xkv_pair()
-    eng = InferenceEngine(params_from_numpy(np_params, torch.float32, "cpu"), tcfg, tx,
-                          mode="factored", cache_dtype=torch.float32,
-                          factor_dtype=torch.float32, device="cpu")
-    logits, cache = eng.prefill(prompt_tokens(16, 128, seed=11))
-    cache = dataclasses.replace(cache, groups=tuple(
-        dataclasses.replace(g, k_rnorm=None) for g in cache.groups))
-    with pytest.raises(ValueError, match="k_rnorm"):
-        eng.decode_step(cache, logits[:, -1].argmax(-1)[:, None], 16)
+@pytest.mark.parametrize("factor", ["fp32", "int8"])
+@pytest.mark.parametrize("draft_rank", [None, 8])
+def test_factored_latent_without_rnorm_matches_jax(factor, draft_rank, dense_model):
+    """A factored latent saved without ``k_rnorm`` (caches persisted before
+    it existed) decodes through the legacy reconstruct path: the JAX
+    engine's cache with ``k_rnorm`` dropped, carried across, and the first
+    decode step of both packages (all ranks, or a draft over the top 8)
+    within the engine tolerance. The path rebuilds the latent (``k_us @
+    vt`` or the int8 dequantisation) and is plain in both packages."""
+    jcfg, tcfg, np_params = dense_model
+    je, te = engines(dense_model, "factored", factor)
+    jx, tx = xkv_pair(tcfg.num_layers)
+    prompt = prompt_tokens(16, 128, seed=11)
+    logits, jcache = je.prefill(prompt)
+    jcache = jcache.replace(groups=tuple(g.replace(k_rnorm=None) for g in jcache.groups))
+    cache = cache_from_numpy(jax.tree.map(np.asarray, jcache), "cpu")
+    assert cache.groups[0].k_us is not None and cache.groups[0].k_rnorm is None
+    tok = int(np.argmax(np.asarray(logits[0, -1])))
+    want, _ = jds.decode_step(jax.tree.map(jnp.asarray, np_params), jcfg, jx, jcache,
+                              jnp.asarray([[tok]], jnp.int32), jnp.asarray(16, jnp.int32),
+                              None, draft_rank=draft_rank)
+    got, _ = deepseek.decode_step(te.params, tcfg, tx, cache, torch.tensor([[tok]]), 16,
+                                  draft_rank=draft_rank)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
 
 
 def test_mla_fake_mode_runs(moe_model):

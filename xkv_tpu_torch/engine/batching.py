@@ -1,7 +1,6 @@
 """Continuous batching: a slot-based scheduler over the factored cache.
 
-Port of ``xkv_tpu/engine/batching.py`` (``BatchedEngine``), speculation
-aside (ROADMAP queue 1 item 21):
+Port of ``xkv_tpu/engine/batching.py`` (``BatchedEngine``):
 
   * B fixed decode slots over one slot cache of ``s_max`` rows per slot;
     all shapes static.
@@ -17,6 +16,11 @@ aside (ROADMAP queue 1 item 21):
   * A slot whose tail fills folds it back into its own factors in place
     (``refactorize_slot_cache``) while its rows last, and finishes
     otherwise.
+  * With ``speculative_k``, a step is a speculative round of every slot
+    (``graphs.BatchedSpecRound``: k draft steps with the draft options,
+    sparse top-k for Llama or ``draft_rank`` for MLA, one exact verify
+    pass, per-slot acceptance; both steps captured once per engine), or,
+    when a slot lacks the tail rows of a round, a plain exact step.
 
 Greedy decoding. The slot cache is written only in place (admission,
 refolds), never reallocated: the captured step reads it by address.
@@ -39,7 +43,7 @@ from xkv_tpu_torch.engine.compression import (
     put_slot,
     refactorize_slot_cache,
 )
-from xkv_tpu_torch.engine.graphs import BatchedStep
+from xkv_tpu_torch.engine.graphs import BatchedSpecRound, BatchedStep
 from xkv_tpu_torch.models import deepseek, llama
 from xkv_tpu_torch.models.config import ModelConfig
 from xkv_tpu_torch.ops.rope import rope_cos_sin
@@ -80,9 +84,6 @@ class BatchedEngine:
         device: str | torch.device = "cuda",
     ):
         mla = cfg.model_type == "deepseek_v2"
-        if speculative_k is not None or draft_rank is not None:
-            raise ValueError("batched speculation (speculative_k, draft_rank) is ROADMAP "
-                             "queue 1 item 21")
         if xkv is not None and xkv.layer_merge_impl != "svd":
             raise ValueError("MiniCache slerp slots are ROADMAP queue 1 item 15")
         if not mla and cfg.model_type not in ("llama", "mistral", "qwen2"):
@@ -101,6 +102,11 @@ class BatchedEngine:
                     "BatchedEngine factor_dtype='int4' requires merge_key=True and "
                     "merge_value=True (one-sided int4 is supported by the single-stream "
                     "InferenceEngine)")
+            if speculative_k is not None:
+                raise ValueError(
+                    "factor_dtype='int4' does not compose with batched speculation yet (the "
+                    "multi-token verify pass needs the mixed packed layout in its exact "
+                    "path); sparse_topk composes (rank-space gathered rows)")
             max_rank = max(max(g.rank_k or 0, g.rank_v or 0) for g in xkv.layer_groups)
             min_bucket = min(prefill_buckets or [s_max])
             if min_bucket < max_rank:
@@ -119,6 +125,19 @@ class BatchedEngine:
                                  f"prefill_chunk={prefill_chunk}")
         if sparse_topk is not None and mla:
             raise ValueError("sparse_topk is llama-family only")
+        if draft_rank is not None and not mla:
+            raise ValueError("draft_rank drafts are MLA-only (llama-family speculation "
+                             "drafts with sparse_topk)")
+        if speculative_k is not None:
+            if sparse_topk is None and draft_rank is None:
+                raise ValueError("speculative_k requires sparse_topk (llama) or draft_rank "
+                                 "(MLA) — the draft path")
+            if cfg.sliding_window is not None:
+                raise ValueError("speculative_k does not compose with sliding_window "
+                                 "(multi-token verify has no per-row window bound)")
+            if speculative_k + 1 > tail_max:
+                raise ValueError(f"speculative_k={speculative_k} needs tail_max > "
+                                 f"speculative_k")
         self._model = deepseek if mla else llama
         self._mla = mla
         self._quantized = factor_dtype in ("int8", torch.int8)
@@ -143,6 +162,15 @@ class BatchedEngine:
         self._sparse_kw = {} if sparse_topk is None else dict(
             sparse_select=sparse_topk, sparse_block=sparse_block,
             sparse_layers=self.sparse_layers)
+        # Speculation: the draft step's options; the plain step of a
+        # speculating engine (a top-up) is exact, where the JAX engine's
+        # runs its sparse options (ROADMAP queue 3).
+        self.speculative_k = speculative_k
+        self.draft_kw = self._sparse_kw if sparse_topk is not None else (
+            {} if draft_rank is None else {"draft_rank": draft_rank})
+        self._step_kw = {} if speculative_k is not None else self._sparse_kw
+        # Rounds run, tokens emitted by rounds, plain (top-up) steps.
+        self.spec_stats = {"rounds": 0, "round_tokens": 0, "plain_steps": 0}
         # Per-slot refolds: SVD groups fold their tails into their factors.
         self._can_refactor = xkv is not None and (xkv.merge_key or xkv.merge_value)
 
@@ -160,6 +188,7 @@ class BatchedEngine:
         self._finished: List[Request] = []
         self._tail_capacity_finished: List[Request] = []
         self.step_graph = BatchedStep(self)
+        self.spec_graph = None if speculative_k is None else BatchedSpecRound(self)
 
     # ------------------------------------------------------------ structure
     def _empty_batch_cache(self) -> XKVCache:
@@ -328,13 +357,16 @@ class BatchedEngine:
         self._maybe_finish(slot)
 
     # ------------------------------------------------------------ stepping
-    def step_logits(self, token, pos, prefill_len, tail_len) -> torch.Tensor:
+    def step_logits(self, token, pos, prefill_len, tail_len,
+                    step_kw: Optional[dict] = None) -> torch.Tensor:
         """One decode step of every slot on (B,) device tensors (the body
-        ``BatchedStep`` runs and captures); each slot's tail is written in
-        place. Returns logits (B, V) fp32."""
+        ``BatchedStep`` runs and captures), with the decode options
+        ``step_kw`` (default the plain step's; ``draft_kw`` a draft's, {}
+        exact); ``token`` (B, ql) runs a multi-token pass. Each slot's tail
+        is written in place. Returns logits (B, V), or (B, ql, V), fp32."""
         logits, _ = self._model.decode_step_batched(
             self.params, self.cfg, self.xkv, self.batch_cache, token, pos, prefill_len,
-            tail_len, self._cos_sin, **self._sparse_kw)
+            tail_len, self._cos_sin, **(self._step_kw if step_kw is None else step_kw))
         return logits
 
     def _refactor(self, slot: int, plen: int) -> None:
@@ -392,17 +424,56 @@ class BatchedEngine:
             req.done = True
             self._tail_capacity_finished.append(req)
 
+    def _spec_blocked(self) -> bool:
+        """True when an active slot lacks the tail rows of a round (k
+        drafts and 1); the step is then a plain one, until that tail fills
+        and folds."""
+        need = self.speculative_k + 1
+        return any(self.tail_len[slot] + need > self.tail_max for slot in self.slot_request)
+
+    def _spec_round(self) -> None:
+        """One batched speculative round: every active slot advances by its
+        own acceptance, 1 to k + 1 tokens, cut at EOS or
+        ``max_new_tokens``."""
+        g = self.spec_graph
+        g.load(self.token, self.pos, self.prefill_len, self.tail_len)
+        n_out, exact = g.run()
+        self.spec_stats["rounds"] += 1
+        emitted = 0
+        for slot, req in list(self.slot_request.items()):
+            n = int(n_out[slot])
+            self.spec_stats["round_tokens"] += n
+            # The tail rows [t0, t0 + n) are the slot's history now, also
+            # where EOS cuts the emitted tokens below (the slot then frees).
+            self.tail_len[slot] += n
+            self.pos[slot] += n
+            for tok in exact[slot, :n]:
+                req.generated.append(int(tok))
+                self.token[slot] = int(tok)
+                emitted += 1
+                self._maybe_finish(slot)
+                if req.done:
+                    break
+            if not req.done:
+                self._handle_full_tail(slot)
+        g.timing.emitted.append(emitted)
+
     @torch.no_grad()
     def step(self) -> List[Request]:
         """Admit queued requests (or one admission chunk), run one decode
-        step of every slot, return the requests that finished. A request
-        that finishes at admission (its first token is EOS, or
-        ``max_new_tokens`` is 1) is returned too; the JAX engine drops it
+        step of every slot, or one speculative round, return the requests
+        that finished. Emitted tokens are exact greedy decoding's either
+        way. A request that finishes at admission (its first token is EOS,
+        or ``max_new_tokens`` is 1) is returned too; the JAX engine drops it
         (ROADMAP queue 3)."""
         self._finished = []
         self._tail_capacity_finished = []
         self._admit()
-        if self.slot_request:
+        if self.slot_request and self.speculative_k is not None and not self._spec_blocked():
+            self._spec_round()
+        elif self.slot_request:
+            if self.speculative_k is not None:
+                self.spec_stats["plain_steps"] += 1
             self.step_graph.load(self.token, self.pos, self.prefill_len, self.tail_len)
             next_tok = self.step_graph.run()
             for slot, req in list(self.slot_request.items()):

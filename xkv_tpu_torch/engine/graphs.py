@@ -32,6 +32,9 @@ round's start (tail length, position, token) from one round to the next.
 ``BatchedStep`` is the continuous-batching step (the JAX
 ``BatchedEngine``'s ``_step_jit``): one decode step of every slot of an
 s_max-row slot cache, captured once per engine and replayed every step.
+``BatchedSpecRound`` is its speculative round (``_spec_step_jit``): a
+draft step of every slot and a verify step of every slot, each captured
+once per engine on ``SpecRounds``' machinery (``_CapturedRounds``).
 """
 
 from __future__ import annotations
@@ -216,7 +219,58 @@ class RoundTiming:
         return draft, verify, sum(self.emitted[-len(self.events):])
 
 
-class SpecRounds:
+class _CapturedRounds:
+    """The round machinery that ``SpecRounds`` and ``BatchedSpecRound``
+    share: a subclass gives ``_draft`` (one draft step) and ``_verify``
+    (the exact pass over the drafts), each over its own static buffers.
+    ``_run_round`` runs one round: on the CPU eagerly; on CUDA the first
+    round runs a warm-up draft, captures the draft step, replays it for the
+    other drafts, then runs a warm-up verify and captures it; every later
+    round replays both (``k`` draft replays, one verify replay), timed by
+    CUDA events."""
+
+    def _init_rounds(self, draft_k: int, device: torch.device) -> None:
+        self.k = draft_k
+        self.graphed = device.type == "cuda"
+        self.draft_graph = self.verify_graph = None
+        self.draft_counts = self.verify_counts = None
+        self.timing = RoundTiming(draft_k)
+
+    def _first_round(self, dev: torch.device) -> None:
+        run_on_side_stream(self._draft, dev)
+        self.draft_graph, self.draft_counts, self.timing.draft_capture_ms = capture_step(
+            self._draft)
+        for _ in range(self.k - 1):
+            self.draft_graph.replay()
+        _build.add_counts(self.draft_counts, self.k - 1)
+        run_on_side_stream(self._verify, dev)
+        self.verify_graph, self.verify_counts, self.timing.verify_capture_ms = capture_step(
+            self._verify)
+
+    def _replayed_round(self) -> None:
+        start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        start.record()
+        for _ in range(self.k):
+            self.draft_graph.replay()
+        mid.record()
+        self.verify_graph.replay()
+        end.record()
+        _build.add_counts(self.draft_counts, self.k)
+        _build.add_counts(self.verify_counts, 1)
+        self.timing.events.append((start, mid, end))
+
+    def _run_round(self, dev: torch.device) -> None:
+        if not self.graphed:
+            for _ in range(self.k):
+                self._draft()
+            self._verify()
+        elif self.draft_graph is None:
+            self._first_round(dev)
+        else:
+            self._replayed_round()
+
+
+class SpecRounds(_CapturedRounds):
     """Speculative rounds over one factor segment of ``cache``: each drafts
     ``draft_k`` tokens with the engine's draft options (``draft_kw``),
     verifies them with one exact pass at ``ql = draft_k + 1`` from the
@@ -229,18 +283,17 @@ class SpecRounds:
     Device state (static buffers): the round's start token, position and
     tail length; the draft steps' own token, position and tail length; the
     drafts; the verify's tokens and ``n_out``. The verify step ends by
-    writing the next round's start into both. On CUDA the first round's
-    draft and verify steps run eagerly (warm-up) and are captured; every
-    later round replays them. ``round`` reads ``n_out`` and the tokens on
-    the host once. The caller's cache keeps its ``tail_len`` tensor; its
-    tail buffers are written. Every round needs ``draft_k + 1`` free tail
-    rows (the caller tops the tail up and refactorises before that)."""
+    writing the next round's start into both. The graphs are captured at
+    the segment's first round (``_CapturedRounds``). ``round`` reads
+    ``n_out`` and the tokens on the host once. The caller's cache keeps
+    its ``tail_len`` tensor; its tail buffers are written. Every round
+    needs ``draft_k + 1`` free tail rows (the caller tops the tail up and
+    refactorises before that)."""
 
     def __init__(self, engine, cache: XKVCache, token: torch.Tensor, pos, draft_k: int):
         dev = cache.tail_k.device
         self.engine = engine
-        self.k = draft_k
-        self.graphed = dev.type == "cuda"
+        self._init_rounds(draft_k, dev)
         self.cache = dataclasses.replace(cache, tail_len=cache.tail_len.clone())
         self.pos = position_tensor(pos, dev).clone()
         self.token = token.to(dev, torch.long).reshape(1, 1).clone()
@@ -251,9 +304,6 @@ class SpecRounds:
         self.drafts = torch.zeros((1, draft_k), dtype=torch.long, device=dev)
         # n_out, then the verify's k + 1 tokens: read on the host at once.
         self.result = torch.zeros((draft_k + 2,), dtype=torch.long, device=dev)
-        self.draft_graph = self.verify_graph = None
-        self.draft_counts = self.verify_counts = None
-        self.timing = RoundTiming(draft_k)
 
     def _draft(self) -> None:
         # The round's room was checked for all its rows (``round``).
@@ -285,46 +335,13 @@ class SpecRounds:
         self.draft_token.copy_(self.token)
         self.slot.zero_()
 
-    def _first_round(self) -> None:
-        """Warm-up draft, capture, the other drafts replayed; warm-up
-        verify, capture (the graphs then serve every later round)."""
-        dev = self.pos.device
-        run_on_side_stream(self._draft, dev)
-        self.draft_graph, self.draft_counts, self.timing.draft_capture_ms = capture_step(
-            self._draft)
-        for _ in range(self.k - 1):
-            self.draft_graph.replay()
-        _build.add_counts(self.draft_counts, self.k - 1)
-        run_on_side_stream(self._verify, dev)
-        self.verify_graph, self.verify_counts, self.timing.verify_capture_ms = capture_step(
-            self._verify)
-
-    def _replayed_round(self) -> None:
-        start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        start.record()
-        for _ in range(self.k):
-            self.draft_graph.replay()
-        mid.record()
-        self.verify_graph.replay()
-        end.record()
-        _build.add_counts(self.draft_counts, self.k)
-        _build.add_counts(self.verify_counts, 1)
-        self.timing.events.append((start, mid, end))
-
     def round(self) -> List[int]:
         """One round; returns its ``n_out`` tokens (host ints) and moves the
         cache's host ``tail_count`` by as many."""
         if self.cache.tail_count + self.k + 1 > self.cache.tail_max:
             raise ValueError(f"tail overflow: {self.cache.tail_count} + {self.k + 1} > "
                              f"{self.cache.tail_max}")
-        if not self.graphed:
-            for _ in range(self.k):
-                self._draft()
-            self._verify()
-        elif self.draft_graph is None:
-            self._first_round()
-        else:
-            self._replayed_round()
+        self._run_round(self.pos.device)
         res = self.result.tolist()
         n = res[0]
         self.cache = dataclasses.replace(self.cache, tail_count=self.cache.tail_count + n)
@@ -407,3 +424,70 @@ class BatchedStep:
             return 0.0, 0
         self.events[-1][1].synchronize()
         return sum(a.elapsed_time(b) for a, b in self.events), len(self.events)
+
+
+class BatchedSpecRound(_CapturedRounds):
+    """One batched speculative round of a ``BatchedEngine`` (the JAX
+    engine's ``_spec_step_jit``): every slot drafts ``speculative_k``
+    tokens with the engine's draft options, one exact pass at ``ql = k +
+    1`` verifies every slot's drafts, and each slot accepts its own
+    matching prefix: ``n_out = n_acc + 1`` tokens, the last the verify's
+    own. The verify re-appends exact K/V over each slot's tail rows [t0,
+    t0 + k + 1), so a slot's tail holds what exact decoding of its emitted
+    tokens writes.
+
+    Device buffers: ``state`` (7, B) int64, the rows token, position,
+    prefill length and tail length of each slot at the round's start, then
+    the draft steps' own token, position and tail length, which the drafts
+    move on the device; the drafts (B, k); ``result`` (B, k + 2), each
+    slot's ``n_out`` and the verify's k + 1 tokens, read by the host once
+    a round (``run``). ``load`` copies the host's round start in. The slot
+    cache has static shapes and is written only in place, so the draft
+    and the verify step are captured once per engine, at its first round
+    (``_CapturedRounds``), and replayed by every later one. A capture that
+    fails raises. On the CPU every round runs eagerly."""
+
+    def __init__(self, engine):
+        dev = engine.device
+        B, k = engine.num_slots, engine.speculative_k
+        self.engine = engine
+        self._init_rounds(k, dev)
+        self.state = torch.zeros((7, B), dtype=torch.long, device=dev)
+        self._staged = torch.zeros((7, B), dtype=torch.long, pin_memory=dev.type == "cuda")
+        self.slot = torch.zeros((1,), dtype=torch.long, device=dev)
+        self.drafts = torch.zeros((B, k), dtype=torch.long, device=dev)
+        self.result = torch.zeros((B, k + 2), dtype=torch.long, device=dev)
+
+    def load(self, token, pos, prefill_len, tail_len) -> None:
+        """Copy the host's (B,) round start into the state buffer; the
+        drafts start from it."""
+        for row, arr in zip(self._staged, (token, pos, prefill_len, tail_len, token, pos,
+                                            tail_len)):
+            row.copy_(torch.as_tensor(arr))
+        self.state.copy_(self._staged, non_blocking=True)
+        self.slot.zero_()
+
+    def _draft(self) -> None:
+        tok, pos, tail = self.state[4], self.state[5], self.state[6]
+        logits = self.engine.step_logits(tok, pos, self.state[2], tail, self.engine.draft_kw)
+        nxt = logits.argmax(dim=-1)
+        tok.copy_(nxt)
+        self.drafts.index_copy_(1, self.slot, nxt[:, None])
+        pos.add_(1)
+        tail.add_(1)
+        self.slot.add_(1)
+
+    def _verify(self) -> None:
+        token, pos, prefill_len, tail_len = self.state[:4]
+        inputs = torch.cat([token[:, None], self.drafts], dim=1)  # (B, k + 1)
+        exact = self.engine.step_logits(inputs, pos, prefill_len, tail_len, {}).argmax(dim=-1)
+        n_acc = (self.drafts == exact[:, :self.k]).long().cumprod(dim=1).sum(dim=1)
+        self.result[:, 0].copy_(n_acc + 1)
+        self.result[:, 1:].copy_(exact)
+
+    def run(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The round from the loaded start; (n_out (B,), the verify's
+        tokens (B, k + 1)) on the host."""
+        self._run_round(self.state.device)
+        res = self.result.cpu().numpy()
+        return res[:, 0], res[:, 1:]

@@ -21,7 +21,8 @@ factored group with ``k_rnorm`` the latent is never rebuilt: kernel K7 (K8
 for mixed int8+int4 factors) computes the rank-space scores and values
 over the prefill segment, and the dense tail's latent-space partial is
 merged by log-sum-exp. Dense latents (mode none, fake layers, ungrouped
-layers) take the joint softmax over prefill and tail in plain torch.
+layers, and factored latents saved without ``k_rnorm``, rebuilt first)
+take the joint softmax over prefill and tail in plain torch.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from xkv_tpu_torch.cache import XKVCache, layer_group_index
+from xkv_tpu_torch.compress.quant import QuantizedKFactors, dequantize_k
 from xkv_tpu_torch.configs import XKVConfig
 from xkv_tpu_torch.models.config import ModelConfig
 from xkv_tpu_torch.models.llama import mlp as _ffn
@@ -360,6 +362,20 @@ def _rankspace_part(q_abs, q_pe, gf, gpos, k_pe_p, w, cfg, scale,
     return PartialAttention(out=out, lse=lse)
 
 
+def _rebuilt_latent(gf, gpos, cfg, draft_rank: Optional[int] = None) -> torch.Tensor:
+    """The legacy reconstruct path (JAX ``decode_step`` for caches
+    persisted without ``k_rnorm``): a factored group's latent of the layer
+    at ``gpos``, (b, s_p, lora) fp32, ``k_us @ vt`` or the int8
+    dequantisation, over the top ``draft_rank`` ranks when given. As in the
+    JAX package, mixed int8+int4 factors are rebuilt from their int8 ranks
+    alone. Plain torch: the JAX package runs no kernel here."""
+    cols = slice(gpos * cfg.kv_lora_rank, (gpos + 1) * cfg.kv_lora_rank)
+    k_us, vt = gf.k_us[..., :draft_rank], gf.k_vt[:, :draft_rank, cols]
+    if gf.k_scale is not None:
+        return dequantize_k(QuantizedKFactors(k_us, vt, gf.k_scale[:, :, cols]))
+    return k_us.to(torch.float32) @ vt.to(torch.float32)
+
+
 def _decode_layers(params, cfg, xkv, cache, tokens, cos, sin, write_tail, t_mask,
                    lengths=None, draft_rank=None) -> torch.Tensor:
     """The decoder layers of an absorbed MLA decode step, shared by
@@ -398,11 +414,7 @@ def _decode_layers(params, cfg, xkv, cache, tokens, cos, sin, write_tail, t_mask
         if li in grp_index:
             gi, gpos = grp_index[li]
             gf = cache.groups[gi]
-        if gf is not None and gf.k_us is not None:
-            if gf.k_rnorm is None:
-                raise ValueError(
-                    "factored MLA latent without k_rnorm: the reconstruct path for "
-                    "such caches waits for prompt-cache persistence (ROADMAP item 16)")
+        if gf is not None and gf.k_us is not None and gf.k_rnorm is not None:
             # The tail as a partial in latent space, merged by log-sum-exp.
             m_t = torch.clamp(scores_t.amax(dim=-1, keepdim=True), min=-1e29)
             e_t = torch.where(t_mask, torch.exp(scores_t - m_t), 0.0)
@@ -414,8 +426,10 @@ def _decode_layers(params, cfg, xkv, cache, tokens, cos, sin, write_tail, t_mask
                 _rankspace_part(q_abs, q_pe, gf, gpos, k_pe_p, w, cfg, scale, draft_rank,
                                 lengths), tail)
         else:
-            # Dense latent: one softmax over prefill and tail.
-            latent_p = norm_latent(cache.dense_k[li][:, 0])
+            # Dense latent: one softmax over prefill and tail. A factored
+            # latent saved without k_rnorm is rebuilt first.
+            latent_p = norm_latent(cache.dense_k[li][:, 0] if gf is None or gf.k_us is None
+                                   else _rebuilt_latent(gf, gpos, cfg, draft_rank))
             scores_p = _scores(q_abs, q_pe, latent_p, k_pe_p.to(torch.float32), scale)
             s_p = latent_p.shape[1]
             if lengths is not None:
@@ -479,6 +493,7 @@ def decode_step_batched(
     prefill_len: torch.Tensor,
     tail_len: torch.Tensor,
     prefill_cos_sin=None,
+    draft_rank: Optional[int] = None,
 ) -> Tuple[torch.Tensor, XKVCache]:
     """Absorbed MLA decode across B independent slots (continuous
     batching; JAX ``decode_step_batched``): per-slot positions, valid
@@ -486,8 +501,11 @@ def decode_step_batched(
     the dense latents' mask) and tail fills, each a (B,) tensor on the
     device; no host read, so a CUDA graph can capture the step. 2-D
     ``tokens`` (B, ql) run a multi-token pass per slot (logits (B, ql,
-    V)). ``prefill_cos_sin`` is unused (the latent carries no RoPE); it
-    keeps ``llama``'s signature. Returns (logits (B, V) fp32, cache)."""
+    V); the batched speculative verify). ``draft_rank``: the batched
+    speculative draft, over each slot's top ``draft_rank`` ranks of the
+    factored latents (``decode_step``). ``prefill_cos_sin`` is unused (the
+    latent carries no RoPE); it keeps ``llama``'s signature. Returns
+    (logits (B, V) fp32, cache)."""
     multi = tokens.dim() == 2
     tokens2 = tokens if multi else tokens[:, None]
     ql = tokens2.shape[1]
@@ -500,5 +518,5 @@ def decode_step_batched(
     logits = _decode_layers(
         params, cfg, xkv, cache, tokens2, cos, sin,
         lambda li, k, v: cache.append_slot_tails(li, k, v, tail_len), t_mask,
-        lengths=prefill_len)
+        lengths=prefill_len, draft_rank=draft_rank)
     return (logits if multi else logits[:, 0]), cache
