@@ -107,7 +107,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
              ``save_cache`` / ``load_cache`` of the 8B factored cache at
              8192 tokens in bf16 and int8 (file MB, save / load s, the
              first step's logits bitwise); V2-Lite's legacy reconstruct
-             path (``k_rnorm`` dropped) against the rank-space step.
+             path (``k_rnorm`` dropped) against the rank-space step;
+  10. minicache  MiniCache SLERP (configs/minicache_llama31_8b.yaml:
+             layers 16-31 in pairs, gamma 0.05), run inside phases 3 and 4
+             on their models: the 8B in fake, factored dense storage and
+             factored compact storage at keep 0.125 with a refactorisation,
+             eager and on the graph (equal tokens; K1 at every prefill, no
+             decode kernel); compact against dense storage (kept rows
+             bitwise, the other rows' error, the rows the merge kept that
+             fell outside the budget, cache bytes and ratio, first-step
+             logits, the reconstruction's device time per step);
+             ``BatchedEngine`` over compact slots (phase 8's layout, its
+             first four requests, three teacher-forced); save / load of
+             the compact cache; and the JAX engine's MiniCache golden on
+             the in-repo checkpoint, dense and compact, teacher-forced.
 Then it prints the card's name and power limit, one JSON line of kernel
 records, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -1515,8 +1528,10 @@ def main_path(results):
     served = {r["run"]: r["decode_ms_per_token_graph"] for r in rows}
     batch_counts = batched_8b(results, params, cfg, served)
     spec9_counts = batched_spec_8b(results, params, cfg, engine, prompt)
+    minicache_counts = minicache_8b(results, params, cfg, prompt, served)
     for key in totals:
-        totals[key] += spec_counts[key] + batch_counts[key] + spec9_counts[key]
+        totals[key] += (spec_counts[key] + batch_counts[key] + spec9_counts[key]
+                        + minicache_counts[key])
     return totals
 
 
@@ -1802,30 +1817,41 @@ def anchor():
         eng = InferenceEngine(params, cfg, xkv, mode="factored", tail_max=64, device="cuda",
                               **kw)
         toks = gold[f"tokens_{run}"]
-        want = gold[f"logits_{run}"]
-        reset_counts()
-        logits, cache = eng.prefill(prompt)
-        got = [logits[0, -1].float().cpu().numpy()]
-        pos = prompt.shape[1]
-        for i in range(len(toks) - 1):
-            tok = torch.tensor([[int(toks[i])]], device="cuda")
-            step, cache = eng.decode_step(cache, tok, pos + i)
-            got.append(step[0, -1].float().cpu().numpy())
-        step_err = np.abs(np.stack(got) - want).max(axis=-1)
-        err = {"prefill": float(step_err[0]), "decode": float(step_err[1:].max())}
-        tol = {"prefill": TOL_ANCHOR["prefill"], "decode": tol_decode}
-        counts = read_counts()
-        log(f"anchor {run}: {len(toks)} steps, max_abs_err prefill step {err['prefill']:.4e} "
-            f"(limit {tol['prefill']:.4e}), decode steps {err['decode']:.4e} "
-            f"(limit {tol['decode']:.4e}); max |logit| {np.abs(want).max():.4e}; "
-            f"launches {counts}")
-        if not all(err[k] <= tol[k] for k in err):
-            raise AssertionError(f"anchor {run}: logits disagree with the JAX golden")
-        want_counts = {key: 0 for key in COUNTERS}
-        want_counts["K1"] = cfg.num_layers
-        want_counts[kernel] = cfg.num_layers * (len(toks) - 1)
-        if counts != want_counts:
-            raise AssertionError(f"anchor {run}: launches {counts}, expected {want_counts}")
+        golden_check(f"anchor {run}", eng, prompt, toks, gold[f"logits_{run}"],
+                     {"prefill": TOL_ANCHOR["prefill"], "decode": tol_decode},
+                     {"K1": cfg.num_layers, kernel: cfg.num_layers * (len(toks) - 1)})
+
+
+def golden_check(label, eng, prompt, toks, want, tol, launches) -> dict:
+    """``toks`` teacher-forced through ``eng`` (prefill, then one decode
+    step a token); each step's logits held against the golden ``want``
+    (the prefill step, then the decode steps, each within ``tol``), the
+    launches read around it against ``launches`` (the rest 0). Returns
+    the errors."""
+    import numpy as np
+    import torch
+
+    reset_counts()
+    logits, cache = eng.prefill(prompt)
+    got = [logits[0, -1].float().cpu().numpy()]
+    pos = prompt.shape[1]
+    for i in range(len(toks) - 1):
+        tok = torch.tensor([[int(toks[i])]], device="cuda")
+        step, cache = eng.decode_step(cache, tok, pos + i)
+        got.append(step[0, -1].float().cpu().numpy())
+    step_err = np.abs(np.stack(got) - want).max(axis=-1)
+    err = {"prefill": float(step_err[0]), "decode": float(step_err[1:].max())}
+    counts = read_counts()
+    log(f"{label}: {len(toks)} steps, max_abs_err prefill step {err['prefill']:.4e} "
+        f"(limit {tol['prefill']:.4e}), decode steps {err['decode']:.4e} "
+        f"(limit {tol['decode']:.4e}); max |logit| {np.abs(want).max():.4e}; "
+        f"launches {counts}")
+    if not all(err[k] <= tol[k] for k in err):
+        raise AssertionError(f"{label}: logits disagree with the JAX golden")
+    want_counts = {key: launches.get(key, 0) for key in COUNTERS}
+    if counts != want_counts:
+        raise AssertionError(f"{label}: launches {counts}, expected {want_counts}")
+    return err
 
 
 # ------------------------------------------------------------- DeepSeek MLA
@@ -2545,14 +2571,30 @@ def prompt_rows(cache1, s: int, eng):
     ``bucket`` rows, those past the prompt's ``s`` zero) cut to its ``s``
     rows, with an empty tail of the engine's: the factors the request's
     slot holds, as a single-stream cache. Chunk bounds keep the chunks
-    that hold rows below ``s``."""
+    that hold rows below ``s``. A compact SLERP side keeps its first ``s``
+    rows, and kept rows past them (zero rows) become repeats of entry 0,
+    the largest angle (a row below ``s``), as the slot's padding does."""
     import dataclasses
 
-    from xkv_tpu_torch.cache import GroupFactors, XKVCache, empty_tail_len, init_tail
+    import torch
+
+    from xkv_tpu_torch.cache import (
+        GroupFactors,
+        SlerpCompact,
+        XKVCache,
+        empty_tail_len,
+        init_tail,
+    )
 
     rows = {"k_us", "v_us", "k_us4", "v_us4"}
 
     def cut(name, x):
+        if isinstance(x, SlerpCompact):
+            past = (x.keep_idx >= s)[..., None, None]
+            return SlerpCompact(
+                base=x.base[:, :, :s].contiguous(), norms=x.norms[:, :, :s].contiguous(),
+                keep_idx=torch.where(past[..., 0, 0], x.keep_idx[..., :1], x.keep_idx),
+                keep_rows=torch.where(past, x.keep_rows[:, :, :1], x.keep_rows))
         if x is None or name not in rows | {"k_rnorm", "k_cmin", "k_cmax"}:
             return x
         if name == "k_rnorm":
@@ -2571,8 +2613,9 @@ def prompt_rows(cache1, s: int, eng):
                     tail_k=tail_k, tail_v=tail_v, tail_len=empty_tail_len("cuda"))
 
 
-def teacher_force(label, eng, single, cfg, prompts, gens, admitted, ids, gap):
-    """The ``BATCH_REFS`` requests' tokens ``gens`` teacher-forced through
+def teacher_force(label, eng, single, cfg, prompts, gens, admitted, ids, gap,
+                  refs=BATCH_REFS):
+    """The ``refs`` requests' tokens ``gens`` teacher-forced through
     ``single`` (the same configuration, single-stream, exact steps) over
     each request's own admitted factors (``admitted``: request id ->
     batch-1 cache; the bucket's padding rows cut off, ``prompt_rows``), so
@@ -2587,7 +2630,7 @@ def teacher_force(label, eng, single, cfg, prompts, gens, admitted, ids, gap):
 
     model = deepseek_model if eng._mla else llama_model
     ref_rows, ref_counts, bad = [], {key: 0 for key in COUNTERS}, []
-    for i in BATCH_REFS:
+    for i in refs:
         tok = torch.as_tensor(gens[i], device="cuda")[None]
         s = int(prompts[i].shape[0])
         reset_counts()
@@ -2615,14 +2658,15 @@ def teacher_force(label, eng, single, cfg, prompts, gens, admitted, ids, gap):
 
 
 def serve_batched(label, eng, single, cfg, requests, kernel, gap, b1_ms, gen,
-                  eager_steps=0):
+                  eager_steps=0, refs=BATCH_REFS):
     """One phase-8 run: every request of ``requests`` through ``eng``
     (``BatchedEngine.run``, the captured batched step), admissions and
     refolds timed; then the checks of the module docstring: every
     request's ``max_new_tokens``, the first ``eager_steps`` steps and the
     first step after each refold against the eager batched step on the
     same inputs (tokens equal), launch counts against the
-    steps, one capture, and the ``BATCH_REFS`` requests' tokens
+    steps (``kernel`` the decode kernel, None for a step that runs none),
+    one capture, and the ``refs`` requests' tokens
     teacher-forced through ``single`` (the same configuration,
     single-stream) up to their first refold, each within ``gap`` of its
     step's top log-prob. The references decode each request's own
@@ -2687,7 +2731,7 @@ def serve_batched(label, eng, single, cfg, requests, kernel, gap, b1_ms, gen,
     place = eng._place
 
     def keep_place(slot, req, cache1, first_token, s):
-        if req.request_id in [ids[i] for i in BATCH_REFS]:
+        if req.request_id in [ids[i] for i in refs]:
             admitted[req.request_id] = cache1
         place(slot, req, cache1, first_token, s)
 
@@ -2718,7 +2762,8 @@ def serve_batched(label, eng, single, cfg, requests, kernel, gap, b1_ms, gen,
                              f"capture {graph.capture_ms}")
     L = cfg.num_layers
     want = {key: 0 for key in COUNTERS}
-    want[kernel] = L * (graph.steps + state["eager_checked"])
+    if kernel is not None:
+        want[kernel] = L * (graph.steps + state["eager_checked"])
     if eng.prefill_chunk is None and not eng._mla:
         want["K1"] = L * len(requests)
     if counts != want:
@@ -2726,7 +2771,7 @@ def serve_batched(label, eng, single, cfg, requests, kernel, gap, b1_ms, gen,
 
     t_ref = time.time()
     ref_rows, ref_counts = teacher_force(label, eng, single, cfg, prompts, gens, admitted, ids,
-                                         gap)
+                                         gap, refs)
     # Device time of the captured step (torch.profiler over replays on the
     # run's last inputs).
     profile = _profile(graph.graph.replay, 3, replay_ms / replays)
@@ -3143,45 +3188,56 @@ def persistence_8b(results, cfg, engine, prompt):
 
     totals = {key: 0 for key in COUNTERS}
     rows = []
-    s = prompt.shape[1]
     for fdt, name in ((torch.bfloat16, "bf16"), ("int8", "int8")):
         eng = engine("factored", "pre", fdt, 128)
         reset_counts()
-        logits, cache = eng.prefill(prompt)
-        tok = logits[:, -1].argmax(-1)[:, None]
-        path = os.path.join(ROOT, "build", "cache_io", f"8b_pre_{name}")
-        torch.cuda.synchronize()
-        t0 = time.time()
-        save_cache(cache, path, metadata={"prompt_len": s})
-        save_s = time.time() - t0
-        before, _ = eng.decode_step(cache, tok, s)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        loaded, meta = load_cache(path, cache)
-        torch.cuda.synchronize()
-        load_s = time.time() - t0
-        after, _ = eng.decode_step(loaded, tok, s)
-        same_leaves = all(torch.equal(a, b) for a, b in zip(cache_leaves(cache),
-                                                             cache_leaves(loaded)))
-        file_bytes = os.path.getsize(path + ".npz")
-        row = dict(factors=name, file_mb=file_bytes / 1e6,
-                   num_cache_mb=cache.num_cache_bytes() / 1e6,
-                   file_vs_num_cache_bytes=file_bytes / cache.num_cache_bytes(),
-                   save_s=save_s, load_s=load_s, leaves_equal=same_leaves,
-                   first_step_logits_equal=bool(torch.equal(before, after)),
-                   metadata=meta)
-        log("persist " + json.dumps(row))
-        for suffix in (".npz", ".json"):
-            os.remove(path + suffix)
+        rows.append(persist(eng, prompt, f"8b_pre_{name}", dict(factors=name)))
         for key, n in read_counts().items():
             totals[key] += n
-        rows.append(row)
-        if not (same_leaves and row["first_step_logits_equal"] and meta == {"prompt_len": s}):
-            raise AssertionError(f"persistence {name}: the loaded cache differs ({row})")
-        del eng, cache, loaded, logits, before, after
+        del eng
         torch.cuda.empty_cache()
     results["persistence"] = rows
     return totals
+
+
+def persist(eng, prompt, name: str, row: dict) -> dict:
+    """``eng``'s prefill cache of ``prompt`` saved (build/cache_io/``name``)
+    and loaded: ``row`` with the file MB, ``num_cache_bytes``, save and
+    load s, and whether every leaf and the first decode step's logits
+    after the load equal those before it, bitwise (it fails otherwise).
+    The files are removed."""
+    import torch
+
+    from xkv_tpu_torch.engine.cache_io import cache_leaves, load_cache, save_cache
+
+    s = prompt.shape[1]
+    logits, cache = eng.prefill(prompt)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    path = os.path.join(ROOT, "build", "cache_io", name)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    save_cache(cache, path, metadata={"prompt_len": s})
+    save_s = time.time() - t0
+    before, _ = eng.decode_step(cache, tok, s)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    loaded, meta = load_cache(path, cache)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    after, _ = eng.decode_step(loaded, tok, s)
+    same_leaves = all(torch.equal(a, b) for a, b in zip(cache_leaves(cache),
+                                                         cache_leaves(loaded)))
+    file_bytes = os.path.getsize(path + ".npz")
+    row = dict(row, file_mb=file_bytes / 1e6, num_cache_mb=cache.num_cache_bytes() / 1e6,
+               file_vs_num_cache_bytes=file_bytes / cache.num_cache_bytes(),
+               save_s=save_s, load_s=load_s, leaves_equal=same_leaves,
+               first_step_logits_equal=bool(torch.equal(before, after)), metadata=meta)
+    log("persist " + json.dumps(row))
+    for suffix in (".npz", ".json"):
+        os.remove(path + suffix)
+    if not (same_leaves and row["first_step_logits_equal"] and meta == {"prompt_len": s}):
+        raise AssertionError(f"persistence {name}: the loaded cache differs ({row})")
+    return row
 
 
 def batched_spec_mla(results, params, cfg, xkv, prompt):
@@ -3241,6 +3297,248 @@ def batched_spec_mla(results, params, cfg, xkv, prompt):
     return totals
 
 
+# ------------------------------------------------------------- MiniCache
+# Phase 10: MiniCache SLERP on Llama-3.1-8B (configs/minicache_llama31_8b.yaml:
+# layers 16-31 merged in pairs at gamma 0.05, layers 0-15 dense), served on
+# phase 3's weights and prompt. Compact storage keeps the CLI's default
+# slerp_keep_frac. The SLERP decode reads its prefill segment (dense or
+# rebuilt from compact rows) through the plain dense decode attention: no
+# decode kernel, K1 at every prefill.
+MINICACHE_KEEP = 0.125
+# (label, mode, compact storage, tail_max, new tokens, profiled)
+MINICACHE_RUNS = (("minicache fake", "fake", False, 128, 32, False),
+                  ("minicache factored dense", "factored", False, 128, 32, False),
+                  ("minicache factored compact refactorize", "factored", True, 32, 48, True))
+# Batched compact slots: phase 8's engine and its first four requests; the
+# longest (refolded), a ragged one (5000 rows) and a refolded 3000-row one
+# teacher-forced.
+MINICACHE_BATCH, MINICACHE_REFS = BATCH_8B[:4], (0, 1, 2)
+# Golden runs of minicache_golden.npz (the in-repo checkpoint in SLERP
+# pairs): the decode steps' limit, twice the readings on an H100 (the
+# prefill step is phase 4's).
+TOL_MINICACHE_ANCHOR = {"dense": 2 * 0.1068, "compact": 2 * 0.1170}
+
+
+def minicache_phase_time(results, part: str, seconds: float) -> None:
+    results.setdefault("minicache_phase_s", {})[part] = seconds
+    log(f"minicache phase, {part}: {seconds:.1f} s")
+
+
+def minicache_xkv(compact: bool):
+    """The MiniCache config as shipped, with compact storage at
+    ``MINICACHE_KEEP`` when ``compact``."""
+    from xkv_tpu_torch.configs import XKVConfig
+
+    xkv = XKVConfig.from_yaml(os.path.join(ROOT, "configs", "minicache_llama31_8b.yaml"))
+    if compact:
+        xkv.extra_kwargs.update(slerp_compact=True, slerp_keep_frac=MINICACHE_KEEP)
+    return xkv
+
+
+def minicache_8b(results, params, cfg, prompt, served):
+    """Phase 10 on the 8B: the ``MINICACHE_RUNS`` through ``serve`` (eager
+    loop, then ``generate`` on the graph: equal tokens, K1 only); compact
+    against dense storage (``minicache_storage``); the compact
+    reconstruction's device time per step; ``BatchedEngine`` over compact
+    slots; persistence of the compact cache. Returns the launches."""
+    import torch
+
+    from xkv_tpu_torch.engine import InferenceEngine
+
+    t0 = time.time()
+    L = cfg.num_layers
+    totals = {key: 0 for key in COUNTERS}
+    rows, first = [], {}
+    for label, mode, compact, tail_max, n_new, profiled in MINICACHE_RUNS:
+        eng = InferenceEngine(params, cfg, minicache_xkv(compact), mode=mode, tail_max=tail_max,
+                              prefill_logits="last", device="cuda")
+        want = {key: 0 for key in COUNTERS}
+        want["K1"] = L
+        row, counts, first[label] = serve(eng, cfg, prompt, label, n_new, want, profiled)
+        rows.append(row)
+        for key in totals:
+            totals[key] += counts[key]
+        del eng
+        torch.cuda.empty_cache()
+    log(f"minicache: {L} K1 launches per prefill and no decode-kernel launch (K2-K8) in "
+        f"{len(rows)} served runs")
+    graph_ms = {r["run"]: r["decode_ms_per_token_graph"] for r in rows}
+    compact_label, dense_label = MINICACHE_RUNS[2][0], MINICACHE_RUNS[1][0]
+    diff = (first[compact_label] - first[dense_label]).abs().max().item()
+    log(f"minicache compact vs dense storage first-step logits: max_abs_diff={diff:.4e} "
+        f"(phase 3's factored-vs-fake limit {TOL_FACTORED_VS_FAKE:.4e}); graph decode "
+        f"ms/token {json.dumps(graph_ms)} beside phase 3's none {served['none']:.4f} and "
+        f"fake {served['fake pre']:.4f}")
+    results["minicache_runs"] = rows
+    minicache_phase_time(results, "served", time.time() - t0)
+
+    t0 = time.time()
+    reset_counts()
+    storage = minicache_storage(cfg, params, prompt)
+    storage["first_step_logits_compact_vs_dense"] = diff
+    for key, n in read_counts().items():
+        totals[key] += n
+    results["minicache_storage"] = storage
+    minicache_phase_time(results, "storage", time.time() - t0)
+
+    t0 = time.time()
+    batch_counts = minicache_batched(results, params, cfg, graph_ms[compact_label])
+    minicache_phase_time(results, "batched", time.time() - t0)
+
+    t0 = time.time()
+    eng = InferenceEngine(params, cfg, minicache_xkv(True), tail_max=128,
+                          prefill_logits="last", device="cuda")
+    reset_counts()
+    results["minicache_persistence"] = persist(eng, prompt, "8b_minicache_compact",
+                                               dict(storage="compact"))
+    for key, n in read_counts().items():
+        totals[key] += n + batch_counts[key]
+    del eng
+    torch.cuda.empty_cache()
+    minicache_phase_time(results, "persistence", time.time() - t0)
+    return totals
+
+
+def minicache_storage(cfg, params, prompt) -> dict:
+    """One prefill's K/V stored dense and compact (``build_cache``, the
+    engine's bf16 cache): for each merged side the kept rows of
+    ``compact_reconstruct`` against the dense rows (bitwise), the largest
+    row-relative error of the other rows, and the rows the merge kept per
+    layer (not divergent, ``slerp_merge_rows``) that fell outside the
+    budget; ``num_cache_bytes`` and ``compression_ratio`` of both, held to
+    the bytes their shapes give; the device time of the reconstructions
+    one decode step makes (CUDA events, and device busy time under
+    torch.profiler)."""
+    import torch
+
+    from xkv_tpu_torch.compress.slerp import compact_reconstruct, slerp_merge_rows
+    from xkv_tpu_torch.engine.compression import build_cache
+    from xkv_tpu_torch.models import llama as llama_model
+    from xkv_tpu_torch.ops.rope import rope_cos_sin
+
+    s, hkv, hd = prompt.shape[1], cfg.num_kv_heads, cfg.head_dim
+    _, kvs = llama_model.prefill(params, cfg, prompt, logits_position=s - 1)
+    cos_p, sin_p = rope_cos_sin(torch.arange(s, device="cuda"), hd, cfg.rope_theta,
+                                cfg.rope_scaling)
+    dense_xkv, compact_xkv = minicache_xkv(False), minicache_xkv(True)
+    dense = build_cache(kvs, dense_xkv, cfg, cos_p, sin_p, 1)
+    compact = build_cache(kvs, compact_xkv, cfg, cos_p, sin_p, 1)
+    kept_equal, rest_err, outside, not_divergent = True, 0.0, 0, 0
+    for grp, gf in zip(compact_xkv.layer_groups, compact.groups):
+        for side, i, store in (("slerp_k", 0, dense.dense_k), ("slerp_v", 1, dense.dense_v)):
+            sc = getattr(gf, side)
+            _, div, _, _ = slerp_merge_rows(kvs[grp.layers[0]][i].reshape(-1, hd),
+                                            kvs[grp.layers[1]][i].reshape(-1, hd),
+                                            grp.slerp_t, grp.slerp_gamma)
+            div = div.reshape(1, hkv, s)
+            kept = torch.zeros_like(div).scatter_(2, sc.keep_idx.long(), True)
+            not_divergent += int((~div).sum())
+            outside += int((~div & ~kept).sum())
+            for pos, layer in enumerate(grp.layers):
+                rec, ref = compact_reconstruct(sc, pos).float(), store[layer].float()
+                kept_equal &= bool(torch.equal(rec[kept], ref[kept]))
+                err = (rec - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-30)
+                rest_err = max(rest_err, err[~kept].max().item())
+    del kvs
+    D = compact.groups[0].slerp_k.keep_idx.shape[2]
+    n_dense = cfg.num_layers - 2 * len(compact.groups)
+    side_bytes = dict(base=hkv * s * hd * 2, norms=hkv * s * 2 * 4, keep_idx=hkv * D * 4,
+                      keep_rows=hkv * D * 2 * hd * 2)
+    expect = {"dense": 2 * cfg.num_layers * hkv * s * hd * 2,
+              "compact": 2 * n_dense * hkv * s * hd * 2
+              + 2 * len(compact.groups) * sum(side_bytes.values())}
+    got = {"dense": dense.num_cache_bytes(), "compact": compact.num_cache_bytes()}
+    ratio = {"dense": dense.compression_ratio(cfg), "compact": compact.compression_ratio(cfg)}
+    del dense
+
+    def reconstruct_step():  # the rebuilds of one decode step
+        for g in compact.groups:
+            for sc in (g.slerp_k, g.slerp_v):
+                for pos in (0, 1):
+                    compact_reconstruct(sc, pos, torch.bfloat16)
+
+    recon_ms = cuda_time_ms(reconstruct_step, iters=5)
+    recon = _profile(reconstruct_step, 3, recon_ms)
+    row = dict(budget_rows=D, kept_rows_bitwise=kept_equal,
+               max_row_rel_err_rest=rest_err, not_divergent_rows=not_divergent,
+               not_divergent_outside_budget=outside,
+               num_cache_gb={k: v / 1e9 for k, v in got.items()}, compression_ratio=ratio,
+               compact_side_mb={k: v / 1e6 for k, v in side_bytes.items()},
+               reconstruct_ms_per_step=recon_ms,
+               reconstruct_device_busy_ms_per_step=recon["device_busy_ms_per_step"],
+               reconstruct_top_kernels=recon["top_kernels_ms_per_step"])
+    log("minicache storage " + json.dumps(row))
+    if not kept_equal:
+        raise AssertionError("minicache: kept rows differ from the dense-stored rows")
+    if got != expect:
+        raise AssertionError(f"minicache: cache bytes {got}, the shapes give {expect}")
+    return row
+
+
+def minicache_batched(results, params, cfg, b1_ms: float):
+    """``BatchedEngine`` over compact SLERP slots (phase 8's layout, K1
+    monolithic admission) through ``serve_batched``: tokens, the captured
+    step against the eager one, refolds, one capture, three requests
+    teacher-forced; tokens/s beside phase 8's plain step. Returns the
+    launches."""
+    import torch
+
+    from xkv_tpu_torch.engine import BatchedEngine, InferenceEngine
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    xkv = minicache_xkv(True)
+    eng = BatchedEngine(params, cfg, xkv, device="cuda", **BATCH_ENGINE)
+    single = InferenceEngine(params, cfg, xkv, tail_max=BATCH_ENGINE["tail_max"],
+                             prefill_logits="last", device="cuda")
+    row, counts = serve_batched("8B batch minicache compact", eng, single, cfg,
+                                MINICACHE_BATCH, None, GAP_8B, b1_ms, gen, eager_steps=4,
+                                refs=MINICACHE_REFS)
+    plain = results["batch_runs"][0]
+    log(f"minicache batch: {row['decode_tokens_per_s']:.1f} tokens/s, "
+        f"{row['replay_ms_per_step']:.4f} ms a step, beside phase 8's {plain['run']}: "
+        f"{plain['decode_tokens_per_s']:.1f} tokens/s, {plain['replay_ms_per_step']:.4f} ms")
+    results["minicache_batch"] = dict(row, plain_step_run=plain["run"],
+                                      plain_step_tokens_per_s=plain["decode_tokens_per_s"])
+    del eng, single
+    torch.cuda.empty_cache()
+    return counts
+
+
+def minicache_anchor(results):
+    """Teacher-force the JAX engine's MiniCache golden tokens
+    (minicache_golden.npz: the in-repo checkpoint in SLERP pairs, dense
+    and compact storage) through the port on the card (bf16) and compare
+    each step's logits with the golden fp32 ones."""
+    import numpy as np
+    import torch
+
+    from xkv_tpu_torch.configs import generate_consecutive_xkv_config
+    from xkv_tpu_torch.engine import InferenceEngine
+    from xkv_tpu_torch.models.ckpt import load_checkpoint
+
+    t0 = time.time()
+    gold = np.load(os.path.join(ROOT, "xkv_tpu_torch", "testdata", "minicache_golden.npz"))
+    params, cfg = load_checkpoint(os.path.join(ROOT, "results", "production_model"),
+                                  dtype=torch.bfloat16, device="cuda")
+    prompt = torch.as_tensor(gold["prompt"], device="cuda")
+    readings = {}
+    for run, tol_decode in TOL_MINICACHE_ANCHOR.items():
+        xkv = generate_consecutive_xkv_config(
+            layer_merge_impl="slerp", group_size=int(gold["group_size"]),
+            num_layers=cfg.num_layers, end_layer=cfg.num_layers - 1,
+            slerp_gamma=float(gold["gamma"]), rank_k=None, rank_v=None,
+            extra_kwargs={"slerp_compact": run == "compact",
+                          "slerp_keep_frac": float(gold["keep_frac"])})
+        eng = InferenceEngine(params, cfg, xkv, mode="factored", tail_max=64, device="cuda")
+        readings[run] = golden_check(f"minicache anchor {run}", eng, prompt,
+                                     gold[f"tokens_{run}"], gold[f"logits_{run}"],
+                                     {"prefill": TOL_ANCHOR["prefill"], "decode": tol_decode},
+                                     {"K1": cfg.num_layers})
+    results["minicache_anchor"] = readings
+    minicache_phase_time(results, "anchor", time.time() - t0)
+
+
 def main() -> int:
     import torch
 
@@ -3297,6 +3595,7 @@ def main() -> int:
     for key in totals:
         totals[key] += tool_counts[key] + counts_1b[key] + counts_small[key]
     anchor()
+    minicache_anchor(results)
     torch.cuda.empty_cache()
     mla_totals = mla_path(results)
     for key in totals:
@@ -3309,6 +3608,7 @@ def main() -> int:
     log(f"batch phase: {sum(results['batch_phase_s'].values()):.1f} s")
     log(f"batched-speculation and persistence phase: "
         f"{sum(results['batch_spec_phase_s'].values()):.1f} s")
+    log(f"minicache phase: {sum(results['minicache_phase_s'].values()):.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

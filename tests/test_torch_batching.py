@@ -22,8 +22,6 @@ JAX's init scaled by 5, the MLA + MoE config of
 ``tests/test_torch_deepseek.py``.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -323,8 +321,9 @@ def refusal_cases(models):
 def test_refusals_match_jax(models, monkeypatch):
     """JAX's validation, with its messages, batched speculation's
     included; every refusal comes before the slot cache is made (zeros on
-    "cuda" would raise another error here). MiniCache slots (item 15) and
-    a mesh (item 17, no such argument) are refused too."""
+    "cuda" would raise another error here). Compact MiniCache slots under
+    MLA (the JAX MLA decode cannot read them: ROADMAP queue 3) and a mesh
+    (item 17, no such argument) are refused too."""
     for (model, opts, factor, kw), msg in refusal_cases(models):
         jcfg, tcfg, np_params = models[model]
         with pytest.raises(ValueError, match=msg):
@@ -335,7 +334,11 @@ def test_refusals_match_jax(models, monkeypatch):
                           factor_dtype=TORCH_DT[factor], **kw)
     _, tcfg, _ = models["llama"]
     xkv = torch_xkv(**xkv_kw(tcfg, dict(rank_k=16, rank_v=16)))
-    with pytest.raises(ValueError, match="item 15"):
-        BatchedEngine({}, tcfg, dataclasses.replace(xkv, layer_merge_impl="slerp"))
+    _, mcfg, _ = models["mla"]
+    slerp = torch_xkv(layer_merge_impl="slerp", group_size=2, num_layers=4, end_layer=3,
+                      rank_k=None, rank_v=None, merge_value=False,
+                      extra_kwargs={"slerp_compact": True})
+    with pytest.raises(ValueError, match="slerp_compact"):
+        BatchedEngine({}, mcfg, slerp)
     with pytest.raises(TypeError, match="mesh"):
         BatchedEngine({}, tcfg, xkv, mesh=object())

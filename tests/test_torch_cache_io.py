@@ -14,7 +14,9 @@ reference is pinned: the JAX ``load_cache`` cannot read a bf16 leaf, its
 own files' included (numpy stores bfloat16 as 2-byte void, which JAX does
 not cast), so it reads neither package's bf16 caches nor their int8 ones
 (whose V basis is bf16); the port reads such leaves by their bits. Refusals are held by message
-against the JAX ``load_cache``'s.
+against the JAX ``load_cache``'s. Compact MiniCache (SLERP) caches pass
+both ways bit for bit, and a compact file is refused by a dense SLERP
+cache's structure.
 
 Model: ``tiny_llama_config`` with JAX's init (numpy, seed 0), xKV groups
 of 2 at rank 24, exact SVD; MLA: the dense config of
@@ -256,11 +258,66 @@ def test_load_refusals_match_jax(refusal, llama_params, tmp_path):
         load_cache(path, like)
 
 
+def slerp_engines(np_params, compact):
+    """The JAX and port engines of one SLERP config (pairs, gamma 0.05),
+    compact at keep 0.25 or dense, fp32."""
+    kw = dict(layer_merge_impl="slerp", group_size=2, num_layers=4, end_layer=3,
+              slerp_gamma=0.05, rank_k=None, rank_v=None,
+              extra_kwargs={"slerp_compact": compact, "slerp_keep_frac": 0.25})
+    return (JaxEngine(jax.tree.map(jnp.asarray, np_params), jax_tiny(), jax_xkv(**kw),
+                      mode="factored", tail_max=8, cache_dtype=jnp.float32,
+                      donate_cache=False),
+            InferenceEngine(params_from_numpy(np_params, torch.float32, "cpu"),
+                            tiny_llama_config(), torch_xkv(**kw), mode="factored", tail_max=8,
+                            cache_dtype=torch.float32, device="cpu"))
+
+
+def test_compact_slerp_round_trip_both_ways(llama_params, tmp_path):
+    """Compact MiniCache storage (``SlerpCompact``: four leaves at each
+    side's field) passes both ways in fp32: a JAX file loads in the port
+    bit for bit as ``cache_from_numpy`` of the same cache and decodes
+    bitwise as it; a port file (two decode steps in its tail) loads in
+    the JAX ``load_cache`` leaf for leaf, and back in the port decodes
+    bitwise as the cache it was saved from."""
+    je, te = slerp_engines(llama_params, compact=True)
+    _, jcache = je.prefill(PROMPT)
+    jpath = str(tmp_path / "jax_compact")
+    jax_save_cache(jcache, jpath)
+    _, like = te.prefill(PROMPT)
+    assert like.groups[0].slerp_k is not None
+    loaded, _ = load_cache(jpath, like)
+    carried = cache_from_numpy(jax.tree.map(np.asarray, jcache), "cpu")
+    jleaves = jax.tree_util.tree_leaves(jcache)
+    assert len(jleaves) == len(cache_leaves(loaded)) == len(cache_leaves(carried))
+    for a, b, c in zip(jleaves, cache_leaves(carried), cache_leaves(loaded)):
+        np.testing.assert_array_equal(bits(a), bits(c))
+        assert b.dtype == c.dtype and torch.equal(b, c)
+    assert torch.equal(next_logits(te, loaded), next_logits(te, carried))
+
+    cache = like
+    for i in range(2):
+        _, cache = te.decode_step(cache, [[7 + i]], 20 + i)
+    tpath = str(tmp_path / "port_compact")
+    save_cache(cache, tpath)
+    jloaded, _ = jax_load_cache(tpath, jcache)
+    for a, b in zip(jax.tree_util.tree_leaves(jloaded), cache_leaves(cache)):
+        np.testing.assert_array_equal(bits(a), bits(b))
+    back, _ = load_cache(tpath, cache)
+    assert back.tail_count == 2
+    assert torch.equal(next_logits(te, back, pos=22), next_logits(te, cache, pos=22))
+
+
 def test_slerp_storage_refused(llama_params, tmp_path):
-    """Compact MiniCache storage is not ported yet (ROADMAP queue 1 item
-    15): saving a cache that holds it is refused."""
-    _, cache = port_engine(llama_params, "fp32").prefill(PROMPT)
-    groups = (GroupFactors(**{**vars(cache.groups[0]), "slerp_k": object()}),) + \
-        cache.groups[1:]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        save_cache(type(cache)(**{**vars(cache), "groups": groups}), str(tmp_path / "c"))
+    """A compact SLERP file loaded into a dense SLERP cache's structure
+    (the same groups stored dense: other leaves) is refused with the JAX
+    message, by both packages."""
+    je, te = slerp_engines(llama_params, compact=True)
+    _, cache = te.prefill(PROMPT)
+    path = str(tmp_path / "c")
+    save_cache(cache, path)
+    jdense, tdense = slerp_engines(llama_params, compact=False)
+    _, jlike = jdense.prefill(PROMPT)
+    _, like = tdense.prefill(PROMPT)
+    for load, ref in ((jax_load_cache, jlike), (load_cache, like)):
+        with pytest.raises(ValueError, match="cache structure mismatch"):
+            load(path, ref)

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,16 +32,36 @@ from xkv_tpu_torch.models.config import ModelConfig
 
 
 @dataclass
+class SlerpCompact:
+    """Compact storage of one merged side (K or V) of a 2-layer SLERP
+    (MiniCache) group (``compress/slerp.py`` ``compact_pair``). After the
+    merge the divergent rows of the two layers are parallel, so one shared
+    direction and two norms hold them; the rows the merge kept per layer
+    are stored exactly, both layers', up to a budget of D rows. K rows are
+    post-RoPE (a rotation at a shared position keeps the angle).
+
+    base:      (b, hkv, s, hd) shared unit direction per row.
+    norms:     (b, hkv, s, 2) fp32, each layer's row norm.
+    keep_idx:  (b, hkv, D) int32 rows stored exactly.
+    keep_rows: (b, hkv, D, 2, hd) both layers' rows at keep_idx.
+    """
+
+    base: torch.Tensor
+    norms: torch.Tensor
+    keep_idx: torch.Tensor
+    keep_rows: torch.Tensor
+
+
+@dataclass
 class GroupFactors:
     """Low-rank factors for one layer group; a field is None when its side
     or storage format is not in use.
 
     Int8 (compress/quant.py): k_us/k_vt are int8 with the post-product
     column scale in ``k_scale``; v_us is int8 with its per-rank scale in
-    ``v_scale`` (v_vt stays bf16). The fields after ``v_scale`` belong to
-    formats later parts of the port fill (mixed int8+int4, MLA, sparse
-    bounds, compact MiniCache); they are declared so those parts add code,
-    not fields.
+    ``v_scale`` (v_vt stays bf16). Then the mixed int8+int4 fields, the
+    MLA latent's inverse RMS, the sparse chunk bounds, and a SLERP group's
+    compact storage (``slerp_k`` / ``slerp_v``, ``slerp_compact``).
     """
 
     k_us: Optional[torch.Tensor] = None  # (b, s_p, rk)
@@ -57,8 +77,8 @@ class GroupFactors:
     k_rnorm: Optional[torch.Tensor] = None  # (b, g, s_p) MLA latent inv-rms
     k_cmin: Optional[torch.Tensor] = None  # (b, n_chunks, g*hkv*hd)
     k_cmax: Optional[torch.Tensor] = None
-    slerp_k: Optional[Any] = None  # compact MiniCache storage
-    slerp_v: Optional[Any] = None
+    slerp_k: Optional[SlerpCompact] = None  # compact MiniCache storage
+    slerp_v: Optional[SlerpCompact] = None
 
 
 def iter_tensors(obj) -> Iterator[torch.Tensor]:
@@ -101,6 +121,9 @@ class XKVCache:
             for f in (g.k_us, g.v_us):
                 if f is not None:
                     return f.shape[1]
+            for sc in (g.slerp_k, g.slerp_v):
+                if sc is not None:
+                    return sc.base.shape[2]
         raise ValueError("empty cache")
 
     @property
@@ -188,8 +211,8 @@ def cache_from_numpy(np_cache, device: str | torch.device = "cuda") -> XKVCache:
     ``device``: the cache's counterpart of ``models/ckpt.py``
     ``params_from_numpy``. Fields are read by name, so no JAX is imported;
     dtypes are kept (bf16 arrives as numpy's ml_dtypes bfloat16 and is
-    carried through its bits). Compact MiniCache storage is refused
-    (ROADMAP queue 1 item 15)."""
+    carried through its bits); compact MiniCache storage (``SlerpCompact``)
+    by field name too."""
 
     def tensor(a):
         if a is None:
@@ -199,13 +222,17 @@ def cache_from_numpy(np_cache, device: str | torch.device = "cuda") -> XKVCache:
             return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
         return torch.from_numpy(a).to(device)
 
+    def fields(cls, obj):  # the tensor fields; a group's compact sides follow
+        return {f.name: tensor(getattr(obj, f.name, None)) for f in dataclasses.fields(cls)
+                if not f.name.startswith("slerp")}
+
     groups = []
     for g in np_cache.groups:
-        if getattr(g, "slerp_k", None) is not None or getattr(g, "slerp_v", None) is not None:
-            raise NotImplementedError("MiniCache slerp: ROADMAP queue 1 item 15")
-        groups.append(GroupFactors(**{f.name: tensor(getattr(g, f.name, None))
-                                      for f in dataclasses.fields(GroupFactors)
-                                      if not f.name.startswith("slerp")}))
+        kw = fields(GroupFactors, g)
+        for side in ("slerp_k", "slerp_v"):
+            sc = getattr(g, side, None)
+            kw[side] = None if sc is None else SlerpCompact(**fields(SlerpCompact, sc))
+        groups.append(GroupFactors(**kw))
     tail_len = tensor(np_cache.tail_len).to(torch.int32)
     return XKVCache(groups=tuple(groups),
                     dense_k={int(l): tensor(a) for l, a in np_cache.dense_k.items()},

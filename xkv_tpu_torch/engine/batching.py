@@ -15,7 +15,9 @@ Port of ``xkv_tpu/engine/batching.py`` (``BatchedEngine``):
     request is admitted, with no batch-wide barrier.
   * A slot whose tail fills folds it back into its own factors in place
     (``refactorize_slot_cache``) while its rows last, and finishes
-    otherwise.
+    otherwise. MiniCache (slerp) groups are stored dense, or compact
+    (``slerp_compact``) at a fixed exception budget per slot; compact
+    slots fold like factors, dense ones never do (the JAX engine's rule).
   * With ``speculative_k``, a step is a speculative round of every slot
     (``graphs.BatchedSpecRound``: k draft steps with the draft options,
     sparse top-k for Llama or ``draft_rank`` for MLA, one exact verify
@@ -34,7 +36,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from xkv_tpu_torch.cache import GroupFactors, XKVCache, empty_tail_len, init_tail
+from xkv_tpu_torch.cache import GroupFactors, SlerpCompact, XKVCache, empty_tail_len, init_tail
 from xkv_tpu_torch.configs import XKVConfig
 from xkv_tpu_torch.engine.compression import (
     build_cache,
@@ -43,6 +45,7 @@ from xkv_tpu_torch.engine.compression import (
     put_slot,
     refactorize_slot_cache,
 )
+from xkv_tpu_torch.engine.engine import check_mla_slerp
 from xkv_tpu_torch.engine.graphs import BatchedSpecRound, BatchedStep
 from xkv_tpu_torch.models import deepseek, llama
 from xkv_tpu_torch.models.config import ModelConfig
@@ -84,12 +87,12 @@ class BatchedEngine:
         device: str | torch.device = "cuda",
     ):
         mla = cfg.model_type == "deepseek_v2"
-        if xkv is not None and xkv.layer_merge_impl != "svd":
-            raise ValueError("MiniCache slerp slots are ROADMAP queue 1 item 15")
         if not mla and cfg.model_type not in ("llama", "mistral", "qwen2"):
             raise NotImplementedError(f"model_type {cfg.model_type!r}")
         if mla and xkv is not None and xkv.merge_value:
             raise ValueError("DeepSeek MLA: pass merge_value=False")
+        if mla:
+            check_mla_slerp(xkv)
         if factor_dtype == "int4":
             if mla:
                 raise ValueError("factor_dtype='int4' is llama-family rope_mode='post' "
@@ -171,8 +174,12 @@ class BatchedEngine:
         self._step_kw = {} if speculative_k is not None else self._sparse_kw
         # Rounds run, tokens emitted by rounds, plain (top-up) steps.
         self.spec_stats = {"rounds": 0, "round_tokens": 0, "plain_steps": 0}
-        # Per-slot refolds: SVD groups fold their tails into their factors.
-        self._can_refactor = xkv is not None and (xkv.merge_key or xkv.merge_value)
+        # Per-slot refolds: SVD groups fold their tails into their factors,
+        # compact SLERP groups compact again in place; dense storage never
+        # folds (a full tail finishes the request).
+        self._can_refactor = (
+            xkv is not None and (xkv.merge_key or xkv.merge_value)
+            and (xkv.layer_merge_impl == "svd" or xkv.slerp_compact))
 
         rope_dim = cfg.qk_rope_head_dim if mla else cfg.head_dim
         self._cos_sin = rope_cos_sin(torch.arange(s_max, device=self.device), rope_dim,
@@ -194,7 +201,10 @@ class BatchedEngine:
     def _empty_batch_cache(self) -> XKVCache:
         """Zeroed slot cache: the layout of a batch-1 admitted cache with
         ``num_slots`` rows and ``s_max`` sequence rows (JAX
-        ``_empty_batch_cache``, SVD groups)."""
+        ``_empty_batch_cache``). A compact SLERP side holds a fixed
+        exception budget per slot, D = max(1, int(slerp_keep_frac * s_max))
+        + tail_max: an admission's kept rows and one fold's. A dense SLERP
+        group gets dense slots."""
         cfg, xkv, dev = self.cfg, self.xkv, self.device
         B, S = self.num_slots, self.s_max
 
@@ -211,11 +221,23 @@ class BatchedEngine:
         dense_k: Dict[int, torch.Tensor] = {}
         dense_v: Dict[int, torch.Tensor] = {}
         covered = set()
+        svd = xkv is not None and xkv.layer_merge_impl == "svd"
+        compact = xkv is not None and xkv.layer_merge_impl == "slerp" and xkv.slerp_compact
+        D = max(1, int(xkv.slerp_keep_frac * S)) + self.tail_max if compact else 0
+
+        def compact_side():
+            return SlerpCompact(base=zeros(B, hkv, S, hd),
+                                norms=zeros(B, hkv, S, 2, dtype=torch.float32),
+                                keep_idx=zeros(B, hkv, D, dtype=torch.int32),
+                                keep_rows=zeros(B, hkv, D, 2, hd))
+
         for grp in (xkv.layer_groups if xkv is not None else []):
             covered.update(grp.layers)
             m = len(grp.layers) * hkv * hd
             kw = {}
-            if xkv.merge_key:
+            if compact and xkv.merge_key:
+                kw["slerp_k"] = compact_side()
+            elif svd and xkv.merge_key:
                 r8 = int4_rank_hi(grp.rank_k, xkv.int4_rank_frac) if self._mixed4 else grp.rank_k
                 kw["k_us"], kw["k_vt"] = zeros(B, S, r8, dtype=f_dtype), zeros(B, r8, m,
                                                                                dtype=f_dtype)
@@ -234,7 +256,9 @@ class BatchedEngine:
             else:
                 for l in grp.layers:
                     dense_k[l] = zeros(B, hkv, S, hd)
-            if xkv.merge_value:
+            if compact and xkv.merge_value:
+                kw["slerp_v"] = compact_side()
+            elif svd and xkv.merge_value:
                 r8 = int4_rank_hi(grp.rank_v, xkv.int4_rank_frac) if self._mixed4 else grp.rank_v
                 kw["v_us"] = zeros(B, S, r8, dtype=f_dtype)
                 # v_vt keeps every rank (bf16, [hi | lo-eo] order if mixed).
@@ -271,7 +295,8 @@ class BatchedEngine:
         return build_cache(
             kvs, self.xkv, self.cfg, cos_p, sin_p, 1, factor_dtype=self.factor_dtype,
             cache_dtype=self.cache_dtype,
-            sparse_block=self.sparse_block if self.sparse_topk is not None else None)
+            sparse_block=self.sparse_block if self.sparse_topk is not None else None,
+            valid_len=true_len)
 
     def _pick_bucket(self, s: int) -> int:
         bucket = next((b for b in self.prefill_buckets if b >= s), None)
@@ -333,11 +358,23 @@ class BatchedEngine:
     def _insert(self, cache1: XKVCache, slot: int) -> None:
         """Write one admitted sequence's cache into its slot IN PLACE
         (JAX ``_insert_impl``): every field of the slot zeroed, then
-        filled from the bucket-sized cache; the slot's tail zeroed."""
+        filled from the bucket-sized cache; the slot's tail zeroed. A
+        compact SLERP side's rows are zero past the bucket; its budget is
+        filled up by repeating entry 0 of ``keep_idx`` and ``keep_rows``
+        (zeros would pair row 0 with a zero row, and the rebuild's scatter
+        would blank it; a repeated index writes equal rows)."""
         bc = self.batch_cache
         for gd, gs in zip(bc.groups, cache1.groups):
             for name, dst in vars(gd).items():
-                if dst is not None:
+                if isinstance(dst, SlerpCompact):
+                    src = getattr(gs, name)
+                    pad = dst.keep_idx.shape[2] - src.keep_idx.shape[2]
+                    put_slot(dst.base, slot, src.base)
+                    put_slot(dst.norms, slot, src.norms)
+                    for d, x in ((dst.keep_idx, src.keep_idx), (dst.keep_rows, src.keep_rows)):
+                        d[slot].copy_(torch.cat([x[0], x[0, :, :1].expand(
+                            -1, pad, *x.shape[3:])], dim=1))
+                elif dst is not None:
                     put_slot(dst, slot, getattr(gs, name))
         for dense, src in ((bc.dense_k, cache1.dense_k), (bc.dense_v, cache1.dense_v)):
             for l, dst in dense.items():

@@ -8,11 +8,14 @@ pytree's leaf order, and a JSON sidecar ``path + '.json'`` with
 own and neither reads it), ``num_leaves``, ``dtypes`` and ``metadata``.
 
 Leaf order (``cache_leaves``): each group's fields that are not None, in
-``GroupFactors`` declaration order (the JAX package's); then ``dense_k``
-and ``dense_v`` by ascending layer; then ``tail_k``, ``tail_v`` and
-``tail_len``. A bf16 leaf is stored as numpy stores the JAX package's
-bfloat16 arrays: raw 2-byte void (``|V2``), its dtype named in the
-sidecar only, and read back by its bits. (The JAX ``load_cache`` cannot
+``GroupFactors`` declaration order (the JAX package's), a compact SLERP
+side (``SlerpCompact``) as its four leaves ``base``, ``norms``,
+``keep_idx``, ``keep_rows`` at its field's place (flax's flattening of
+the nested dataclass); then ``dense_k`` and ``dense_v`` by ascending
+layer; then ``tail_k``, ``tail_v`` and ``tail_len``. A bf16 leaf is
+stored as numpy stores the JAX package's bfloat16 arrays: raw 2-byte
+void (``|V2``), its dtype named in the sidecar only, and read back by
+its bits. (The JAX ``load_cache`` cannot
 cast such a leaf, so it cannot read a bf16 cache, its own included:
 ROADMAP queue 3.)
 """
@@ -27,20 +30,26 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from xkv_tpu_torch.cache import GroupFactors, XKVCache
+from xkv_tpu_torch.cache import GroupFactors, SlerpCompact, XKVCache
 
 _FORMAT_VERSION = 1
+_COMPACT_FIELDS = [f.name for f in dataclasses.fields(SlerpCompact)]
 
 
 def _group_fields(g: GroupFactors) -> List[str]:
-    if g.slerp_k is not None or g.slerp_v is not None:
-        raise NotImplementedError("MiniCache slerp: ROADMAP queue 1 item 15")
     return [f.name for f in dataclasses.fields(GroupFactors) if getattr(g, f.name) is not None]
+
+
+def _field_leaves(x) -> List[torch.Tensor]:
+    if isinstance(x, SlerpCompact):
+        return [getattr(x, name) for name in _COMPACT_FIELDS]
+    return [x]
 
 
 def cache_leaves(cache: XKVCache) -> List[torch.Tensor]:
     """The cache's tensors in the JAX pytree's leaf order."""
-    leaves = [getattr(g, name) for g in cache.groups for name in _group_fields(g)]
+    leaves = [leaf for g in cache.groups for name in _group_fields(g)
+              for leaf in _field_leaves(getattr(g, name))]
     leaves += [cache.dense_k[l] for l in sorted(cache.dense_k)]
     leaves += [cache.dense_v[l] for l in sorted(cache.dense_v)]
     return leaves + [cache.tail_k, cache.tail_v, cache.tail_len]
@@ -112,7 +121,14 @@ def load_cache(path: str, like: XKVCache) -> Tuple[XKVCache, dict]:
                                  f"{tuple(ref.shape)}")
             loaded.append(_from_numpy(arr, sidecar["dtypes"][i], ref))
     it = iter(loaded)
-    groups = tuple(dataclasses.replace(g, **{name: next(it) for name in _group_fields(g)})
+
+    def field(x):
+        if isinstance(x, SlerpCompact):
+            return SlerpCompact(**{name: next(it) for name in _COMPACT_FIELDS})
+        return next(it)
+
+    groups = tuple(dataclasses.replace(g, **{name: field(getattr(g, name))
+                                             for name in _group_fields(g)})
                    for g in like.groups)
     dense_k = {l: next(it) for l in sorted(like.dense_k)}
     dense_v = {l: next(it) for l in sorted(like.dense_v)}

@@ -1,10 +1,13 @@
-"""Build the compressed XKVCache from prefill K/V (port of the SVD scheme of
+"""Build the compressed XKVCache from prefill K/V (port of
 ``xkv_tpu/engine/compression.py``).
 
   * svd with layer groups >= 2: grouped xKV (cross-layer SVD);
   * svd with groups of 1: per-layer SVD;
+  * slerp (groups of 2): the MiniCache merge, stored dense, or with
+    ``slerp_compact`` as a shared direction, norms and the exact rows of
+    the ``slerp_keep_frac`` largest angles (``compress/slerp.py``);
   * ``fake=True``: factors are multiplied straight back and stored dense
-    (the reference's semantics, used for parity).
+    (the reference's semantics, used for parity); SLERP stores dense.
 
 Factors are bf16, fp32, int8 (``factor_dtype="int8"`` or ``torch.int8``)
 or mixed int8+int4 (``factor_dtype="int4"``, post-RoPE only), with keys
@@ -26,7 +29,13 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from xkv_tpu_torch.cache import GroupFactors, XKVCache, empty_tail_len, init_tail
+from xkv_tpu_torch.cache import (
+    GroupFactors,
+    SlerpCompact,
+    XKVCache,
+    empty_tail_len,
+    init_tail,
+)
 from xkv_tpu_torch.compress.quant import (
     QuantizedKFactors,
     QuantizedKFactorsMixed4,
@@ -41,6 +50,7 @@ from xkv_tpu_torch.compress.quant import (
     quantize_v_factors,
     quantize_v_factors_mixed4,
 )
+from xkv_tpu_torch.compress.slerp import compact_pair, compact_reconstruct, minicache_merge_heads
 from xkv_tpu_torch.compress.svd import (
     LowRankFactors,
     factorize,
@@ -157,11 +167,6 @@ def chunk_bounds(
 def _svd_kw(xkv: XKVConfig) -> dict:
     return dict(method=xkv.svd_method, oversample=xkv.svd_oversample,
                 n_iter=xkv.svd_iters, seed=xkv.svd_seed)
-
-
-def _check_scheme(xkv: XKVConfig) -> None:
-    if xkv.layer_merge_impl != "svd":
-        raise NotImplementedError("MiniCache slerp: ROADMAP queue 1 item 15")
 
 
 def _store_k(fac: LowRankFactors, factor_dtype, r_hi: Optional[int] = None) -> dict:
@@ -287,6 +292,53 @@ def _dense_key(k, cos_p, sin_p, cache_dtype, rope_dense_keys: bool) -> torch.Ten
     return apply_rope(k, cos_p[None], sin_p[None]).to(cache_dtype)
 
 
+def compress_slerp_group(
+    ks: List[torch.Tensor],
+    vs: List[torch.Tensor],
+    grp,
+    xkv: XKVConfig,
+    cos_p: Optional[torch.Tensor],
+    sin_p: Optional[torch.Tensor],
+    fake: bool = False,
+    cache_dtype: torch.dtype = torch.bfloat16,
+    rope_dense_keys: bool = True,
+    valid_len=None,
+) -> Tuple[GroupFactors, Dict[int, torch.Tensor], Dict[int, torch.Tensor]]:
+    """Merge ONE slerp group's two layers (MiniCache, at the group's
+    ``slerp_t`` / ``slerp_gamma``; K pre-RoPE) and store each merged side
+    dense (K post-RoPE, MLA: the latent) or, with ``slerp_compact`` outside
+    ``fake``, as ``SlerpCompact`` over the stored rows with
+    ``max(1, int(slerp_keep_frac * s))`` exact rows. A side the config does
+    not merge is stored dense as it is. ``valid_len``: the true row count
+    (an int or a (b,) tensor) when the rows carry right padding, kept out
+    of the divergence threshold. Returns (GroupFactors, dense_k, dense_v)
+    as ``compress_svd_group``."""
+    layers = grp.layers
+    compact = xkv.slerp_compact and not fake
+    keep = max(1, int(xkv.slerp_keep_frac * ks[0].shape[2]))
+    gf_kwargs = {}
+    dense_k: Dict[int, torch.Tensor] = {}
+    dense_v: Dict[int, torch.Tensor] = {}
+
+    def key(k):
+        return _dense_key(k, cos_p, sin_p, cache_dtype, rope_dense_keys)
+
+    def value(v):
+        return v.to(cache_dtype)
+
+    for side, xs, store, dense, merged in (("slerp_k", ks, key, dense_k, xkv.merge_key),
+                                           ("slerp_v", vs, value, dense_v, xkv.merge_value)):
+        if merged:
+            xs = minicache_merge_heads(xs[0], xs[1], t=grp.slerp_t, gamma=grp.slerp_gamma,
+                                       valid_len=valid_len)
+        rows = [store(x) for x in xs]
+        if merged and compact:
+            gf_kwargs[side] = compact_pair(rows[0], rows[1], keep)
+        else:
+            dense.update(zip(layers, rows))
+    return GroupFactors(**gf_kwargs), dense_k, dense_v
+
+
 def build_cache(
     kvs: List[Tuple[torch.Tensor, torch.Tensor]],
     xkv: XKVConfig,
@@ -298,6 +350,7 @@ def build_cache(
     factor_dtype=torch.bfloat16,
     cache_dtype: torch.dtype = torch.bfloat16,
     sparse_block: Optional[int] = None,
+    valid_len=None,
 ) -> XKVCache:
     """Compress prefill K/V into the hybrid cache.
 
@@ -306,12 +359,15 @@ def build_cache(
     dense-stored layers. MLA: kvs hold (latent, rotated RoPE key) per
     layer, the latent stored without RoPE; cos_p/sin_p unused.
     ``fake``: store dense reconstructions instead of factors.
-    ``sparse_block``: also store per-chunk key bounds for sparse top-k decode.
+    ``sparse_block``: also store per-chunk key bounds for sparse top-k
+    decode (svd groups). ``valid_len``: the true row count when kvs carry
+    right-padded zero rows (bucketed admission), which keeps the SLERP
+    divergence threshold on real rows; the SVD needs none (zero rows of U).
     """
     return build_cache_by_span(
         lambda layers: [kvs[l] for l in layers], len(kvs), xkv, cfg, cos_p, sin_p, tail_max,
         fake=fake, factor_dtype=factor_dtype, cache_dtype=cache_dtype,
-        sparse_block=sparse_block)
+        sparse_block=sparse_block, valid_len=valid_len)
 
 
 def build_cache_by_span(
@@ -326,6 +382,7 @@ def build_cache_by_span(
     factor_dtype=torch.bfloat16,
     cache_dtype: torch.dtype = torch.bfloat16,
     sparse_block: Optional[int] = None,
+    valid_len=None,
 ) -> XKVCache:
     """``build_cache`` with the K/V given span by span: ``span_kvs(layers)``
     returns the (k, v) of ``layers``, a group's or one ungrouped layer's,
@@ -333,7 +390,6 @@ def build_cache_by_span(
     it returns is dropped once stored, so the staged prefill, which runs
     each span's layers inside ``span_kvs``, holds one group's dense K/V at
     a time."""
-    _check_scheme(xkv)
     rope_dense_keys = _rope_keys(cfg)
     group_at = {min(grp.layers): gi for gi, grp in enumerate(xkv.layer_groups)}
     covered = {l for grp in xkv.layer_groups for l in grp.layers}
@@ -344,12 +400,18 @@ def build_cache_by_span(
         if l in group_at:
             grp = xkv.layer_groups[group_at[l]]
             kvs = span_kvs(list(grp.layers))
-            groups[group_at[l]], dk, dv = compress_svd_group(
-                [k for k, _ in kvs], [v for _, v in kvs],
-                grp, xkv, cos_p, sin_p, fake=fake,
-                factor_dtype=factor_dtype, cache_dtype=cache_dtype,
-                rope_dense_keys=rope_dense_keys, sparse_block=sparse_block,
-            )
+            ks, vs = [k for k, _ in kvs], [v for _, v in kvs]
+            if xkv.layer_merge_impl == "slerp":
+                groups[group_at[l]], dk, dv = compress_slerp_group(
+                    ks, vs, grp, xkv, cos_p, sin_p, fake=fake, cache_dtype=cache_dtype,
+                    rope_dense_keys=rope_dense_keys, valid_len=valid_len)
+            else:
+                groups[group_at[l]], dk, dv = compress_svd_group(
+                    ks, vs, grp, xkv, cos_p, sin_p, fake=fake,
+                    factor_dtype=factor_dtype, cache_dtype=cache_dtype,
+                    rope_dense_keys=rope_dense_keys, sparse_block=sparse_block,
+                )
+            del ks, vs
             dense_k.update(dk)
             dense_v.update(dv)
         elif l not in covered:
@@ -429,9 +491,12 @@ def refactorize_cache(
     joining the pre-RoPE factors. The MLA K slot holds the RoPE-free latent,
     which joins as it is; its ``k_rnorm`` is recomputed from the new
     factors. Groups that hold chunk bounds get them recomputed over the
-    extended keys in ``sparse_block``-row chunks.
+    extended keys in ``sparse_block``-row chunks. Compact SLERP sides are
+    rebuilt, joined by their tail rows and compacted again at a budget
+    grown by ``tail_max`` (``_refold_compact``), so every row kept before
+    and every tail row stays exact; dense SLERP layers take the tail as
+    every dense segment does.
     """
-    _check_scheme(xkv)
     s_p = cache.prefill_len
     t = cache.tail_max
     device = cache.tail_k.device
@@ -470,9 +535,14 @@ def refactorize_cache(
             tail_v = _stack_group_matrix(
                 [cache.tail_v[l].to(torch.float32) for l in layers])
             v_ext = torch.cat([_v_matrix(gf), tail_v], dim=1)
-        new_groups.append(GroupFactors(**_refolded_fields(
-            gf, grp, cfg, k_ext, v_ext, store_dtype, store_dtype, svd_kw, sparse_block,
-            cos_f, sin_f)))
+        kw = _refolded_fields(gf, grp, cfg, k_ext, v_ext, store_dtype, store_dtype, svd_kw,
+                              sparse_block, cos_f, sin_f)
+        for side, tail in (("slerp_k", cache.tail_k), ("slerp_v", cache.tail_v)):
+            sc = getattr(gf, side)
+            if sc is not None:
+                kw[side] = _refold_compact(sc, [tail[l] for l in layers],
+                                           sc.keep_idx.shape[2] + t)
+        new_groups.append(GroupFactors(**kw))
 
     # Dense segments: concat the (already post-RoPE) tail.
     new_dense_k = {l: torch.cat([d, cache.tail_k[l].to(d.dtype)], dim=2)
@@ -485,12 +555,41 @@ def refactorize_cache(
                     tail_len=empty_tail_len(tail_k.device))
 
 
+def _refold_compact(sc: SlerpCompact, tails: List[torch.Tensor], keep: int,
+                    plen: Optional[int] = None) -> SlerpCompact:
+    """A compact SLERP side with the group's two tails (b, hkv, t, hd; keys
+    post-RoPE, as stored) folded in: both layers rebuilt in fp32, the tail
+    rows appended (``plen`` None) or written at rows [plen, plen + t) of a
+    slot's fixed row space, compacted again with ``keep`` exact rows;
+    ``base`` and ``keep_rows`` in their stored dtype."""
+    xs = []
+    for pos, tail in enumerate(tails):
+        x = compact_reconstruct(sc, pos, torch.float32)
+        if plen is None:
+            x = torch.cat([x, tail.to(torch.float32)], dim=2)
+        else:
+            x[:, :, plen:plen + tail.shape[2]] = tail
+        xs.append(x)
+    new = compact_pair(xs[0], xs[1], keep)
+    return dataclasses.replace(new, base=new.base.to(sc.base.dtype),
+                               keep_rows=new.keep_rows.to(sc.keep_rows.dtype))
+
+
 # ------------------------------------------------------ continuous batching
+def _slot_view(x, slot: int):
+    if x is None:
+        return None
+    if isinstance(x, SlerpCompact):
+        return SlerpCompact(**{f.name: _slot_view(getattr(x, f.name), slot)
+                               for f in dataclasses.fields(SlerpCompact)})
+    return x[slot:slot + 1]
+
+
 def slot_fields(gf: GroupFactors, slot: int) -> GroupFactors:
     """The group's factors of one slot of a batched (slot) cache: views
-    [slot:slot+1] of every field, so a write into one lands in the slot."""
-    return GroupFactors(**{f.name: (None if getattr(gf, f.name) is None
-                                    else getattr(gf, f.name)[slot:slot + 1])
+    [slot:slot+1] of every field (compact SLERP storage field by field),
+    so a write into one lands in the slot."""
+    return GroupFactors(**{f.name: _slot_view(getattr(gf, f.name), slot)
                            for f in dataclasses.fields(GroupFactors)})
 
 
@@ -528,8 +627,11 @@ def refactorize_slot_cache(
     width decode gathers (the JAX package re-derives the width as
     ceil(s_max / n_chunks), another width once s_max is not a multiple of
     the block: ROADMAP queue 3). Factor shapes, dtypes and the int8 /
-    int4 rank split stay the slot's."""
-    _check_scheme(xkv)
+    int4 rank split stay the slot's. A compact SLERP side is rebuilt, takes
+    the tail at rows [plen, plen + tail_max) and is compacted again at the
+    slot's FIXED budget D (``BatchedEngine`` sizes it for the admission's
+    rows and one fold): past it the rows of least angle are
+    re-approximated."""
     t = cache.tail_max
     s_max = cache.prefill_len
     if plen + t > s_max:
@@ -571,6 +673,14 @@ def refactorize_slot_cache(
         for name, src in _refolded_fields(gf, grp, cfg, k_ext, v_ext, store_k, store_v, svd_kw,
                                           sparse_block, cos_f, sin_f).items():
             put_slot(getattr(gf, name), slot, src)
+        for side, tail in (("slerp_k", cache.tail_k), ("slerp_v", cache.tail_v)):
+            sc = getattr(one, side)
+            if sc is not None:
+                new = _refold_compact(sc, [tail[l][slot:slot + 1] for l in layers],
+                                      sc.keep_idx.shape[2], plen)
+                # Same shapes (D is fixed): a copy into the slot's views.
+                for f in dataclasses.fields(SlerpCompact):
+                    getattr(sc, f.name).copy_(getattr(new, f.name))
 
     # Dense segments hold the tail's storage form already (post-RoPE keys,
     # MLA: the latent and rotated k_pe): its rows are copied in.

@@ -6,7 +6,9 @@ for the Llama family (``models/llama.py``) and DeepSeek-V2 MLA + MoE
 merged K slot, the RoPE key the unmerged V slot).
 
 Modes:
-  * "factored": the cache holds factors (+ dense tail);
+  * "factored": the cache holds factors (+ dense tail); with the slerp
+                scheme (MiniCache) the merged layers, dense or compact
+                (``slerp_compact``);
   * "fake":     the dense lossy reconstruction is stored (reference parity);
   * "none":     uncompressed baseline.
 
@@ -55,6 +57,19 @@ from xkv_tpu_torch.engine.graphs import DecodeGraph, RoundTiming, SegmentTiming,
 from xkv_tpu_torch.models import deepseek, llama
 from xkv_tpu_torch.models.config import ModelConfig
 from xkv_tpu_torch.ops.rope import rope_cos_sin
+
+
+def check_mla_slerp(xkv: Optional[XKVConfig]) -> None:
+    """Refuse compact SLERP storage under MLA: the JAX MLA decode reads a
+    group's dense latent wherever it has no factors, and compact storage
+    leaves none (ROADMAP queue 3), so there is no reference to hold it to.
+    Dense SLERP storage is served."""
+    if xkv is not None and xkv.layer_merge_impl == "slerp" and xkv.slerp_compact:
+        raise ValueError(
+            "DeepSeek MLA with slerp_compact: the JAX MLA decode has no compact "
+            "SLERP branch (it reads dense_k of every group without factors and raises "
+            "KeyError at the first decode step); store SLERP groups dense "
+            "(slerp_compact off)")
 
 
 class InferenceEngine:
@@ -110,6 +125,8 @@ class InferenceEngine:
             raise ValueError(
                 "DeepSeek MLA does not support merge_value (the V slot "
                 "holds the uncompressed RoPE key); pass merge_value=False")
+        if mla and mode == "factored":
+            check_mla_slerp(xkv)
         if staged_prefill:
             if mode != "factored" or xkv is None:
                 raise ValueError("staged_prefill requires mode='factored'")

@@ -34,6 +34,7 @@ from xkv_tpu_torch.compress.quant import (
     dequantize_k_mixed4,
     dequantize_v_mixed4,
 )
+from xkv_tpu_torch.compress.slerp import compact_reconstruct
 from xkv_tpu_torch.configs import XKVConfig
 from xkv_tpu_torch.models.config import ModelConfig
 from xkv_tpu_torch.ops.attention import (
@@ -334,7 +335,9 @@ def _post_rope_factored_part(
 
 def _dense_prefill_segment(q, gf, gpos, li, cache, cfg, cos_p, sin_p, rope_post):
     """K and V of a layer's prefill segment when the group factors at most
-    one side: the factored side is reconstructed, the other read dense."""
+    one side: the factored side is reconstructed, a compact SLERP side
+    rebuilt (``compact_reconstruct``; keys stored post-RoPE), the other
+    read dense."""
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
 
     def heads(mat):  # (b, s, hkv*hd) -> (b, hkv, s, hd)
@@ -353,6 +356,8 @@ def _dense_prefill_segment(q, gf, gpos, li, cache, cfg, cos_p, sin_p, rope_post)
         if not rope_post:
             k_rec = apply_rope(k_rec, cos_p[None], sin_p[None])
         k_prefill = k_rec.to(q.dtype)
+    elif gf is not None and gf.slerp_k is not None:
+        k_prefill = compact_reconstruct(gf.slerp_k, gpos, q.dtype)
     else:
         k_prefill = cache.dense_k[li]
     if gf is not None and gf.v_us4 is not None:
@@ -363,6 +368,8 @@ def _dense_prefill_segment(q, gf, gpos, li, cache, cfg, cos_p, sin_p, rope_post)
         v_prefill = reconstruct_group_heads(
             gf.v_us, vt_layer_slice(gf.v_vt, gpos, hkv, hd), hkv,
             rank_scale=gf.v_scale).to(q.dtype)
+    elif gf is not None and gf.slerp_v is not None:
+        v_prefill = compact_reconstruct(gf.slerp_v, gpos, q.dtype)
     else:
         v_prefill = cache.dense_v[li]
     return k_prefill, v_prefill
