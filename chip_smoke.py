@@ -120,7 +120,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
              ``BatchedEngine`` over compact slots (phase 8's layout, its
              first four requests, three teacher-forced); save / load of
              the compact cache; and the JAX engine's MiniCache golden on
-             the in-repo checkpoint, dense and compact, teacher-forced.
+             the in-repo checkpoint, dense and compact, teacher-forced;
+  11. eval   the evaluation path, after phase 7's checkpoint runs: (a)
+             the safetensors loader at full width (Llama-3.1-8B cut to 2
+             layers, random bf16 weights: ``save_llama_params`` then
+             ``load_params`` onto the card, every tensor bitwise, file MB,
+             save and load s) and ``evaluate_texts`` on one 4096-byte text
+             through an engine from ``cli.common.build_engine`` (xKV groups
+             of 2, pre: K1, then 2047 scored steps through K3) on the
+             loaded weights and on those in memory: equal perplexities;
+             (b) ``cli.eval_acc.main`` on the in-repo checkpoint over two
+             RULER tasks in mode none and xKV-4 pre: the JAX result-file
+             format, tokens against the JAX golden
+             (``testdata/eval_golden.npz``) up to each sample's first near
+             tie, scores beside the golden's; (c) ``cli.eval_perplexity
+             .main`` on the same checkpoint, two synthetic texts, both
+             modes, perplexity against the golden's; launches held to the
+             path's counts in every part.
 Then it prints the card's name and power limit, one JSON line of kernel
 records, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -3539,6 +3555,351 @@ def minicache_anchor(results):
     minicache_phase_time(results, "anchor", time.time() - t0)
 
 
+# ------------------------------------------------------------ eval (phase 11)
+EVAL_GOLDEN = os.path.join(ROOT, "xkv_tpu_torch", "testdata", "eval_golden.npz")
+EVAL_MODES = ("none", "xkv4_pre")
+EVAL_DATASETS = ("niah_single_2", "vt")
+# eval_perplexity on the in-repo checkpoint, the card's bf16 weights against
+# the JAX golden's fp32 run on the CPU: |ppl - golden| / golden, twice the
+# reading of this seeded run on an H100 in each mode.
+TOL_EVAL_PPL = {"none": 2 * 0.001465, "xkv4_pre": 2 * 0.001549}
+
+
+def eval_phase_time(results, part: str, seconds: float) -> None:
+    results.setdefault("eval_phase_s", {})[part] = seconds
+    log(f"eval phase, {part}: {seconds:.1f} s")
+
+
+def _want(counts: dict, device) -> dict:
+    """Every counter, ``counts`` where given, 0 elsewhere; all 0 on the CPU,
+    where the wrappers run their plain versions and count nothing."""
+    on_card = str(device).startswith("cuda")
+    return {key: counts.get(key, 0) if on_card else 0 for key in COUNTERS}
+
+
+def _bitwise_equal(a, b) -> bool:
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, f"{prefix}{k}/")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _paths(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def eval_loader(results, cfg=None, device="cuda", text_words=1200) -> dict:
+    """(a) The safetensors loader at full width: Llama-3.1-8B cut to 2
+    layers (128256 x 4096 embeddings and lm_head), random bf16 weights from
+    the seed, written by ``save_llama_params`` and read back by
+    ``load_params`` onto the card, every tensor bitwise; an engine from
+    ``cli.common.build_engine`` (xKV groups of 2, rank 512 / 768, pre)
+    scores one 4096-byte synthetic text through ``evaluate_texts``
+    (``ByteTokenizer``, prefill_frac 0.5: K1 at prefill, 2047 steps on the
+    captured graph through K3), on the loaded weights and on the weights in
+    memory: equal perplexities, launches as the path's."""
+    import argparse
+    import dataclasses
+    import random
+    import shutil
+
+    import torch
+
+    from xkv_tpu_torch.cli.common import add_common_args, build_engine
+    from xkv_tpu_torch.evalharness.perplexity import evaluate_texts
+    from xkv_tpu_torch.evalharness.ruler.wordlists import essay_words
+    from xkv_tpu_torch.models.config import llama31_8b_config
+    from xkv_tpu_torch.models.llama import init_params
+    from xkv_tpu_torch.models.loader import load_params, save_llama_params
+    from xkv_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    t_phase = time.time()
+    cfg = cfg or dataclasses.replace(llama31_8b_config(), num_layers=2)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    params = init_params(cfg, gen, torch.bfloat16, device)
+    path = os.path.join(ROOT, "build", "eval_loader")
+    shutil.rmtree(path, ignore_errors=True)
+    _sync(device)
+    t0 = time.time()
+    save_llama_params(params, cfg, path)
+    save_s = time.time() - t0
+    file_mb = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e6
+    t0 = time.time()
+    loaded, loaded_cfg = load_params(path, dtype=torch.bfloat16, device=device)
+    _sync(device)
+    load_s = time.time() - t0
+    shutil.rmtree(path)
+    want, got = dict(_paths(params)), dict(_paths(loaded))
+    bitwise = sorted(want) == sorted(got) and all(
+        _bitwise_equal(want[k], got[k]) and got[k].device == want[k].device for k in want)
+    if not (bitwise and loaded_cfg == cfg):
+        raise AssertionError("eval loader: the loaded weights or config differ from the "
+                             "written ones")
+    args = add_common_args(argparse.ArgumentParser()).parse_args(
+        ["--model", path, "--device", str(device), "--xKV", "--layer_group_size", "2",
+         "--rank_k", "512", "--rank_v", "768"])
+    text = " ".join(essay_words(random.Random(SEED), approx_words=text_words))
+    row = dict(layers=cfg.num_layers, file_mb=file_mb, save_s=save_s, load_s=load_s,
+               leaves=len(want), bitwise=True)
+    counts = {key: 0 for key in COUNTERS}
+    ppl = {}
+    for name, weights in (("loaded", loaded), ("in_memory", params)):
+        eng = build_engine(args, weights, cfg, tail_max=4096)
+        reset_counts()
+        _sync(device)
+        t0 = time.time()
+        res = evaluate_texts(eng, ByteTokenizer(), [text], max_length=4096, prefill_frac=0.5,
+                             verbose=False)
+        _sync(device)
+        wall_s = time.time() - t0
+        got_counts = read_counts()
+        steps = res["total_tokens"] - 1
+        want_counts = _want({"K1": cfg.num_layers, "K3": cfg.num_layers * steps}, device)
+        if got_counts != want_counts:
+            raise AssertionError(f"eval loader {name}: launches {got_counts}, "
+                                 f"expected {want_counts}")
+        for key in counts:
+            counts[key] += got_counts[key]
+        timing = eng.last_timings[0]
+        ppl[name] = res["perplexity"]
+        row[name] = dict(perplexity=res["perplexity"], scored_tokens=res["total_tokens"],
+                         wall_ms_per_scored_token=wall_s * 1e3 / res["total_tokens"],
+                         graph_ms_per_step=timing.replay_ms_per_step(),
+                         capture_ms=timing.capture_ms, launches=got_counts)
+        del eng
+    log("eval loader " + json.dumps(row))
+    if ppl["loaded"] != ppl["in_memory"]:
+        raise AssertionError(f"eval loader: perplexity {ppl['loaded']} on the loaded weights, "
+                             f"{ppl['in_memory']} on the weights in memory")
+    results["eval_loader"] = row
+    del params, loaded
+    if str(device).startswith("cuda"):
+        torch.cuda.empty_cache()
+    eval_phase_time(results, "loader", time.time() - t_phase)
+    return counts
+
+
+def _sync(device) -> None:
+    import torch
+
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _checkpoint_layers() -> int:
+    with open(os.path.join(ROOT, "results", "production_model", "config.json")) as f:
+        return json.load(f)["num_layers"]
+
+
+def _golden_argv(argv) -> list:
+    """The golden's arguments with its repository-relative paths made
+    absolute, so the run does not depend on the working directory."""
+    out = []
+    for a in argv:
+        a = str(a)
+        if a.startswith("ckpt:"):
+            a = "ckpt:" + os.path.join(ROOT, a[len("ckpt:"):])
+        elif a.startswith("results/"):
+            a = os.path.join(ROOT, a)
+        out.append(a)
+    return out
+
+
+def eval_acc_golden(results, device="cuda") -> dict:
+    """(b) ``cli.eval_acc.main`` on ``ckpt:results/production_model`` (bf16
+    on the card) over two RULER tasks (2 samples each, padded to 2048-token
+    buckets), in mode none (K1 at prefill) and xKV-4 pre (K1, then K3 at
+    every step): the prediction and results files in the JAX format, each
+    sample's tokens equal to the JAX golden's up to its first step whose
+    golden gap between the top two log-probs is under the anchor's decode
+    limit (``TOL_ANCHOR["decode"]``; the rest reported), the scores beside
+    the golden's, launches as the path's."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from xkv_tpu_torch.cli import eval_acc
+    from xkv_tpu_torch.engine import InferenceEngine
+
+    t_phase = time.time()
+    gold = np.load(EVAL_GOLDEN)
+    argv = _golden_argv(gold["acc_argv"]) + ["--device", str(device)]
+    tol = TOL_ANCHOR["decode"]
+    generate = InferenceEngine.generate
+    generated = []
+
+    def recording(self, tokens, max_new_tokens, eos_token_id=None):
+        out = generate(self, tokens, max_new_tokens, eos_token_id=eos_token_id)
+        generated.append((out[0] if isinstance(out, list) else out[0]).cpu().numpy())
+        return out
+
+    counts = {key: 0 for key in COUNTERS}
+    rows = []
+    InferenceEngine.generate = recording
+    try:
+        for mode in EVAL_MODES:
+            result_dir = os.path.join(ROOT, "build", "eval_acc", mode)
+            shutil.rmtree(result_dir, ignore_errors=True)
+            generated.clear()
+            reset_counts()
+            _sync(device)
+            t0 = time.time()
+            eval_acc.main(argv + [str(a) for a in gold[f"mode_argv_{mode}"]]
+                          + ["--result_dir", result_dir])
+            _sync(device)
+            wall_s = time.time() - t0
+            got_counts = read_counts()
+            row = dict(mode=mode, wall_s=wall_s, launches=got_counts, samples=[])
+            steps = 0
+            for k, toks in enumerate(generated):
+                ds, i = EVAL_DATASETS[k // 2], k % 2
+                want = gold[f"tokens_{mode}_{ds}_{i}"]
+                gaps = gold[f"gaps_{mode}_{ds}_{i}"]
+                ties = np.nonzero(gaps < tol)[0]
+                held = int(ties[0]) if len(ties) else len(want)
+                if len(toks) < held or not np.array_equal(toks[:held], want[:held]):
+                    raise AssertionError(
+                        f"eval_acc {mode} {ds} #{i}: tokens {toks[:held].tolist()} differ from "
+                        f"the golden's {want[:held].tolist()} before its first near tie "
+                        f"(step {held}, limit {tol:.4f})")
+                steps += (128 if ds.startswith("niah") else 30) - 1
+                row["samples"].append(dict(
+                    dataset=ds, index=i, held_steps=held, golden_steps=len(want),
+                    equal_to_the_end=bool(np.array_equal(toks, want)),
+                    min_golden_gap=float(gaps.min())))
+            if len(generated) != 4:
+                raise AssertionError(f"eval_acc {mode}: {len(generated)} samples generated")
+            layers = _checkpoint_layers()
+            per = {"K1": layers * 4}
+            if mode != "none":
+                per["K3"] = layers * steps
+            if got_counts != _want(per, device):
+                raise AssertionError(f"eval_acc {mode}: launches {got_counts}, expected "
+                                     f"{_want(per, device)}")
+            for key in counts:
+                counts[key] += got_counts[key]
+            row["scores"], row["golden_scores"] = _check_acc_files(gold, mode, result_dir)
+            shutil.rmtree(result_dir)
+            log("eval acc " + json.dumps(row))
+            rows.append(row)
+    finally:
+        InferenceEngine.generate = generate
+    results["eval_acc"] = rows
+    eval_phase_time(results, "eval_acc", time.time() - t_phase)
+    return counts
+
+
+def _check_acc_files(gold, mode: str, result_dir: str):
+    """The JAX format: ``{result_dir}/ruler/production_model/ruler_<task>
+    _rank0.jsonl`` with one record a sample (the golden's fields and, but
+    for prediction and score, its values), and ``ruler/production_model
+    .json``, a list of {timestamp, args, results}. Returns (scores, the
+    golden's scores) by task."""
+    base = os.path.join(result_dir, "ruler")
+    scores, golden = {}, {}
+    for ds in EVAL_DATASETS:
+        with open(os.path.join(base, "production_model", f"ruler_{ds}_rank0.jsonl")) as f:
+            got = [json.loads(line) for line in f]
+        want = [json.loads(line) for line in str(gold[f"predictions_{mode}_{ds}"]).splitlines()]
+        for g, w in zip(got, want):
+            if set(g) != set(w) or any(g[k] != w[k] for k in w if k not in ("prediction", "score")):
+                raise AssertionError(f"eval_acc {mode} {ds}: record {g} against {w}")
+        if len(got) != len(want):
+            raise AssertionError(f"eval_acc {mode} {ds}: {len(got)} records")
+        golden[ds] = float(gold[f"score_{mode}_{ds}"])
+    with open(os.path.join(base, "production_model.json")) as f:
+        (entry,) = json.load(f)
+    if set(entry) != {"timestamp", "args", "results"}:
+        raise AssertionError(f"eval_acc {mode}: results file keys {sorted(entry)}")
+    for ds in EVAL_DATASETS:
+        res = entry["results"][f"ruler/{ds}"]
+        if res["n_samples"] != 2:
+            raise AssertionError(f"eval_acc {mode} {ds}: {res}")
+        scores[ds] = res["score"]
+    return scores, golden
+
+
+def eval_perplexity_golden(results, device="cuda") -> dict:
+    """(c) ``cli.eval_perplexity.main`` on the same checkpoint, two
+    synthetic texts, in mode none (K1) and xKV-4 pre (K1, K3 every scored
+    step): perplexity against the JAX golden within ``TOL_EVAL_PPL``
+    (relative), the scored tokens equal, launches as the path's."""
+    import numpy as np
+
+    from xkv_tpu_torch.cli import eval_perplexity
+
+    t_phase = time.time()
+    gold = np.load(EVAL_GOLDEN)
+    argv = _golden_argv(gold["ppl_argv"]) + ["--device", str(device)]
+    counts = {key: 0 for key in COUNTERS}
+    rows = []
+    for mode in EVAL_MODES:
+        out = os.path.join(ROOT, "build", f"eval_ppl_{mode}.json")
+        if os.path.exists(out):
+            os.remove(out)
+        reset_counts()
+        _sync(device)
+        t0 = time.time()
+        eval_perplexity.main(argv + [str(a) for a in gold[f"mode_argv_{mode}"]]
+                             + ["--output", out])
+        _sync(device)
+        wall_s = time.time() - t0
+        got_counts = read_counts()
+        with open(out) as f:
+            (summary,) = json.load(f)
+        os.remove(out)
+        want_ppl = float(gold[f"ppl_{mode}"])
+        rel = abs(summary["perplexity"] - want_ppl) / want_ppl
+        tokens = int(gold[f"ppl_tokens_{mode}"])
+        row = dict(mode=mode, perplexity=summary["perplexity"], golden=want_ppl,
+                   rel_err=rel, limit=TOL_EVAL_PPL[mode], scored_tokens=summary["total_tokens"],
+                   wall_s=wall_s, ms_per_scored_token=wall_s * 1e3 / summary["total_tokens"],
+                   launches=got_counts)
+        log("eval perplexity " + json.dumps(row))
+        if summary["total_tokens"] != tokens or summary["num_texts"] != 2:
+            raise AssertionError(f"eval_perplexity {mode}: {summary['total_tokens']} tokens "
+                                 f"over {summary['num_texts']} texts, golden {tokens} over 2")
+        if not rel <= TOL_EVAL_PPL[mode]:
+            raise AssertionError(f"eval_perplexity {mode}: perplexity off the golden's by {rel}")
+        layers = _checkpoint_layers()
+        per = {"K1": layers * 2}
+        if mode != "none":
+            per["K3"] = layers * (tokens - 2)
+        if got_counts != _want(per, device):
+            raise AssertionError(f"eval_perplexity {mode}: launches {got_counts}, expected "
+                                 f"{_want(per, device)}")
+        for key in counts:
+            counts[key] += got_counts[key]
+        rows.append(row)
+    results["eval_perplexity"] = rows
+    eval_phase_time(results, "eval_perplexity", time.time() - t_phase)
+    return counts
+
+
+def eval_path(results, device="cuda") -> dict:
+    """Phase 11: the evaluation path, (a) the loader, (b) eval_acc and (c)
+    eval_perplexity; returns the launch counts."""
+    totals = {key: 0 for key in COUNTERS}
+    for part in (eval_loader, eval_acc_golden, eval_perplexity_golden):
+        counts = part(results, device=device)
+        for key in totals:
+            totals[key] += counts[key]
+    log(f"eval phase: {sum(results['eval_phase_s'].values()):.1f} s")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -3604,11 +3965,16 @@ def main() -> int:
     ckpt_counts = speculative_checkpoint(results)
     for key in totals:
         totals[key] += ckpt_counts[key]
+    torch.cuda.empty_cache()
+    eval_counts = eval_path(results)
+    for key in totals:
+        totals[key] += eval_counts[key]
     log(f"speculative-and-staged phase: {sum(results['spec_phase_s'].values()):.1f} s")
     log(f"batch phase: {sum(results['batch_phase_s'].values()):.1f} s")
     log(f"batched-speculation and persistence phase: "
         f"{sum(results['batch_spec_phase_s'].values()):.1f} s")
     log(f"minicache phase: {sum(results['minicache_phase_s'].values()):.1f} s")
+    log(f"eval phase: {sum(results['eval_phase_s'].values()):.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,12 +1,16 @@
 """The port stands alone: importing every module of ``xkv_tpu_torch`` and
 what ``chip_smoke.py`` imports loads neither ``jax`` nor the JAX package
-``xkv_tpu``. Checked in a fresh interpreter, since this test process
-imports both."""
+``xkv_tpu``, nor any optional package that the evaluation path imports
+where it needs it (``safetensors``, ``transformers``, ``datasets``,
+``tiktoken``, ``sentencepiece``, ``rouge``, ``jieba``, ``scipy``). Checked in
+a fresh interpreter, since this test process imports them."""
 
 import os
 import pkgutil
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -24,18 +28,33 @@ for name in ("xkv_tpu_torch.configs", "xkv_tpu_torch.engine",
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "xkv_tpu" or m.startswith("xkv_tpu."))
-print(len(names), bad)
+optional = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "safetensors", "transformers", "datasets", "tiktoken", "sentencepiece", "rouge",
+    "jieba", "scipy"))
+print(len(names), bad, optional, sep="|")
 """
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
+@pytest.fixture(scope="module")
+def probe():
+    """(modules imported, JAX modules loaded, optional packages loaded)."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    n_modules, bad = res.stdout.split(" ", 1)
-    assert int(n_modules) >= 15
-    assert bad.strip() == "[]", bad
+    n_modules, bad, optional = res.stdout.strip().split("|")
+    return int(n_modules), bad, optional
+
+
+def test_port_imports_neither_jax_nor_the_jax_package(probe):
+    n_modules, bad, _ = probe
+    assert n_modules >= 15
+    assert bad == "[]", bad
+
+
+def test_port_imports_no_optional_package(probe):
+    _, _, optional = probe
+    assert optional == "[]", optional
 
 
 def test_every_port_module_is_found():
@@ -53,5 +72,16 @@ def test_every_port_module_is_found():
                  "xkv_tpu_torch.scripts.timing", "xkv_tpu_torch.scripts.bench_kernel",
                  "xkv_tpu_torch.scripts.kernel_variants",
                  "xkv_tpu_torch.scripts.kernel_ablation",
-                 "xkv_tpu_torch.scripts.probe_int4"):
+                 "xkv_tpu_torch.scripts.probe_int4",
+                 "xkv_tpu_torch.utils.tokenizer", "xkv_tpu_torch.utils.profiling",
+                 "xkv_tpu_torch.evalharness.metrics", "xkv_tpu_torch.evalharness.dataset",
+                 "xkv_tpu_torch.evalharness.evaluator", "xkv_tpu_torch.evalharness.perplexity",
+                 "xkv_tpu_torch.evalharness.sparse_probe",
+                 "xkv_tpu_torch.evalharness.longbench_templates",
+                 "xkv_tpu_torch.evalharness.ruler.wordlists",
+                 "xkv_tpu_torch.evalharness.ruler.tasks",
+                 "xkv_tpu_torch.evalharness.ruler.generators",
+                 "xkv_tpu_torch.evalharness.ruler.generate", "xkv_tpu_torch.models.loader",
+                 "xkv_tpu_torch.cli.common", "xkv_tpu_torch.cli.eval_acc",
+                 "xkv_tpu_torch.cli.eval_perplexity"):
         assert want in names

@@ -1,8 +1,10 @@
 """Native checkpoint format: ``params.npz`` plus ``config.json``.
 
-Reads what ``xkv_tpu/models/ckpt.py:save_checkpoint`` writes: the parameter
-tree flattened into '/'-joined paths (list items as ``#i``) in one ``.npz``,
-and the ``ModelConfig`` as json.
+Reads and writes what ``xkv_tpu/models/ckpt.py`` does: the parameter tree
+flattened into '/'-joined paths (list items as ``#i``) in one compressed
+``.npz``, and the ``ModelConfig`` as json. A bf16 tensor is stored as numpy
+stores the JAX package's bfloat16 arrays, raw 2-byte void (``|V2``), and
+read back by its bits.
 
 The port keeps the JAX package's weight layout: every projection is stored
 (in, out) and applied as ``x @ W``. No weight is transposed on the way in.
@@ -10,6 +12,7 @@ The port keeps the JAX package's weight layout: every projection is stored
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Dict, Optional, Tuple
@@ -18,6 +21,23 @@ import numpy as np
 import torch
 
 from xkv_tpu_torch.models.config import ModelConfig
+
+
+def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}#{i}/"))
+    else:
+        t = torch.as_tensor(tree).detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            out[prefix[:-1]] = t.view(torch.int16).numpy().view(np.dtype("V2"))
+        else:
+            out[prefix[:-1]] = t.numpy()
+    return out
 
 
 def _unflatten(flat: Dict[str, np.ndarray]):
@@ -55,11 +75,23 @@ def params_from_numpy(
         return {k: params_from_numpy(v, dtype, device) for k, v in np_params.items()}
     if isinstance(np_params, (list, tuple)):
         return [params_from_numpy(v, dtype, device) for v in np_params]
-    arr = np.asarray(np_params)
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+    arr = np.ascontiguousarray(np_params)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:  # bfloat16 by its bits
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
+
+
+def save_checkpoint(path: str, params, cfg: ModelConfig) -> None:
+    """Write ``params`` (torch tensors on any device) and ``cfg`` in the
+    format ``load_checkpoint`` reads, each tensor in its own dtype."""
+    os.makedirs(path, exist_ok=True)
+    np.savez_compressed(os.path.join(path, "params.npz"), **_flatten(params))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2)
 
 
 def load_checkpoint(
