@@ -135,7 +135,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
              (``testdata/eval_golden.npz``) up to each sample's first near
              tie, scores beside the golden's; (c) ``cli.eval_perplexity
              .main`` on the same checkpoint, two synthetic texts, both
-             modes, perplexity against the golden's; launches held to the
+             modes, perplexity against the golden's, and xKV's shift from
+             mode none against the golden's shift; launches held to the
              path's counts in every part.
 Then it prints the card's name and power limit, one JSON line of kernel
 records, and as the last line ``{"ok": true, "device": {...}}``.
@@ -1482,7 +1483,7 @@ def main_path(results):
     t0 = time.time()
     params = init_params(cfg, gen, torch.bfloat16, "cuda")
     torch.cuda.synchronize()
-    log(f"8B params: {sum(nbytes(t) for t in _leaves(params)) / 1e9:.2f} GB "
+    log(f"8B params: {sum(nbytes(t) for _, t in _leaves(params)) / 1e9:.2f} GB "
         f"in {time.time() - t0:.1f} s")
     s = 8192
     prompt = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device="cuda")
@@ -1581,7 +1582,7 @@ def llama_1b_path(results):
     t0 = time.time()
     params = init_params(cfg, gen, torch.bfloat16, "cuda")
     torch.cuda.synchronize()
-    log(f"1B params: {sum(nbytes(t) for t in _leaves(params)) / 1e9:.2f} GB "
+    log(f"1B params: {sum(nbytes(t) for _, t in _leaves(params)) / 1e9:.2f} GB "
         f"in {time.time() - t0:.1f} s")
     prompt = torch.randint(0, cfg.vocab_size, (1, 8192), generator=gen, device="cuda")
     totals = {key: 0 for key in COUNTERS}
@@ -1797,15 +1798,16 @@ def profile_decode(eng, cache, tok, pos, eager_ms: float, steps: int = 4) -> tup
     return eager, graph
 
 
-def _leaves(tree):
+def _leaves(tree, prefix=""):
+    """(path, leaf) for every tensor of a params tree of dicts and lists."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}/")
     elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}{i}/")
     else:
-        yield tree
+        yield prefix[:-1], tree
 
 
 # ------------------------------------------------------------------- anchor
@@ -1926,7 +1928,7 @@ def mla_path(results):
     t0 = time.time()
     params = deepseek.init_params(cfg, gen, torch.bfloat16, "cuda")
     torch.cuda.synchronize()
-    log(f"DeepSeek-V2-Lite params: {sum(nbytes(t) for t in _leaves(params)) / 1e9:.2f} GB "
+    log(f"DeepSeek-V2-Lite params: {sum(nbytes(t) for _, t in _leaves(params)) / 1e9:.2f} GB "
         f"in {time.time() - t0:.1f} s")
     prompt = torch.randint(0, cfg.vocab_size, (1, 8192), generator=gen, device="cuda")
     totals = {key: 0 for key in COUNTERS}
@@ -3563,6 +3565,13 @@ EVAL_DATASETS = ("niah_single_2", "vt")
 # the JAX golden's fp32 run on the CPU: |ppl - golden| / golden, twice the
 # reading of this seeded run on an H100 in each mode.
 TOL_EVAL_PPL = {"none": 2 * 0.001465, "xkv4_pre": 2 * 0.001549}
+# What xKV-4 pre moves the perplexity by, against what it moves the golden's
+# by: |(xkv - none) - (golden xkv - golden none)| / golden none, twice the
+# reading of the same run. The weights' bf16 rounding, which sets most of
+# the two limits above, largely cancels here, and the golden's own shift
+# (0.001138) stands far outside the limit: a run that left the cache
+# uncompressed fails.
+TOL_EVAL_PPL_SHIFT = 2 * 0.0000818
 
 
 def eval_phase_time(results, part: str, seconds: float) -> None:
@@ -3570,35 +3579,7 @@ def eval_phase_time(results, part: str, seconds: float) -> None:
     log(f"eval phase, {part}: {seconds:.1f} s")
 
 
-def _want(counts: dict, device) -> dict:
-    """Every counter, ``counts`` where given, 0 elsewhere; all 0 on the CPU,
-    where the wrappers run their plain versions and count nothing."""
-    on_card = str(device).startswith("cuda")
-    return {key: counts.get(key, 0) if on_card else 0 for key in COUNTERS}
-
-
-def _bitwise_equal(a, b) -> bool:
-    import torch
-
-    if a.dtype != b.dtype or a.shape != b.shape:
-        return False
-    if a.dtype == torch.bfloat16:
-        a, b = a.view(torch.int16), b.view(torch.int16)
-    return torch.equal(a, b)
-
-
-def _paths(tree, prefix=""):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _paths(v, f"{prefix}{k}/")
-    elif isinstance(tree, list):
-        for i, v in enumerate(tree):
-            yield from _paths(v, f"{prefix}{i}/")
-    else:
-        yield prefix[:-1], tree
-
-
-def eval_loader(results, cfg=None, device="cuda", text_words=1200) -> dict:
+def eval_loader(results) -> dict:
     """(a) The safetensors loader at full width: Llama-3.1-8B cut to 2
     layers (128256 x 4096 embeddings and lm_head), random bf16 weights from
     the seed, written by ``save_llama_params`` and read back by
@@ -3624,32 +3605,33 @@ def eval_loader(results, cfg=None, device="cuda", text_words=1200) -> dict:
     from xkv_tpu_torch.utils.tokenizer import ByteTokenizer
 
     t_phase = time.time()
-    cfg = cfg or dataclasses.replace(llama31_8b_config(), num_layers=2)
-    gen = torch.Generator(device=device)
+    cfg = dataclasses.replace(llama31_8b_config(), num_layers=2)
+    gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    params = init_params(cfg, gen, torch.bfloat16, device)
+    params = init_params(cfg, gen, torch.bfloat16, "cuda")
     path = os.path.join(ROOT, "build", "eval_loader")
     shutil.rmtree(path, ignore_errors=True)
-    _sync(device)
+    torch.cuda.synchronize()
     t0 = time.time()
     save_llama_params(params, cfg, path)
     save_s = time.time() - t0
     file_mb = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e6
     t0 = time.time()
-    loaded, loaded_cfg = load_params(path, dtype=torch.bfloat16, device=device)
-    _sync(device)
+    loaded, loaded_cfg = load_params(path, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
     load_s = time.time() - t0
     shutil.rmtree(path)
-    want, got = dict(_paths(params)), dict(_paths(loaded))
+    want, got = dict(_leaves(params)), dict(_leaves(loaded))
     bitwise = sorted(want) == sorted(got) and all(
-        _bitwise_equal(want[k], got[k]) and got[k].device == want[k].device for k in want)
+        got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        and got[k].device == want[k].device and torch.equal(got[k], want[k]) for k in want)
     if not (bitwise and loaded_cfg == cfg):
         raise AssertionError("eval loader: the loaded weights or config differ from the "
                              "written ones")
     args = add_common_args(argparse.ArgumentParser()).parse_args(
-        ["--model", path, "--device", str(device), "--xKV", "--layer_group_size", "2",
+        ["--model", path, "--device", "cuda", "--xKV", "--layer_group_size", "2",
          "--rank_k", "512", "--rank_v", "768"])
-    text = " ".join(essay_words(random.Random(SEED), approx_words=text_words))
+    text = " ".join(essay_words(random.Random(SEED), approx_words=1200))
     row = dict(layers=cfg.num_layers, file_mb=file_mb, save_s=save_s, load_s=load_s,
                leaves=len(want), bitwise=True)
     counts = {key: 0 for key in COUNTERS}
@@ -3657,15 +3639,16 @@ def eval_loader(results, cfg=None, device="cuda", text_words=1200) -> dict:
     for name, weights in (("loaded", loaded), ("in_memory", params)):
         eng = build_engine(args, weights, cfg, tail_max=4096)
         reset_counts()
-        _sync(device)
+        torch.cuda.synchronize()
         t0 = time.time()
         res = evaluate_texts(eng, ByteTokenizer(), [text], max_length=4096, prefill_frac=0.5,
                              verbose=False)
-        _sync(device)
+        torch.cuda.synchronize()
         wall_s = time.time() - t0
         got_counts = read_counts()
         steps = res["total_tokens"] - 1
-        want_counts = _want({"K1": cfg.num_layers, "K3": cfg.num_layers * steps}, device)
+        want_counts = dict.fromkeys(COUNTERS, 0) | {"K1": cfg.num_layers,
+                                                    "K3": cfg.num_layers * steps}
         if got_counts != want_counts:
             raise AssertionError(f"eval loader {name}: launches {got_counts}, "
                                  f"expected {want_counts}")
@@ -3684,17 +3667,9 @@ def eval_loader(results, cfg=None, device="cuda", text_words=1200) -> dict:
                              f"{ppl['in_memory']} on the weights in memory")
     results["eval_loader"] = row
     del params, loaded
-    if str(device).startswith("cuda"):
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     eval_phase_time(results, "loader", time.time() - t_phase)
     return counts
-
-
-def _sync(device) -> None:
-    import torch
-
-    if str(device).startswith("cuda"):
-        torch.cuda.synchronize()
 
 
 def _checkpoint_layers() -> int:
@@ -3716,7 +3691,7 @@ def _golden_argv(argv) -> list:
     return out
 
 
-def eval_acc_golden(results, device="cuda") -> dict:
+def eval_acc_golden(results) -> dict:
     """(b) ``cli.eval_acc.main`` on ``ckpt:results/production_model`` (bf16
     on the card) over two RULER tasks (2 samples each, padded to 2048-token
     buckets), in mode none (K1 at prefill) and xKV-4 pre (K1, then K3 at
@@ -3735,14 +3710,14 @@ def eval_acc_golden(results, device="cuda") -> dict:
 
     t_phase = time.time()
     gold = np.load(EVAL_GOLDEN)
-    argv = _golden_argv(gold["acc_argv"]) + ["--device", str(device)]
+    argv = _golden_argv(gold["acc_argv"]) + ["--device", "cuda"]
     tol = TOL_ANCHOR["decode"]
     generate = InferenceEngine.generate
     generated = []
 
     def recording(self, tokens, max_new_tokens, eos_token_id=None):
         out = generate(self, tokens, max_new_tokens, eos_token_id=eos_token_id)
-        generated.append((out[0] if isinstance(out, list) else out[0]).cpu().numpy())
+        generated.append((out[0].cpu().numpy(), max_new_tokens))
         return out
 
     counts = {key: 0 for key in COUNTERS}
@@ -3754,16 +3729,16 @@ def eval_acc_golden(results, device="cuda") -> dict:
             shutil.rmtree(result_dir, ignore_errors=True)
             generated.clear()
             reset_counts()
-            _sync(device)
+            torch.cuda.synchronize()
             t0 = time.time()
             eval_acc.main(argv + [str(a) for a in gold[f"mode_argv_{mode}"]]
                           + ["--result_dir", result_dir])
-            _sync(device)
+            torch.cuda.synchronize()
             wall_s = time.time() - t0
             got_counts = read_counts()
             row = dict(mode=mode, wall_s=wall_s, launches=got_counts, samples=[])
             steps = 0
-            for k, toks in enumerate(generated):
+            for k, (toks, n_new) in enumerate(generated):
                 ds, i = EVAL_DATASETS[k // 2], k % 2
                 want = gold[f"tokens_{mode}_{ds}_{i}"]
                 gaps = gold[f"gaps_{mode}_{ds}_{i}"]
@@ -3774,7 +3749,7 @@ def eval_acc_golden(results, device="cuda") -> dict:
                         f"eval_acc {mode} {ds} #{i}: tokens {toks[:held].tolist()} differ from "
                         f"the golden's {want[:held].tolist()} before its first near tie "
                         f"(step {held}, limit {tol:.4f})")
-                steps += (128 if ds.startswith("niah") else 30) - 1
+                steps += n_new - 1  # generate runs every step, then cuts at EOS
                 row["samples"].append(dict(
                     dataset=ds, index=i, held_steps=held, golden_steps=len(want),
                     equal_to_the_end=bool(np.array_equal(toks, want)),
@@ -3785,9 +3760,10 @@ def eval_acc_golden(results, device="cuda") -> dict:
             per = {"K1": layers * 4}
             if mode != "none":
                 per["K3"] = layers * steps
-            if got_counts != _want(per, device):
+            want_counts = dict.fromkeys(COUNTERS, 0) | per
+            if got_counts != want_counts:
                 raise AssertionError(f"eval_acc {mode}: launches {got_counts}, expected "
-                                     f"{_want(per, device)}")
+                                     f"{want_counts}")
             for key in counts:
                 counts[key] += got_counts[key]
             row["scores"], row["golden_scores"] = _check_acc_files(gold, mode, result_dir)
@@ -3831,18 +3807,21 @@ def _check_acc_files(gold, mode: str, result_dir: str):
     return scores, golden
 
 
-def eval_perplexity_golden(results, device="cuda") -> dict:
+def eval_perplexity_golden(results) -> dict:
     """(c) ``cli.eval_perplexity.main`` on the same checkpoint, two
     synthetic texts, in mode none (K1) and xKV-4 pre (K1, K3 every scored
     step): perplexity against the JAX golden within ``TOL_EVAL_PPL``
-    (relative), the scored tokens equal, launches as the path's."""
+    (relative), xKV's shift from mode none against the golden's within
+    ``TOL_EVAL_PPL_SHIFT``, the scored tokens equal, launches as the
+    path's."""
     import numpy as np
+    import torch
 
     from xkv_tpu_torch.cli import eval_perplexity
 
     t_phase = time.time()
     gold = np.load(EVAL_GOLDEN)
-    argv = _golden_argv(gold["ppl_argv"]) + ["--device", str(device)]
+    argv = _golden_argv(gold["ppl_argv"]) + ["--device", "cuda"]
     counts = {key: 0 for key in COUNTERS}
     rows = []
     for mode in EVAL_MODES:
@@ -3850,11 +3829,11 @@ def eval_perplexity_golden(results, device="cuda") -> dict:
         if os.path.exists(out):
             os.remove(out)
         reset_counts()
-        _sync(device)
+        torch.cuda.synchronize()
         t0 = time.time()
         eval_perplexity.main(argv + [str(a) for a in gold[f"mode_argv_{mode}"]]
                              + ["--output", out])
-        _sync(device)
+        torch.cuda.synchronize()
         wall_s = time.time() - t0
         got_counts = read_counts()
         with open(out) as f:
@@ -3877,23 +3856,35 @@ def eval_perplexity_golden(results, device="cuda") -> dict:
         per = {"K1": layers * 2}
         if mode != "none":
             per["K3"] = layers * (tokens - 2)
-        if got_counts != _want(per, device):
+        want_counts = dict.fromkeys(COUNTERS, 0) | per
+        if got_counts != want_counts:
             raise AssertionError(f"eval_perplexity {mode}: launches {got_counts}, expected "
-                                 f"{_want(per, device)}")
+                                 f"{want_counts}")
         for key in counts:
             counts[key] += got_counts[key]
         rows.append(row)
-    results["eval_perplexity"] = rows
+    none, xkv = rows
+    shift = abs((xkv["perplexity"] - none["perplexity"]) - (xkv["golden"] - none["golden"]))
+    shift /= none["golden"]
+    log(f"eval perplexity: xKV-4 pre shifts the perplexity by "
+        f"{xkv['perplexity'] - none['perplexity']:.6f}, the golden's by "
+        f"{xkv['golden'] - none['golden']:.6f}: off by {shift:.4e} of the golden's "
+        f"(limit {TOL_EVAL_PPL_SHIFT:.4e})")
+    if not shift <= TOL_EVAL_PPL_SHIFT:
+        raise AssertionError(f"eval_perplexity: xKV's shift from mode none off the golden's "
+                             f"by {shift}")
+    results["eval_perplexity"] = dict(modes=rows, shift_rel_err=shift,
+                                      shift_limit=TOL_EVAL_PPL_SHIFT)
     eval_phase_time(results, "eval_perplexity", time.time() - t_phase)
     return counts
 
 
-def eval_path(results, device="cuda") -> dict:
+def eval_path(results) -> dict:
     """Phase 11: the evaluation path, (a) the loader, (b) eval_acc and (c)
     eval_perplexity; returns the launch counts."""
     totals = {key: 0 for key in COUNTERS}
     for part in (eval_loader, eval_acc_golden, eval_perplexity_golden):
-        counts = part(results, device=device)
+        counts = part(results)
         for key in totals:
             totals[key] += counts[key]
     log(f"eval phase: {sum(results['eval_phase_s'].values()):.1f} s")
