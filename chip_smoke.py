@@ -137,7 +137,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
              .main`` on the same checkpoint, two synthetic texts, both
              modes, perplexity against the golden's, and xKV's shift from
              mode none against the golden's shift; launches held to the
-             path's counts in every part.
+             path's counts in every part;
+  12. train  training and CKA grouping, after phase 11: (a)
+             ``CompressorTrainer`` on Llama-3.2-1B (full width and depth,
+             random bf16 weights from the seed; Dual1D at ratio 32, b 2 x
+             2048 tokens of synthetic text, 50 steps: K1 in every frozen
+             forward, the loss falling, the checkpoint loaded back bitwise;
+             step ms, K/V tokens/s, peak memory); (b)
+             ``cli.train_compressor.main`` on the checkpoint; (c) the
+             accuracy gates of the JAX package's two gate files on the
+             card: the induction model trained by ``train_lm`` (fp32, plain
+             attention, no kernel), served in bf16 through K1, K3 (bf16,
+             int8), K5, K2 and K6 at the gates' ranks (zero-padded to the
+             kernels' layout), every gate's threshold held, and each of
+             those kernels at the gates' ranks against its plain version;
+             (d) ``cli.group_layers.main --model`` on the checkpoint (K1).
 Then it prints the card's name and power limit, one JSON line of kernel
 records, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -3891,6 +3905,454 @@ def eval_path(results) -> dict:
     return totals
 
 
+# ------------------------------------------------------------ train (phase 12)
+# (a) Llama-3.2-1B's compressor run: the reference fork's one recorded run
+# (Dual1D, layer and seq stride 2, feature ratio 8: ratio 32).
+TRAIN_1B = dict(batch=2, seq=2048, steps=50, lr=1e-3, warmup=5)
+TRAIN_1B_DUAL1D = dict(layer_stride=2, seq_stride=2, feature_ratio=8)
+# (b) the CLI on the checkpoint.
+TRAIN_CLI = dict(steps=10, batch=2, seq=256)
+# (c) the accuracy gates' induction model (tests/test_accuracy_gate.py,
+# tests/test_rope_post_accuracy.py): M-token segments, 32 prompts, 4 kept.
+GATE_M, GATE_N, GATE_KEEP = 24, 32, 4
+GATE_SHAPE = dict(vocab_size=64, hidden_size=96, intermediate_size=192, num_layers=3,
+                  num_q_heads=4, num_kv_heads=2, head_dim=24)
+GATE_FULL_RANK = 2 * 2 * 24  # a group of 2 layers: lossless
+# The two equalities of the gates (lossless factorisation, full-coverage
+# sparse) hold exactly in fp32 on the CPU; in bf16 on the card rounding may
+# flip a near-tied greedy token: at most this many of the 640 scored tokens.
+GATE_TIE_TOKENS = 2
+
+
+def train_phase_time(results, part: str, seconds: float) -> None:
+    results.setdefault("train_phase_s", {})[part] = seconds
+    log(f"train phase, {part}: {seconds:.1f} s")
+
+
+def _want(**per) -> dict:
+    return dict.fromkeys(COUNTERS, 0) | per
+
+
+def _hold_counts(label: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def train_1b(results) -> dict:
+    """(a) ``CompressorTrainer`` on Llama-3.2-1B at full width and depth
+    (random bf16 weights from the seed): Dual1D at ratio 32, b 2 x 2048
+    tokens of the CLI's synthetic text (byte ids), 50 steps at lr 1e-3 (5
+    warmup steps). Each step
+    collects the K/V through K1 (16 launches) and trains the compressor in
+    fp32. Holds: the last loss below 0.9 x the first, K1 16 a step,
+    ``save_checkpoint`` then ``load_checkpoint`` bitwise with an equal
+    ``eval_step`` loss. Reports step ms (CUDA events), K/V tokens/s, the
+    peak allocated GB above what earlier phases hold (weights, compressor,
+    optimizer state, activations) and the checkpoint's MB."""
+    import random
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from xkv_tpu_torch.evalharness.ruler.wordlists import essay_words
+    from xkv_tpu_torch.models.config import llama32_1b_config
+    from xkv_tpu_torch.models.llama import init_params
+    from xkv_tpu_torch.train import CompressorTrainer, TrainConfig
+    from xkv_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    t_phase = time.time()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by earlier phases
+    cfg, run = llama32_1b_config(), TRAIN_1B
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = init_params(cfg, gen, torch.bfloat16, "cuda")
+    # The CLI's token stream (synthetic text, byte ids) in 2048-token chunks,
+    # drawn per step: random ids would give K/V with nothing to learn.
+    text = " ".join(essay_words(random.Random(SEED), approx_words=50_000))
+    ids = np.asarray(ByteTokenizer().encode(text), np.int64)
+    n_chunks = len(ids) // run["seq"]
+    chunks = torch.from_numpy(ids[: n_chunks * run["seq"]].reshape(n_chunks, run["seq"]))
+    draw = np.random.default_rng(SEED).integers(0, n_chunks, size=(run["steps"] + 1, run["batch"]))
+    batches = chunks[torch.from_numpy(draw)].to("cuda")
+    tcfg = TrainConfig(compressor="dual1d", compressor_kwargs=dict(TRAIN_1B_DUAL1D),
+                       learning_rate=run["lr"], warmup_steps=run["warmup"],
+                       total_steps=run["steps"], seed=SEED)
+    trainer = CompressorTrainer(params, cfg, tcfg, device="cuda")
+    kv_shape = trainer.init(batches[0])
+    torch.cuda.synchronize()
+    reset_counts()
+    losses, step_ms = [], []
+    for i in range(run["steps"]):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step_row = trainer.train_step(batches[i + 1])
+        end.record()
+        end.synchronize()
+        losses.append(step_row["loss"])
+        step_ms.append(start.elapsed_time(end))
+    counts = read_counts()
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    _hold_counts("train 1B", counts, _want(K1=cfg.num_layers * run["steps"]))
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < 0.9 * losses[0]):
+        raise AssertionError(f"train 1B: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    path = os.path.join(ROOT, "build", "train_1b", "dual1d.msgpack")
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    trainer.save_checkpoint(path)
+    ckpt_mb = os.path.getsize(path) / 1e6
+    loaded = CompressorTrainer.load_checkpoint(path, params, cfg, batches[0], device="cuda")
+    shutil.rmtree(os.path.dirname(path))
+    bitwise = all(torch.equal(loaded.params[layer][leaf], t)
+                  for layer, leaves in trainer.params.items() for leaf, t in leaves.items())
+    ev, ev_loaded = trainer.eval_step(batches[0]), loaded.eval_step(batches[0])
+    if not (bitwise and loaded.step == run["steps"] and ev == ev_loaded):
+        raise AssertionError(f"train 1B: the checkpoint did not load back: bitwise {bitwise}, "
+                             f"step {loaded.step}, eval {ev} against {ev_loaded}")
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    row = dict(kv_shape=list(kv_shape), compressor="dual1d", ratio=step_row["compression_ratio"],
+               steps=run["steps"], first_loss=losses[0], last_loss=losses[-1],
+               loss_ratio=losses[-1] / losses[0], first_step_ms=step_ms[0],
+               median_step_ms=steady, mean_step_ms=sum(step_ms[1:]) / len(step_ms[1:]),
+               kv_tokens_per_s=run["batch"] * run["seq"] * 1e3 / steady, peak_gb=peak_gb,
+               checkpoint_mb=ckpt_mb, eval_loss=ev["loss"], launches=counts)
+    log("train 1b " + json.dumps(row))
+    results["train_1b"] = row
+    del trainer, loaded, params, batches
+    torch.cuda.empty_cache()
+    train_phase_time(results, "1B", time.time() - t_phase)
+    return counts
+
+
+def train_cli(results) -> dict:
+    """(b) ``cli.train_compressor.main`` on ``ckpt:results/production_model``
+    (bf16 on the card; 4 layers, 8 / 8 heads, head size 128) with
+    ``--device cuda``: 10 steps of b 2 x 256 tokens. Holds its files (the
+    checkpoint loads back into a trainer, the sidecar's step, the JAX
+    trainer's CSV columns and rows) and K1 4 a step (and 4 at init)."""
+    import argparse
+    import csv
+    import shutil
+
+    import torch
+
+    from xkv_tpu_torch.cli import train_compressor
+    from xkv_tpu_torch.cli.common import load_model_and_tokenizer
+    from xkv_tpu_torch.train import CompressorTrainer
+
+    t_phase = time.time()
+    out_dir = os.path.join(ROOT, "build", "train_cli")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    run = TRAIN_CLI
+    model = "ckpt:" + os.path.join(ROOT, "results", "production_model")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    train_compressor.main(["--model", model, "--device", "cuda", "--steps", str(run["steps"]),
+                           "--batch", str(run["batch"]), "--seq-len", str(run["seq"]),
+                           "--eval-every", "5", "--output-dir", out_dir])
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    counts = read_counts()
+    layers = _checkpoint_layers()
+    _hold_counts("train CLI", counts, _want(K1=layers * (run["steps"] + 1)))
+    with open(os.path.join(out_dir, "metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    if list(rows[0]) != ["compression_ratio", "loss", "mae", "mse", "step"] or \
+            len(rows) != run["steps"]:
+        raise AssertionError(f"train CLI: metrics.csv columns {list(rows[0])}, {len(rows)} rows")
+    ckpt = os.path.join(out_dir, "dual1d.msgpack")
+    args = argparse.Namespace(model=model, seed=0, device="cuda")
+    params, cfg, _ = load_model_and_tokenizer(args)
+    sample = torch.zeros((1, run["seq"]), dtype=torch.long)
+    loaded = CompressorTrainer.load_checkpoint(ckpt, params, cfg, sample, device="cuda")
+    if loaded.step != run["steps"] or not math.isfinite(loaded.eval_step(sample)["loss"]):
+        raise AssertionError(f"train CLI: the checkpoint loaded at step {loaded.step}")
+    row = dict(steps=run["steps"], wall_s=wall_s, checkpoint_mb=os.path.getsize(ckpt) / 1e6,
+               first_loss=float(rows[0]["loss"]), last_loss=float(rows[-1]["loss"]),
+               launches=counts)
+    log("train cli " + json.dumps(row))
+    results["train_cli"] = row
+    shutil.rmtree(out_dir)
+    train_phase_time(results, "CLI", time.time() - t_phase)
+    return counts
+
+
+def _gate_batch(rng, batch: int):
+    """tests/test_accuracy_gate.py's ``make_batch``: [bos, x, x], the second
+    copy scored."""
+    import numpy as np
+
+    x = rng.integers(2, GATE_SHAPE["vocab_size"], size=(batch, GATE_M)).astype(np.int32)
+    tokens = np.concatenate([np.ones((batch, 1), np.int32), x, x], axis=1)
+    mask = np.zeros_like(tokens, np.float32)
+    mask[:, GATE_M + 1:] = 1.0
+    return tokens, mask
+
+
+# The gates' runs: label -> (mode, rank, rope, engine options, decode kernel).
+GATE_RUNS = {
+    "base": ("none", None, "pre", {}, None),
+    "full": ("factored", GATE_FULL_RANK, "pre", {}, "K3"),
+    "half": ("factored", GATE_FULL_RANK // 2, "pre", {}, "K3"),
+    "rank2": ("factored", 2, "pre", {}, "K3"),
+    "half int8": ("factored", GATE_FULL_RANK // 2, "pre", {"factor_dtype": "int8"}, "K3"),
+    "sparse all": ("factored", GATE_FULL_RANK, "pre", {"sparse_topk": 4, "sparse_block": 8},
+                   "K5"),
+    "sparse 3of4": ("factored", GATE_FULL_RANK, "pre", {"sparse_topk": 3, "sparse_block": 8},
+                    "K5"),
+    "fake half": ("fake", GATE_FULL_RANK // 2, "pre", {}, None),
+    "pre rank8": ("factored", 8, "pre", {}, "K3"),
+    "post rank8": ("factored", 8, "post", {}, "K2"),
+    "pre rank4": ("factored", 4, "pre", {}, "K3"),
+    "post rank4": ("factored", 4, "post", {}, "K2"),
+    "post rank8 int4": ("factored", 8, "post", {"factor_dtype": "int4"}, "K6"),
+}
+
+
+# The gates' decode calls held against their plain versions on the same
+# inputs (random factors at the gates' shapes: b 32, 4 / 2 heads, head size
+# 24, 29 rows, 8-row chunks): (kernel, factor dtype, rank, chunks kept).
+GATE_KERNEL_CASES = (("K3", "bf16", 96, None), ("K3", "bf16", 48, None), ("K3", "bf16", 8, None),
+                     ("K3", "bf16", 4, None), ("K3", "bf16", 2, None), ("K3", "int8", 48, None),
+                     ("K5", "bf16", 96, 4), ("K5", "bf16", 96, 3), ("K2", "bf16", 8, None),
+                     ("K2", "bf16", 4, None), ("K6", "int4", 8, None))
+
+
+def check_gate_kernels(results) -> None:
+    """Each kernel of the gates' runs at the gates' shapes and ranks, which
+    its wrapper zero-pads to the kernel's layout (K3 / K5 key ranks to 64,
+    K2 / K6 ranks to 16), against its plain version on the same inputs, to
+    the kernels line's limits (``TOL``). Outside the runs' count windows:
+    these launches are not the main path's."""
+    import torch
+
+    from xkv_tpu_torch.cache import vt_layer_slice
+    from xkv_tpu_torch.compress.quant import (
+        quantize_k_factors,
+        quantize_k_factors_mixed4,
+        quantize_v_factors,
+        quantize_v_factors_mixed4,
+    )
+    from xkv_tpu_torch.engine.compression import int4_rank_hi
+    from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
+    from xkv_tpu_torch.ops.kernels import rankspace_attention as k2
+    from xkv_tpu_torch.ops.rope import rope_cos_sin
+
+    b, s_p, block, dev, bf = GATE_N, 1 + GATE_M + GATE_KEEP, 8, "cuda", torch.bfloat16
+    hq, hkv, hd = GATE_SHAPE["num_q_heads"], GATE_SHAPE["num_kv_heads"], GATE_SHAPE["head_dim"]
+    m, scale = hkv * hd, hd ** -0.5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    pick = torch.Generator().manual_seed(SEED)
+    sl = lambda x: vt_layer_slice(x, 1, hkv, hd)  # noqa: E731 (layer 1 of a group of 2)
+    cos_p, sin_p = rope_cos_sin(torch.arange(s_p, device=dev), hd, 10000.0)
+    cos_t, sin_t = rope_cos_sin(s_p + torch.arange(1, device=dev)[None], hd, 10000.0)
+    worst = {}
+    for kernel, dtype, rank, keep in GATE_KERNEL_CASES:
+        us_k = torch.randn((b, s_p, rank), generator=gen, device=dev)
+        vt_k = torch.randn((b, rank, 2 * m), generator=gen, device=dev) * 0.3
+        us_v = torch.randn((b, s_p, rank), generator=gen, device=dev)
+        vt_v = torch.randn((b, rank, 2 * m), generator=gen, device=dev) * 0.3
+        q = torch.randn((b, hq, 1, hd), generator=gen, device=dev).to(bf)
+        label = f"gate shape {dtype} rank {rank}" + (f" top {keep}" if keep else "")
+        if kernel == "K6":
+            hi = int4_rank_hi(rank, 0.25)
+            qk = quantize_k_factors_mixed4(us_k, vt_k, hi)
+            qv = quantize_v_factors_mixed4(us_v, vt_v, hi)
+            q_emb = torch.cat([k2._project_q(q, sl(qk.vt8), hkv, scale, sl(qk.out_scale), bf),
+                               k2._project_q(q, sl(qk.vt4), hkv, scale, sl(qk.scale4), bf)],
+                              dim=2)
+            args = (q_emb, qk.us8, qk.us4p, qv.us8, qv.us4p)
+            out, lse = k2.mixed_rankspace_kernel(*args)
+            ref, lse_ref = k2.mixed_rankspace_kernel_plain(*args)
+        elif kernel == "K2":
+            k_us, v_us = us_k.to(bf), us_v.to(bf)
+            q_emb = k2._project_q(q, sl(vt_k.to(bf)), hkv, scale, None, bf)
+            out, lse = k2.rankspace_kernel(q_emb, k_us, v_us)
+            ref, lse_ref = k2.rankspace_kernel_plain(q_emb, k_us, v_us)
+        else:
+            if dtype == "int8":
+                qk, qv = quantize_k_factors(us_k, vt_k), quantize_v_factors(us_v, vt_v)
+                k_us, k_vt, v_us, v_vt = qk.us_q, qk.vt_q, qv.us_q, qv.vt
+                k_scale, v_scale = sl(qk.out_scale), qv.rank_scale.to(torch.float32).contiguous()
+            else:
+                k_us, k_vt, v_us, v_vt = (t.to(bf) for t in (us_k, vt_k, us_v, vt_v))
+                k_scale = v_scale = None
+            cos_h, sin_h = k3.half_tables(cos_p, sin_p, k_us.dtype)
+            qab = k3._query_embeds(q, cos_t, sin_t, hkv, scale, k_scale)
+            args = (qab, k_us, sl(k_vt), v_us, sl(v_vt), cos_h, sin_h, v_scale)
+            kw = dict(num_q_heads=hq, num_kv_heads=hkv)
+            if kernel == "K3":
+                out, lse = k3.lowrank_kernel(*args, None, None, **kw)
+                ref, lse_ref = k3.lowrank_kernel_plain(*args, None, None, **kw)
+            else:
+                ids = torch.stack([torch.randperm(-(-s_p // block), generator=pick)[:keep]
+                                   for _ in range(b)]).to(device=dev, dtype=torch.int32)
+                out, lse = k3.sparse_lowrank_kernel(*args, ids, block, None, None, **kw)
+                ref, lse_ref = k3.sparse_lowrank_kernel_plain(*args, ids, block, None, None,
+                                                              **kw)
+        torch.cuda.synchronize()
+        _hold(kernel, label, out, ref, lse, lse_ref,
+              worst.setdefault(kernel, {"abs": 0.0, "rel": 0.0, "lse": 0.0}))
+    for key, w in worst.items():
+        results.setdefault(key, {})["gate_shapes"] = dict(
+            max_abs_err=w["abs"], max_rel_err=w["rel"], max_lse_err=w["lse"])
+    results["train_gates"]["kernels"] = worst
+
+
+def train_gates(results) -> dict:
+    """(c) The accuracy gates on the card. The induction model of
+    tests/test_accuracy_gate.py (3 layers, 4 / 2 heads, head size 24, vocab
+    64; random fp32 weights from the seed) trained by ``train_lm`` on the
+    card (fp32, plain prefill attention: no kernel in the backward, none
+    launched), 300 steps of b 64, lr 2e-3; held to a last loss under 0.05.
+    Then served in bf16 (weights, cache, factors: fp32 factors are refused
+    on the card) through ``InferenceEngine.generate``: 32 prompts of bos +
+    x + x[:4], 20 tokens each, recall = exact-match share of the 640
+    scored tokens. Every gate of both JAX files with its threshold: base >
+    0.95; half rank >= base - 0.10; rank 2 < base - 0.2; int8 >= base -
+    0.12; sparse 3 of 4 >= full - 0.10; |fake - factored| <= 0.05; rank 8
+    post >= 0.9 and >= pre - 0.05; rank 4 both < 0.9 and post <= pre +
+    0.05; int4 >= rank 8 post - 0.05 (the JAX gate's reference has fp32
+    factors, bf16 here). The two equalities (lossless factorisation and
+    full-coverage sparse against the runs they must equal) are exact in
+    fp32 on the CPU; here each may differ by ``GATE_TIE_TOKENS`` correct
+    tokens of the 640. Each run's launches: K1 3 at the prefill, its
+    decode kernel (K3, K3 int8, K5, K2, K6) 3 a step over 19 steps. Then
+    each decode kernel at the gates' ranks against its plain version
+    (``check_gate_kernels``)."""
+    import numpy as np
+    import torch
+
+    from xkv_tpu_torch.configs import generate_consecutive_xkv_config
+    from xkv_tpu_torch.engine import InferenceEngine
+    from xkv_tpu_torch.models.config import tiny_llama_config
+    from xkv_tpu_torch.models.llama import init_params
+    from xkv_tpu_torch.train.lm import train_lm, tree_map
+
+    t_phase = time.time()
+    cfg = tiny_llama_config(**GATE_SHAPE)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = init_params(cfg, gen, torch.float32, "cuda")
+    rng = np.random.default_rng(0)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trained, history = train_lm(params, cfg, lambda i: _gate_batch(rng, 64), steps=300,
+                                lr=2e-3, log_every=100)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    _hold_counts("gate training", read_counts(), _want())
+    if not history[-1] < 0.05:
+        raise AssertionError(f"gate training: the induction task did not train: {history}")
+    served = tree_map(lambda t: t.to(torch.bfloat16), trained)
+    x = np.random.default_rng(123).integers(2, cfg.vocab_size, size=(GATE_N, GATE_M))
+    prompts = np.concatenate([np.ones((GATE_N, 1), np.int64), x, x[:, :GATE_KEEP]], axis=1)
+    want_toks = x[:, GATE_KEEP:]
+    n_new = GATE_M - GATE_KEEP
+    L = cfg.num_layers
+    totals = {key: 0 for key in COUNTERS}
+    correct, runs = {}, {}
+    for label, (mode, rank, rope, kw, kernel) in GATE_RUNS.items():
+        xkv = None if rank is None else generate_consecutive_xkv_config(
+            num_layers=L, end_layer=L - 1, group_size=2, rank_k=rank, rank_v=rank,
+            extra_kwargs={"svd_method": "exact", "rope_mode": rope})
+        kw = dict(kw)
+        kw.setdefault("factor_dtype", torch.bfloat16)
+        eng = InferenceEngine(served, cfg, xkv=xkv, mode=mode, tail_max=GATE_M,
+                              cache_dtype=torch.bfloat16, device="cuda", **kw)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = eng.generate(torch.as_tensor(prompts, device="cuda"), max_new_tokens=n_new)
+        got = out.cpu().numpy()
+        wall_s = time.time() - t0
+        counts = read_counts()
+        want = _want(K1=L, **({kernel: L * (n_new - 1)} if kernel else {}))
+        _hold_counts(f"gate {label}", counts, want)
+        correct[label] = int((got == want_toks).sum())
+        runs[label] = dict(recall=correct[label] / want_toks.size, correct=correct[label],
+                           wall_s=wall_s, launches=counts)
+        for key in totals:
+            totals[key] += counts[key]
+        del eng
+    acc = {label: r["recall"] for label, r in runs.items()}
+    gates = {
+        "base > 0.95": acc["base"] > 0.95,
+        "full == base (ties)": abs(correct["full"] - correct["base"]) <= GATE_TIE_TOKENS,
+        "half >= base - 0.10": acc["half"] >= acc["base"] - 0.10,
+        "rank2 < base - 0.2": acc["rank2"] < acc["base"] - 0.2,
+        "int8 >= base - 0.12": acc["half int8"] >= acc["base"] - 0.12,
+        "sparse all == full (ties)":
+            abs(correct["sparse all"] - correct["full"]) <= GATE_TIE_TOKENS,
+        "sparse 3of4 >= full - 0.10": acc["sparse 3of4"] >= acc["full"] - 0.10,
+        "|fake - factored| <= 0.05": abs(acc["fake half"] - acc["half"]) <= 0.05,
+        "post rank8 >= 0.9": acc["post rank8"] >= 0.9,
+        "post rank8 >= pre - 0.05": acc["post rank8"] >= acc["pre rank8"] - 0.05,
+        "rank4 both < 0.9": acc["pre rank4"] < 0.9 and acc["post rank4"] < 0.9,
+        "post rank4 <= pre + 0.05": acc["post rank4"] <= acc["pre rank4"] + 0.05,
+        "int4 >= post rank8 - 0.05": acc["post rank8 int4"] >= acc["post rank8"] - 0.05,
+    }
+    row = dict(history=history, train_s=train_s, recall=acc, gates=gates, runs=runs)
+    log("train gates " + json.dumps(row))
+    results["train_gates"] = row
+    failed = [name for name, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"accuracy gates failed on the card: {failed}; recall {acc}")
+    check_gate_kernels(results)
+    train_phase_time(results, "gates", time.time() - t_phase)
+    return totals
+
+
+def train_cka(results) -> dict:
+    """(d) ``cli.group_layers.main --model`` on the checkpoint on the card
+    (K1 at the 512-token calibration prefill, 4 launches): the YAML it
+    writes loads into ``XKVConfig`` over the 4 layers, in contiguous
+    groups."""
+    import shutil
+
+    from xkv_tpu_torch.cli import group_layers
+    from xkv_tpu_torch.configs import XKVConfig
+
+    t_phase = time.time()
+    out_dir = os.path.join(ROOT, "build", "train_cka")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    out = os.path.join(out_dir, "grouped.yaml")
+    reset_counts()
+    group_layers.main(["--model", "ckpt:" + os.path.join(ROOT, "results", "production_model"),
+                       "--n_groups", "2", "--rank_k", "128", "--rank_v", "128", "--output", out,
+                       "--device", "cuda"])
+    counts = read_counts()
+    layers = _checkpoint_layers()
+    _hold_counts("group_layers", counts, _want(K1=layers))
+    cfg = XKVConfig.from_yaml(out)
+    groups = [g.layers for g in cfg.layer_groups]
+    if cfg.num_layers != layers or [i for g in groups for i in g] != list(range(layers)) or \
+            any(g != list(range(g[0], g[-1] + 1)) for g in groups):
+        raise AssertionError(f"group_layers: config {cfg.to_dict()}")
+    results["train_cka"] = dict(groups=groups, launches=counts)
+    log("train cka " + json.dumps(results["train_cka"]))
+    shutil.rmtree(out_dir)
+    train_phase_time(results, "CKA", time.time() - t_phase)
+    return counts
+
+
+def train_path(results) -> dict:
+    """Phase 12: training and CKA grouping, (a) the 1B trainer, (b) the
+    CLI, (c) the accuracy gates, (d) CKA; returns the launch counts."""
+    totals = {key: 0 for key in COUNTERS}
+    for part in (train_1b, train_cli, train_gates, train_cka):
+        counts = part(results)
+        for key in totals:
+            totals[key] += counts[key]
+    log(f"train phase: {sum(results['train_phase_s'].values()):.1f} s")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -3960,12 +4422,17 @@ def main() -> int:
     eval_counts = eval_path(results)
     for key in totals:
         totals[key] += eval_counts[key]
+    torch.cuda.empty_cache()
+    train_counts = train_path(results)
+    for key in totals:
+        totals[key] += train_counts[key]
     log(f"speculative-and-staged phase: {sum(results['spec_phase_s'].values()):.1f} s")
     log(f"batch phase: {sum(results['batch_phase_s'].values()):.1f} s")
     log(f"batched-speculation and persistence phase: "
         f"{sum(results['batch_spec_phase_s'].values()):.1f} s")
     log(f"minicache phase: {sum(results['minicache_phase_s'].values()):.1f} s")
     log(f"eval phase: {sum(results['eval_phase_s'].values()):.1f} s")
+    log(f"train phase: {sum(results['train_phase_s'].values()):.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

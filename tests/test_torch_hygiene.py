@@ -2,8 +2,10 @@
 what ``chip_smoke.py`` imports loads neither ``jax`` nor the JAX package
 ``xkv_tpu``, nor any optional package that the evaluation path imports
 where it needs it (``safetensors``, ``transformers``, ``datasets``,
-``tiktoken``, ``sentencepiece``, ``rouge``, ``jieba``, ``scipy``). Checked in
-a fresh interpreter, since this test process imports them."""
+``tiktoken``, ``sentencepiece``, ``rouge``, ``jieba``, ``scipy``), nor what
+the JAX training path uses and the card's machine lacks (``msgpack``,
+``sklearn``, ``flax``, ``optax``). Checked in a fresh interpreter, since
+this test process imports them."""
 
 import os
 import pkgutil
@@ -30,7 +32,7 @@ bad = sorted(m for m in sys.modules
              or m == "xkv_tpu" or m.startswith("xkv_tpu."))
 optional = sorted(m for m in sys.modules if m.split(".")[0] in (
     "safetensors", "transformers", "datasets", "tiktoken", "sentencepiece", "rouge",
-    "jieba", "scipy"))
+    "jieba", "scipy", "msgpack", "sklearn", "flax", "optax"))
 print(len(names), bad, optional, sep="|")
 """
 
@@ -83,5 +85,9 @@ def test_every_port_module_is_found():
                  "xkv_tpu_torch.evalharness.ruler.generators",
                  "xkv_tpu_torch.evalharness.ruler.generate", "xkv_tpu_torch.models.loader",
                  "xkv_tpu_torch.cli.common", "xkv_tpu_torch.cli.eval_acc",
-                 "xkv_tpu_torch.cli.eval_perplexity"):
+                 "xkv_tpu_torch.cli.eval_perplexity", "xkv_tpu_torch.train.compressors",
+                 "xkv_tpu_torch.train.serialization", "xkv_tpu_torch.train.collector",
+                 "xkv_tpu_torch.train.lm", "xkv_tpu_torch.train.trainer",
+                 "xkv_tpu_torch.utils.data_utils", "xkv_tpu_torch.evalharness.cka",
+                 "xkv_tpu_torch.cli.train_compressor", "xkv_tpu_torch.cli.group_layers"):
         assert want in names

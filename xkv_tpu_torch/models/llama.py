@@ -15,14 +15,16 @@ The xKV contract:
   * sparse top-k decode (``sparse_select``) reads only the Quest-selected
     chunks of the factored segment (K5 for "pre", K4 for "post").
 
-Prefill attention runs kernel K1. Each kernel wrapper launches its CUDA
-kernel for CUDA tensors and its plain version for CPU tensors.
+Prefill attention runs kernel K1 unless the caller passes another
+``attention`` (training passes the plain, differentiable one: K1 has no
+backward). Each kernel wrapper launches its CUDA kernel for CUDA tensors
+and its plain version for CPU tensors.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -141,15 +143,18 @@ def _prefill_layer(
     cos: torch.Tensor,
     sin: torch.Tensor,
     scale: float,
+    attention: Callable = flash_attention,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One decoder layer of the causal prefill. Returns (h', k_pre_rope, v)."""
+    """One decoder layer of the causal prefill. Returns (h', k_pre_rope, v).
+    ``attention(q, k, v, scale=, window=)`` -> (b, s, hq, hd): K1 by
+    default, ``ops.attention.plain_prefill_attention`` to differentiate."""
     b, s = h.shape[0], h.shape[1]
     resid = h
     x = rms_norm(h, layer["input_norm"], cfg.rms_norm_eps)
     q, k_pre, v = qkv_proj(layer["attn"], cfg, x)
     q = apply_rope(q, cos, sin).contiguous()
     k = apply_rope(k_pre, cos, sin).contiguous()
-    attn = flash_attention(q, k, v.contiguous(), scale=scale, window=cfg.sliding_window)
+    attn = attention(q, k, v.contiguous(), scale=scale, window=cfg.sliding_window)
     h = resid + attn.reshape(b, s, -1) @ layer["attn"]["wo"]
     h = h + mlp(layer["mlp"], rms_norm(h, layer["post_norm"], cfg.rms_norm_eps))
     return h, k_pre, v
@@ -161,6 +166,7 @@ def prefill_layer_span(
     h: torch.Tensor,
     cos: torch.Tensor,
     sin: torch.Tensor,
+    attention: Callable = flash_attention,
 ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
     """A contiguous span of the prefill's decoder layers, entered with the
     activations h (b, s, d): the staged prefill (engine
@@ -169,7 +175,7 @@ def prefill_layer_span(
     scale = 1.0 / math.sqrt(cfg.head_dim)
     kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
     for layer in layers:
-        h, k_pre, v = _prefill_layer(layer, cfg, h, cos, sin, scale)
+        h, k_pre, v = _prefill_layer(layer, cfg, h, cos, sin, scale, attention)
         kvs.append((k_pre, v))
     return h, kvs
 
@@ -179,14 +185,16 @@ def prefill(
     cfg: ModelConfig,
     tokens: torch.Tensor,
     logits_position: Optional[int] = None,
+    attention: Callable = flash_attention,
 ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
     """Causal forward over a prompt. tokens (b, s) -> (logits (b, s, V)
     fp32, or (b, 1, V) at ``logits_position``; [(k_pre_rope, v)] per layer,
-    each (b, hkv, s, hd))."""
+    each (b, hkv, s, hd)). ``attention``: as ``_prefill_layer``'s."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
-    h, kvs = prefill_layer_span(params["layers"], cfg, params["embed"][tokens], cos, sin)
+    h, kvs = prefill_layer_span(params["layers"], cfg, params["embed"][tokens], cos, sin,
+                                attention)
     if logits_position is not None:
         h = h[:, logits_position:logits_position + 1]
     return unembed(params, cfg, h), kvs

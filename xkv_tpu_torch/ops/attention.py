@@ -131,6 +131,26 @@ def mha_reference(
     return attention_partial(q, k, v, scale, mask).out.to(q.dtype)
 
 
+def plain_prefill_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: float,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Causal prefill attention in plain, differentiable tensor code, as the
+    JAX prefill's ``attention_impl="xla"`` runs it: ``mha_reference`` up to
+    2048 rows, ``blockwise_causal_attention`` above. The training route
+    (``train.lm``); K1 (``flash_attention``) has the same contract and no
+    backward. q (b, hq, s, hd), k/v (b, hkv, s, hd) -> (b, s, hq, hd)."""
+    if q.shape[2] > 2048:
+        out = blockwise_causal_attention(q, k, v, scale, window=window)
+    else:
+        out = mha_reference(q, k, v, scale, causal=True, window=window)
+    return out.permute(0, 2, 1, 3)
+
+
 # ------------------------------------------------------------------ factored
 def reconstruct_group_heads(
     us: torch.Tensor,

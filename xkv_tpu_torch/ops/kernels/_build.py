@@ -208,10 +208,23 @@ def require(cond: bool, what: str) -> None:
         raise ValueError(what)
 
 
+def require_no_grad(t: torch.Tensor, name: str) -> None:
+    """Refuse a kernel operand that autograd would differentiate: no kernel
+    has a backward, and its output, written through a raw pointer, would
+    carry no gradient, so a loss through it would train nothing and say
+    nothing."""
+    require(not (t.requires_grad and torch.is_grad_enabled()),
+            f"{name} requires grad: the CUDA kernels have no backward; differentiate "
+            "through the plain route (ops.attention.plain_prefill_attention, as "
+            "train.lm does) or call under torch.no_grad()")
+
+
 def require_cuda_tensor(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
     """Check a kernel operand: on CUDA, of an accepted dtype and rank, with a
-    unit last stride and a 16-byte-aligned start."""
+    unit last stride and a 16-byte-aligned start, and not differentiated
+    (``require_no_grad``)."""
     require(t.is_cuda, f"{name} must be a CUDA tensor")
+    require_no_grad(t, name)
     require(t.dtype in dtypes, f"{name} dtype {t.dtype} not in {dtypes}")
     require(t.dim() == ndim, f"{name} must have {ndim} dims, got {tuple(t.shape)}")
     require(t.stride(-1) == 1, f"{name} must have a unit last stride")

@@ -35,6 +35,7 @@ from xkv_tpu_torch.ops.kernels.rankspace_attention import (
     live_chunk_rows,
     live_columns,
     masked_softmax_stats,
+    pad_dim,
 )
 
 # Launches of each CUDA kernel since the last reset (plain runs not
@@ -296,11 +297,26 @@ def unpad_head(out: torch.Tensor, hd: int) -> torch.Tensor:
     return out.reshape(b, R, 2, hp // 2)[..., :hd // 2].reshape(b, R, hd)
 
 
+def pad_lowrank_ranks(k_us, k_vt_slice, v_us, v_vt_slice, v_scale):
+    """K3's and K5's factors zero-padded to the ranks the kernels' layout
+    takes, key ranks in multiples of 64 and value ranks in multiples of 16
+    (the JAX kernels take any rank; the accuracy gates run ranks 96, 48, 8,
+    4 and 2): zero ``k_us`` / ``v_us`` columns with zero ``k_vt_slice`` /
+    ``v_vt_slice`` rows and ``v_scale`` columns, which add nothing to a
+    score or an output. Returns the five, each itself where aligned."""
+    pk, pv = -k_us.shape[2] % 64, -v_us.shape[2] % 16
+    return (pad_dim(k_us, 2, pk), pad_dim(k_vt_slice, 1, pk), pad_dim(v_us, 2, pv),
+            pad_dim(v_vt_slice, 1, pv), pad_dim(v_scale, 2, pv))
+
+
 def _launch(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h, v_scale, ids, block,
             lengths, win_lo, num_q_heads, num_kv_heads):
-    """Check the operands and launch K3 (``ids`` None) or K5 over the
-    chunks ``ids`` of ``block`` rows. Returns (out, lse)."""
+    """Pad the ranks (``pad_lowrank_ranks``), check the operands and launch
+    K3 (``ids`` None) or K5 over the chunks ``ids`` of ``block`` rows.
+    Returns (out, lse)."""
     per = None if ids is None else chunk_blocks(block)
+    k_us, k_vt_slice, v_us, v_vt_slice, v_scale = pad_lowrank_ranks(
+        k_us, k_vt_slice, v_us, v_vt_slice, v_scale)
     quantized = _check_operands(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h, sin_h,
                                 v_scale, num_q_heads, num_kv_heads)
     b, R, hd, s_p, rk, rv = kernel_shapes(qab, k_us, k_vt_slice, v_us, v_vt_slice, cos_h,

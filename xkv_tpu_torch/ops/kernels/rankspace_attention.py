@@ -206,10 +206,15 @@ def rankspace_kernel(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scores, masked softmax and ``t = P @ v_us`` over the factored
     segment: (t (b, R, rv) fp32 normalised, lse (b, R) fp32). Live key
-    columns are [win_lo, lengths) per sequence."""
+    columns are [win_lo, lengths) per sequence. On CUDA, K2, K4 and K6
+    take any positive ranks (``pad_rank_operands``); on other devices
+    ``rankspace_shapes`` holds them to the kernels' multiples of 16."""
     if k_us.device.type == "cpu":
         return rankspace_kernel_plain(q_emb, k_us, v_us, lengths, win_lo)
     global launches
+    rv0, pv = v_us.shape[2], 0
+    if q_emb.is_cuda:
+        q_emb, k_us, v_us, pv = pad_rank_operands(q_emb, k_us, v_us, rv0)
     b, R, s_p, rk, rv = rankspace_shapes(q_emb, k_us, v_us)
     _check_factors(q_emb, k_us, v_us)
     dev = k_us.device
@@ -224,7 +229,7 @@ def rankspace_kernel(
     )
     _build.check(status, "rankspace_kernel")
     launches += 1
-    return t, lse
+    return unpad_t(t, rv0, pv), lse
 
 
 def split_count(n_blocks: int, R: int, rv: int, b: int, n_sm: int) -> int:
@@ -236,6 +241,40 @@ def split_count(n_blocks: int, R: int, rv: int, b: int, n_sm: int) -> int:
     tiles = -(-R // CTA_ROWS)
     slices = -(-rv // (SLICE_RANKS if tiles == 1 else WIDE_SLICE_RANKS))
     return max(1, min(n_blocks, n_sm // (b * tiles * slices)))
+
+
+def pad_dim(x: Optional[torch.Tensor], dim: int, n: int, at: Optional[int] = None):
+    """x with n zero slices inserted along ``dim`` before index ``at``
+    (default: at the end); x itself when n is 0 or x is None."""
+    if x is None or n == 0:
+        return x
+    at = x.shape[dim] if at is None else at
+    shape = list(x.shape)
+    shape[dim] = n
+    zeros = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    return torch.cat([x.narrow(dim, 0, at), zeros, x.narrow(dim, at, x.shape[dim] - at)], dim)
+
+
+def pad_rank_operands(q_emb, k_us, v_us, rv: int):
+    """K2's, K4's and K6's operands zero-padded to the ranks the kernels'
+    layout takes, multiples of 16 (the JAX kernels take any rank; the
+    accuracy gates run ranks 8, 4 and 2): the key rank, ``q_emb``'s width,
+    after ``k_us``'s columns (in ``q_emb``, before K6's int4 tail), the
+    value rank ``rv`` (K6: int8 + int4) after ``v_us``'s. A zero rank adds
+    nothing to a score or to t. Unaligned ranks are copied on every call:
+    the caches keep the ranks they were built with. Returns (q_emb, k_us,
+    v_us, pv): t's pv zero columns, which ``unpad_t`` drops."""
+    pk, pv = -q_emb.shape[2] % 16, -rv % 16
+    return (pad_dim(q_emb, 2, pk, at=k_us.shape[2]), pad_dim(k_us, 2, pk),
+            pad_dim(v_us, 2, pv), pv)
+
+
+def unpad_t(t: torch.Tensor, at: int, pv: int) -> torch.Tensor:
+    """t without the ``pv`` zero value ranks ``pad_rank_operands`` put
+    after its first ``at`` (``v_us``'s) columns."""
+    if pv == 0:
+        return t
+    return torch.cat([t[..., :at], t[..., at + pv:]], dim=-1)
 
 
 def rankspace_shapes(q_emb, k_us, v_us) -> Tuple[int, int, int, int, int]:
@@ -301,6 +340,10 @@ def mixed_rankspace_kernel(
         return mixed_rankspace_kernel_plain(q_emb, k_us8, k_us4, v_us8, v_us4, lengths,
                                             win_lo)
     global mixed_launches
+    r8v0, pv = v_us8.shape[2], 0
+    if q_emb.is_cuda:
+        q_emb, k_us8, v_us8, pv = pad_rank_operands(q_emb, k_us8, v_us8,
+                                                    r8v0 + 2 * v_us4.shape[2])
     b, R, s_p, r8k, h4k, r8v, h4v = mixed_shapes(q_emb, k_us8, k_us4, v_us8, v_us4)
     rv = r8v + 2 * h4v
     _build.require_cuda_tensor(q_emb, "q_emb", (torch.bfloat16,), 3)
@@ -320,7 +363,7 @@ def mixed_rankspace_kernel(
     )
     _build.check(status, "mixed_rankspace_kernel")
     mixed_launches += 1
-    return t, lse
+    return unpad_t(t, r8v0, pv), lse
 
 
 def mixed_shapes(q_emb, k_us8, k_us4, v_us8, v_us4) -> Tuple[int, ...]:
@@ -364,6 +407,9 @@ def sparse_rankspace_kernel(
     if k_us.device.type == "cpu":
         return sparse_rankspace_kernel_plain(q_emb, k_us, v_us, ids, block, lengths, win_lo)
     global sparse_launches
+    rv0, pv = v_us.shape[2], 0
+    if q_emb.is_cuda:
+        q_emb, k_us, v_us, pv = pad_rank_operands(q_emb, k_us, v_us, rv0)
     b, R, s_p, rk, rv = rankspace_shapes(q_emb, k_us, v_us)
     per = chunk_blocks(block)
     _build.require(ids.dim() == 2 and ids.shape[0] == b, "ids must be (b, n_sel)")
@@ -382,7 +428,7 @@ def sparse_rankspace_kernel(
     )
     _build.check(status, "sparse_rankspace_kernel")
     sparse_launches += 1
-    return t, lse
+    return unpad_t(t, rv0, pv), lse
 
 
 def rankspace_decode_attention(
