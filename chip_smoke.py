@@ -151,7 +151,36 @@ Phases, each of which fails the run (non-zero exit) on any error:
              int8), K5, K2 and K6 at the gates' ranks (zero-padded to the
              kernels' layout), every gate's threshold held, and each of
              those kernels at the gates' ranks against its plain version;
-             (d) ``cli.group_layers.main --model`` on the checkpoint (K1).
+             (d) ``cli.group_layers.main --model`` on the checkpoint (K1);
+  13. examples and tensor parallelism, after phase 12: (a) the port's
+             three examples (``xkv_tpu_torch/examples``) at their own sizes
+             on the card: quickstart (8 layers, width 256, 512-token
+             prompt, 32 new tokens; K1, K3 pre, K2 post int8: launches
+             held to the runs' counts), serving (bf16; K1, K3, K5) and
+             accuracy_demo (300 training steps, then its rank sweep; K1,
+             K3), tokens and recalls printed; (b) tensor parallelism over
+             kv heads, two ranks sharing the card over gloo
+             (``scripts/tp_serve.py``): Llama-3.1-8B's widths cut to 4
+             layers (one xKV-4 group), a 4096-token prompt, 16 new tokens
+             with an 8-row tail (one refold), in pre bf16 (K3), post bf16
+             and post int8 (K2), run after (a): held to the unsharded
+             engine on the same card, within twice their readings, over
+             the same factors (the prefill's logits, each step up to the
+             refold over the ranks' prefill cache and one past the pass
+             over their last, joined and read by one device) and over
+             each side's own factors (every step fed one device's tokens,
+             and each greedy token of the ranks against one device's top
+             logit at its step); the ranks' greedy tokens equal one
+             device's up to the first near tie; controls (one device in
+             modes none and fake) beyond the step limit; rank 0's K1 and
+             K3 / K2 calls on its own head shard against their plain
+             versions at the kernels' limits; each rank's K1 and K2 / K3
+             launches on its head shard, its prefill s and eager ms/token;
+             (c)
+             ``utils.profiling.device_op_times`` of a traced run of 8B-width
+             decode replays against the profiler's own totals
+             (``key_averages``, and ``profile_op_times``, which the
+             profiled phases above total through).
 Then it prints the card's name and power limit, one JSON line of kernel
 records, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -1113,20 +1142,22 @@ K11_DESIGN = ("redesigned: a cluster of 8 CTAs per 64-row tile of x, each CTA's 
               "int4")
 
 
-def split_and_merge_us(prof, cuda) -> dict:
+def split_and_merge_us(prof) -> dict:
     """Mean device time of a K3-machinery call's two kernels from a
-    profiler trace: the split kernel's span, and the merge's span past the
-    split's end (the merge is launched as a programmatic dependent, so it
-    starts early and its own span holds its wait for the split)."""
-    kernels = sorted((e for e in prof.events() if e.device_type == cuda),
-                     key=lambda e: e.time_range.start)
-    splits = [e for e in kernels if "split_kernel" in e.name]
-    merges = [e for e in kernels if "merge_chunk_kernel" in e.name]
+    profiler trace: the split kernel's span (its total by name,
+    ``profile_op_times``), and the merge's span past the split's end (the
+    merge is launched as a programmatic dependent, so it starts early and
+    its own span holds its wait for the split)."""
+    from xkv_tpu_torch.utils.profiling import kernel_events, profile_op_times
+
+    kernels = kernel_events(prof)
+    splits = [e for e in kernels if "split_kernel" in e[0]]
+    merges = [e for e in kernels if "merge_chunk_kernel" in e[0]]
     if not splits or len(splits) != len(merges):
         raise AssertionError(f"profiler: {len(splits)} split and {len(merges)} merge kernels")
-    return dict(split=sum(e.time_range.elapsed_us() for e in splits) / len(splits),
-                merge=sum(max(m.time_range.end - s.time_range.end, 0.0)
-                          for s, m in zip(splits, merges)) / len(splits))
+    split_ms = sum(ms for name, ms in profile_op_times(prof).items() if "split_kernel" in name)
+    return dict(split=split_ms * 1e3 / len(splits),
+                merge=sum(max(m[2] - s[2], 0.0) for s, m in zip(splits, merges)) / len(splits))
 
 
 def check_variants(gen, results):
@@ -1136,7 +1167,6 @@ def check_variants(gen, results):
     run; each call's device time split into the split kernel and the merge
     (profiler, warm L2). Returns K3's time over the int8 factors."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from xkv_tpu_torch.cache import vt_layer_slice
@@ -1175,7 +1205,7 @@ def check_variants(gen, results):
                 for _ in range(10):
                     call()
                 torch.cuda.synchronize()
-            by_kernel[f"{v} {dtype}"] = split_and_merge_us(prof, DeviceType.CUDA)
+            by_kernel[f"{v} {dtype}"] = split_and_merge_us(prof)
         if dtype == "bf16":
             plain_ms = cuda_time_ms(lambda: k9.variant_kernel_plain(qab, *rest, None, **kw))
             recon = 2.0 * s_p * rk * m
@@ -1251,16 +1281,17 @@ def check_ablation(gen, results, k3_int8_ms):
             bound = bound_ms(nbytes(*ops, *tabs, out, mx), op_time)
     # Where a `full` call's device time goes: the k_vt transpose, the split
     # kernel and the merge, from the profiler's kernel records (warm L2).
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from xkv_tpu_torch.utils.profiling import profile_op_times
 
     a_full = (*ops, *k10.tables(s, hd, k10.ALL, "cuda"), k10.ALL)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(10):
             k10.ablation_step(*a_full, num_kv_heads=hkv, nsplit=nsplit)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    by_kernel = {k: sum(e.self_device_time_total for e in events if k in e.key) / 10
+    totals = profile_op_times(prof)
+    by_kernel = {k: sum(ms for name, ms in totals.items() if k in name) * 1e3 / 10
                  for k in ("transpose_kvt_kernel", "ablation_split_kernel",
                            "ablation_merge_kernel")}
     log(f"K10 full, device us per call by kernel: {by_kernel}")
@@ -1741,16 +1772,20 @@ def _union_ms(spans) -> float:
     return total / 1e3
 
 
-def _profile(run_step, steps: int, step_ms: float) -> dict:
+def _profile(run_step, steps: int, step_ms: float, trace_dir=None) -> dict:
     """Device time of ``steps`` calls of ``run_step`` under torch.profiler:
     the time the device ran kernels per step (the union of their spans,
     so kernels that overlap, such as a merge pass whose span holds its
     wait for the split, count once), its share of the step's wall time
     ``step_ms`` measured without the profiler, and the kernels that take
-    most of it (each kernel's summed spans, which may overlap)."""
+    most of it (each kernel's summed spans, which may overlap; totals by
+    name from ``profile_op_times``). With ``trace_dir`` the Chrome trace
+    is written there and the result carries ``op_times_ms``, the totals by
+    name, for ``device_op_times`` to be held against."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from xkv_tpu_torch.utils.profiling import kernel_events, profile_op_times
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1758,28 +1793,38 @@ def _profile(run_step, steps: int, step_ms: float) -> dict:
             run_step()
         torch.cuda.synchronize()
     # Only the device's own events: a CPU op's device time repeats its kernels'.
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms = _union_ms((e.time_range.start, e.time_range.end) for e in device_events) / steps
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    totals = profile_op_times(prof)
+    device_events = kernel_events(prof)
+    busy_ms = _union_ms((start, end) for _, start, end in device_events) / steps
+    top = list(totals.items())[:6]
     # The decode kernels' split and merge passes by name (K2/K4/K6:
     # rankspace_tma_split_kernel; K7/K8: mla_tma_split_kernel; both merged
     # by rankspace_merge_cols_kernel).
     def is_decode(key):
         return any(k in key for k in ("rankspace", "lowrank", "mla_tma_split"))
 
-    decode = {e.key[:60]: e.self_device_time_total / 1e3 / steps for e in kernels
-              if is_decode(e.key)}
-    decode_union = _union_ms((e.time_range.start, e.time_range.end) for e in device_events
-                             if is_decode(e.name)) / steps
-    return dict(step_ms=step_ms, device_busy_ms_per_step=busy_ms,
-                device_idle_share=1.0 - busy_ms / step_ms,
-                kernel_sum_ms_per_step=sum(e.self_device_time_total for e in kernels)
-                / 1e3 / steps,
-                top_kernels_ms_per_step={e.key[:60]: e.self_device_time_total / 1e3 / steps
-                                         for e in top},
-                decode_kernels_ms_per_step=decode,
-                decode_kernels_union_ms_per_step=decode_union)
+    decode = {name[:60]: ms / steps for name, ms in totals.items() if is_decode(name)}
+    decode_union = _union_ms((start, end) for name, start, end in device_events
+                             if is_decode(name)) / steps
+    out = dict(step_ms=step_ms, device_busy_ms_per_step=busy_ms,
+               device_idle_share=1.0 - busy_ms / step_ms,
+               kernel_sum_ms_per_step=sum(totals.values()) / steps,
+               top_kernels_ms_per_step={name[:60]: ms / steps for name, ms in top},
+               decode_kernels_ms_per_step=decode,
+               decode_kernels_union_ms_per_step=decode_union)
+    if trace_dir is not None:
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir, "decode.pt.trace.json"))
+        from torch.autograd import DeviceType
+
+        # The totals _profile printed before the shared helper, for phase 13.
+        out["op_times_ms"] = totals
+        out["key_averages_ms"] = {e.key: e.self_device_time_total / 1e3
+                                  for e in prof.key_averages()
+                                  if e.device_type == DeviceType.CUDA}
+        out["op_counts"] = {name: sum(1 for n, _, _ in device_events if n == name)
+                            for name in totals}
+    return out
 
 
 def profile_decode(eng, cache, tok, pos, eager_ms: float, steps: int = 4) -> tuple:
@@ -4353,6 +4398,407 @@ def train_path(results) -> dict:
     return totals
 
 
+# ------------------------------------------------ examples and TP (phase 13)
+# Two ranks sharing the card: Llama-3.1-8B's widths cut to 4 layers (one
+# xKV-4 group), a 4096-token prompt, 16 new tokens over an 8-row tail.
+TP_NPROC = 2
+TP_ARGS = ["--device", "cuda", "--layers", "4", "--prompt", "4096", "--new", "16",
+           "--tail", "8", "--runs", "pre:bf16,post:bf16,post:int8"]
+# The two ranks against the unsharded engine on the card. Both reduce
+# every product in fp32: a rank's share of a row-split product (wo,
+# w_down) is an fp32 partial, the partials are summed in fp32 and rounded
+# to bf16 once, as one device rounds its product once; and cuBLAS keeps
+# the split sums of bf16 products in fp32 on both sides
+# (``allow_bf16_reduced_precision_reduction`` off). So the two differ by
+# the order of fp32 sums, which flips single bf16 roundings of the
+# activations and of the logits (bf16 products: one unit in the last
+# place is 0.03125 at |logit| 4-8), and from layer 1 of the K/V that the
+# group SVD factorises. Limits, twice the readings of these seeded runs
+# on an H100:
+#  TOL_TP, the same factors: the prefill's logits; each step up to the
+#     refold over the ranks' prefill cache, joined and read by one device
+#     fed the same tokens; one step past the pass over the ranks' last
+#     cache, joined;
+#  TOL_TP_STEPS, by factor dtype, each side's own factors (whose SVD
+#     inputs differed): each step of the ranks fed one device's tokens,
+#     and each greedy token of the ranks against one device's top logit
+#     at its step (one device fed the ranks' tokens).
+# Tokens: the ranks' greedy tokens (``generate``) equal one device's up
+# to the first step whose top two logits lie within twice that step's
+# disagreement in the fed pass (a near tie; the prefixes are equal up to
+# there). The readings part at gaps of one unit in the last place or less.
+# Controls, one device fed the same tokens: mode none (no compression)
+# must lie beyond the step limit at every step, and mode fake (the same
+# factors read through the plain path, the tail never folded) at every
+# step past the refold, so the limit sees compression's and a refold's
+# errors.
+TOL_TP = 2 * 0.0898
+TOL_TP_STEPS = {"bf16": 2 * 0.2188, "int8": 2 * 0.3203}
+TP_CONTROLS = ("fake", "none")
+
+
+def examples_phase(results) -> dict:
+    """Phase 13 (a): the port's three examples at their own sizes on the
+    card; returns the launch counts."""
+    from xkv_tpu_torch.examples import accuracy_demo, quickstart, serving
+
+    totals = {key: 0 for key in COUNTERS}
+    t0 = time.time()
+    reset_counts()
+    rows = quickstart.main("cuda", verbose=False)
+    counts = read_counts()
+    layers = quickstart.CFG.num_layers
+    # Each run prefills twice (its own prefill, generate's); 31 decode steps
+    # through K3 (factored pre) and K2 (post int8); none and fake: no kernel.
+    _hold_counts("quickstart", counts, _want(K1=4 * 2 * layers, K3=31 * layers, K2=31 * layers))
+    for key in totals:
+        totals[key] += counts[key]
+    results["examples"] = {"quickstart": [
+        dict(label=r["label"], ratio=r["ratio"], prefill_s=r["prefill_s"],
+             generate_s=r["generate_s"], tokens=r["tokens"][0].tolist()) for r in rows],
+        "quickstart_launches": counts}
+    log("examples quickstart " + json.dumps(results["examples"]["quickstart"]))
+    t1 = time.time()
+    reset_counts()
+    served = serving.main("cuda", verbose=False)
+    counts = read_counts()
+    if not (counts["K1"] and counts["K3"] and counts["K5"]):
+        raise AssertionError(f"serving: launches {counts}")
+    for key in totals:
+        totals[key] += counts[key]
+    results["examples"]["serving"] = dict(tokens=served["plain"], launches=counts)
+    log(f"examples serving: {len(served['plain'])} requests, speculative tokens equal to the "
+        f"plain ones; launches {counts}; {time.time() - t1:.1f} s")
+    t1 = time.time()
+    reset_counts()
+    acc = accuracy_demo.main("cuda", verbose=False)
+    counts = read_counts()
+    if not (counts["K1"] and counts["K3"]):
+        raise AssertionError(f"accuracy_demo: launches {counts}")
+    if not acc["history"][-1] < 0.5 * acc["history"][0]:
+        raise AssertionError(f"accuracy_demo: the loss did not fall: {acc['history']}")
+    for key in totals:
+        totals[key] += counts[key]
+    results["examples"]["accuracy_demo"] = dict(
+        loss=acc["history"], baseline=acc["baseline"],
+        recall={rank: [ratio, rec] for rank, ratio, rec in acc["ranks"]}, launches=counts)
+    log("examples accuracy_demo " + json.dumps(results["examples"]["accuracy_demo"]) +
+        f"; {time.time() - t1:.1f} s")
+    results["examples_s"] = time.time() - t0
+    return totals
+
+
+def tp_reference(out_dir: str) -> dict:
+    """Phase 13 (b)'s unsharded side and (c): the ranks' model on one
+    device (the same seed: ``tp_serve.model``), per run the eager greedy
+    loop (``tp_serve.forced_pass``: its tokens and each step's logits),
+    ``generate``'s tokens (the captured graph: equal), and the controls
+    (``TP_CONTROLS``: one device in those modes, which fold no tail, fed
+    the same tokens); the
+    tokens are written to ``ref_tokens.json`` for the ranks' forced pass.
+    Then a traced run of decode replays read back by
+    ``device_op_times``."""
+    import shutil
+
+    import torch
+
+    from xkv_tpu_torch.engine import InferenceEngine
+    from xkv_tpu_torch.engine.graphs import DecodeGraph
+    from xkv_tpu_torch.scripts import tp_serve
+    from xkv_tpu_torch.utils.profiling import device_op_times
+
+    args = tp_serve.parse_args(TP_ARGS)
+    cfg, xkv, params, prompt = tp_serve.model(args)
+    ref = {}
+    for run in args.runs.split(","):
+        rope, fd = run.split(":")
+
+        def engine(mode, tail_max):
+            return InferenceEngine(params, cfg, xkv(rope), mode=mode, tail_max=tail_max,
+                                   factor_dtype=tp_serve.factor_dtype(fd),
+                                   prefill_logits="last", device="cuda")
+
+        eng = engine("factored", args.tail)
+        t0 = time.time()
+        tokens, logits, prefill_s, step_s, _ = tp_serve.forced_pass(eng, prompt, args.new)
+        graph = eng.generate(prompt, args.new).cpu()
+        if not torch.equal(graph, tokens):
+            raise AssertionError(f"tp reference {run}: generate {graph.tolist()} against the "
+                                 f"eager loop's {tokens.tolist()}")
+        top2 = logits.topk(2, dim=-1).values
+        ref[run] = dict(tokens=tokens, logits=logits, gap=(top2[:, 0] - top2[:, 1]).tolist(),
+                        prefill_s=prefill_s, decode_ms_per_token=1e3 * sum(step_s) / len(step_s),
+                        seconds=time.time() - t0, control={})
+        for mode in TP_CONTROLS:
+            # No refold outside mode factored: a tail of every new token.
+            _, other, _, _, _ = tp_serve.forced_pass(engine(mode, args.new), prompt, args.new,
+                                                     tokens)
+            ref[run]["control"][mode] = (other - logits).abs().amax(dim=-1).tolist()
+        if run == "pre:bf16":
+            logits, cache = eng.prefill(prompt)
+            tok = logits[:, -1].argmax(dim=-1)[:, None]
+            # (c): 3 replays of a captured step, timed, then 3 traced (the
+            # warm-up step and 6 replays fill 7 of the 8 tail rows).
+            seg = DecodeGraph(eng, cache, prompt.shape[1], 7, first_token=tok)
+            seg.warm_up()
+            seg.capture()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            seg.replay(3)
+            torch.cuda.synchronize()
+            trace_dir = os.path.join(out_dir, "trace")
+            prof = _profile(lambda: seg.replay(1), 3, (time.time() - t0) * 1e3 / 3,
+                            trace_dir=trace_dir)
+            read = device_op_times(trace_dir)
+            shutil.rmtree(trace_dir)
+            for name, ms in (("profile_op_times", prof["op_times_ms"]),
+                             ("key_averages", prof["key_averages_ms"])):
+                if set(read) != set(ms):
+                    raise AssertionError(f"device_op_times names differ from {name}'s: "
+                                         f"{sorted(set(read) ^ set(ms))}")
+                # The trace keeps each duration to 1 ns (1e-6 ms).
+                worst = max(abs(read[k] - ms[k]) / (1e-6 * prof["op_counts"][k] + 1e-9 * ms[k])
+                            for k in read)
+                if worst > 1.0:
+                    raise AssertionError(f"device_op_times against {name}: {worst}")
+            ref["trace"] = dict(ops=len(read), events=sum(prof["op_counts"].values()),
+                                max_abs_ms=max(abs(read[k] - prof["key_averages_ms"][k])
+                                               for k in read),
+                                kernel_sum_ms_per_step=prof["kernel_sum_ms_per_step"],
+                                top=dict(list(read.items())[:3]))
+            del seg, cache
+        del eng
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, "ref_tokens.json"), "w") as f:
+        json.dump({run: r["tokens"].tolist() for run, r in ref.items() if run != "trace"}, f)
+    ref["model"] = (args, cfg, xkv, params, prompt)
+    return ref
+
+
+def tp_shard_kernels(cfg, params, prompt, joined, tok, rope: str, with_k1: bool) -> dict:
+    """Phase 13 (b): rank 0's own kernel calls, held against their plain
+    versions at the kernels' limits (``TOL``): K1 of layer 0 over the
+    prompt on its 16 query and 4 kv heads (``with_k1``), and K3 (``rope``
+    pre) or K2 (post) of layer 0 over its shard of the ranks' cache after
+    the forced pass (the replicated us, its kv heads' V^T column block),
+    fed ``tok`` (1, 1) at the step past the pass. The operands are built
+    as rank 0 builds them: ``shard_params`` and ``shard_group_factors`` of
+    the joined cache, the same ops on the same values."""
+    import dataclasses
+
+    import torch
+
+    from xkv_tpu_torch.cache import vt_layer_slice
+    from xkv_tpu_torch.models.llama import qkv_proj, rms_norm
+    from xkv_tpu_torch.ops.kernels import flash_attention as k1
+    from xkv_tpu_torch.ops.kernels import lowrank_attention as k3
+    from xkv_tpu_torch.ops.kernels import rankspace_attention as k2
+    from xkv_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+    from xkv_tpu_torch.parallel.mesh import Mesh
+    from xkv_tpu_torch.parallel.sharding import shard_group_factors, shard_params
+
+    dev = prompt.device
+    mesh = Mesh(data=1, model=TP_NPROC, rank=0)
+    layer = shard_params({"layers": params["layers"][:1]}, mesh)["layers"][0]
+    scfg = dataclasses.replace(cfg, num_q_heads=cfg.num_q_heads // TP_NPROC,
+                               num_kv_heads=cfg.num_kv_heads // TP_NPROC)
+    hq, hkv, hd = scfg.num_q_heads, scfg.num_kv_heads, scfg.head_dim
+    scale = 1.0 / math.sqrt(hd)
+
+    def tables(positions):
+        return rope_cos_sin(positions, hd, cfg.rope_theta, cfg.rope_scaling)
+
+    def qkv(tokens):
+        return qkv_proj(layer["attn"], scfg, rms_norm(params["embed"][tokens],
+                                                      layer["input_norm"], cfg.rms_norm_eps))
+
+    worst, rec = {"abs": 0.0, "rel": 0.0, "lse": 0.0}, {}
+    if with_k1:
+        s = prompt.shape[1]
+        q, k, v = qkv(prompt)
+        cos, sin = tables(torch.arange(s, device=dev)[None])
+        q, k = apply_rope(q, cos, sin).contiguous(), apply_rope(k, cos, sin).contiguous()
+        out = k1.flash_attention(q, k, v.contiguous(), scale=scale)
+        ref = k1.flash_attention_plain(q, k, v.contiguous(), scale=scale)
+        torch.cuda.synchronize()
+        rel = row_rel_err(out, ref)
+        log(f"K1 rank 0's shard ({hq} q / {hkv} kv heads, s={s}): max_abs_err="
+            f"{max_abs_err(out, ref):.3e} max_rel_err={rel:.3e} (limit {TOL['K1']:.3e})")
+        if not rel <= TOL["K1"]:
+            raise AssertionError("K1 disagrees with its plain version on rank 0's shard")
+        rec["K1"] = dict(max_abs_err=max_abs_err(out, ref), max_rel_err=rel)
+    gf = shard_group_factors(joined.groups[0], 4, mesh)
+    s_p = joined.prefill_len
+    pos = prompt.shape[1] + int(TP_ARGS[TP_ARGS.index("--new") + 1]) - 1
+    q_pre, _, _ = qkv(tok.to(dev))
+    cos_t, sin_t = tables(torch.tensor([[pos]], device=dev))
+    cos_p, sin_p = tables(torch.arange(s_p, device=dev))
+    quantized = gf.k_us.dtype == torch.int8
+    k_scale = vt_layer_slice(gf.k_scale, 0, hkv, hd) if quantized else None
+    vt_k, vt_v = vt_layer_slice(gf.k_vt, 0, hkv, hd), vt_layer_slice(gf.v_vt, 0, hkv, hd)
+    label = f"rank 0's shard ({hq} q / {hkv} kv heads, vt {tuple(vt_k.shape)}, s_p={s_p})"
+    if rope == "pre":
+        key = "K3"
+        cos_h, sin_h = k3.half_tables(cos_p, sin_p, gf.k_us.dtype)
+        qab = k3._query_embeds(q_pre, cos_t, sin_t, hkv, scale, k_scale)
+        v_scale = gf.v_scale.to(torch.float32).contiguous() if quantized else None
+        args = (qab, gf.k_us, vt_k, gf.v_us, vt_v, cos_h, sin_h, v_scale, None, None)
+        out, lse = k3.lowrank_kernel(*args, num_q_heads=hq, num_kv_heads=hkv)
+        ref, lse_ref = k3.lowrank_kernel_plain(*args, num_q_heads=hq, num_kv_heads=hkv)
+    else:
+        key = "K2"
+        q_emb = k2._project_q(apply_rope(q_pre, cos_t, sin_t), vt_k, hkv, scale, k_scale,
+                              k2.compute_dtype_for(gf.k_us.dtype))
+        out, lse = k2.rankspace_kernel(q_emb, gf.k_us, gf.v_us, None, None)
+        ref, lse_ref = k2.rankspace_kernel_plain(q_emb, gf.k_us, gf.v_us, None, None)
+    torch.cuda.synchronize()
+    _hold(key, label, out, ref, lse, lse_ref, worst)
+    rec[key] = dict(max_abs_err=worst["abs"], max_rel_err=worst["rel"], lse_err=worst["lse"])
+    return rec
+
+
+def tp_phase(results) -> dict:
+    """Phase 13: the examples (a); the unsharded side of (b) and (c); the
+    ranks of (b); then the comparisons. Returns the launch counts (both
+    ranks' included)."""
+    import shutil
+
+    import torch
+
+    from xkv_tpu_torch.scripts import tp_serve
+
+    t_phase = time.time()
+    totals = examples_phase(results)
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        out_dir = os.path.join(ROOT, "build", "tp_phase")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        t0 = time.time()
+        reset_counts()
+        ref = tp_reference(out_dir)
+        for key, n in read_counts().items():
+            totals[key] += n
+        results["tp_reference_s"] = time.time() - t0
+        t0 = time.time()
+        tp_serve.wait(tp_serve.launch(
+            TP_ARGS + ["--out", out_dir, "--teacher", os.path.join(out_dir, "ref_tokens.json")],
+            TP_NPROC), timeout=300)
+        results["tp_ranks_s"] = time.time() - t0
+        t0 = time.time()
+        rows = tp_compare(ref, out_dir, totals)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    results["tp_compare_s"] = time.time() - t0
+    results["tp"] = dict(rows=rows, trace=ref["trace"], tol=TOL_TP, tol_steps=TOL_TP_STEPS)
+    log("trace readers " + json.dumps(ref["trace"]))
+    shutil.rmtree(out_dir)
+    results["tp_phase_s"] = time.time() - t_phase
+    log(f"examples-and-tp phase: {results['tp_phase_s']:.1f} s (the examples "
+        f"{results['examples_s']:.1f} s, the unsharded side {results['tp_reference_s']:.1f} s, "
+        f"the ranks {results['tp_ranks_s']:.1f} s, the comparisons "
+        f"{results['tp_compare_s']:.1f} s)")
+    return totals
+
+
+def tp_compare(ref: dict, out_dir: str, totals: dict) -> dict:
+    """Phase 13 (b)'s comparisons of the ranks (``out_dir``) with one
+    device (``ref``): rank 0's kernel calls (``tp_shard_kernels``), each
+    rank's launches on its head shard, then per run the rows that
+    ``TOL_TP`` / ``TOL_TP_STEPS`` and the token rule hold, checked once
+    every row is printed. Adds the launches of the ranks and of one device
+    fed the ranks' tokens to ``totals``."""
+    import torch
+
+    from xkv_tpu_torch.engine import InferenceEngine
+    from xkv_tpu_torch.scripts import tp_serve
+
+    records = tp_serve.results(out_dir, TP_NPROC)
+    got = torch.load(os.path.join(out_dir, "rank0.pt"), map_location="cuda", weights_only=False)
+    args, cfg, xkv, params, prompt = ref.pop("model")
+    layers = int(TP_ARGS[TP_ARGS.index("--layers") + 1])
+    steps = int(TP_ARGS[TP_ARGS.index("--new") + 1])
+    shard_kernels = {}
+    for i, (run, mine) in enumerate(got.items()):
+        shard_kernels[run] = tp_shard_kernels(cfg, params, prompt, mine["joined"],
+                                              ref[run]["tokens"][:, -1:], run.split(":")[0],
+                                              with_k1=i == 0)
+        kernel = "K3" if run.startswith("pre") else "K2"
+        for rec in records:
+            # Two prefills (generate's, the forced pass's); 15 decode steps
+            # each, and the step past the forced pass.
+            _hold_counts(f"tp rank {rec['rank']} {run}", rec["runs"][run]["counts"],
+                         _want(K1=2 * layers, **{kernel: (2 * (steps - 1) + 1) * layers}))
+            if rec["heads"] != [cfg.num_q_heads // TP_NPROC, cfg.num_kv_heads // TP_NPROC]:
+                raise AssertionError(f"tp rank {rec['rank']}: heads {rec['heads']}")
+            for key in totals:
+                totals[key] += rec["runs"][run]["counts"][key]
+    rows, fails = {}, []
+    reset_counts()
+    for run, mine in got.items():
+        want = ref[run]
+        rope, fd = run.split(":")
+        lim = TOL_TP_STEPS[fd]
+        for key in ("tokens", "logits", "next_logits"):
+            mine[key] = mine[key].cpu()
+        err = (mine["logits"] - want["logits"]).abs().amax(dim=-1).tolist()  # a step each
+        eng = InferenceEngine(params, cfg, xkv(rope), mode="factored", tail_max=args.tail,
+                              factor_dtype=tp_serve.factor_dtype(fd), prefill_logits="last",
+                              device="cuda")
+        # One device over the ranks' joined cache: the steps up to the
+        # refold over the prefill's, fed the same tokens, then one step
+        # past the pass over the last.
+        same, cache, pos = [err[0]], mine["prefill_joined"], prompt.shape[1]
+        for i in range(args.tail):
+            out, cache = eng.decode_step(cache, want["tokens"][:, i:i + 1].cuda(), pos + i)
+            same.append((out[:, -1].float().cpu() - mine["logits"][i + 1]).abs().max().item())
+        nxt, _ = eng.decode_step(mine["joined"], want["tokens"][:, -1:].cuda(),
+                                 pos + steps - 1)
+        same.append((nxt[:, -1].float().cpu() - mine["next_logits"]).abs().max().item())
+        del cache
+        # One device fed the ranks' greedy tokens: each one's shortfall
+        # from the top logit of its step.
+        _, fed, _, _, _ = tp_serve.forced_pass(eng, prompt, steps, mine["tokens"])
+        short = (fed.amax(dim=-1) - fed.gather(1, mine["tokens"].T)[:, 0]).tolist()
+        del eng
+        torch.cuda.empty_cache()
+        held = next((i for i in range(steps) if mine["tokens"][0, i] != want["tokens"][0, i]),
+                    steps)
+        ties = [i for i, g in enumerate(want["gap"]) if g <= 2 * err[i]]
+        ctl = want["control"]
+        rows[run] = dict(tokens=mine["tokens"][0].tolist(), ref_tokens=want["tokens"][0].tolist(),
+                         equal_tokens=held, near_ties=ties,
+                         same_factors_err=same, logits_err_by_step=err,
+                         tokens_shortfall=short, control_err_by_step=want["control"],
+                         ref_gap_by_step=want["gap"],
+                         max_abs_logit=want["logits"].abs().max().item(),
+                         shard_kernels=shard_kernels[run],
+                         one_device=dict(prefill_s=want["prefill_s"],
+                                         decode_ms_per_token=want["decode_ms_per_token"]),
+                         ranks=[dict(rank=rec["rank"], heads=rec["heads"],
+                                     prefill_s=rec["runs"][run]["prefill_s"],
+                                     decode_ms_per_token=rec["runs"][run]["decode_ms_per_token"],
+                                     launches={k: v for k, v in rec["runs"][run]["counts"].items()
+                                               if v})
+                                for rec in records])
+        log(f"tp {run} " + json.dumps(rows[run]))
+        if max(same) > TOL_TP:
+            fails.append(f"{run}: prefill, same factors {same} (limit {TOL_TP})")
+        if max(err) > lim or max(short) > lim:
+            fails.append(f"{run}: steps {err}, the ranks' tokens' shortfall {short} (limit {lim})")
+        if held < (ties[0] if ties else steps):
+            fails.append(f"{run}: tokens equal up to {held}, near ties at {ties}")
+        if not (min(ctl["none"][1:]) > lim and min(ctl["fake"][args.tail + 1:]) > lim):
+            fails.append(f"{run}: a control lies within the step limit {lim}: {ctl}")
+    # The comparisons' launches (one device over the ranks' tokens).
+    for key, n in read_counts().items():
+        totals[key] += n
+    if fails:
+        raise AssertionError("tp against one device: " + "; ".join(fails))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -4364,9 +4810,15 @@ def main() -> int:
     from xkv_tpu_torch.ops.kernels import _build
 
     t_start = time.time()
+    marks = {}  # each section's end, s from the start: the run's breakdown
+
+    def mark(name: str) -> None:
+        marks[name] = round(time.time() - t_start, 1)
+
     t0 = time.time()
     lib_path = _build.build()
     _build.load()
+    mark("build")
     log(f"build: {time.time() - t0:.1f} s -> {lib_path}")
     build_log = os.path.join(os.path.dirname(lib_path), "build.log")
     if os.path.exists(build_log):
@@ -4394,27 +4846,34 @@ def main() -> int:
     t0 = time.time()
     check_wide(gen, results)
     log(f"wide-rank phase: {time.time() - t0:.1f} s")
+    mark("kernels")
     t0 = time.time()
     k3_int8_ms = check_variants(gen, results)
     check_ablation(gen, results, k3_int8_ms)
     check_probe(results)
     tool_counts = tools_path(results)
     log(f"tools phase: {time.time() - t0:.1f} s")
+    mark("tools")
     totals = main_path(results)
+    mark("main path")
     torch.cuda.empty_cache()
     counts_1b = llama_1b_path(results)
+    mark("1B")
     t0 = time.time()
     counts_small = small_engine_path(results)
     log(f"tiny-engine phase: {time.time() - t0:.1f} s")
     for key in totals:
         totals[key] += tool_counts[key] + counts_1b[key] + counts_small[key]
+    mark("tiny")
     anchor()
     minicache_anchor(results)
+    mark("anchors")
     torch.cuda.empty_cache()
     mla_totals = mla_path(results)
     for key in totals:
         totals[key] += mla_totals[key]
     mla_anchor()
+    mark("V2-Lite")
     ckpt_counts = speculative_checkpoint(results)
     for key in totals:
         totals[key] += ckpt_counts[key]
@@ -4422,10 +4881,17 @@ def main() -> int:
     eval_counts = eval_path(results)
     for key in totals:
         totals[key] += eval_counts[key]
+    mark("eval")
     torch.cuda.empty_cache()
     train_counts = train_path(results)
     for key in totals:
         totals[key] += train_counts[key]
+    mark("train")
+    torch.cuda.empty_cache()
+    tp_counts = tp_phase(results)
+    for key in totals:
+        totals[key] += tp_counts[key]
+    mark("examples and tp")
     log(f"speculative-and-staged phase: {sum(results['spec_phase_s'].values()):.1f} s")
     log(f"batch phase: {sum(results['batch_phase_s'].values()):.1f} s")
     log(f"batched-speculation and persistence phase: "
@@ -4437,7 +4903,7 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    log(f"total {time.time() - t_start:.1f} s")
+    log(f"total {time.time() - t_start:.1f} s; sections end at (s) {json.dumps(marks)}")
     log(smi)
     kernels = []
     for key in COUNTERS:

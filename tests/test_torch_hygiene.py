@@ -4,7 +4,8 @@ what ``chip_smoke.py`` imports loads neither ``jax`` nor the JAX package
 where it needs it (``safetensors``, ``transformers``, ``datasets``,
 ``tiktoken``, ``sentencepiece``, ``rouge``, ``jieba``, ``scipy``), nor what
 the JAX training path uses and the card's machine lacks (``msgpack``,
-``sklearn``, ``flax``, ``optax``). Checked in a fresh interpreter, since
+``sklearn``, ``flax``, ``optax``), nor ``matplotlib``, which the plots of
+``evalharness/viz.py`` import where they draw. Checked in a fresh interpreter, since
 this test process imports them."""
 
 import os
@@ -32,7 +33,7 @@ bad = sorted(m for m in sys.modules
              or m == "xkv_tpu" or m.startswith("xkv_tpu."))
 optional = sorted(m for m in sys.modules if m.split(".")[0] in (
     "safetensors", "transformers", "datasets", "tiktoken", "sentencepiece", "rouge",
-    "jieba", "scipy", "msgpack", "sklearn", "flax", "optax"))
+    "jieba", "scipy", "msgpack", "sklearn", "flax", "optax", "matplotlib"))
 print(len(names), bad, optional, sep="|")
 """
 
@@ -89,5 +90,9 @@ def test_every_port_module_is_found():
                  "xkv_tpu_torch.train.serialization", "xkv_tpu_torch.train.collector",
                  "xkv_tpu_torch.train.lm", "xkv_tpu_torch.train.trainer",
                  "xkv_tpu_torch.utils.data_utils", "xkv_tpu_torch.evalharness.cka",
-                 "xkv_tpu_torch.cli.train_compressor", "xkv_tpu_torch.cli.group_layers"):
+                 "xkv_tpu_torch.cli.train_compressor", "xkv_tpu_torch.cli.group_layers",
+                 "xkv_tpu_torch.examples.quickstart", "xkv_tpu_torch.examples.serving",
+                 "xkv_tpu_torch.examples.accuracy_demo", "xkv_tpu_torch.parallel.distributed",
+                 "xkv_tpu_torch.parallel.mesh", "xkv_tpu_torch.parallel.sharding",
+                 "xkv_tpu_torch.evalharness.viz", "xkv_tpu_torch.utils.duo_attention"):
         assert want in names

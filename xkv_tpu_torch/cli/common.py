@@ -14,8 +14,9 @@ The port's differences:
   * ``--attention_impl`` and ``--flash2`` are accepted so that invocations
     translate, and do nothing: on the card prefill attention is always the
     K1 kernel, on the CPU its plain version.
-  * ``--mesh_model > 1`` and ``--sequence_parallel`` are refused (multi-GPU
-    is ROADMAP item 17), and so is ``--factor_dtype fp32`` on the card (the
+  * ``--mesh_model > 1`` (the engine runs under a mesh, but the CLIs
+    start no ranks: ROADMAP item 17) and ``--sequence_parallel`` are
+    refused, and so is ``--factor_dtype fp32`` on the card (the
     decode kernels take bf16, int8 or int4 factors); ``refusal`` says so
     before any weight is loaded.
   * ``ckpt:`` models load in fp32 on the CPU, as the JAX package loads them,
@@ -74,8 +75,8 @@ def add_common_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "attention is the K1 kernel on the card and its plain "
                         "version on the CPU")
     parser.add_argument("--mesh_model", type=int, default=1,
-                        help="tensor-parallel width; only 1 (multi-GPU is "
-                        "ROADMAP item 17)")
+                        help="tensor-parallel width; only 1 (the CLIs start no "
+                        "ranks yet: ROADMAP item 17)")
     parser.add_argument("--rope_mode", type=str, default="pre",
                         choices=["pre", "post"],
                         help="factored-key domain: 'pre' = reference "
@@ -127,8 +128,9 @@ def refusal(args) -> Optional[str]:
     """Why these arguments cannot run in the port, or None. The CLIs check
     it before any weight is loaded."""
     if args.mesh_model > 1:
-        return (f"--mesh_model {args.mesh_model}: tensor parallelism over several "
-                "GPUs is not ported yet (ROADMAP item 17); use --mesh_model 1")
+        return (f"--mesh_model {args.mesh_model}: the CLIs have no launcher for "
+                "tensor-parallel ranks yet (ROADMAP item 17; the engine runs under a "
+                "mesh: InferenceEngine(mesh=...), scripts/tp_serve.py); use --mesh_model 1")
     if args.sequence_parallel:
         return ("--sequence_parallel: ring-attention prefill over several GPUs is "
                 "not ported yet (ROADMAP item 17)")

@@ -63,8 +63,9 @@ class Request:
 
 class BatchedEngine:
     """Slot-based continuous batching over the hybrid factored cache (the
-    JAX constructor's surface without ``attention_impl`` and ``mesh``,
-    plus ``device``). ``xkv=None`` serves an uncompressed cache."""
+    JAX constructor's surface without ``attention_impl``, plus ``device``;
+    a ``mesh`` is refused: ROADMAP item 17). ``xkv=None`` serves an
+    uncompressed cache."""
 
     def __init__(
         self,
@@ -85,7 +86,12 @@ class BatchedEngine:
         speculative_k: Optional[int] = None,
         draft_rank: Optional[int] = None,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
+        if mesh is not None:
+            # A TypeError, as a call with an argument the engine does not take.
+            raise TypeError("BatchedEngine(mesh=...): continuous batching under a mesh is "
+                            "not ported yet (ROADMAP item 17)")
         mla = cfg.model_type == "deepseek_v2"
         if not mla and cfg.model_type not in ("llama", "mistral", "qwen2"):
             raise NotImplementedError(f"model_type {cfg.model_type!r}")

@@ -1,8 +1,8 @@
 """Prompt-cache persistence: save a compressed cache to disk and load it.
 
 Port of ``xkv_tpu/engine/cache_io.py`` in its file format, so a file
-passes between the two packages in either direction: one ``.npz``
-(``np.savez_compressed``) of the cache's leaves ``leaf_{i}`` in the JAX
+passes between the two packages in either direction: one ``.npz`` of the
+cache's leaves ``leaf_{i}`` in the JAX
 pytree's leaf order, and a JSON sidecar ``path + '.json'`` with
 ``format_version`` (1), ``treedef`` (a string; each package writes its
 own and neither reads it), ``num_leaves``, ``dtypes`` and ``metadata``.
@@ -18,6 +18,14 @@ void (``|V2``), its dtype named in the sidecar only, and read back by
 its bits. (The JAX ``load_cache`` cannot
 cast such a leaf, so it cannot read a bf16 cache, its own included:
 ROADMAP queue 3.)
+
+The port writes the ``.npz`` stored (``np.savez``), where the JAX package
+deflates it (``np.savez_compressed``); ``np.load`` reads both. The
+factors' bf16 and int8 values leave zlib little to take (0.79 of the
+bytes of a bf16 cache, 0.86 of an int8 one), at 7-9 MB/s a core: 25-28 s
+to save an 8B cache of 8192 tokens and 96-110 s a MiniCache one on the
+host of an NVIDIA H100 80GB HBM3 (700.00 W; ``chip_smoke.py``'s
+persistence lines).
 """
 
 from __future__ import annotations
@@ -84,7 +92,7 @@ def save_cache(cache: XKVCache, path: str, metadata: Optional[dict] = None) -> N
     missing) and the sidecar ``path + '.json'``."""
     pairs = [_to_numpy(t) for t in cache_leaves(cache)]
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    np.savez_compressed(path, **{f"leaf_{i}": a for i, (a, _) in enumerate(pairs)})
+    np.savez(path, **{f"leaf_{i}": a for i, (a, _) in enumerate(pairs)})
     sidecar = {
         "format_version": _FORMAT_VERSION,
         "treedef": _treedef(cache),

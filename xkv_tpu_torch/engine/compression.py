@@ -20,6 +20,14 @@ latent and is stored as it is (no RoPE, no post mode; mixed int8+int4
 allowed), the V slot the rotated RoPE key, never merged. Factored latents
 also store ``k_rnorm``, the per-row inverse RMS of the latent that decode
 contracts against (``latent_rnorm``).
+
+Under a ``mesh`` (tensor parallelism over kv heads; the svd scheme, bf16 or
+int8 factors) every rank holds its kv heads' K/V and ``cfg`` is its share
+of the heads. A group's SVD mixes every head of the group, so the group's
+whole matrix is joined from every rank's columns (``Mesh.gather``),
+rank 0 computes the factors (at a build and at each refold) and broadcasts
+them, and each rank keeps its shard (``parallel/sharding.py``): the same
+``us`` on every rank by construction.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ from xkv_tpu_torch.compress.svd import (
 from xkv_tpu_torch.configs import XKVConfig
 from xkv_tpu_torch.models.config import ModelConfig
 from xkv_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from xkv_tpu_torch.parallel.sharding import shard_group_factors, shard_heads
 
 
 def _stack_group_matrix(kvs: List[torch.Tensor]) -> torch.Tensor:
@@ -73,6 +82,40 @@ def _split_group_matrix(mat: torch.Tensor, g: int, hkv: int) -> List[torch.Tenso
     """(b, s, g*hkv*hd) -> g tensors (b, hkv, s, hd)."""
     stacked = matrix_to_heads(mat, g * hkv)
     return [stacked[:, i * hkv:(i + 1) * hkv] for i in range(g)]
+
+
+def _whole_group(xs: List[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """A group's per-layer K or V of every rank's kv heads: [(b, hkv /
+    model, s, hd)] per layer -> [(b, hkv, s, hd)] per layer."""
+    g, hl = len(xs), xs[0].shape[1]
+    return _split_group_matrix(mesh.gather(_stack_group_matrix(xs), blocks=g), g,
+                               hl * mesh.model)
+
+
+def _on_rank0(mesh, compute: Callable[[], Dict[str, torch.Tensor]],
+              device: torch.device) -> Dict[str, torch.Tensor]:
+    """``compute()``'s tensors, run on rank 0 and broadcast to every rank."""
+    return mesh.broadcast_tensors(compute() if mesh.model_rank == 0 else None, device)
+
+
+def _compress_group_tp(ks, vs, layers, mesh, compress):
+    """A group under a mesh: the whole K/V joined from every rank's heads,
+    ``compress(ks, vs)`` -> (GroupFactors, dense_k, dense_v) on rank 0,
+    broadcast, and this rank's shard of it."""
+    ks, vs = _whole_group(ks, mesh), _whole_group(vs, mesh)
+
+    def compute():
+        gf, dk, dv = compress(ks, vs)
+        flat = {f"gf.{k}": v for k, v in vars(gf).items() if v is not None}
+        flat.update({f"dk.{l}": x for l, x in dk.items()})
+        flat.update({f"dv.{l}": x for l, x in dv.items()})
+        return flat
+
+    flat = _on_rank0(mesh, compute, ks[0].device)
+    gf = GroupFactors(**{k[3:]: v for k, v in flat.items() if k.startswith("gf.")})
+    dense = {side: {int(k[3:]): shard_heads(v, mesh) for k, v in flat.items()
+                    if k.startswith(side)} for side in ("dk", "dv")}
+    return shard_group_factors(gf, len(layers), mesh), dense["dk"], dense["dv"]
 
 
 def latent_rnorm(k_rec_mat: torch.Tensor, g: int) -> torch.Tensor:
@@ -351,8 +394,10 @@ def build_cache(
     cache_dtype: torch.dtype = torch.bfloat16,
     sparse_block: Optional[int] = None,
     valid_len=None,
+    mesh=None,
 ) -> XKVCache:
-    """Compress prefill K/V into the hybrid cache.
+    """Compress prefill K/V into the hybrid cache (a rank's shard of it
+    under a ``mesh``).
 
     kvs: per layer (k_pre_rope, v), each (b, hkv, s, hd). cos_p/sin_p:
     (s, hd) RoPE tables of the prefill positions, applied to the keys of
@@ -367,7 +412,7 @@ def build_cache(
     return build_cache_by_span(
         lambda layers: [kvs[l] for l in layers], len(kvs), xkv, cfg, cos_p, sin_p, tail_max,
         fake=fake, factor_dtype=factor_dtype, cache_dtype=cache_dtype,
-        sparse_block=sparse_block, valid_len=valid_len)
+        sparse_block=sparse_block, valid_len=valid_len, mesh=mesh)
 
 
 def build_cache_by_span(
@@ -383,6 +428,7 @@ def build_cache_by_span(
     cache_dtype: torch.dtype = torch.bfloat16,
     sparse_block: Optional[int] = None,
     valid_len=None,
+    mesh=None,
 ) -> XKVCache:
     """``build_cache`` with the K/V given span by span: ``span_kvs(layers)``
     returns the (k, v) of ``layers``, a group's or one ungrouped layer's,
@@ -406,11 +452,15 @@ def build_cache_by_span(
                     ks, vs, grp, xkv, cos_p, sin_p, fake=fake, cache_dtype=cache_dtype,
                     rope_dense_keys=rope_dense_keys, valid_len=valid_len)
             else:
-                groups[group_at[l]], dk, dv = compress_svd_group(
-                    ks, vs, grp, xkv, cos_p, sin_p, fake=fake,
-                    factor_dtype=factor_dtype, cache_dtype=cache_dtype,
-                    rope_dense_keys=rope_dense_keys, sparse_block=sparse_block,
-                )
+                def compress(ks, vs, grp=grp):
+                    return compress_svd_group(
+                        ks, vs, grp, xkv, cos_p, sin_p, fake=fake,
+                        factor_dtype=factor_dtype, cache_dtype=cache_dtype,
+                        rope_dense_keys=rope_dense_keys, sparse_block=sparse_block)
+
+                groups[group_at[l]], dk, dv = (
+                    compress(ks, vs) if mesh is None
+                    else _compress_group_tp(ks, vs, grp.layers, mesh, compress))
             del ks, vs
             dense_k.update(dk)
             dense_v.update(dv)
@@ -482,9 +532,12 @@ def refactorize_cache(
     cfg: ModelConfig,
     factor_dtype=torch.bfloat16,
     sparse_block: Optional[int] = None,
+    mesh=None,
 ) -> XKVCache:
     """Fold a FULL decode tail back into the compressed cache: re-run the
-    merge over [reconstructed prefill ; tail] per group.
+    merge over [reconstructed prefill ; tail] per group. Under a ``mesh``
+    each rank joins its columns of the extended matrices, rank 0 factorises
+    and broadcasts, each rank keeps its shard.
 
     Caller contract: the tail is full (``tail_count == tail_max``). The tail stores post-RoPE
     keys; in "pre" mode they are un-rotated (RoPE by -theta is exact) before
@@ -535,8 +588,18 @@ def refactorize_cache(
             tail_v = _stack_group_matrix(
                 [cache.tail_v[l].to(torch.float32) for l in layers])
             v_ext = torch.cat([_v_matrix(gf), tail_v], dim=1)
-        kw = _refolded_fields(gf, grp, cfg, k_ext, v_ext, store_dtype, store_dtype, svd_kw,
-                              sparse_block, cos_f, sin_f)
+        if mesh is None:
+            kw = _refolded_fields(gf, grp, cfg, k_ext, v_ext, store_dtype, store_dtype, svd_kw,
+                                  sparse_block, cos_f, sin_f)
+        else:
+            g = len(layers)
+            k_ext = None if k_ext is None else mesh.gather(k_ext, blocks=g)
+            v_ext = None if v_ext is None else mesh.gather(v_ext, blocks=g)
+            kw = _on_rank0(mesh, lambda: _refolded_fields(
+                gf, grp, cfg, k_ext, v_ext, store_dtype, store_dtype, svd_kw, sparse_block,
+                cos_f, sin_f), device)
+            kw = {k: v for k, v in vars(shard_group_factors(GroupFactors(**kw), g, mesh)).items()
+                  if v is not None}
         for side, tail in (("slerp_k", cache.tail_k), ("slerp_v", cache.tail_v)):
             sc = getattr(gf, side)
             if sc is not None:

@@ -37,10 +37,28 @@ None). ``sparse_topk_max``: a second, larger budget for steps with many
 near-maximal chunks (``sparse_adaptive_band``), in post mode.
 ``factor_dtype="int4"``: mixed int8 + packed int4 factors, post mode only
 (MLA: any mode, its latent carries no RoPE). MLA takes no sparse decode.
+
+``mesh`` (``parallel.mesh.make_mesh(data=1, model=n)``, one process a rank
+of the ``torch.distributed`` group): tensor parallelism over kv heads for
+the Llama family, the JAX engine's ``mesh`` in this scope: modes
+factored, fake and none, rope modes pre (K3) and post (K2), bf16 and int8
+factors. The engine shards the weights it is given
+(``parallel.sharding.shard_params``); each rank runs K1 on its heads in
+prefill and K2 / K3 on its kv heads' cache shard in decode, and the ``wo``
+/ ``w_down`` products and the logits are joined over the model axis
+(``models/llama.py``); rank 0 computes each group's factors at a build and
+a refold and broadcasts them (``engine/compression.py``). Decode under a
+mesh runs eagerly: the collectives of the gloo backend cannot be captured
+in a CUDA graph, so ``generate`` runs its steps one by one and
+``DecodeGraph`` / ``SpecRounds`` (``score``, speculation) refuse a mesh.
+Sparse top-k, int4 factors, MLA, staged prefill, SLERP and sequence
+parallelism are refused under a mesh (ROADMAP item 17), and the cache a
+rank holds is its shard (``engine.shard_cfg`` is its share of the heads).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
@@ -57,6 +75,33 @@ from xkv_tpu_torch.engine.graphs import DecodeGraph, RoundTiming, SegmentTiming,
 from xkv_tpu_torch.models import deepseek, llama
 from xkv_tpu_torch.models.config import ModelConfig
 from xkv_tpu_torch.ops.rope import rope_cos_sin
+from xkv_tpu_torch.parallel.sharding import shard_params
+
+TP_ITEM = "not ported under a mesh yet (ROADMAP item 17)"
+
+
+def check_tp(cfg: ModelConfig, xkv: Optional[XKVConfig], mode: str, mesh, factor_dtype,
+             sparse_topk, staged_prefill: bool, sequence_parallel: bool) -> None:
+    """Refuse what tensor parallelism over kv heads does not serve yet, each
+    with a message naming ROADMAP item 17."""
+    if sequence_parallel:
+        raise ValueError("sequence_parallel: ring-attention prefill over a mesh's data axis "
+                         "is not ported yet (ROADMAP item 17)")
+    if mesh is None or mesh.model == 1:
+        return
+    if cfg.model_type == "deepseek_v2":
+        raise ValueError(f"DeepSeek MLA + MoE is {TP_ITEM}: serve it on one device")
+    if sparse_topk is not None:
+        raise ValueError(f"sparse_topk is {TP_ITEM}")
+    if factor_dtype == "int4":
+        raise ValueError(f"factor_dtype='int4' is {TP_ITEM}")
+    if staged_prefill:
+        raise ValueError(f"staged_prefill is {TP_ITEM}")
+    if xkv is not None and mode != "none" and xkv.layer_merge_impl == "slerp":
+        raise ValueError(f"the slerp scheme (MiniCache) is {TP_ITEM}")
+    if cfg.num_kv_heads % mesh.model or cfg.num_q_heads % mesh.model:
+        raise ValueError(f"{cfg.num_q_heads} q / {cfg.num_kv_heads} kv heads do not split "
+                         f"over a model axis of {mesh.model}")
 
 
 def check_mla_slerp(xkv: Optional[XKVConfig]) -> None:
@@ -91,6 +136,8 @@ class InferenceEngine:
         sparse_adaptive_band: float = 0.5,
         draft_rank: Optional[int] = None,
         staged_prefill: bool = False,
+        mesh=None,
+        sequence_parallel: bool = False,
     ):
         if mode not in ("factored", "fake", "none"):
             raise ValueError(f"unknown mode {mode!r}")
@@ -145,9 +192,18 @@ class InferenceEngine:
                         f"{grp.layers}")
         if not mla and cfg.model_type not in ("llama", "mistral", "qwen2"):
             raise NotImplementedError(f"model_type {cfg.model_type!r}")
+        check_tp(cfg, xkv, mode, mesh, factor_dtype, sparse_topk, staged_prefill,
+                 sequence_parallel)
         self._mla = mla
         self.device = torch.device(device)
-        self.params = params
+        # Tensor parallelism: this rank's weights, its share of the heads.
+        self.mesh = mesh if mesh is not None and mesh.model > 1 else None
+        self.params = params if self.mesh is None else shard_params(params, self.mesh)
+        self.shard_cfg = cfg if self.mesh is None else dataclasses.replace(
+            cfg, num_q_heads=cfg.num_q_heads // mesh.model,
+            num_kv_heads=cfg.num_kv_heads // mesh.model,
+            intermediate_size=cfg.intermediate_size // mesh.model)
+        self._mesh_kw = {} if self.mesh is None else {"mesh": self.mesh}
         self.cfg = cfg
         self.xkv = xkv
         self.mode = mode
@@ -191,19 +247,19 @@ class InferenceEngine:
         s = tokens.shape[1]
         model = deepseek if self._mla else llama
         logits, kvs = model.prefill(
-            self.params, self.cfg, tokens,
-            logits_position=s - 1 if self.prefill_logits == "last" else None)
+            self.params, self.shard_cfg, tokens,
+            logits_position=s - 1 if self.prefill_logits == "last" else None, **self._mesh_kw)
         # The MLA latent is stored without RoPE: no tables (its RoPE key,
         # already rotated, is qk_rope_head_dim wide, not head_dim).
         cos_p, sin_p = (None, None) if self._mla else self._prefill_cos_sin(s)
         if self.mode == "none":
             cache = build_uncompressed_cache(
-                kvs, self.cfg, cos_p, sin_p, self.tail_max, cache_dtype=self.cache_dtype)
+                kvs, self.shard_cfg, cos_p, sin_p, self.tail_max, cache_dtype=self.cache_dtype)
         else:
             cache = build_cache(
-                kvs, self.xkv, self.cfg, cos_p, sin_p, self.tail_max,
+                kvs, self.xkv, self.shard_cfg, cos_p, sin_p, self.tail_max,
                 fake=self.mode == "fake", factor_dtype=self.factor_dtype,
-                cache_dtype=self.cache_dtype, sparse_block=self._bound_block)
+                cache_dtype=self.cache_dtype, sparse_block=self._bound_block, **self._mesh_kw)
         return logits, cache
 
     def _prefill_staged(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, XKVCache]:
@@ -245,8 +301,8 @@ class InferenceEngine:
             return deepseek.decode_step(self.params, self.cfg, xkv, cache, tokens, pos,
                                         **step_kw)
         return llama.decode_step(
-            self.params, self.cfg, xkv, cache, tokens, pos,
-            self._prefill_cos_sin(cache.prefill_len), **step_kw)
+            self.params, self.shard_cfg, xkv, cache, tokens, pos,
+            self._prefill_cos_sin(cache.prefill_len), **step_kw, **self._mesh_kw)
 
     @torch.no_grad()
     def decode_step(self, cache: XKVCache, tokens,
@@ -266,8 +322,8 @@ class InferenceEngine:
         if cache.tail_count != cache.tail_max:
             raise ValueError(f"tail holds {cache.tail_count} of {cache.tail_max} rows")
         return refactorize_cache(
-            cache, self.xkv, self.cfg, factor_dtype=self.factor_dtype,
-            sparse_block=self._bound_block)
+            cache, self.xkv, self.shard_cfg, factor_dtype=self.factor_dtype,
+            sparse_block=self._bound_block, **self._mesh_kw)
 
     @torch.no_grad()
     def generate(self, tokens, max_new_tokens: int,
@@ -292,9 +348,13 @@ class InferenceEngine:
             # factors (periodic refactorisation), and the next segment's
             # graph is captured over the new factors.
             n = min(remaining, self.tail_max)
-            seg = DecodeGraph(self, cache, pos, n, first_token=tok)
-            rest, cache = seg.run()
-            self.last_timings.append(seg.timing)
+            if self.mesh is None:
+                seg = DecodeGraph(self, cache, pos, n, first_token=tok)
+                rest, cache = seg.run()
+                self.last_timings.append(seg.timing)
+            else:
+                rest, cache = self._eager_segment(cache, tok, pos, n)
+                self.last_timings.append(SegmentTiming(n))
             pieces.append(rest)
             tok = rest[:, -1:]
             pos += n
@@ -309,6 +369,17 @@ class InferenceEngine:
             hits = (row == eos_token_id).nonzero()
             rows.append(row[:int(hits[0]) + 1] if len(hits) else row)
         return rows
+
+    def _eager_segment(self, cache: XKVCache, tok: torch.Tensor, pos: int,
+                       n: int) -> Tuple[torch.Tensor, XKVCache]:
+        """``n`` greedy steps from ``tok`` at ``pos``, one eager step after
+        another (decode under a mesh). Returns (tokens (b, n), cache)."""
+        out = []
+        for i in range(n):
+            logits, cache = self.step(cache, tok, pos + i, self.step_kw)
+            tok = logits[:, -1].argmax(dim=-1)[:, None]
+            out.append(tok)
+        return torch.cat(out, dim=1), cache
 
     @torch.no_grad()
     def score(self, cache: XKVCache, tokens,

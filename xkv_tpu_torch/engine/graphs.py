@@ -75,6 +75,16 @@ def capture_step(body) -> Tuple[torch.cuda.CUDAGraph, dict, float]:
     return graph, counts, (time.perf_counter() - t0) * 1e3
 
 
+def refuse_mesh(engine, what: str) -> None:
+    """A graph of a step under a mesh is refused: the gloo backend's
+    collectives cannot be captured in a CUDA graph, and a captured TP step
+    on NCCL (two cards) is ROADMAP item 17. ``generate`` under a mesh runs
+    its steps eagerly."""
+    if getattr(engine, "mesh", None) is not None:
+        raise ValueError(f"{what} under a mesh: a captured tensor-parallel step is not "
+                         "ported yet (ROADMAP item 17); generate decodes eagerly there")
+
+
 @dataclass
 class SegmentTiming:
     """A segment's steps, its capture's host time (None on the CPU) and
@@ -108,6 +118,7 @@ class DecodeGraph:
                  first_token: Optional[torch.Tensor] = None,
                  teacher: Optional[torch.Tensor] = None,
                  step_kw: Optional[dict] = None):
+        refuse_mesh(engine, "DecodeGraph")
         if (first_token is None) == (teacher is None):
             raise ValueError("give exactly one of first_token and teacher")
         if cache.tail_count + steps > cache.tail_max:
@@ -291,6 +302,7 @@ class SpecRounds(_CapturedRounds):
     refactorises before that)."""
 
     def __init__(self, engine, cache: XKVCache, token: torch.Tensor, pos, draft_k: int):
+        refuse_mesh(engine, "SpecRounds")
         dev = cache.tail_k.device
         self.engine = engine
         self._init_rounds(draft_k, dev)

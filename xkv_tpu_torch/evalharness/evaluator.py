@@ -8,9 +8,9 @@ Behavioral port of the reference `evaluate/evaluator.py:30-144`:
 
 A copy of ``xkv_tpu/evalharness/evaluator.py`` kept inside the port. With
 ``world_size > 1`` the per-rank summaries are gathered by
-``torch.distributed.all_gather_object`` (the reference's ``gather_object``;
-the JAX package gathers through ``allgather_obj``): a process group of that
-size must exist, and the constructor refuses to start without one.
+``parallel.distributed.allgather_obj`` (the reference's ``gather_object``),
+as the JAX package gathers them: a process group of that size must exist,
+and the constructor refuses to start without one.
 Single-process runs gather nothing.
 """
 
@@ -132,10 +132,9 @@ class Evaluator:
         (reference `evaluator.py:109-144`)."""
         all_results = self.results
         if self.world_size > 1:
-            import torch.distributed as dist
+            from xkv_tpu_torch.parallel.distributed import allgather_obj
 
-            gathered = [None] * self.world_size
-            dist.all_gather_object(gathered, self.results)
+            gathered = allgather_obj(self.results)
             if self.rank == 0:
                 all_results = [r for rows in gathered for r in rows]
             else:

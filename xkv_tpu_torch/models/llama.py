@@ -19,6 +19,14 @@ Prefill attention runs kernel K1 unless the caller passes another
 ``attention`` (training passes the plain, differentiable one: K1 has no
 backward). Each kernel wrapper launches its CUDA kernel for CUDA tensors
 and its plain version for CPU tensors.
+
+Tensor parallelism over kv heads (``mesh``, a ``parallel.mesh.Mesh`` with
+a model axis; the engine's ``mesh``): the functions run on a rank's
+weights (``parallel.sharding.shard_params``) and cache, with ``cfg`` the
+rank's share of the heads (``parallel.sharding`` docstring); K1-K3 run on
+the rank's heads as they are given them, the ``wo`` and ``w_down``
+products are summed over the model axis (``row_product``), and the logits
+of the ``lm_head`` column shards are joined.
 """
 
 from __future__ import annotations
@@ -111,8 +119,19 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (normed * weight.to(torch.float32)).to(x.dtype)
 
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def row_product(mesh, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``, rounded to ``x``'s dtype once. Under a ``mesh`` ``w`` is
+    this rank's row block and ``x`` its columns: each rank's partial
+    product is taken in fp32 (bf16 products are exact in fp32), the
+    partials are summed over the model axis in fp32, and the sum is
+    rounded once, as one device's product with fp32 accumulation is."""
+    if mesh is None:
+        return x @ w
+    return mesh.all_reduce(x.float() @ w.float()).to(x.dtype)
+
+
+def mlp(p: Params, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    return row_product(mesh, F.silu(x @ p["w_gate"]) * (x @ p["w_up"]), p["w_down"])
 
 
 def qkv_proj(
@@ -129,10 +148,15 @@ def qkv_proj(
     return q, k, v
 
 
-def unembed(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+def unembed(params: Params, cfg: ModelConfig, h: torch.Tensor, mesh=None) -> torch.Tensor:
+    """fp32 logits; under a ``mesh`` the ``lm_head`` column shards' logits
+    joined across the model axis (tied embeddings are replicated)."""
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     w = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
-    return (h @ w).to(torch.float32)
+    logits = (h @ w).to(torch.float32)
+    if mesh is None or cfg.tie_word_embeddings:
+        return logits
+    return mesh.gather(logits)
 
 
 # ----------------------------------------------------------------- prefill
@@ -144,6 +168,7 @@ def _prefill_layer(
     sin: torch.Tensor,
     scale: float,
     attention: Callable = flash_attention,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decoder layer of the causal prefill. Returns (h', k_pre_rope, v).
     ``attention(q, k, v, scale=, window=)`` -> (b, s, hq, hd): K1 by
@@ -155,8 +180,8 @@ def _prefill_layer(
     q = apply_rope(q, cos, sin).contiguous()
     k = apply_rope(k_pre, cos, sin).contiguous()
     attn = attention(q, k, v.contiguous(), scale=scale, window=cfg.sliding_window)
-    h = resid + attn.reshape(b, s, -1) @ layer["attn"]["wo"]
-    h = h + mlp(layer["mlp"], rms_norm(h, layer["post_norm"], cfg.rms_norm_eps))
+    h = resid + row_product(mesh, attn.reshape(b, s, -1), layer["attn"]["wo"])
+    h = h + mlp(layer["mlp"], rms_norm(h, layer["post_norm"], cfg.rms_norm_eps), mesh)
     return h, k_pre, v
 
 
@@ -167,6 +192,7 @@ def prefill_layer_span(
     cos: torch.Tensor,
     sin: torch.Tensor,
     attention: Callable = flash_attention,
+    mesh=None,
 ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
     """A contiguous span of the prefill's decoder layers, entered with the
     activations h (b, s, d): the staged prefill (engine
@@ -175,7 +201,7 @@ def prefill_layer_span(
     scale = 1.0 / math.sqrt(cfg.head_dim)
     kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
     for layer in layers:
-        h, k_pre, v = _prefill_layer(layer, cfg, h, cos, sin, scale, attention)
+        h, k_pre, v = _prefill_layer(layer, cfg, h, cos, sin, scale, attention, mesh)
         kvs.append((k_pre, v))
     return h, kvs
 
@@ -186,18 +212,20 @@ def prefill(
     tokens: torch.Tensor,
     logits_position: Optional[int] = None,
     attention: Callable = flash_attention,
+    mesh=None,
 ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
     """Causal forward over a prompt. tokens (b, s) -> (logits (b, s, V)
     fp32, or (b, 1, V) at ``logits_position``; [(k_pre_rope, v)] per layer,
-    each (b, hkv, s, hd)). ``attention``: as ``_prefill_layer``'s."""
+    each (b, hkv, s, hd)). ``attention``: as ``_prefill_layer``'s (under a
+    ``mesh``, on the rank's heads)."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
     h, kvs = prefill_layer_span(params["layers"], cfg, params["embed"][tokens], cos, sin,
-                                attention)
+                                attention, mesh)
     if logits_position is not None:
         h = h[:, logits_position:logits_position + 1]
-    return unembed(params, cfg, h), kvs
+    return unembed(params, cfg, h, mesh), kvs
 
 
 def prefill_chunk(
@@ -416,7 +444,7 @@ def _factored_part(q_pre, q, cos, sin, gf, gpos, li, cfg, rope_post, cos_p, sin_
 
 
 def _decode_layers(params, cfg, xkv, cache, tokens, cos, sin, cos_p, sin_p, write_tail,
-                   tail_valid, lengths=None, win_lo=None, tail_lo=None,
+                   tail_valid, lengths=None, win_lo=None, tail_lo=None, mesh=None,
                    **sparse_kw) -> torch.Tensor:
     """The decoder layers of a decode step, shared by ``decode_step`` and
     ``decode_step_batched``: tokens (b, ql) at the positions of the
@@ -442,7 +470,8 @@ def _decode_layers(params, cfg, xkv, cache, tokens, cos, sin, cos_p, sin_p, writ
             gf = cache.groups[gi]
         if gf is not None and gf.k_us is not None and gf.v_us is not None:
             prefill_part = _factored_part(q_pre, q, cos, sin, gf, gpos, li, cfg, rope_post,
-                                          cos_p, sin_p, scale, lengths, win_lo, **sparse_kw)
+                                          cos_p, sin_p, scale, lengths, win_lo,
+                                          **sparse_kw)
         else:
             k_prefill, v_prefill = _dense_prefill_segment(
                 q, gf, gpos, li, cache, cfg, cos_p, sin_p, rope_post)
@@ -456,9 +485,9 @@ def _decode_layers(params, cfg, xkv, cache, tokens, cos, sin, cos_p, sin_p, writ
 
         attn = merge_partials(prefill_part, tail_part).to(h.dtype)
         attn = attn.permute(0, 2, 1, 3).reshape(b, ql, -1)
-        h = resid + attn @ layer["attn"]["wo"]
-        h = h + mlp(layer["mlp"], rms_norm(h, layer["post_norm"], cfg.rms_norm_eps))
-    return unembed(params, cfg, h)
+        h = resid + row_product(mesh, attn, layer["attn"]["wo"])
+        h = h + mlp(layer["mlp"], rms_norm(h, layer["post_norm"], cfg.rms_norm_eps), mesh)
+    return unembed(params, cfg, h, mesh)
 
 
 def decode_step(
@@ -474,8 +503,10 @@ def decode_step(
     sparse_layers: Optional[frozenset] = None,
     sparse_select_max: Optional[int] = None,
     sparse_adaptive_band: float = 0.5,
+    mesh=None,
 ) -> Tuple[torch.Tensor, XKVCache]:
-    """One decode step over the hybrid factored cache.
+    """One decode step over the hybrid factored cache (a rank's shard of it
+    under a ``mesh``).
 
     tokens: (b, ql) next token(s); pos: absolute position of tokens[:, 0],
     an int or a 0-d tensor on the device (the step then reads no value on
@@ -512,7 +543,8 @@ def decode_step(
         params, cfg, xkv, cache, tokens, cos, sin, *prefill_cos_sin, cache.append_tail,
         tail_valid, win_lo=win_lo, tail_lo=tail_lo, sparse_select=sparse_select,
         sparse_block=sparse_block, sparse_layers=sparse_layers,
-        sparse_select_max=sparse_select_max, sparse_adaptive_band=sparse_adaptive_band)
+        sparse_select_max=sparse_select_max, sparse_adaptive_band=sparse_adaptive_band,
+        mesh=mesh)
     return logits, cache.advance(ql)
 
 
