@@ -62,7 +62,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
              per-step logits (bf16 factors: K7; int4: K8);
   7. spec    speculative decoding and staged prefill, run inside phases 3,
              5 and after 6 on their models: ``generate_speculative``
-             (draft_k 7, 64 tokens, tail 32: rounds, top-ups and
+             (draft_k 7, 40 tokens, tail 32: rounds, top-ups and
              refactorisations) on the 8B in sparse top-4 post (K4 drafts,
              K2 verify), pre (K5, K3) and int4 sparse-mixed (K6), and on
              V2-Lite at draft_rank 128 and 120 in bf16 (K7 over the
@@ -180,7 +180,31 @@ Phases, each of which fails the run (non-zero exit) on any error:
              ``utils.profiling.device_op_times`` of a traced run of 8B-width
              decode replays against the profiler's own totals
              (``key_averages``, and ``profile_op_times``, which the
-             profiled phases above total through).
+             profiled phases above total through);
+  14. tensor parallelism's rest: three meshes of
+             ``scripts/tp_serve.py`` ranks sharing the card over gloo,
+             (c) launched beside phase 11's eval_acc and eval_perplexity,
+             (a) and (b) beside phase 13, each held against one device on
+             the same card after phase 13:
+             (a) Llama-3.1-8B's widths cut to 4 layers, a model axis of 2,
+             sparse top-4 of 512-row chunks post (K4) and pre (K5) with
+             per-shard selection, int4 factors (K6) and int4 with sparse
+             top-4 (selection over every head); (b) DeepSeek-V2-Lite's
+             widths cut to 4 layers (the dense first layer, 3 MoE layers
+             with expert parallelism), a model axis of 2, bf16 (K7) and
+             int4 (K8) latent factors; (c) the 8B widths at data 2 x model
+             2 (four ranks), b = 2, pre bf16 (K3). 4096-token prompts, 16
+             tokens over an 8-row tail (one refold). Held: each rank's
+             launches; rank 0's K4 / K5 / K6 / K7 / K8 call on its shard
+             against the plain version (K7 / K8 at R = 8, timed); one
+             device over the ranks' joined caches fed their tokens at
+             every step (the prefill, the steps before and after the
+             refold, one past the pass; in the sparse K4 / K5 runs with
+             each shard's own chunk selection, as the ranks select), and
+             each greedy token of the ranks against its top logit; a
+             sparse run's step over every chunk against one device's exact
+             step; every rank's prefill s, eager ms/token, peak GB and
+             launches printed beside the card's name and power limit.
 Then it prints the card's name and power limit, one JSON line of kernel
 records, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -188,6 +212,8 @@ Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import os
@@ -1142,6 +1168,13 @@ K11_DESIGN = ("redesigned: a cluster of 8 CTAs per 64-row tile of x, each CTA's 
               "int4")
 
 
+def kernel_count(prof) -> int:
+    """The number of kernel events a profiler trace holds."""
+    from xkv_tpu_torch.utils.profiling import kernel_events
+
+    return len(kernel_events(prof))
+
+
 def split_and_merge_us(prof) -> dict:
     """Mean device time of a K3-machinery call's two kernels from a
     profiler trace: the split kernel's span (its total by name,
@@ -1201,11 +1234,21 @@ def check_variants(gen, results):
         for v, call in reversed(list(calls.items())):
             times[(v, dtype)] = (times[(v, dtype)] + cuda_time_ms(call)) / 2
         for v, call in calls.items():
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    call()
-                torch.cuda.synchronize()
-            by_kernel[f"{v} {dtype}"] = split_and_merge_us(prof)
+            for attempt in range(2):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(10):
+                        call()
+                    torch.cuda.synchronize()
+                try:
+                    by_kernel[f"{v} {dtype}"] = split_and_merge_us(prof)
+                    break
+                except AssertionError as err:
+                    # A trace with no kernel at all was seen once on a card
+                    # whose other traces were whole: trace once more, and
+                    # fail if that one holds none either.
+                    if attempt or kernel_count(prof):
+                        raise
+                    log(f"K9 {v} {dtype}: {err}; tracing again")
         if dtype == "bf16":
             plain_ms = cuda_time_ms(lambda: k9.variant_kernel_plain(qab, *rest, None, **kw))
             recon = 2.0 * s_p * rk * m
@@ -1932,20 +1975,6 @@ def golden_check(label, eng, prompt, toks, want, tol, launches) -> dict:
 
 
 # ------------------------------------------------------------- DeepSeek MLA
-# DeepSeek-V2-Lite, the values of its published config.json
-# (huggingface.co/deepseek-ai/DeepSeek-V2-Lite). Its rope_scaling (yarn,
-# with the mscale softmax) is left out: neither the JAX package nor the port
-# has yarn RoPE, so this runs plain RoPE at theta 10000.
-DEEPSEEK_V2_LITE = {
-    "model_type": "deepseek_v2", "vocab_size": 102400, "hidden_size": 2048,
-    "intermediate_size": 10944, "moe_intermediate_size": 1408, "num_hidden_layers": 27,
-    "num_attention_heads": 16, "num_key_value_heads": 16, "n_shared_experts": 2,
-    "n_routed_experts": 64, "num_experts_per_tok": 6, "routed_scaling_factor": 1.0,
-    "first_k_dense_replace": 1, "norm_topk_prob": False, "kv_lora_rank": 512,
-    "q_lora_rank": None, "qk_rope_head_dim": 64, "qk_nope_head_dim": 128,
-    "v_head_dim": 128, "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
-    "max_position_embeddings": 163840, "tie_word_embeddings": False,
-}
 # Factored (bf16 factors) against fake, first decode step: twice the reading
 # of this seeded run on an H100.
 TOL_MLA_FACTORED_VS_FAKE = 2 * 0.2422
@@ -1978,9 +2007,9 @@ def mla_path(results):
     from xkv_tpu_torch.configs import XKVConfig
     from xkv_tpu_torch.engine import InferenceEngine
     from xkv_tpu_torch.models import deepseek
-    from xkv_tpu_torch.models.config import ModelConfig
+    from xkv_tpu_torch.models.config import deepseek_v2_lite_config
 
-    cfg = ModelConfig.from_hf_config(DEEPSEEK_V2_LITE)
+    cfg = deepseek_v2_lite_config()
     xkv = XKVConfig.from_yaml(os.path.join(ROOT, "configs", "mla_deepseek_v2_lite.yaml"))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -2086,7 +2115,7 @@ def mla_anchor():
 # a step's top-2 exact logit gap lets the verify pass (ql = draft_k + 1,
 # bf16) break the tie the other way from generate's single-token step:
 # twice the agreement readings of each model (PERF.md section 6).
-SPEC_K, SPEC_NEW, SPEC_TAIL = 7, 64, 32
+SPEC_K, SPEC_NEW, SPEC_TAIL = 7, 40, 32
 GAP_8B, GAP_MLA, GAP_ANCHOR = TOL_FACTORED_VS_FAKE, TOL_MLA_FACTORED_VS_FAKE, TOL_ANCHOR["decode"]
 # Copy-induction prompt of the in-repo checkpoint's training
 # (scripts/rope_mode_study_production.py make_induction_batch): BOS, noise
@@ -3938,11 +3967,14 @@ def eval_perplexity_golden(results) -> dict:
     return counts
 
 
-def eval_path(results) -> dict:
-    """Phase 11: the evaluation path, (a) the loader, (b) eval_acc and (c)
-    eval_perplexity; returns the launch counts."""
+def eval_path(results, after_loader) -> dict:
+    """Phase 11: the evaluation path, (a) the loader, then
+    ``after_loader()``, (b) eval_acc and (c) eval_perplexity; returns the
+    launch counts."""
     totals = {key: 0 for key in COUNTERS}
     for part in (eval_loader, eval_acc_golden, eval_perplexity_golden):
+        if part is eval_acc_golden:
+            after_loader()
         counts = part(results)
         for key in totals:
             totals[key] += counts[key]
@@ -4799,6 +4831,384 @@ def tp_compare(ref: dict, out_dir: str, totals: dict) -> dict:
     return rows
 
 
+# ------------------------------------------------- phase 14: the rest of TP
+# Three meshes of ``scripts/tp_serve.py`` ranks sharing the card (gloo),
+# each launched beside an earlier phase's host-bound work (``Tp14Ranks``):
+# (a) Llama-3.1-8B's widths cut to 4 layers, a model axis of 2 (16 q / 4
+# kv heads a rank), sparse top-4 of 512-row chunks post (K4) and pre (K5)
+# with per-shard selection, int4 factors (K6), and int4 with sparse top-4
+# (selection over every head; no kernel: the plain path, as on one
+# device); (b) DeepSeek-V2-Lite's widths cut to 4 layers (the dense first
+# layer and 3 MoE layers), a model axis of 2 (8 q heads and 32 experts a
+# rank), bf16 (K7) and int4 (K8) latent factors; (c) the 8B widths at data
+# 2 x model 2, b = 2, pre bf16 (K3). 4096-token prompts, 16 tokens over
+# 8-row tails (one refold).
+TP14_COMMON = ["--device", "cuda", "--layers", "4", "--prompt", "4096", "--new", "16",
+               "--tail", "8"]
+TP14_MESHES = {  # name: (tp_serve options, ranks)
+    "a": (TP14_COMMON + ["--runs", "post:bf16:sparse4,pre:bf16:sparse4,post:int4,"
+                                   "post:int4:sparse4"], 2),
+    "b": (TP14_COMMON + ["--mla"], 2),
+    "c": (TP14_COMMON + ["--data", "2", "--batch", "2", "--runs", "pre:bf16"], 4),
+}
+# Each run's decode kernel on the factored group (None: the plain path).
+TP14_KERNEL = {"post:bf16:sparse4": "K4", "pre:bf16:sparse4": "K5", "post:int4": "K6",
+               "post:int4:sparse4": None, "mla:bf16": "K7", "mla:int4": "K8",
+               "pre:bf16": "K3"}
+# Limits, on the card, both sides reducing every product in fp32 (phase
+# 13's setting). One device runs over the ranks' joined caches, fed the
+# ranks' tokens, at every step: the prefill, the steps up to the refold
+# over the joined prefill cache, the steps after it and one past the pass
+# over the joined last cache (the refold's factors; its tail refilled).
+# K4 / K5 select chunks per shard (the JAX ``*_tp`` wrappers), which one
+# device selecting over every head does not compute below full coverage,
+# so one device is run with each shard's own selection there
+# (``per_shard_selection``). Held per step:
+#  the logits: phase 13's same-factor TOL_TP at the 8B widths (int4 and
+#     int4 sparse, whose selection is over every head on both sides, and
+#     (c)); TOL_TP14_MLA at V2-Lite's; TOL_TP14_SHARD for the per-shard
+#     sparse runs; each twice its reading on the card. The int4 runs are
+#     held here and not by their tokens against one device over its own
+#     factors: those tokens read up to 1.4375 below its top logit, and a
+#     wrong path's (one device in mode fake) up to 3.02, below 1.4375 at
+#     most steps, so no limit told the two apart;
+#  each greedy token of the ranks below one device's top logit at the
+#     step that chose it, by at most twice the step's logit limit (the
+#     most two sides within that limit can part by), at most phase 13's
+#     own-factor step limit TOL_TP_STEPS["bf16"];
+#  a sparse run's step over every chunk against one device's exact step:
+#     TOL_TP.
+TOL_TP14_MLA = 2 * 0.0547
+TOL_TP14_SHARD = 2 * 0.1094
+# The kernels each run launches on a rank's shard, by (module, name):
+# rank 0's first call is recorded and held against its plain version.
+TP14_KERNEL_FNS = {"K3": ("lowrank_attention", "lowrank_kernel"),
+                   "K4": ("rankspace_attention", "sparse_rankspace_kernel"),
+                   "K5": ("lowrank_attention", "sparse_lowrank_kernel"),
+                   "K6": ("rankspace_attention", "mixed_rankspace_kernel"),
+                   "K7": ("rankspace_attention", "mla_rankspace_kernel"),
+                   "K8": ("rankspace_attention", "mla_mixed_rankspace_kernel")}
+
+
+class Tp14Ranks:
+    """Phase 14's rank processes: each mesh launched beside an earlier
+    phase (the card is idle in the host-bound ones) and waited for when
+    its results are read; ``stop`` ends any still running."""
+
+    def __init__(self):
+        import shutil
+
+        self.root = os.path.join(ROOT, "build", "tp14")
+        shutil.rmtree(self.root, ignore_errors=True)
+        self.dirs = {name: os.path.join(self.root, name) for name in TP14_MESHES}
+        self.procs, self.launched, self.waited = {}, {}, {}
+
+    def launch(self, names, beside: str) -> None:
+        from xkv_tpu_torch.scripts import tp_serve
+
+        for name in names:
+            argv, world = TP14_MESHES[name]
+            os.makedirs(self.dirs[name])
+            self.procs[name] = tp_serve.launch(argv + ["--out", self.dirs[name]], world)
+            self.launched[name] = time.time()
+        log(f"tp14: the ranks of {', '.join(names)} launched beside {beside}")
+
+    def wait(self, name: str) -> None:
+        """Wait for a mesh's ranks; one that failed or hangs stops them all
+        and raises."""
+        from xkv_tpu_torch.scripts import tp_serve
+
+        t0 = time.time()
+        tp_serve.wait(self.procs[name], timeout=600)
+        self.waited[name] = self.waited.get(name, 0.0) + time.time() - t0
+
+    def stop(self) -> None:
+        for procs in self.procs.values():
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+
+class _RankZero:
+    """Rank 0 of a model axis of 2 with every collective left out: a
+    decode step under it calls layer 0's kernels with rank 0's own
+    operands (the partial sums come after them)."""
+    data, model, rank, model_rank, data_rank = 1, 2, 0, 0, 0
+
+    def all_reduce(self, x):
+        return x
+
+    all_max = all_reduce
+
+    def gather(self, x, dim=-1, blocks=1):
+        return x
+
+
+def tp14_shard_kernel(key, cfg, xkv, params, mine, prompt, run, steps) -> dict:
+    """Rank 0's first call of ``key`` in a decode step on its shard (the
+    joined cache after the pass, sharded again; ``shard_params``), fed the
+    pass's last token: held against the plain version at ``TOL[key]``; K7
+    / K8 timed there too (R = 8 rows: a rank's 8 q heads at ql 1)."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    from xkv_tpu_torch.models import deepseek, llama
+    from xkv_tpu_torch.parallel.mesh import Mesh
+    from xkv_tpu_torch.parallel.sharding import shard_cache, shard_params
+    from xkv_tpu_torch.scripts import tp_serve
+
+    mla = cfg.model_type == "deepseek_v2"
+    spec = tp_serve.parse_run(run)
+    mesh = Mesh(data=1, model=2, rank=0)
+    scfg = dataclasses.replace(cfg, num_q_heads=cfg.num_q_heads // 2,
+                               num_kv_heads=cfg.num_kv_heads // 2)
+    grp = [len(g.layers) for g in xkv(spec["rope"]).layer_groups]
+    cache = shard_cache(mine["joined"], grp, mesh, heads=not mla)
+    sp = shard_params({"embed": params["embed"], "layers": params["layers"][:1],
+                       "final_norm": params["final_norm"]}, mesh)
+    sp["lm_head"] = params["lm_head"][:, :8]  # layer 0's call is all that is read
+    mod_name, fn_name = TP14_KERNEL_FNS[key]
+    mod = importlib.import_module(f"xkv_tpu_torch.ops.kernels.{mod_name}")
+    orig, calls = getattr(mod, fn_name), []
+
+    def record(*a, **kw):
+        if not calls:
+            calls.append((a, kw))
+        return orig(*a, **kw)
+
+    one = dataclasses.replace(scfg, num_layers=1)
+    dev = prompt.device
+    tok = mine["tokens"][:, -1:].to(dev)
+    pos = prompt.shape[1] + steps - 1
+    setattr(mod, fn_name, record)
+    try:
+        if mla:
+            deepseek.decode_step(sp, one, xkv(None), cache, tok, pos, mesh=_RankZero())
+        else:
+            step_kw = {} if spec["sparse"] is None else dict(
+                sparse_select=spec["sparse"], sparse_block=tp_serve.SPARSE_BLOCK)
+            cos_sin = llama.rope_cos_sin(torch.arange(cache.prefill_len, device=dev),
+                                         cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+            llama.decode_step(sp, one, xkv(spec["rope"]), cache, tok, pos, cos_sin,
+                              mesh=_RankZero(), **step_kw)
+    finally:
+        setattr(mod, fn_name, orig)
+    a, kw = calls[0]
+    out, lse = orig(*a, **kw)
+    ref, lse_ref = getattr(mod, fn_name + "_plain")(*a, **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    worst = {"abs": 0.0, "rel": 0.0, "lse": 0.0}
+    shapes = [tuple(x.shape) for x in a[:3] if isinstance(x, torch.Tensor)]
+    _hold(key, f"rank 0's shard, {run} (operands {shapes})", out, ref, lse, lse_ref, worst)
+    rec = dict(max_abs_err=worst["abs"], max_rel_err=worst["rel"], lse_err=worst["lse"])
+    if key in ("K7", "K8") and dev.type == "cuda":
+        qe, qp, us = a[0], a[1], a[2]
+        rows, s_p = qe.shape[1], us.shape[1]
+        ops = 2.0 * rows * s_p * (2 * qe.shape[2] + qp.shape[2])
+        rec.update(rows=rows, ms=cuda_time_ms(lambda: orig(*a, **kw)),
+                   plain_ms=cuda_time_ms(lambda: getattr(mod, fn_name + "_plain")(*a, **kw)))
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            nbytes(*[x for x in a if isinstance(x, torch.Tensor)], out, lse),
+            ops / BF16_OPS_PER_S)
+    return rec
+
+
+@contextlib.contextmanager
+def per_shard_selection(model: int):
+    """One device's Llama decode with the sparse selection of ``model``
+    ranks: ``llama._factored_part`` runs on each rank's q and kv heads and
+    factor columns (``shard_group_factors``), so each shard's top-k chunks
+    are chosen over its own heads' bounds, as K4 / K5 choose them on a
+    rank, and the heads are joined after. The rest of the step is one
+    device's."""
+    import dataclasses
+
+    import torch
+
+    from xkv_tpu_torch.models import llama
+    from xkv_tpu_torch.ops.attention import PartialAttention
+    from xkv_tpu_torch.parallel.mesh import Mesh
+    from xkv_tpu_torch.parallel.sharding import shard_group_factors
+
+    whole = llama._factored_part
+
+    def part(q_pre, q, cos, sin, gf, gpos, li, cfg, *rest, **kw):
+        if kw.get("sparse_select") is None:
+            return whole(q_pre, q, cos, sin, gf, gpos, li, cfg, *rest, **kw)
+        layers = gf.k_vt.shape[-1] // (cfg.num_kv_heads * cfg.head_dim)
+        hq = cfg.num_q_heads // model
+        scfg = dataclasses.replace(cfg, num_q_heads=hq, num_kv_heads=cfg.num_kv_heads // model)
+        parts = [whole(q_pre[:, r * hq:(r + 1) * hq], q[:, r * hq:(r + 1) * hq], cos, sin,
+                       shard_group_factors(gf, layers, Mesh(data=1, model=model, rank=r)),
+                       gpos, li, scfg, *rest, **kw) for r in range(model)]
+        return PartialAttention(out=torch.cat([p.out for p in parts], 1),
+                                lse=torch.cat([p.lse for p in parts], 1))
+
+    llama._factored_part = part
+    try:
+        yield
+    finally:
+        llama._factored_part = whole
+
+
+def tp14_same_factors(eng, mine, prompt, tail, steps) -> tuple:
+    """One device (``eng``) over the ranks' factors, fed the ranks' tokens:
+    the prefill, the ``tail`` steps up to the refold over the joined
+    prefill cache, then the steps after the refold and one past the pass
+    over the joined last cache with its tail emptied. Returns (max
+    |logit difference| a step, every row of the batch; each step's
+    largest shortfall of a ranks' token below one device's top logit)."""
+    import dataclasses
+
+    import torch
+
+    b, dev = prompt.shape[0], prompt.device
+    logits, _ = eng.prefill(prompt)
+    ref = [logits[:, -1].float().cpu()]
+    last = mine["joined"]
+    after = dataclasses.replace(last, tail_k=last.tail_k.clone(), tail_v=last.tail_v.clone(),
+                                tail_len=torch.zeros_like(last.tail_len), tail_count=0)
+    cache, pos = mine["prefill_joined"], prompt.shape[1]
+    for i in range(steps):
+        if i == tail:
+            cache = after
+        step, cache = eng.decode_step(cache, mine["tokens"][:, i:i + 1].to(dev), pos + i)
+        ref.append(step[:, -1].float().cpu())
+    ref = torch.stack(ref)  # (steps + 1, b, V)
+    got = torch.cat([mine["logits"].reshape(steps, b, -1), mine["next_logits"][None]])
+    err = (ref - got).abs().amax(dim=(1, 2)).tolist()
+    picked = ref[:steps].gather(2, mine["tokens"].T[..., None])[..., 0]
+    short = (ref[:steps].amax(dim=-1) - picked).amax(dim=1).tolist()
+    return err, short
+
+
+def tp14_compare(name, out_dir, world, totals, smi, results) -> tuple:
+    """One mesh's comparisons with one device (the limits' comments
+    above). Returns (its rows, what failed)."""
+    import torch
+
+    from xkv_tpu_torch.scripts import tp_serve
+
+    argv, _ = TP14_MESHES[name]
+    args = tp_serve.parse_args(argv)
+    records = tp_serve.results(out_dir, world)
+    dev = torch.device(args.device)
+    got = torch.load(os.path.join(out_dir, "rank0.pt"), map_location=dev, weights_only=False)
+    cfg, xkv, params, prompt = tp_serve.model(args)
+    steps, layers = args.new, args.layers
+    rows, fails = {}, []
+    for run, mine in got.items():
+        for k in ("tokens", "logits", "next_logits", "full_logits"):
+            if k in mine:
+                mine[k] = mine[k].cpu()
+        spec = tp_serve.parse_run(run)
+        key = TP14_KERNEL[run]
+        # Two prefills (generate's, the forced pass's; K1 in Llama's); per
+        # layer the steps of both, the step past the pass, and in a sparse
+        # run that step over every chunk.
+        n_dec = 2 * (steps - 1) + 1 + (spec["sparse"] is not None)
+        want = _want(**({} if spec["rope"] is None else {"K1": 2 * layers}),
+                     **({} if key is None else {key: n_dec * layers}))
+        for rec in records:
+            _hold_counts(f"tp14 {name} rank {rec['rank']} {run}", rec["runs"][run]["counts"],
+                         want)
+            for k in totals:
+                totals[k] += rec["runs"][run]["counts"][k]
+        row = dict(tokens=mine["tokens"].tolist())
+        if key is not None and key != "K3":
+            row["shard_kernel"] = tp14_shard_kernel(key, cfg, xkv, params, mine, prompt, run,
+                                                    steps)
+            if key in results:
+                results[key]["tp14_shard"] = row["shard_kernel"]
+        reset_counts()
+        eng = tp_serve.engine(args, cfg, xkv, params, run, dev)
+        per_shard = spec["sparse"] is not None and spec["fd"] != "int4"
+        with per_shard_selection(world // args.data) if per_shard else contextlib.nullcontext():
+            row["same_factors_err"], row["tokens_shortfall"] = tp14_same_factors(
+                eng, mine, prompt, args.tail, steps)
+        if spec["sparse"] is not None:
+            exact = tp_serve.engine(args, cfg, xkv, params, run.rsplit(":", 1)[0], dev)
+            full, _ = exact.step(mine["joined"], mine["tokens"][:, -1:].to(dev),
+                                 prompt.shape[1] + steps - 1, {})
+            row["full_coverage_err"] = (full[:, -1].float().cpu()
+                                        - mine["full_logits"]).abs().max().item()
+            del exact
+        for k, n in read_counts().items():
+            totals[k] += n
+        del eng
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        row["ranks"] = [dict(rank=rec["rank"], coords=rec["coords"], heads=rec["heads"],
+                             peak_gb=rec.get("peak_gb"),
+                             prefill_s=rec["runs"][run]["prefill_s"],
+                             decode_ms_per_token=rec["runs"][run]["decode_ms_per_token"],
+                             launches={k: v for k, v in rec["runs"][run]["counts"].items() if v})
+                        for rec in records]
+        row["card"] = smi
+        log(f"tp14 {name} {run} " + json.dumps(row))
+        rows[run] = row
+        same_lim = (TOL_TP14_MLA if spec["rope"] is None
+                    else TOL_TP14_SHARD if per_shard else TOL_TP)
+        if max(row["same_factors_err"]) > same_lim:
+            fails.append(f"{name} {run}: same factors {row['same_factors_err']} "
+                         f"(limit {same_lim})")
+        if max(row["tokens_shortfall"]) > 2 * same_lim:
+            fails.append(f"{name} {run}: the ranks' tokens' shortfall {row['tokens_shortfall']} "
+                         f"(limit {2 * same_lim})")
+        if row.get("full_coverage_err", 0.0) > TOL_TP:
+            fails.append(f"{name} {run}: every chunk against one device's exact step "
+                         f"{row['full_coverage_err']} (limit {TOL_TP})")
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rows, fails
+
+
+def tp14_phase(results, ranks: Tp14Ranks) -> dict:
+    """Phase 14: each mesh's ranks waited for (``ranks`` launched them
+    beside earlier phases) and held against one device, (c) first, whose
+    ranks ran beside phase 11. Returns the launch counts (every rank's and
+    one device's)."""
+    import shutil
+
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.time()
+    totals = {key: 0 for key in COUNTERS}
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rows, fails = {}, []
+    try:
+        for name in ("c", "a", "b"):
+            ranks.wait(name)
+            t0 = time.time()
+            rows[name], failed = tp14_compare(name, ranks.dirs[name], TP14_MESHES[name][1],
+                                              totals, smi, results)
+            fails.extend(failed)
+            results[f"tp14_compare_{name}_s"] = time.time() - t0
+            log(f"tp14 {name}: launched {t_phase - ranks.launched[name]:.1f} s before the "
+                f"phase, waited for {ranks.waited[name]:.1f} s, the comparisons "
+                f"{results[f'tp14_compare_{name}_s']:.1f} s")
+        if fails:
+            raise AssertionError("tp14 against one device: " + "; ".join(fails))
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    shutil.rmtree(ranks.root)
+    results["tp14"] = dict(rows=rows, tol_same=TOL_TP, tol_mla=TOL_TP14_MLA,
+                           tol_shard=TOL_TP14_SHARD, tol_full=TOL_TP)
+    results["tp14_phase_s"] = time.time() - t_phase
+    log(f"tp14 phase: {results['tp14_phase_s']:.1f} s (gloo on one card, not tensor "
+        f"parallelism's speed; {smi})")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -4878,20 +5288,37 @@ def main() -> int:
     for key in totals:
         totals[key] += ckpt_counts[key]
     torch.cuda.empty_cache()
-    eval_counts = eval_path(results)
+    # Phase 14's ranks run beside phase 11's host-bound eval_acc and
+    # eval_perplexity ((c)) and beside phase 13 ((a), (b)); phase 12's
+    # timed steps run with the card to themselves.
+    ranks = Tp14Ranks()
+    try:
+        eval_counts = eval_path(
+            results, lambda: ranks.launch(("c",), "eval_acc and eval_perplexity"))
+        for key in totals:
+            totals[key] += eval_counts[key]
+        ranks.wait("c")
+        mark("eval")
+        torch.cuda.empty_cache()
+        train_counts = train_path(results)
+        for key in totals:
+            totals[key] += train_counts[key]
+        mark("train")
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks.launch(("a", "b"), "phase 13")
+        tp_counts = tp_phase(results)
+        for key in totals:
+            totals[key] += tp_counts[key]
+        mark("examples and tp")
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp14_counts = tp14_phase(results, ranks)
+    finally:
+        ranks.stop()
     for key in totals:
-        totals[key] += eval_counts[key]
-    mark("eval")
-    torch.cuda.empty_cache()
-    train_counts = train_path(results)
-    for key in totals:
-        totals[key] += train_counts[key]
-    mark("train")
-    torch.cuda.empty_cache()
-    tp_counts = tp_phase(results)
-    for key in totals:
-        totals[key] += tp_counts[key]
-    mark("examples and tp")
+        totals[key] += tp14_counts[key]
+    mark("tp14")
     log(f"speculative-and-staged phase: {sum(results['spec_phase_s'].values()):.1f} s")
     log(f"batch phase: {sum(results['batch_phase_s'].values()):.1f} s")
     log(f"batched-speculation and persistence phase: "

@@ -1,5 +1,8 @@
 """The port's compiled decode (``engine/graphs.py``) against its eager step
-and the JAX engine's compiled entry points, on the CPU.
+and the JAX engine's compiled entry points, on the CPU: decode steps,
+``generate``'s EOS rows and the MoE dispatch at decode
+(``tests/test_torch_compiled_score.py`` holds ``score``; the two files
+share their models through ``tests/_torch_compiled_common.py``).
 
 The decode state lives on the device: ``tail_len`` is a 0-d int32 tensor,
 and ``decode_step`` takes its position as an int or a 0-d tensor. On the
@@ -11,20 +14,14 @@ Models: the in-repo checkpoint ``results/production_model/`` (4 layers,
 head_dim 128, fp32), ``tiny_llama_config(model_type="mistral",
 sliding_window=10)`` and the tiny MLA + MoE config of
 ``tests/test_torch_deepseek.py`` (4 experts, top-2), weights and prompts
-from numpy seeds, exact SVD.
+from numpy seeds, exact SVD. Torch runs on one thread
+(``tests/_torch_threads.py``).
 
 Tolerances: a tensor position gives the int position's logits bit for bit
 (the same ops on the same values); the step runner gives the eager loop's
-tokens exactly. ``score`` against the JAX engine's: fp32 log-probs within
-1e-3, 3e-2 with int8 factors (the tolerances of
-``test_torch_engine.py::test_greedy_tokens_match_jax_fp32``: the two
-frameworks sum in another order, and an int8 factor entry near a rounding
-boundary quantises to the neighbouring integer); against the full-forward
-oracle 2e-4 (``tests/test_engine.py``'s). The dense MoE dispatch against
-the sorted one 1e-5 (fp32 sums in another order).
+tokens exactly; ``generate``'s EOS rows equal the JAX engine's. The dense
+MoE dispatch against the sorted one 1e-5 (fp32 sums in another order).
 """
-
-import os
 
 import jax
 import jax.numpy as jnp
@@ -32,102 +29,28 @@ import numpy as np
 import pytest
 import torch
 
-from xkv_tpu.configs import generate_consecutive_xkv_config as jax_xkv
-from xkv_tpu.engine import InferenceEngine as JaxEngine
-from xkv_tpu.models.ckpt import load_checkpoint as jax_load
-from xkv_tpu.models.config import ModelConfig as JaxModelConfig
-from xkv_tpu.models.config import tiny_llama_config as jax_tiny
-from xkv_tpu.models.llama import init_params as jax_init
-from xkv_tpu_torch.configs import generate_consecutive_xkv_config as torch_xkv
+from _torch_compiled_common import (  # noqa: F401  (the fixtures ckpt, mistral, moe)
+    F32,
+    JaxEngine,
+    ckpt,
+    eager_greedy,
+    jax_llama,
+    jax_xkv,
+    llama_kw,
+    mistral,
+    mla_kw,
+    moe,
+    port_llama,
+    port_mla,
+    tokens,
+    torch_xkv,
+)
+from _torch_threads import one_thread  # noqa: F401
 from xkv_tpu_torch.engine import InferenceEngine
 from xkv_tpu_torch.engine.graphs import DecodeGraph
 from xkv_tpu_torch.models import deepseek
 from xkv_tpu_torch.models.ckpt import params_from_numpy
-from xkv_tpu_torch.models.config import ModelConfig, tiny_llama_config
 from xkv_tpu_torch.ops.kernels import _build
-
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CKPT = os.path.join(ROOT, "results", "production_model")
-MOE_CFG = dict(vocab_size=128, hidden_size=64, intermediate_size=128, num_layers=4,
-               num_q_heads=4, num_kv_heads=4, head_dim=16, model_type="deepseek_v2",
-               q_lora_rank=None, kv_lora_rank=32, qk_rope_head_dim=8, qk_nope_head_dim=16,
-               v_head_dim=16, n_routed_experts=4, n_shared_experts=1, num_experts_per_tok=2,
-               moe_intermediate_size=32, first_k_dense_replace=1, routed_scaling_factor=1.0,
-               norm_topk_prob=True)
-F32 = dict(cache_dtype=torch.float32, device="cpu")
-
-
-@pytest.fixture(scope="module")
-def ckpt():
-    return jax_load(CKPT)
-
-
-@pytest.fixture(scope="module")
-def mistral():
-    jcfg = jax_tiny(model_type="mistral", sliding_window=10)
-    np_params = jax.tree.map(np.array, jax_init(jcfg, jax.random.PRNGKey(2),
-                                                  dtype=jnp.float32))
-    return jcfg, tiny_llama_config(model_type="mistral", sliding_window=10), np_params
-
-
-@pytest.fixture(scope="module")
-def moe():
-    return JaxModelConfig(**MOE_CFG), ModelConfig(**MOE_CFG), deepseek.numpy_params(
-        ModelConfig(**MOE_CFG), 1)
-
-
-def tokens(n, vocab, seed=0, b=1):
-    return np.random.default_rng(seed).integers(0, vocab, size=(b, n)).astype(np.int32)
-
-
-def llama_kw(cfg, rope, rank_k=48, rank_v=64, group_size=2):
-    return dict(group_size=group_size, rank_k=rank_k, rank_v=rank_v,
-                num_layers=cfg.num_layers, end_layer=cfg.num_layers - 1,
-                extra_kwargs={"svd_method": "exact", "rope_mode": rope})
-
-
-def mla_kw(cfg, rank_k=40):
-    return dict(group_size=2, rank_k=rank_k, rank_v=None, num_layers=cfg.num_layers,
-                end_layer=cfg.num_layers - 1, merge_value=False,
-                extra_kwargs={"svd_method": "exact"})
-
-
-def port_llama(ckpt, mode, rope, factor=torch.float32, tail_max=16, **kw):
-    np_params, cfg = ckpt
-    xkv = None if mode == "none" else torch_xkv(**llama_kw(cfg, rope))
-    return InferenceEngine(params_from_numpy(np_params, torch.float32, "cpu"), cfg, xkv,
-                           mode=mode, tail_max=tail_max, factor_dtype=factor, **F32, **kw)
-
-
-def jax_llama(ckpt, mode, rope, factor=jnp.float32, tail_max=16, **kw):
-    np_params, cfg = ckpt
-    xkv = None if mode == "none" else jax_xkv(**llama_kw(cfg, rope))
-    return JaxEngine(jax.tree.map(jnp.asarray, np_params), cfg, xkv, mode=mode,
-                     tail_max=tail_max, cache_dtype=jnp.float32, factor_dtype=factor,
-                     donate_cache=False, **kw)
-
-
-def port_mla(moe, factor=torch.float32, tail_max=12):
-    _, cfg, np_params = moe
-    return InferenceEngine(params_from_numpy(np_params, torch.float32, "cpu"), cfg,
-                           torch_xkv(**mla_kw(cfg)), mode="factored", tail_max=tail_max,
-                           factor_dtype=factor, **F32)
-
-
-def eager_greedy(eng, prompt, n_new):
-    """``generate``'s tokens from the eager step: prefill, then
-    ``decode_step`` + argmax, refactorising a full tail."""
-    logits, cache = eng.prefill(prompt)
-    tok = logits[:, -1].argmax(-1)[:, None]
-    out, pos = [tok], prompt.shape[1]
-    for _ in range(n_new - 1):
-        if cache.tail_count == cache.tail_max:
-            cache = eng.refactorize(cache)
-        logits, cache = eng.decode_step(cache, tok, pos)
-        tok = logits[:, -1].argmax(-1)[:, None]
-        out.append(tok)
-        pos += 1
-    return torch.cat(out, dim=1)
 
 
 # ------------------------------------------------------- tensor positions
@@ -257,45 +180,6 @@ def test_decode_graph_refuses_two_sources(ckpt):
         DecodeGraph(eng, cache, 8, 2, first_token=tok, teacher=tok)
     with pytest.raises(ValueError, match="exactly one"):
         DecodeGraph(eng, cache, 8, 2)
-
-
-# ---------------------------------------------------------------- score
-@pytest.mark.parametrize("mode,rope,factor", [("none", "pre", "fp32"),
-                                              ("factored", "pre", "fp32"),
-                                              ("factored", "post", "fp32"),
-                                              ("factored", "post", "int8")])
-def test_score_matches_jax(ckpt, mode, rope, factor):
-    """Teacher-forced log-probs of 6 steps, b = 2, against JAX
-    ``InferenceEngine.score``; then the cache's tail holds the 6 rows and a
-    second call scores on from there."""
-    j = jax_llama(ckpt, mode, rope, "int8" if factor == "int8" else jnp.float32)
-    t = port_llama(ckpt, mode, rope, "int8" if factor == "int8" else torch.float32)
-    prompt = tokens(40, ckpt[1].vocab_size, seed=11, b=2)
-    cont = tokens(9, ckpt[1].vocab_size, seed=12, b=2)
-    _, jc = j.prefill(prompt)
-    _, tc = t.prefill(prompt)
-    want, jc = j.score(jc, jnp.asarray(cont[:, :6]), jnp.asarray(40, jnp.int32))
-    got, tc = t.score(tc, cont[:, :6], 40)
-    tol = 3e-2 if factor == "int8" else 1e-3
-    assert got.shape == (2, 6, ckpt[1].vocab_size) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol, atol=tol)
-    assert int(tc.tail_len) == tc.tail_count == 6 == int(jc.tail_len)
-    want2, _ = j.score(jc, jnp.asarray(cont[:, 6:]), jnp.asarray(46, jnp.int32))
-    got2, tc = t.score(tc, cont[:, 6:], torch.tensor(46))
-    np.testing.assert_allclose(got2.numpy(), np.asarray(want2), rtol=tol, atol=tol)
-    assert tc.tail_count == 9
-
-
-def test_score_matches_full_forward_oracle(ckpt):
-    """Scoring in mode none equals the log-softmax of one prefill over the
-    whole sequence (``tests/test_engine.py``'s oracle, for the port)."""
-    eng = port_llama(ckpt, "none", "pre")
-    seq = tokens(24, ckpt[1].vocab_size, seed=13, b=2)
-    _, cache = eng.prefill(seq[:, :16])
-    got, _ = eng.score(cache, seq[:, 16:], 16)
-    full, _ = eng.prefill(seq)
-    want = torch.log_softmax(full[:, 16:], dim=-1)
-    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4, atol=2e-4)
 
 
 # ----------------------------------------------------------- eos_token_id

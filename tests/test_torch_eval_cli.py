@@ -32,6 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from _torch_threads import one_thread  # noqa: F401
 from xkv_tpu.cli import eval_acc as jax_acc
 from xkv_tpu.cli import eval_perplexity as jax_ppl
 from xkv_tpu.models.ckpt import save_checkpoint as jax_save_checkpoint

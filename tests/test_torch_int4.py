@@ -33,6 +33,7 @@ from tests.test_torch_engine import (
     prompt_tokens,
     xkv_pair,
 )
+from _torch_threads import one_thread  # noqa: F401
 from xkv_tpu.compress import quant as jq
 from xkv_tpu.engine import InferenceEngine as JaxEngine
 from xkv_tpu.engine.compression import int4_rank_hi as jax_int4_rank_hi

@@ -1,9 +1,9 @@
 """Tensor parallelism over kv heads (``xkv_tpu_torch/parallel/``, the
 engine's ``mesh``) on the CPU.
 
-Two gloo processes on 127.0.0.1 serve ``tiny_llama_config`` (4 layers in
-one xKV-4 group, 4 q / 2 kv heads, fp32 weights and cache) at a model axis
-of 2 beside the unsharded port engine in the same process (which
+Two gloo processes on 127.0.0.1 (``tests/_torch_ranks.py``) serve
+``tiny_llama_config`` (4 layers in one xKV-4 group, 4 q / 2 kv heads, fp32
+weights and cache) at a model axis of 2 beside the unsharded port engine in the same process (which
 ``tests/test_torch_engine.py`` holds against the JAX engine), in pre and
 post, bf16 and int8 factors, and in fp32 factors, fake and none, with
 ``tail_max`` 4 so that ``generate`` (10 tokens) folds its tail twice. No
@@ -29,11 +29,8 @@ Tolerances:
     runs, and the limits are twice those readings (``TOL_REFOLD``).
 """
 
+import dataclasses
 import json
-import os
-import socket
-import subprocess
-import sys
 import textwrap
 
 import jax
@@ -41,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_ranks import run_ranks
 from _torch_threads import one_thread  # noqa: F401
 from xkv_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from xkv_tpu.parallel.sharding import shard_params as jax_shard_params
@@ -49,12 +47,12 @@ from xkv_tpu.models.llama import init_params as jax_init
 from xkv_tpu_torch.configs import generate_consecutive_xkv_config
 from xkv_tpu_torch.engine import BatchedEngine, InferenceEngine
 from xkv_tpu_torch.models.ckpt import params_from_numpy
+from xkv_tpu_torch.models import deepseek, llama
 from xkv_tpu_torch.models.config import tiny_llama_config
 from xkv_tpu_torch.parallel import distributed
 from xkv_tpu_torch.parallel.mesh import Mesh, make_mesh, single_device_mesh
 from xkv_tpu_torch.parallel.sharding import param_pspecs, shard_params
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5
 # After a refold, against the unsharded engine's own cache, by factor
 # dtype (twice the readings: module docstring).
@@ -67,27 +65,17 @@ RUNS = {  # label: (mode, rope_mode, factor dtype)
 }
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 RANK = textwrap.dedent("""
-    import json, sys
-    import torch
     from xkv_tpu_torch.configs import generate_consecutive_xkv_config
     from xkv_tpu_torch.engine import InferenceEngine
     from xkv_tpu_torch.models.config import tiny_llama_config
     from xkv_tpu_torch.models.llama import init_params
-    from xkv_tpu_torch.parallel.distributed import allgather_obj, barrier, init_distributed
+    from xkv_tpu_torch.parallel.distributed import allgather_obj, init_distributed
     from xkv_tpu_torch.parallel.mesh import make_mesh
     from xkv_tpu_torch.parallel.sharding import gather_cache
 
-    port, rank, out, runs = sys.argv[1], int(sys.argv[2]), sys.argv[3], json.loads(sys.argv[4])
-    torch.set_num_threads(1)
-    dc = init_distributed("gloo", coordinator_address=f"127.0.0.1:{port}", num_processes=2,
-                          process_id=rank)
+    runs = json.loads(argv[0])
+    dc = init_distributed("gloo")  # the group run_ranks joined
     mesh = make_mesh(data=1, model=2)
     cfg = tiny_llama_config(num_layers=4, num_q_heads=4, num_kv_heads=2)
     params = init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32,
@@ -136,26 +124,13 @@ RANK = textwrap.dedent("""
             vt = ct.groups[0].k_vt if ct.groups else None
             row["shard_heads"] = [ct.tail_k.shape[2], None if vt is None else vt.shape[-1]]
         res[label] = row
-    barrier()
-    if rank == 0:
-        with open(out, "w") as f:
-            json.dump(res, f)
+    finish(res)
 """)
 
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
-    out = str(tmp_path_factory.mktemp("tp") / "rank0.json")
-    port = _free_port()
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    procs = [subprocess.Popen([sys.executable, "-c", RANK, str(port), str(r), out,
-                               json.dumps(RUNS)], cwd=ROOT, env=env, stderr=subprocess.PIPE,
-                              text=True) for r in range(2)]
-    for p in procs:
-        _, err = p.communicate(timeout=300)
-        assert p.returncode == 0, err
-    with open(out) as f:
-        return json.load(f)
+    return run_ranks(RANK, 2, str(tmp_path_factory.mktemp("tp")), json.dumps(RUNS))
 
 
 def test_distributed_over_two_gloo_processes(two_ranks):
@@ -200,14 +175,32 @@ def test_init_distributed_in_one_process(monkeypatch):
 
 
 def test_a_data_axis_is_refused(monkeypatch):
+    """A data axis is served (``tests/test_torch_parallel_data.py`` runs it
+    over gloo): ``make_mesh`` places rank r at (r // model, r % model) and
+    builds a model group per data row and a data group per model column,
+    every group on every rank in the same order. What a data axis refuses:
+    a batch that does not divide it, and a mesh with a data axis but no
+    groups (one made by hand)."""
     from xkv_tpu_torch.parallel import mesh as mesh_mod
 
-    monkeypatch.setattr(mesh_mod, "_world", lambda: (2, 1))  # a world of 2, rank 1
-    with pytest.raises(ValueError, match="ROADMAP item 17"):
-        make_mesh(data=2, model=1)
-    with pytest.raises(ValueError, match="ROADMAP item 17"):
-        make_mesh(model=1)  # data=None takes the 2 ranks
-    mesh = make_mesh(data=1, model=2)
+    made = []
+    monkeypatch.setattr(mesh_mod, "_world", lambda: (4, 3))  # a world of 4, rank 3
+    monkeypatch.setattr(mesh_mod.dist, "new_group", lambda ranks: made.append(ranks) or ranks)
+    mesh = make_mesh(data=2, model=2)
+    assert made == [[0, 1], [2, 3], [0, 2], [1, 3]]
+    assert (mesh.data_rank, mesh.model_rank, mesh.model_src) == (1, 1, 2)
+    assert (mesh.group, mesh.data_group) == ([2, 3], [1, 3])
+    made.clear()
+    mesh = make_mesh(model=1)  # data=None takes the 4 ranks
+    assert made == [[0], [1], [2], [3], [0, 1, 2, 3]]
+    assert (mesh.shape, mesh.data_rank, mesh.group) == ({"data": 4, "model": 1}, 3, None)
+    x = torch.arange(8).reshape(8, 1)
+    assert mesh.rows(x).tolist() == [[6], [7]]
+    with pytest.raises(ValueError, match="6 rows does not split over a data axis of 4"):
+        mesh.rows(x[:6])
+    with pytest.raises(ValueError, match="needs its groups"):
+        Mesh(data=2, model=2, rank=0).group
+    mesh = Mesh(data=1, model=2, rank=1)  # one data row: the default group
     assert (mesh.model_rank, mesh.data_rank, mesh.shape) == (1, 0, {"data": 1, "model": 2})
 
 
@@ -241,33 +234,52 @@ def test_shards_match_jax_shard_params():
 
 
 MESH2 = Mesh(data=1, model=2, rank=0)
+MLA_CFG = tiny_llama_config(num_layers=4, model_type="deepseek_v2", kv_lora_rank=16,
+                            qk_rope_head_dim=8, qk_nope_head_dim=16, v_head_dim=16)
 
 
 def _engine(**kw):
-    cfg = tiny_llama_config(num_layers=4)
+    cfg = kw.pop("cfg", tiny_llama_config(num_layers=4))
     xkv = generate_consecutive_xkv_config(num_layers=4, end_layer=-1, group_size=2,
                                           rank_k=16, rank_v=16,
                                           extra_kwargs=kw.pop("extra", None))
-    return InferenceEngine({}, kw.pop("cfg", cfg), xkv=kw.pop("xkv", xkv), device="cpu",
-                           mesh=MESH2, **kw)
+    model = deepseek if cfg.model_type == "deepseek_v2" else llama
+    params = model.init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
+    return InferenceEngine(params, cfg, xkv=kw.pop("xkv", xkv), device="cpu", mesh=MESH2, **kw)
 
 
-@pytest.mark.parametrize("kw,msg", [
-    (dict(sparse_topk=2, sparse_block=8), "sparse_topk"),
-    (dict(factor_dtype="int4", extra={"rope_mode": "post"}), "int4"),
-    (dict(staged_prefill=True, prefill_logits="last"), "staged_prefill"),
+# (engine options, the refusal's message, or None where the engine serves it)
+SCOPE = [
+    (dict(sparse_topk=2, sparse_block=8), None),
+    (dict(factor_dtype="int4", extra={"rope_mode": "post"}), None),
+    (dict(staged_prefill=True, prefill_logits="last"), "staged_prefill is single-device"),
+    (dict(sparse_topk=2, sparse_topk_max=4, sparse_block=8), "sparse_topk_max is single-device"),
     (dict(xkv=generate_consecutive_xkv_config(
         layer_merge_impl="slerp", num_layers=4, end_layer=-1, group_size=2, rank_k=None,
         rank_v=None)), "slerp"),
     (dict(sequence_parallel=True), "sequence_parallel"),
-    (dict(cfg=tiny_llama_config(num_layers=4, model_type="deepseek_v2", kv_lora_rank=16,
-                                qk_rope_head_dim=8), xkv=None, mode="none"), "MLA"),
+    (dict(cfg=MLA_CFG, xkv=None, mode="none"), None),
     (dict(cfg=tiny_llama_config(num_layers=4, num_q_heads=3, num_kv_heads=1)), "split"),
-], ids=["sparse", "int4", "staged", "slerp", "sequence_parallel", "mla", "heads"])
+    (dict(cfg=dataclasses.replace(MLA_CFG, num_q_heads=3), xkv=None, mode="none"), "3 q heads"),
+]
+
+
+@pytest.mark.parametrize("kw,msg", SCOPE, ids=["sparse", "int4", "staged", "sparse_topk_max",
+                                               "slerp", "sequence_parallel", "mla", "heads",
+                                               "mla_heads"])
 def test_out_of_scope_tp_is_refused(kw, msg):
+    """Under a model axis of 2: sparse top-k, int4 factors and MLA are
+    served (a rank's share of the heads and experts); staged prefill and
+    ``sparse_topk_max`` are refused with the JAX engine's reasons, the
+    slerp scheme and sequence parallelism naming ROADMAP item 17, heads
+    that do not split by the count."""
+    if msg is None:
+        eng = _engine(**kw)
+        assert eng.mesh is MESH2 and eng.shard_cfg.num_q_heads == eng.cfg.num_q_heads // 2
+        return
     with pytest.raises(ValueError, match=msg) as err:
         _engine(**kw)
-    if msg != "split":
+    if msg in ("slerp", "sequence_parallel"):
         assert "ROADMAP item 17" in str(err.value)
 
 

@@ -34,6 +34,7 @@ from tests.test_torch_engine import (
     prompt_tokens,
     xkv_pair,
 )
+from _torch_threads import one_thread  # noqa: F401
 from xkv_tpu.engine import InferenceEngine as JaxEngine
 from xkv_tpu.engine.compression import chunk_bounds as jax_chunk_bounds
 from xkv_tpu.models.ckpt import load_checkpoint as jax_load

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from xkv_tpu.configs import generate_consecutive_xkv_config as jax_xkv
 from xkv_tpu.engine import InferenceEngine as JaxEngine
 from xkv_tpu.models.ckpt import load_checkpoint as jax_load

@@ -21,13 +21,16 @@ allowed), the V slot the rotated RoPE key, never merged. Factored latents
 also store ``k_rnorm``, the per-row inverse RMS of the latent that decode
 contracts against (``latent_rnorm``).
 
-Under a ``mesh`` (tensor parallelism over kv heads; the svd scheme, bf16 or
-int8 factors) every rank holds its kv heads' K/V and ``cfg`` is its share
-of the heads. A group's SVD mixes every head of the group, so the group's
-whole matrix is joined from every rank's columns (``Mesh.gather``),
-rank 0 computes the factors (at a build and at each refold) and broadcasts
-them, and each rank keeps its shard (``parallel/sharding.py``): the same
-``us`` on every rank by construction.
+Under a ``mesh`` (the svd scheme; any factor dtype, chunk bounds
+included) every rank holds its data rows and, for the Llama family, its
+kv heads' K/V, and ``cfg`` is its share of the heads. A group's SVD mixes
+every head of the group, so the group's whole matrix is joined from the
+model group's columns (``Mesh.gather``), the model group's first rank
+computes the factors (at a build and at each refold) and broadcasts them,
+and each rank keeps its shard (``parallel/sharding.py``): the same ``us``
+on every rank by construction. The MLA latent has no heads: every rank of
+a model group holds the same latent, and the first rank's factors are
+broadcast and kept whole.
 """
 
 from __future__ import annotations
@@ -92,17 +95,20 @@ def _whole_group(xs: List[torch.Tensor], mesh) -> List[torch.Tensor]:
                                hl * mesh.model)
 
 
-def _on_rank0(mesh, compute: Callable[[], Dict[str, torch.Tensor]],
-              device: torch.device) -> Dict[str, torch.Tensor]:
-    """``compute()``'s tensors, run on rank 0 and broadcast to every rank."""
+def _on_first_rank(mesh, compute: Callable[[], Dict[str, torch.Tensor]],
+                   device: torch.device) -> Dict[str, torch.Tensor]:
+    """``compute()``'s tensors, run on the model group's first rank and
+    broadcast to the group."""
     return mesh.broadcast_tensors(compute() if mesh.model_rank == 0 else None, device)
 
 
-def _compress_group_tp(ks, vs, layers, mesh, compress):
-    """A group under a mesh: the whole K/V joined from every rank's heads,
-    ``compress(ks, vs)`` -> (GroupFactors, dense_k, dense_v) on rank 0,
+def _compress_group_tp(ks, vs, layers, mesh, compress, heads: bool):
+    """A group under a mesh: the whole K/V joined from the model group's
+    heads (``heads``; the MLA latent is whole on every rank), ``compress(ks,
+    vs)`` -> (GroupFactors, dense_k, dense_v) on the group's first rank,
     broadcast, and this rank's shard of it."""
-    ks, vs = _whole_group(ks, mesh), _whole_group(vs, mesh)
+    if heads:
+        ks, vs = _whole_group(ks, mesh), _whole_group(vs, mesh)
 
     def compute():
         gf, dk, dv = compress(ks, vs)
@@ -111,11 +117,13 @@ def _compress_group_tp(ks, vs, layers, mesh, compress):
         flat.update({f"dv.{l}": x for l, x in dv.items()})
         return flat
 
-    flat = _on_rank0(mesh, compute, ks[0].device)
+    flat = _on_first_rank(mesh, compute, ks[0].device)
     gf = GroupFactors(**{k[3:]: v for k, v in flat.items() if k.startswith("gf.")})
-    dense = {side: {int(k[3:]): shard_heads(v, mesh) for k, v in flat.items()
+    dense = {side: {int(k[3:]): shard_heads(v, mesh) if heads else v for k, v in flat.items()
                     if k.startswith(side)} for side in ("dk", "dv")}
-    return shard_group_factors(gf, len(layers), mesh), dense["dk"], dense["dv"]
+    if heads:
+        gf = shard_group_factors(gf, len(layers), mesh)
+    return gf, dense["dk"], dense["dv"]
 
 
 def latent_rnorm(k_rec_mat: torch.Tensor, g: int) -> torch.Tensor:
@@ -460,7 +468,7 @@ def build_cache_by_span(
 
                 groups[group_at[l]], dk, dv = (
                     compress(ks, vs) if mesh is None
-                    else _compress_group_tp(ks, vs, grp.layers, mesh, compress))
+                    else _compress_group_tp(ks, vs, grp.layers, mesh, compress, rope_dense_keys))
             del ks, vs
             dense_k.update(dk)
             dense_v.update(dv)
@@ -499,7 +507,7 @@ def build_uncompressed_cache(
                     tail_len=empty_tail_len(tail_k.device))
 
 
-def _refolded_fields(gf: GroupFactors, grp, cfg: ModelConfig, k_ext: Optional[torch.Tensor],
+def _refolded_fields(gf: GroupFactors, grp, hkv: int, k_ext: Optional[torch.Tensor],
                      v_ext: Optional[torch.Tensor], store_k, store_v, svd_kw: dict,
                      sparse_block: Optional[int], cos_f, sin_f) -> dict:
     """The stored fields of a group refactorised over its K and V matrices
@@ -507,7 +515,7 @@ def _refolded_fields(gf: GroupFactors, grp, cfg: ModelConfig, k_ext: Optional[to
     for a side the group does not factor): stored as ``store_k`` /
     ``store_v``, mixed factors keeping their int8 / int4 rank split; the
     MLA ``k_rnorm`` from the new stored factors; chunk bounds over
-    ``k_ext`` in ``sparse_block``-row chunks (the JAX package derives the
+    ``k_ext`` (``hkv`` kv heads a layer) in ``sparse_block``-row chunks (the JAX package derives the
     width from the stored chunk count, ceil(rows / nc), which differs from
     sparse_block once rows are not a multiple of it)."""
     kw = {}
@@ -517,8 +525,7 @@ def _refolded_fields(gf: GroupFactors, grp, cfg: ModelConfig, k_ext: Optional[to
         if gf.k_rnorm is not None:
             kw["k_rnorm"] = latent_rnorm(_k_matrix(GroupFactors(**kw)), len(grp.layers))
         if gf.k_cmin is not None:
-            cmin, cmax = chunk_bounds(k_ext, cos_f, sin_f, sparse_block,
-                                      len(grp.layers) * cfg.num_kv_heads)
+            cmin, cmax = chunk_bounds(k_ext, cos_f, sin_f, sparse_block, len(grp.layers) * hkv)
             kw["k_cmin"], kw["k_cmax"] = cmin.to(gf.k_cmin.dtype), cmax.to(gf.k_cmax.dtype)
     if v_ext is not None:
         kw.update(_store_v(factorize(v_ext, grp.rank_v, **svd_kw),
@@ -536,8 +543,9 @@ def refactorize_cache(
 ) -> XKVCache:
     """Fold a FULL decode tail back into the compressed cache: re-run the
     merge over [reconstructed prefill ; tail] per group. Under a ``mesh``
-    each rank joins its columns of the extended matrices, rank 0 factorises
-    and broadcasts, each rank keeps its shard.
+    the model group joins its columns of the extended matrices (MLA: they
+    are whole on every rank), its first rank factorises and broadcasts,
+    each rank keeps its shard.
 
     Caller contract: the tail is full (``tail_count == tail_max``). The tail stores post-RoPE
     keys; in "pre" mode they are un-rotated (RoPE by -theta is exact) before
@@ -589,17 +597,20 @@ def refactorize_cache(
                 [cache.tail_v[l].to(torch.float32) for l in layers])
             v_ext = torch.cat([_v_matrix(gf), tail_v], dim=1)
         if mesh is None:
-            kw = _refolded_fields(gf, grp, cfg, k_ext, v_ext, store_dtype, store_dtype, svd_kw,
-                                  sparse_block, cos_f, sin_f)
+            kw = _refolded_fields(gf, grp, cfg.num_kv_heads, k_ext, v_ext, store_dtype,
+                                  store_dtype, svd_kw, sparse_block, cos_f, sin_f)
         else:
             g = len(layers)
-            k_ext = None if k_ext is None else mesh.gather(k_ext, blocks=g)
-            v_ext = None if v_ext is None else mesh.gather(v_ext, blocks=g)
-            kw = _on_rank0(mesh, lambda: _refolded_fields(
-                gf, grp, cfg, k_ext, v_ext, store_dtype, store_dtype, svd_kw, sparse_block,
-                cos_f, sin_f), device)
-            kw = {k: v for k, v in vars(shard_group_factors(GroupFactors(**kw), g, mesh)).items()
-                  if v is not None}
+            if rope_keys:
+                k_ext = None if k_ext is None else mesh.gather(k_ext, blocks=g)
+                v_ext = None if v_ext is None else mesh.gather(v_ext, blocks=g)
+            kw = _on_first_rank(mesh, lambda: _refolded_fields(
+                gf, grp, cfg.num_kv_heads * mesh.model, k_ext, v_ext, store_dtype, store_dtype,
+                svd_kw, sparse_block, cos_f, sin_f), device)
+            if rope_keys:
+                kw = {k: v for k, v in vars(shard_group_factors(GroupFactors(**kw), g,
+                                                                mesh)).items()
+                      if v is not None}
         for side, tail in (("slerp_k", cache.tail_k), ("slerp_v", cache.tail_v)):
             sc = getattr(gf, side)
             if sc is not None:
@@ -733,8 +744,8 @@ def refactorize_slot_cache(
         # The slot's own storage dtypes (int8 scales mark quantised sides).
         store_k = "int8" if gf.k_scale is not None else getattr(gf.k_us, "dtype", None)
         store_v = "int8" if gf.v_scale is not None else getattr(gf.v_us, "dtype", None)
-        for name, src in _refolded_fields(gf, grp, cfg, k_ext, v_ext, store_k, store_v, svd_kw,
-                                          sparse_block, cos_f, sin_f).items():
+        for name, src in _refolded_fields(gf, grp, cfg.num_kv_heads, k_ext, v_ext, store_k,
+                                          store_v, svd_kw, sparse_block, cos_f, sin_f).items():
             put_slot(getattr(gf, name), slot, src)
         for side, tail in (("slerp_k", cache.tail_k), ("slerp_v", cache.tail_v)):
             sc = getattr(one, side)

@@ -38,22 +38,31 @@ near-maximal chunks (``sparse_adaptive_band``), in post mode.
 ``factor_dtype="int4"``: mixed int8 + packed int4 factors, post mode only
 (MLA: any mode, its latent carries no RoPE). MLA takes no sparse decode.
 
-``mesh`` (``parallel.mesh.make_mesh(data=1, model=n)``, one process a rank
-of the ``torch.distributed`` group): tensor parallelism over kv heads for
-the Llama family, the JAX engine's ``mesh`` in this scope: modes
-factored, fake and none, rope modes pre (K3) and post (K2), bf16 and int8
-factors. The engine shards the weights it is given
-(``parallel.sharding.shard_params``); each rank runs K1 on its heads in
-prefill and K2 / K3 on its kv heads' cache shard in decode, and the ``wo``
-/ ``w_down`` products and the logits are joined over the model axis
-(``models/llama.py``); rank 0 computes each group's factors at a build and
-a refold and broadcasts them (``engine/compression.py``). Decode under a
-mesh runs eagerly: the collectives of the gloo backend cannot be captured
-in a CUDA graph, so ``generate`` runs its steps one by one and
-``DecodeGraph`` / ``SpecRounds`` (``score``, speculation) refuse a mesh.
-Sparse top-k, int4 factors, MLA, staged prefill, SLERP and sequence
-parallelism are refused under a mesh (ROADMAP item 17), and the cache a
-rank holds is its shard (``engine.shard_cfg`` is its share of the heads).
+``mesh`` (``parallel.mesh.make_mesh(data=d, model=m)``, one process a
+rank of the ``torch.distributed`` group): the JAX engine's ``mesh``. On
+the model axis, tensor parallelism over kv heads for the Llama family
+(modes factored, fake and none; rope modes pre and post; bf16, int8 and
+mixed int8+int4 factors; sparse top-k) and over q heads for DeepSeek-V2
+MLA, with expert parallelism for its MoE layers. The engine shards the
+weights it is given (``parallel.sharding.shard_params``); each rank runs
+K1 on its heads in prefill and K2-K8 on its heads' cache shard in decode
+(sparse top-k selecting chunks per shard, sparse x int4 over every head,
+as the JAX pallas path does), and the row-split products and the logits
+are joined over the model axis (``models/llama.py``,
+``models/deepseek.py``); the model group's first rank computes each
+group's factors at a build and a refold and broadcasts them
+(``engine/compression.py``). On the data axis each data row of ranks
+serves its block of the batch rows (the batch must divide the axis, as
+the JAX engine's token sharding needs): ``prefill`` and ``decode_step``
+take and return every row, ``generate`` returns every row on every rank,
+and the cache a rank holds is its shard (its rows; ``engine.shard_cfg``
+is its share of the heads). Decode under a mesh runs eagerly: the
+collectives of the gloo backend cannot be captured in a CUDA graph, so
+``generate`` runs its steps one by one and ``DecodeGraph`` /
+``SpecRounds`` (``score``, speculation) refuse a mesh. Refused under a
+mesh: ``staged_prefill`` and ``sparse_topk_max`` (the JAX engine refuses
+them too), and, not ported yet (ROADMAP item 17), the slerp scheme,
+``sequence_parallel`` and ``BatchedEngine(mesh=...)``.
 """
 
 from __future__ import annotations
@@ -80,28 +89,28 @@ from xkv_tpu_torch.parallel.sharding import shard_params
 TP_ITEM = "not ported under a mesh yet (ROADMAP item 17)"
 
 
-def check_tp(cfg: ModelConfig, xkv: Optional[XKVConfig], mode: str, mesh, factor_dtype,
-             sparse_topk, staged_prefill: bool, sequence_parallel: bool) -> None:
-    """Refuse what tensor parallelism over kv heads does not serve yet, each
-    with a message naming ROADMAP item 17."""
+def check_tp(cfg: ModelConfig, xkv: Optional[XKVConfig], mode: str, mesh, sparse_topk_max,
+             staged_prefill: bool, sequence_parallel: bool) -> None:
+    """Refuse what the engine does not serve under a mesh: the JAX engine's
+    own refusals with its reasons, the rest naming ROADMAP item 17."""
     if sequence_parallel:
         raise ValueError("sequence_parallel: ring-attention prefill over a mesh's data axis "
                          "is not ported yet (ROADMAP item 17)")
-    if mesh is None or mesh.model == 1:
+    if mesh is None or mesh.model * mesh.data == 1:
         return
-    if cfg.model_type == "deepseek_v2":
-        raise ValueError(f"DeepSeek MLA + MoE is {TP_ITEM}: serve it on one device")
-    if sparse_topk is not None:
-        raise ValueError(f"sparse_topk is {TP_ITEM}")
-    if factor_dtype == "int4":
-        raise ValueError(f"factor_dtype='int4' is {TP_ITEM}")
     if staged_prefill:
-        raise ValueError(f"staged_prefill is {TP_ITEM}")
+        raise ValueError("staged_prefill is single-device (the sharded prefill paths stream "
+                         "through GSPMD instead)")
+    if sparse_topk_max is not None:
+        raise ValueError("sparse_topk_max is single-device (TP sparse selection is per-shard "
+                         "with a static budget)")
     if xkv is not None and mode != "none" and xkv.layer_merge_impl == "slerp":
         raise ValueError(f"the slerp scheme (MiniCache) is {TP_ITEM}")
-    if cfg.num_kv_heads % mesh.model or cfg.num_q_heads % mesh.model:
-        raise ValueError(f"{cfg.num_q_heads} q / {cfg.num_kv_heads} kv heads do not split "
-                         f"over a model axis of {mesh.model}")
+    mla = cfg.model_type == "deepseek_v2"
+    if cfg.num_q_heads % mesh.model or (not mla and cfg.num_kv_heads % mesh.model):
+        heads = (f"{cfg.num_q_heads} q heads" if mla
+                 else f"{cfg.num_q_heads} q / {cfg.num_kv_heads} kv heads")
+        raise ValueError(f"{heads} do not split over a model axis of {mesh.model}")
 
 
 def check_mla_slerp(xkv: Optional[XKVConfig]) -> None:
@@ -192,12 +201,11 @@ class InferenceEngine:
                         f"{grp.layers}")
         if not mla and cfg.model_type not in ("llama", "mistral", "qwen2"):
             raise NotImplementedError(f"model_type {cfg.model_type!r}")
-        check_tp(cfg, xkv, mode, mesh, factor_dtype, sparse_topk, staged_prefill,
-                 sequence_parallel)
+        check_tp(cfg, xkv, mode, mesh, sparse_topk_max, staged_prefill, sequence_parallel)
         self._mla = mla
         self.device = torch.device(device)
-        # Tensor parallelism: this rank's weights, its share of the heads.
-        self.mesh = mesh if mesh is not None and mesh.model > 1 else None
+        # Under a mesh: this rank's weights, its share of the heads.
+        self.mesh = mesh if mesh is not None and mesh.model * mesh.data > 1 else None
         self.params = params if self.mesh is None else shard_params(params, self.mesh)
         self.shard_cfg = cfg if self.mesh is None else dataclasses.replace(
             cfg, num_q_heads=cfg.num_q_heads // mesh.model,
@@ -240,10 +248,13 @@ class InferenceEngine:
     @torch.no_grad()
     def prefill(self, tokens) -> Tuple[torch.Tensor, XKVCache]:
         """tokens (b, s) -> (logits (b, s, V) fp32, or (b, 1, V) with
-        prefill_logits="last"; cache)."""
+        prefill_logits="last"; cache). Under a data axis the cache holds
+        this rank's rows, the logits every row."""
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
         if self.staged_prefill:
             return self._prefill_staged(tokens)
+        if self.mesh is not None:
+            tokens = self.mesh.rows(tokens)
         s = tokens.shape[1]
         model = deepseek if self._mla else llama
         logits, kvs = model.prefill(
@@ -260,6 +271,8 @@ class InferenceEngine:
                 kvs, self.xkv, self.shard_cfg, cos_p, sin_p, self.tail_max,
                 fake=self.mode == "fake", factor_dtype=self.factor_dtype,
                 cache_dtype=self.cache_dtype, sparse_block=self._bound_block, **self._mesh_kw)
+        if self.mesh is not None:
+            logits = self.mesh.gather_rows(logits)
         return logits, cache
 
     def _prefill_staged(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, XKVCache]:
@@ -298,8 +311,8 @@ class InferenceEngine:
         # The uncompressed cache has no groups, whatever merge plan is set.
         xkv = None if self.mode == "none" else self.xkv
         if self._mla:
-            return deepseek.decode_step(self.params, self.cfg, xkv, cache, tokens, pos,
-                                        **step_kw)
+            return deepseek.decode_step(self.params, self.shard_cfg, xkv, cache, tokens, pos,
+                                        **step_kw, **self._mesh_kw)
         return llama.decode_step(
             self.params, self.shard_cfg, xkv, cache, tokens, pos,
             self._prefill_cos_sin(cache.prefill_len), **step_kw, **self._mesh_kw)
@@ -308,9 +321,14 @@ class InferenceEngine:
     def decode_step(self, cache: XKVCache, tokens,
                     pos: Union[int, torch.Tensor]) -> Tuple[torch.Tensor, XKVCache]:
         """One eager decode step at position ``pos`` (an int or a 0-d
-        tensor on the device); the cache's tail is updated in place."""
+        tensor on the device); the cache's tail is updated in place. Under
+        a data axis ``tokens`` and the logits hold every row, the cache
+        this rank's."""
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
-        return self.step(cache, tokens, pos, self.step_kw)
+        if self.mesh is None:
+            return self.step(cache, tokens, pos, self.step_kw)
+        logits, cache = self.step(cache, self.mesh.rows(tokens), pos, self.step_kw)
+        return self.mesh.gather_rows(logits), cache
 
     @torch.no_grad()
     def refactorize(self, cache: XKVCache) -> XKVCache:
@@ -372,14 +390,16 @@ class InferenceEngine:
 
     def _eager_segment(self, cache: XKVCache, tok: torch.Tensor, pos: int,
                        n: int) -> Tuple[torch.Tensor, XKVCache]:
-        """``n`` greedy steps from ``tok`` at ``pos``, one eager step after
-        another (decode under a mesh). Returns (tokens (b, n), cache)."""
+        """``n`` greedy steps from ``tok`` (b, 1) at ``pos``, one eager step
+        after another (decode under a mesh, each data rank over its rows).
+        Returns (tokens (b, n), every row, cache)."""
+        tok = self.mesh.rows(tok)
         out = []
         for i in range(n):
             logits, cache = self.step(cache, tok, pos + i, self.step_kw)
             tok = logits[:, -1].argmax(dim=-1)[:, None]
             out.append(tok)
-        return torch.cat(out, dim=1), cache
+        return self.mesh.gather_rows(torch.cat(out, dim=1)), cache
 
     @torch.no_grad()
     def score(self, cache: XKVCache, tokens,

@@ -175,3 +175,25 @@ def llama32_1b_config() -> ModelConfig:
         max_position_embeddings=131072,
         model_type="llama",
     )
+
+
+# DeepSeek-V2-Lite, the values of its published config.json
+# (huggingface.co/deepseek-ai/DeepSeek-V2-Lite), the fields the model reads.
+DEEPSEEK_V2_LITE = {
+    "model_type": "deepseek_v2", "vocab_size": 102400, "hidden_size": 2048,
+    "intermediate_size": 10944, "moe_intermediate_size": 1408, "num_hidden_layers": 27,
+    "num_attention_heads": 16, "num_key_value_heads": 16, "n_shared_experts": 2,
+    "n_routed_experts": 64, "num_experts_per_tok": 6, "routed_scaling_factor": 1.0,
+    "first_k_dense_replace": 1, "norm_topk_prob": False, "kv_lora_rank": 512,
+    "q_lora_rank": None, "qk_rope_head_dim": 64, "qk_nope_head_dim": 128,
+    "v_head_dim": 128, "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
+    "max_position_embeddings": 163840, "tie_word_embeddings": False,
+}
+
+
+def deepseek_v2_lite_config() -> ModelConfig:
+    """DeepSeek-V2-Lite (MLA + MoE: 16 heads, latent 512, 64 routed experts
+    of which 6 a token, 2 shared, the first layer dense). Its rope_scaling
+    (yarn, with the mscale softmax) is left out: neither the JAX package
+    nor the port has yarn RoPE, so this runs plain RoPE at theta 10000."""
+    return ModelConfig.from_hf_config(DEEPSEEK_V2_LITE)

@@ -23,6 +23,18 @@ over the prefill segment, and the dense tail's latent-space partial is
 merged by log-sum-exp. Dense latents (mode none, fake layers, ungrouped
 layers, and factored latents saved without ``k_rnorm``, rebuilt first)
 take the joint softmax over prefill and tail in plain torch.
+
+Under a ``mesh`` (the engine's; ``cfg`` the rank's share of the q heads)
+each rank holds its q heads' columns of ``q_proj`` / ``q_b_proj`` /
+``kv_b_proj`` and rows of ``o_proj`` (summed over the model axis in fp32,
+``llama.row_product``); the latent, its factors and ``k_pe`` are whole on
+every rank, and K7 / K8 run on the rank's q heads. The MoE layers run
+expert parallelism where the routed experts divide the model axis (JAX
+``moe_expert_parallel``): every rank routes every token, computes its own
+experts' share with the others' combine weights zero, and the fp32
+partials are summed over the model axis; otherwise every rank runs every
+expert (JAX ``_mlp``). The shared experts and the dense layers' FFN take
+the Megatron split.
 """
 
 from __future__ import annotations
@@ -39,7 +51,7 @@ from xkv_tpu_torch.compress.quant import QuantizedKFactors, dequantize_k
 from xkv_tpu_torch.configs import XKVConfig
 from xkv_tpu_torch.models.config import ModelConfig
 from xkv_tpu_torch.models.llama import mlp as _ffn
-from xkv_tpu_torch.models.llama import position_tensor, rms_norm, unembed
+from xkv_tpu_torch.models.llama import position_tensor, rms_norm, row_product, unembed
 from xkv_tpu_torch.ops.attention import (
     NEG_INF,
     PartialAttention,
@@ -123,7 +135,8 @@ def numpy_params(cfg: ModelConfig, seed: int, scale: float = 0.02) -> Params:
 
 
 # ----------------------------------------------------------------- blocks
-def _moe(p: Params, cfg: ModelConfig, x: torch.Tensor, decode: bool = False) -> torch.Tensor:
+def _moe(p: Params, cfg: ModelConfig, x: torch.Tensor, decode: bool = False,
+         mesh=None) -> torch.Tensor:
     """Softmax top-k MoE (DeepSeek-V2 routing): the function of the JAX
     package's dense one-hot dispatch, with each token sent to its own
     ``num_experts_per_tok`` experts only where that reads fewer weights.
@@ -131,17 +144,10 @@ def _moe(p: Params, cfg: ModelConfig, x: torch.Tensor, decode: bool = False) -> 
     Routing in fp32, ties to the lower expert as ``jax.lax.top_k``; then
     ``norm_topk_prob`` and ``routed_scaling_factor``; the combine weights
     are cast to the activation dtype; the shared experts are added last.
-    With few (token, expert) pairs, at most one per expert (a decode step),
-    the selected experts' weights are gathered by index and applied as
-    batched products: no host sync, and at most the layer's own expert
-    weights are copied. Otherwise the pairs are sorted by expert and each
-    expert runs one product over its rows; that needs the per-expert row
-    counts on the host, one sync per layer (prefill). A ``decode`` step
-    with more pairs than experts takes the JAX package's dense form
-    instead: every expert over every token, weighted by the one-hot
-    combine. It makes no host sync, so a CUDA graph can capture the step,
-    and by then the sorted path would read nearly every expert's weights
-    anyway.
+    The routed sum is ``_routed_experts``'s; under a ``mesh`` whose ranks
+    each hold a block of the experts (expert parallelism) it runs over the
+    rank's experts only and the fp32 partials are summed over the model
+    axis.
     """
     b, s, d = x.shape
     n, k = b * s, cfg.num_experts_per_tok
@@ -153,40 +159,79 @@ def _moe(p: Params, cfg: ModelConfig, x: torch.Tensor, decode: bool = False) -> 
         topv = topv / topv.sum(dim=-1, keepdim=True)
     topv = (topv * cfg.routed_scaling_factor).to(x.dtype)
     ex = p["experts"]
-    flat = ids.reshape(-1)
-    if decode and n * k > cfg.n_routed_experts:
-        combine = torch.zeros((n, cfg.n_routed_experts), dtype=x.dtype, device=x.device)
-        combine.scatter_(1, ids, topv)
-        hid = F.silu(xf @ ex["w_gate"]) * (xf @ ex["w_up"])  # (E, n, inter)
-        routed = torch.einsum("end,ne->nd", (hid @ ex["w_down"]).to(torch.float32),
-                              combine.to(torch.float32))
+    n_here = ex["w_gate"].shape[0]
+    if n_here == cfg.n_routed_experts:
+        out = _routed_experts(ex, xf, ids, topv, decode).to(x.dtype)
     else:
-        if n * k <= cfg.n_routed_experts:
-            xr = xf.repeat_interleave(k, dim=0)[:, None, :]  # (n*k, 1, d)
-            hid = F.silu(torch.bmm(xr, ex["w_gate"][flat])) * torch.bmm(xr, ex["w_up"][flat])
-            y = torch.bmm(hid, ex["w_down"][flat])[:, 0]  # (n*k, d), (token, slot) order
-        else:
-            order = torch.argsort(flat, stable=True)
-            xs = xf[order // k]
-            ys = torch.empty_like(xs)
-            start = 0
-            for e, c in enumerate(torch.bincount(flat, minlength=cfg.n_routed_experts).tolist()):
-                if c:
-                    ys[start:start + c] = _ffn({name: w[e] for name, w in ex.items()},
-                                               xs[start:start + c])
-                    start += c
-            y = torch.empty_like(ys).index_copy_(0, order, ys)
-        routed = (y.reshape(n, k, d).to(torch.float32)
-                  * topv.to(torch.float32)[..., None]).sum(dim=1)
-    out = routed.to(x.dtype).reshape(b, s, d)
+        # Expert parallelism: this rank's experts are [e0, e0 + n_here);
+        # the other ranks' pairs are marked -1.
+        e0 = mesh.model_rank * n_here
+        mine = (ids >= e0) & (ids < e0 + n_here)
+        routed = _routed_experts(ex, xf, torch.where(mine, ids - e0, -1), topv, decode,
+                                 pairs=mine.reshape(-1).nonzero()[:, 0])
+        out = mesh.all_reduce(routed).to(x.dtype)
+    out = out.reshape(b, s, d)
     if "shared" in p:
-        out = out + _ffn(p["shared"], x)
+        out = out + _ffn(p["shared"], x, mesh)
     return out
 
 
-def _mlp(p: Params, cfg: ModelConfig, x: torch.Tensor, decode: bool = False) -> torch.Tensor:
+def _routed_experts(ex: Params, xf: torch.Tensor, ids: torch.Tensor, topv: torch.Tensor,
+                    decode: bool, pairs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The routed experts' combined output (n, d) fp32 of tokens xf (n, d)
+    sent to experts ``ids`` (n, k) of ``ex`` with weights ``topv``.
+    ``pairs``: the flat (token, slot) indices of the pairs these experts
+    take (the others' ids are -1, their outputs zero); None for all.
+
+    With few pairs, at most as many as experts (a decode step), the
+    selected experts' weights are gathered by index and applied as batched
+    products: no host sync, and at most the layer's own expert weights are
+    copied. Otherwise the pairs are sorted by expert and each expert runs
+    one product over its rows; that needs the per-expert row counts on the
+    host, one sync per layer (prefill). A ``decode`` step with more pairs
+    than experts takes the JAX package's dense form instead: every expert
+    over every token, weighted by the one-hot combine. It makes no host
+    sync, so a CUDA graph can capture the step, and by then the sorted path
+    would read nearly every expert's weights anyway. With ``pairs`` the
+    count is read on the host (expert parallelism runs eagerly)."""
+    n, k = ids.shape
+    d = xf.shape[1]
+    n_exp = ex["w_gate"].shape[0]
+    flat = ids.reshape(-1)
+    n_pairs = n * k if pairs is None else pairs.numel()
+    if decode and n_pairs > n_exp:
+        combine = torch.zeros((n, n_exp), dtype=xf.dtype, device=xf.device)
+        combine.scatter_add_(1, ids.clamp_min(0), torch.where(ids >= 0, topv, 0))
+        hid = F.silu(xf @ ex["w_gate"]) * (xf @ ex["w_up"])  # (E, n, inter)
+        return torch.einsum("end,ne->nd", (hid @ ex["w_down"]).to(torch.float32),
+                            combine.to(torch.float32))
+    if pairs is None:
+        pairs = torch.arange(n * k, device=xf.device)
+    if n_pairs <= n_exp:
+        sel = flat[pairs]
+        xr = xf[pairs // k][:, None, :]  # (pairs, 1, d)
+        hid = F.silu(torch.bmm(xr, ex["w_gate"][sel])) * torch.bmm(xr, ex["w_up"][sel])
+        ys, order = torch.bmm(hid, ex["w_down"][sel])[:, 0], pairs
+    else:
+        # Another rank's pairs sort last, past every expert here.
+        order = torch.argsort(torch.where(flat >= 0, flat, n_exp), stable=True)[:n_pairs]
+        xs = xf[order // k]
+        ys = torch.empty_like(xs)
+        start = 0
+        for e, c in enumerate(torch.bincount(flat[order], minlength=n_exp).tolist()):
+            if c:
+                ys[start:start + c] = _ffn({name: w[e] for name, w in ex.items()},
+                                           xs[start:start + c])
+                start += c
+    y = torch.zeros((n * k, d), dtype=xf.dtype, device=xf.device).index_copy_(0, order, ys)
+    return (y.reshape(n, k, d).to(torch.float32)
+            * topv.to(torch.float32)[..., None]).sum(dim=1)
+
+
+def _mlp(p: Params, cfg: ModelConfig, x: torch.Tensor, decode: bool = False,
+         mesh=None) -> torch.Tensor:
     """FFN or MoE, by the layer's parameters."""
-    return _moe(p, cfg, x, decode) if "router" in p else _ffn(p, x)
+    return _moe(p, cfg, x, decode, mesh) if "router" in p else _ffn(p, x, mesh)
 
 
 def _q_heads(p: Params, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -235,10 +280,12 @@ def prefill(
     cfg: ModelConfig,
     tokens: torch.Tensor,
     logits_position: Optional[int] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
     """Causal forward over a prompt. tokens (b, s) -> (logits (b, s, V)
     fp32, or (b, 1, V) at ``logits_position``; per layer the MLA cache
-    slots (latent (b, 1, s, lora), rotated k_pe (b, 1, s, rope)))."""
+    slots (latent (b, 1, s, lora), rotated k_pe (b, 1, s, rope))). Under a
+    ``mesh``, attention over the rank's q heads (module docstring)."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :]
     cos, sin = rope_cos_sin(positions, cfg.qk_rope_head_dim, cfg.rope_theta, cfg.rope_scaling)
@@ -259,11 +306,12 @@ def prefill(
         q_full = torch.cat([q_nope, q_pe], dim=-1)
         k_full = torch.cat([k_nope, k_pe.expand(-1, k_nope.shape[1], -1, -1)], dim=-1)
         attn = blockwise_causal_attention(q_full, k_full, v, scale).to(h.dtype)
-        h = resid + attn.permute(0, 2, 1, 3).reshape(b, s, -1) @ ap["o_proj"]
-        h = h + _mlp(layer["mlp"], cfg, rms_norm(h, layer["post_norm"], cfg.rms_norm_eps))
+        h = resid + row_product(mesh, attn.permute(0, 2, 1, 3).reshape(b, s, -1), ap["o_proj"])
+        h = h + _mlp(layer["mlp"], cfg, rms_norm(h, layer["post_norm"], cfg.rms_norm_eps),
+                     mesh=mesh)
     if logits_position is not None:
         h = h[:, logits_position:logits_position + 1]
-    return unembed(params, cfg, h), kvs
+    return unembed(params, cfg, h, mesh), kvs
 
 
 def prefill_chunk(
@@ -377,7 +425,7 @@ def _rebuilt_latent(gf, gpos, cfg, draft_rank: Optional[int] = None) -> torch.Te
 
 
 def _decode_layers(params, cfg, xkv, cache, tokens, cos, sin, write_tail, t_mask,
-                   lengths=None, draft_rank=None) -> torch.Tensor:
+                   lengths=None, draft_rank=None, mesh=None) -> torch.Tensor:
     """The decoder layers of an absorbed MLA decode step, shared by
     ``decode_step`` and ``decode_step_batched``: tokens (b, ql) at the
     positions of the interleaved-RoPE tables cos/sin (1|b, ql, rope);
@@ -439,10 +487,10 @@ def _decode_layers(params, cfg, xkv, cache, tokens, cos, sin, write_tail, t_mask
             lat_sum = probs[..., :s_p] @ latent_p[:, None] + probs[..., s_p:] @ latent_t[:, None]
         attn = torch.einsum("bhql,hlv->bhqv", lat_sum, w_uv.to(torch.float32))
         attn = attn.to(h.dtype).permute(0, 2, 1, 3).reshape(b, ql, -1)
-        h = resid + attn @ ap["o_proj"]
+        h = resid + row_product(mesh, attn, ap["o_proj"])
         h = h + _mlp(layer["mlp"], cfg, rms_norm(h, layer["post_norm"], cfg.rms_norm_eps),
-                     decode=True)
-    return unembed(params, cfg, h)
+                     decode=True, mesh=mesh)
+    return unembed(params, cfg, h, mesh)
 
 
 def decode_step(
@@ -453,8 +501,10 @@ def decode_step(
     tokens: torch.Tensor,
     pos: Union[int, torch.Tensor],
     draft_rank: Optional[int] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, XKVCache]:
-    """Absorbed MLA decode over the hybrid latent cache.
+    """Absorbed MLA decode over the hybrid latent cache (under a ``mesh``,
+    over the rank's q heads).
 
     tokens: (b, ql) next token(s); pos: absolute position of tokens[:, 0],
     an int or a 0-d tensor on the device (``llama.decode_step``).
@@ -479,7 +529,7 @@ def decode_step(
     t_mask = (torch.arange(cache.tail_max, device=dev)[None, :]
               < cache.tail_len + 1 + torch.arange(ql, device=dev)[:, None])
     logits = _decode_layers(params, cfg, xkv, cache, tokens, cos, sin, cache.append_tail,
-                            t_mask, draft_rank=draft_rank)
+                            t_mask, draft_rank=draft_rank, mesh=mesh)
     return logits, cache.advance(ql)
 
 

@@ -23,10 +23,17 @@ and its plain version for CPU tensors.
 Tensor parallelism over kv heads (``mesh``, a ``parallel.mesh.Mesh`` with
 a model axis; the engine's ``mesh``): the functions run on a rank's
 weights (``parallel.sharding.shard_params``) and cache, with ``cfg`` the
-rank's share of the heads (``parallel.sharding`` docstring); K1-K3 run on
-the rank's heads as they are given them, the ``wo`` and ``w_down``
+rank's share of the heads (``parallel.sharding`` docstring); the kernels
+run on the rank's heads as they are given them, the ``wo`` and ``w_down``
 products are summed over the model axis (``row_product``), and the logits
-of the ``lm_head`` column shards are joined.
+of the ``lm_head`` column shards are joined. The decode dispatch follows
+the JAX package's pallas path case by case: K2 / K3 / K6 on the rank's kv
+heads; sparse top-k post (K4) and pre (K5) select chunks per shard, over
+the rank's own heads' bounds (the JAX ``*_tp`` wrappers); sparse x int4
+selects over every head (the JAX path's global selection: the per-chunk
+bound maxima are joined by a max over the model axis), then each rank
+attends over the selected chunks as one device does. Under a data axis
+each rank runs its own batch rows; nothing here crosses it.
 """
 
 from __future__ import annotations
@@ -310,11 +317,13 @@ def _post_rope_factored_part(
     sparse_select_max: Optional[int] = None,
     sparse_adaptive_band: float = 0.5,
     lengths: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> PartialAttention:
     """Attention over a POST-RoPE factored group in rank space: no
     reconstruction and no trig. K2 reads the whole segment, K6 mixed
     int8+int4 factors, K4 the Quest-selected chunks when ``sparse_ok``;
-    ``lengths`` (b,) bounds each sequence's valid rows (None: all)."""
+    ``lengths`` (b,) bounds each sequence's valid rows (None: all). Under
+    a ``mesh`` sparse x int4 selects over the model's every head."""
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     vt_k = vt_layer_slice(gf.k_vt, gpos, hkv, hd)
     vt_v = vt_layer_slice(gf.v_vt, gpos, hkv, hd)
@@ -333,7 +342,8 @@ def _post_rope_factored_part(
             # composition as plain XLA on the TPU too (it has no kernel for
             # it), so this is the reference's own path, not a fallback.
             ids = select_topk_chunks(q, cmin_sl, cmax_sl, n_select=n_sel, num_kv_heads=hkv,
-                                     valid_len=lengths, block=sparse_block, win_lo=win_lo)
+                                     valid_len=lengths, block=sparse_block, win_lo=win_lo,
+                                     head_max=None if mesh is None else mesh.all_max)
             return sparse_rankspace_decode_attention_ref(
                 q, gf.k_us, vt_k, gf.v_us, vt_v, ids, scale, hkv, block=sparse_block,
                 k_scale_slice=k_scale_slice, v_rank_scale=gf.v_scale, valid_len=lengths,
@@ -413,7 +423,8 @@ def _dense_prefill_segment(q, gf, gpos, li, cache, cfg, cos_p, sin_p, rope_post)
 
 def _factored_part(q_pre, q, cos, sin, gf, gpos, li, cfg, rope_post, cos_p, sin_p, scale,
                    lengths, win_lo, sparse_select=None, sparse_block=512, sparse_layers=None,
-                   sparse_select_max=None, sparse_adaptive_band=0.5) -> PartialAttention:
+                   sparse_select_max=None, sparse_adaptive_band=0.5,
+                   mesh=None) -> PartialAttention:
     """Attention over a group's factored prefill segment (both sides
     factored) for one layer: K2/K4/K6 in post mode, K3/K5 in pre mode.
     ``lengths`` (b,): each sequence's valid prefill rows (a slot cache's
@@ -427,7 +438,7 @@ def _factored_part(q_pre, q, cos, sin, gf, gpos, li, cfg, rope_post, cos_p, sin_
     if rope_post:
         return _post_rope_factored_part(
             q, gf, gpos, cfg, scale, k_scale, win_lo, sparse_ok, sparse_select,
-            sparse_block, sparse_select_max, sparse_adaptive_band, lengths=lengths)
+            sparse_block, sparse_select_max, sparse_adaptive_band, lengths=lengths, mesh=mesh)
     fargs = (q_pre, gf.k_us, vt_layer_slice(gf.k_vt, gpos, hkv, hd),
              gf.v_us, vt_layer_slice(gf.v_vt, gpos, hkv, hd), cos_p, sin_p, cos, sin)
     kw = dict(lengths=lengths, k_scale_slice=k_scale, v_rank_scale=gf.v_scale, win_lo=win_lo,
@@ -470,7 +481,7 @@ def _decode_layers(params, cfg, xkv, cache, tokens, cos, sin, cos_p, sin_p, writ
             gf = cache.groups[gi]
         if gf is not None and gf.k_us is not None and gf.v_us is not None:
             prefill_part = _factored_part(q_pre, q, cos, sin, gf, gpos, li, cfg, rope_post,
-                                          cos_p, sin_p, scale, lengths, win_lo,
+                                          cos_p, sin_p, scale, lengths, win_lo, mesh=mesh,
                                           **sparse_kw)
         else:
             k_prefill, v_prefill = _dense_prefill_segment(

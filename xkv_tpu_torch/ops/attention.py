@@ -15,7 +15,7 @@ ran them as XLA, not as Pallas kernels.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -329,8 +329,12 @@ def chunk_bound_scores(
     valid_len: Optional[torch.Tensor] = None,  # (b,)
     block: int = 512,
     win_lo: Optional[torch.Tensor] = None,  # (b,) sliding-window lower bound
+    head_max: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Quest upper-bound scores per chunk, max over heads and positions.
+    """Quest upper-bound scores per chunk, max over heads and positions;
+    ``head_max`` maps the max over these heads (b, nc) to the max over
+    every head of the model (under a mesh, ``Mesh.all_max`` over the
+    model axis).
 
     Returns (sc (b, nc): selection scores, the oldest live chunk (the sink,
     or the chunk holding ``win_lo``) and the last valid chunk (recency) set
@@ -347,6 +351,8 @@ def chunk_bound_scores(
     sc = (_gqa_scores(torch.clamp(qf, min=0.0), to_heads(k_cmax))
           + _gqa_scores(torch.clamp(qf, max=0.0), to_heads(k_cmin)))
     sc = sc.amax(dim=(1, 2))  # (b, nc)
+    if head_max is not None:
+        sc = head_max(sc)
     cidx = torch.arange(nc, device=q.device)[None, :]
     if valid_len is not None:
         n_valid = -(-valid_len.reshape(-1, 1).to(torch.int64) // block)
@@ -375,13 +381,14 @@ def select_topk_chunks(
     valid_len: Optional[torch.Tensor] = None,
     block: int = 512,
     win_lo: Optional[torch.Tensor] = None,
+    head_max: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Quest-style upper-bound chunk selection for sparse factored decode:
     the ``n_select`` chunks of highest ``U_c = qpos . kmax + qneg . kmin``,
-    the sink and recency chunks always among them. Returns ids (b, n_select)
-    int32."""
-    sc, _, _ = chunk_bound_scores(q, k_cmin, k_cmax, num_kv_heads,
-                                  valid_len=valid_len, block=block, win_lo=win_lo)
+    the sink and recency chunks always among them (``head_max``: as
+    ``chunk_bound_scores``'s). Returns ids (b, n_select) int32."""
+    sc, _, _ = chunk_bound_scores(q, k_cmin, k_cmax, num_kv_heads, valid_len=valid_len,
+                                  block=block, win_lo=win_lo, head_max=head_max)
     return topk_ids(sc, n_select)
 
 

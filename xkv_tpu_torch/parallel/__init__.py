@@ -1,3 +1,4 @@
 """Multi-process runtime of the port: process-group set-up
-(``distributed``), the (data, model) layout of the ranks (``mesh``) and
-tensor parallelism over kv heads (``sharding``)."""
+(``distributed``), the (data, model) layout of the ranks and its
+collectives (``mesh``), and which shard of the weights and of the cache a
+rank holds (``sharding``)."""

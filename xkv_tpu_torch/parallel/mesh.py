@@ -2,24 +2,32 @@
 
 Port of ``xkv_tpu/parallel/mesh.py``. Axes:
   data  — data parallelism: batch / eval-sample sharding;
-  model — tensor parallelism: attention heads / MLP features.
+  model — tensor parallelism: attention heads / MLP features / experts.
 
 The JAX mesh is a grid of devices that GSPMD partitions over; the port's
 is a grid of ranks of the ``torch.distributed`` process group, one process
-each: ``Mesh`` holds the layout, this rank's coordinates and the model
-axis's group, and the model axis's collectives (``all_reduce``,
-``gather``, ``broadcast_tensors``) that tensor parallelism
-(``sharding``, the engine under a mesh) runs. The data axis must be 1 in
-this port: a data axis under a mesh is ROADMAP item 17.
+each. Rank r sits at (r // model, r % model): the ranks of one data row
+form a model group (tensor parallelism runs inside it), the ranks of one
+model column a data group (each holds its share of the batch rows, JAX
+``token_pspec``). ``Mesh`` holds the layout, this rank's coordinates and
+its two groups, and the collectives the engine under a mesh runs: over
+the model group ``all_reduce``, ``all_max``, ``gather`` and
+``broadcast_tensors`` (from the group's first rank), over the data group
+``gather_rows``. ``make_mesh`` builds every group of the world on every
+rank, in the same order (``dist.new_group`` must be called so, even for
+groups a rank is not in).
 
-Rank r sits at (r // model, r % model). With data 1 the model group is
-the whole default group.
+The gloo backend (what ranks sharing one card use) takes CUDA tensors for
+``broadcast`` and ``all_reduce`` only, so the gathers are ``all_reduce``
+sums over zero-filled wholes and the max is an ``all_reduce`` with
+``ReduceOp.MAX``, which gloo runs on a CUDA tensor through a host copy, as
+it runs the sum.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -33,6 +41,12 @@ class Mesh:
     data: int
     model: int
     rank: int  # this process's rank in the default group
+    # The process groups of this rank's data row (its model group) and of
+    # its model column (its data group); built by ``make_mesh``. A mesh
+    # made by hand, with no group, serves one data row over the default
+    # group, or no collective at all.
+    model_group: Any = field(default=None, compare=False, repr=False)
+    data_group: Any = field(default=None, compare=False, repr=False)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -49,8 +63,19 @@ class Mesh:
 
     @property
     def group(self):
-        """The model axis's process group (None in a one-rank mesh)."""
-        return None if self.model == 1 else dist.group.WORLD
+        """The model axis's process group (None when the axis is 1)."""
+        if self.model == 1:
+            return None
+        if self.model_group is not None:
+            return self.model_group
+        if self.data != 1:
+            raise ValueError("a mesh with a data axis needs its groups: build it with make_mesh")
+        return dist.group.WORLD
+
+    @property
+    def model_src(self) -> int:
+        """The global rank of this model group's first rank."""
+        return self.data_rank * self.model
 
     # ------------------------------------------------- model-axis collectives
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
@@ -58,6 +83,12 @@ class Mesh:
         place (the caller passes fp32 partial products)."""
         if self.model > 1:
             dist.all_reduce(x, group=self.group)
+        return x
+
+    def all_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of ``x`` over the model axis, in place."""
+        if self.model > 1:
+            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group)
         return x
 
     def gather(self, x: torch.Tensor, dim: int = -1, blocks: int = 1) -> torch.Tensor:
@@ -79,12 +110,14 @@ class Mesh:
         return full.reshape(*x.shape[:-1], blocks * self.model * w)
 
     def broadcast_tensors(self, tensors: Optional[Dict[str, torch.Tensor]],
-                          device: torch.device, src: int = 0) -> Dict[str, torch.Tensor]:
-        """Rank ``src``'s {name: tensor} on every rank of the model axis
-        (``tensors`` is read on ``src`` only): the names, shapes and dtypes
-        first, then each tensor, received into new tensors on ``device``."""
+                          device: torch.device) -> Dict[str, torch.Tensor]:
+        """The model group's first rank's {name: tensor} on every rank of
+        the group (``tensors`` is read there only): the names, shapes and
+        dtypes first, then each tensor, received into new tensors on
+        ``device``."""
         if self.model == 1:
             return dict(tensors)
+        src = self.model_src
         meta = [None if self.rank != src else
                 [(k, tuple(t.shape), t.dtype) for k, t in tensors.items()]]
         dist.broadcast_object_list(meta, src=src, group=self.group)
@@ -96,6 +129,31 @@ class Mesh:
             out[name] = t
         return out
 
+    # -------------------------------------------------- data-axis collectives
+    def rows(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This data rank's block of ``x``'s rows along ``dim`` (a view)."""
+        if self.data == 1:
+            return x
+        n = x.shape[dim]
+        if n % self.data:
+            raise ValueError(
+                f"a batch of {n} rows does not split over a data axis of {self.data} "
+                "(the JAX engine's token sharding needs the batch divisible by it)")
+        w = n // self.data
+        return x.narrow(dim, self.data_rank * w, w)
+
+    def gather_rows(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every data rank's rows of ``x`` joined along ``dim`` in data-rank
+        order (``rows`` inverted): an ``all_reduce`` over a zero-filled
+        whole, as ``gather``."""
+        if self.data == 1:
+            return x
+        x = x.movedim(dim, 0)
+        full = torch.zeros(self.data, *x.shape, dtype=x.dtype, device=x.device)
+        full[self.data_rank] = x
+        dist.all_reduce(full, group=self.data_group)
+        return full.reshape(self.data * x.shape[0], *x.shape[1:]).movedim(0, dim)
+
 
 def _world() -> tuple:
     if dist.is_available() and dist.is_initialized():
@@ -105,7 +163,9 @@ def _world() -> tuple:
 
 def make_mesh(data: Optional[int] = None, model: int = 1) -> Mesh:
     """The (data, model) mesh over the default process group (one process:
-    a world of 1). ``data=None`` takes the ranks the model axis leaves."""
+    a world of 1). ``data=None`` takes the ranks the model axis leaves.
+    With more than one rank every rank must call it, at the same point:
+    it builds every data row's and model column's group."""
     n, rank = _world()
     if data is None:
         if n % model:
@@ -113,11 +173,20 @@ def make_mesh(data: Optional[int] = None, model: int = 1) -> Mesh:
         data = n // model
     if data * model != n:
         raise ValueError(f"mesh {data}x{model} != {n} ranks")
-    if data != 1:
-        raise ValueError(
-            f"a data axis of {data}: data parallelism under a mesh is not ported yet "
-            "(ROADMAP item 17); use data=1")
-    return Mesh(data=data, model=model, rank=rank)
+    if n == 1:
+        return Mesh(data=1, model=1, rank=rank)
+    model_group = data_group = None
+    # Every rank creates every group, model rows first, in the same order.
+    for d in range(data):
+        g = dist.new_group([d * model + m for m in range(model)])
+        if d == rank // model:
+            model_group = g
+    for m in range(model):
+        g = dist.new_group([d * model + m for d in range(data)])
+        if m == rank % model:
+            data_group = g
+    return Mesh(data=data, model=model, rank=rank, model_group=model_group,
+                data_group=data_group)
 
 
 def single_device_mesh() -> Mesh:
