@@ -204,7 +204,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
              each greedy token of the ranks against its top logit; a
              sparse run's step over every chunk against one device's exact
              step; every rank's prefill s, eager ms/token, peak GB and
-             launches printed beside the card's name and power limit.
+             launches printed beside the card's name and power limit;
+  15. sequence parallelism, batching under a mesh and the pipeline:
+             three waves of ranks sharing the card over gloo, one at a
+             time, (a) beside phase 8's admissions, (b) from phase 9's
+             persistence on, (c) beside the 1B, tiny-engine and anchor
+             phases, each held against one device at the end: (a)
+             ``scripts/tp_serve.py --sequence_parallel``, Llama-3.1-8B's
+             widths cut to 4 layers, an 8192-token prompt at data 2 x model
+             2 (ring attention over the data axis, plain blocks), pre bf16,
+             16 tokens over an 8-row tail (K3); (b) ``tp_serve --batched``,
+             ``BatchedEngine`` at data 2 x model 2, 4 slots of 4608 rows, 6
+             requests of 1000-4096 tokens, pre bf16 admitted in chunks (K3)
+             and post bf16 with sparse top-4 drafts and speculative_k 3 (K1,
+             K4, K2 at R 64); (c) ``scripts/pp_serve.py``, 8 layers in two
+             stages, b 4 of 2048 tokens, ``pipelined_forward`` (K1) and 8
+             ``pipelined_decode_step``s at M 2 and 4 in bf16 and int8 (K2).
+             Held: each rank's launches; rank 0's first K1-K4 calls
+             against their plain versions; (a) one device over the ranks'
+             joined factors at every step, the ring prefill against one
+             device's K1 within twice the plain-vs-K1 control; (b) every
+             rank's tokens equal and each request's tokens teacher-forced
+             over its admitted factors; (c) rank 0 against one device
+             holding every layer, the forward, each step and the joined
+             tails.
 Then it prints the card's name and power limit, one JSON line of kernel
 records, and as the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -1557,7 +1580,7 @@ def serve(eng, cfg, prompt, label, n_new, want, profiled):
     return row, counts, first
 
 
-def main_path(results):
+def main_path(results, beside=None):
     import torch
 
     from xkv_tpu_torch.configs import generate_consecutive_xkv_config
@@ -1631,8 +1654,11 @@ def main_path(results):
     results["main_runs"] = rows
     spec_counts = speculative_8b(results, params, cfg, prompt, engine)
     served = {r["run"]: r["decode_ms_per_token_graph"] for r in rows}
+    if (beside or {}).get("batching") is not None:
+        beside["batching"]()
     batch_counts = batched_8b(results, params, cfg, served)
-    spec9_counts = batched_spec_8b(results, params, cfg, engine, prompt)
+    spec9_counts = batched_spec_8b(results, params, cfg, engine, prompt,
+                                   (beside or {}).get("persistence"))
     minicache_counts = minicache_8b(results, params, cfg, prompt, served)
     for key in totals:
         totals[key] += (spec_counts[key] + batch_counts[key] + spec9_counts[key]
@@ -3236,7 +3262,7 @@ def serve_batched_spec(label, eng, single, cfg, requests, draft_kernel, exact_ke
     return row, {key: counts[key] + ref_counts[key] for key in COUNTERS}
 
 
-def batched_spec_8b(results, params, cfg, engine, prompt):
+def batched_spec_8b(results, params, cfg, engine, prompt, beside_persistence=None):
     """Phase 9 on Llama-3.1-8B xKV-4: ``BatchedEngine(speculative_k=7)``
     with sparse top-4 drafts in pre (K5 drafts, K3 verify and top-ups) and
     post (K4, K2), admitted through K1; then prompt-cache persistence of
@@ -3274,6 +3300,8 @@ def batched_spec_8b(results, params, cfg, engine, prompt):
     results["batch_spec_runs"] = rows
     spec_phase9_time(results, "8B served", time.time() - t0)
     t0 = time.time()
+    if beside_persistence is not None:
+        beside_persistence()
     persist_counts = persistence_8b(results, cfg, engine, prompt)
     for key in totals:
         totals[key] += persist_counts[key]
@@ -4890,37 +4918,43 @@ TP14_KERNEL_FNS = {"K3": ("lowrank_attention", "lowrank_kernel"),
                    "K8": ("rankspace_attention", "mla_mixed_rankspace_kernel")}
 
 
-class Tp14Ranks:
-    """Phase 14's rank processes: each mesh launched beside an earlier
-    phase (the card is idle in the host-bound ones) and waited for when
-    its results are read; ``stop`` ends any still running."""
+class RankWaves:
+    """A phase's rank processes (``table``: name -> (argv, ranks); each
+    name's program ``modules[name]``, ``scripts/tp_serve.py`` by default):
+    each launched beside an earlier phase (the card is idle in the
+    host-bound ones) and waited for when its results are read; ``stop``
+    ends any still running."""
 
-    def __init__(self):
+    def __init__(self, phase: str, table: dict, modules: dict = None):
         import shutil
 
-        self.root = os.path.join(ROOT, "build", "tp14")
+        self.phase, self.table, self.modules = phase, table, modules or {}
+        self.root = os.path.join(ROOT, "build", phase)
         shutil.rmtree(self.root, ignore_errors=True)
-        self.dirs = {name: os.path.join(self.root, name) for name in TP14_MESHES}
+        self.dirs = {name: os.path.join(self.root, name) for name in table}
         self.procs, self.launched, self.waited = {}, {}, {}
 
     def launch(self, names, beside: str) -> None:
         from xkv_tpu_torch.scripts import tp_serve
 
         for name in names:
-            argv, world = TP14_MESHES[name]
+            argv, world = self.table[name]
             os.makedirs(self.dirs[name])
-            self.procs[name] = tp_serve.launch(argv + ["--out", self.dirs[name]], world)
+            self.procs[name] = tp_serve.launch(
+                argv + ["--out", self.dirs[name]], world,
+                **({"module": self.modules[name]} if name in self.modules else {}))
             self.launched[name] = time.time()
-        log(f"tp14: the ranks of {', '.join(names)} launched beside {beside}")
+        log(f"{self.phase}: the ranks of {', '.join(names)} launched beside {beside}")
 
     def wait(self, name: str) -> None:
-        """Wait for a mesh's ranks; one that failed or hangs stops them all
+        """Wait for a wave's ranks; one that failed or hangs stops them all
         and raises."""
         from xkv_tpu_torch.scripts import tp_serve
 
         t0 = time.time()
         tp_serve.wait(self.procs[name], timeout=600)
         self.waited[name] = self.waited.get(name, 0.0) + time.time() - t0
+        log(f"{self.phase}: waited {time.time() - t0:.1f} s for the ranks of {name}")
 
     def stop(self) -> None:
         for procs in self.procs.values():
@@ -4928,6 +4962,13 @@ class Tp14Ranks:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
+
+
+class Tp14Ranks(RankWaves):
+    """Phase 14's meshes (``TP14_MESHES``)."""
+
+    def __init__(self):
+        super().__init__("tp14", TP14_MESHES)
 
 
 class _RankZero:
@@ -5209,6 +5250,306 @@ def tp14_phase(results, ranks: Tp14Ranks) -> dict:
     return totals
 
 
+# ------------------------------- phase 15: SP, batching and PP under a mesh
+# Three waves of ranks sharing the card (gloo), each launched beside an
+# earlier phase's host-bound work (``RankWaves``), Llama-3.1-8B's widths
+# cut in depth, random bf16 weights from seed 0:
+# (a) sequence parallelism (``scripts/tp_serve.py --sequence_parallel``):
+#     4 layers (one xKV-4 group, rank 512 / 768), an 8192-token prompt at
+#     data 2 x model 2 (ring blocks of 4096 rows, plain as in JAX), pre
+#     bf16, 16 tokens over an 8-row tail (one refold): the decode on every
+#     data rank through K3;
+# (b) ``BatchedEngine`` at data 2 x model 2 (``tp_serve --batched``): 4
+#     slots (2 a data row) of 4608 rows, 64-row tails, 6 requests of
+#     1000-4096 tokens and 16-24 new; pre bf16 admitted in 512-row chunks
+#     (K3), and post bf16 with sparse top-4 of 512-row chunks and
+#     speculative_k 3 (K1 admissions, K4 drafts, K2 verify at R 64);
+# (c) pipeline parallelism (``scripts/pp_serve.py``): 8 layers (two xKV-4
+#     groups, post), 2 stages, b 4 of 2048-token prompts:
+#     ``pipelined_forward`` at M 2 (K1), 8 ``pipelined_decode_step``s (4
+#     at M 2, 4 at M 4) in bf16 and in int8 (K2).
+# Held: each rank's launches; rank 0's first K1-K4 calls against their
+# plain versions on the same operands (``TOL``); (a) one device over the
+# ranks' joined factors fed their tokens at every step within TOL_TP, each
+# token of the ranks at most 2 x TOL_TP below its top logit, the ring
+# prefill's last logits against one device's K1 prefill within twice the
+# control (one device's plain prefill attention against its K1, read in
+# the run); (b) every rank's tokens equal, and each request's tokens
+# teacher-forced through one device's exact steps over the factors its
+# slot admitted, each within GAP_8B (phases 8 and 9) of its step's top
+# log-prob; (c) rank 0 against one device holding every layer and the
+# whole cache (the forward's logits, each step's logits and the stages'
+# joined tails) within TOL_TP15_PP, the stages' tokens below its top logit.
+TP15_COMMON = ["--device", "cuda", "--layers", "4", "--data", "2", "--nproc", "2", "--check"]
+TP15 = {  # name: (argv, ranks)
+    "a": (TP15_COMMON + ["--sequence_parallel", "--prompt", "8192", "--new", "16",
+                         "--tail", "8", "--runs", "pre:bf16"], 4),
+    "b": (TP15_COMMON + ["--batched", "--slots", "4", "--s_max", "4608", "--tail", "64",
+                         "--runs", "pre:bf16:chunk512,post:bf16:sparse4:spec3"], 4),
+    "c": (["--device", "cuda", "--layers", "8", "--stages", "2", "--batch", "4", "--prompt",
+           "2048", "--steps", "8", "--check"], 2),
+}
+TP15_MODULES = {"c": "xkv_tpu_torch.scripts.pp_serve"}
+# (b): the kernels each run launches on a rank.
+TP15_BATCHED_KERNELS = {"pre:bf16:chunk512": {"K3"},
+                        "post:bf16:sparse4:spec3": {"K1", "K2", "K4"}}
+# (c): one device against the stages (the same kernels on the same values;
+# the stages run b / M rows where one device runs b, through other GEMM
+# kernels at M 1 and 2 rows than at 4): twice the readings on an H100 80GB
+# HBM3 at 700 W (each step's logits 0.1152-0.1377, the joined tails
+# 0.0938-0.1113, bf16 and int8; PERF.md section 6). The forward read 0.0
+# (the prefill's row blocks take the same kernels at 2 x 2048 rows as at
+# 4 x 2048) and is held at the steps' limit; each of the stages' tokens
+# at most twice it below one device's top logit (read 0-0.03125).
+TOL_TP15_PP = {"forward": 2 * 0.1377, "logits": 2 * 0.1377, "tail": 2 * 0.1113}
+
+
+def _hold_calls(label: str, calls: dict, keys, worst: dict) -> dict:
+    """Rank 0's recorded first calls (``tp_serve.first_calls``) of ``keys``
+    held against their plain versions at ``TOL``; their readings."""
+    rec = {}
+    for key in keys:
+        if key not in calls:
+            raise AssertionError(f"{label}: rank 0 made no {key} call")
+        c = calls[key]
+        w = {"abs": 0.0, "rel": 0.0, "lse": 0.0}
+        if key == "K1":
+            rel = row_rel_err(c["out"], c["ref"])
+            log(f"K1 {label} (operands {c['shapes']}): max_rel_err={rel:.3e} "
+                f"(limit {TOL['K1']:.3e})")
+            if not rel <= TOL["K1"]:
+                raise AssertionError(f"K1 disagrees with its plain version ({label})")
+            w.update(abs=max_abs_err(c["out"], c["ref"]), rel=rel)
+        else:
+            _hold(key, f"{label} (operands {c['shapes']})", c["out"], c["ref"], c["lse"],
+                  c["lse_ref"], w)
+        rec[key] = dict(max_abs_err=w["abs"], max_rel_err=w["rel"], lse_err=w["lse"],
+                        shapes=c["shapes"])
+        into = worst.setdefault(key, {"abs": 0.0, "rel": 0.0, "lse": 0.0})
+        for k in ("abs", "rel", "lse"):
+            into[k] = max(into[k], w[k])
+    return rec
+
+
+def _rank_rows(records, run: str, keys) -> list:
+    return [dict(rank=rec["rank"], coords=rec.get("coords"), peak_gb=rec.get("peak_gb"),
+                 launches={k: v for k, v in rec["runs"][run]["counts"].items() if v},
+                 **{k: rec["runs"][run][k] for k in keys})
+            for rec in records]
+
+
+def tp15_sp(out_dir, totals, smi, results, shared, worst) -> tuple:
+    """(a): the ranks' launches, rank 0's K3, one device over their joined
+    factors, the ring prefill against one device's K1 and the control."""
+    import torch
+
+    from xkv_tpu_torch.models import llama
+    from xkv_tpu_torch.ops.kernels.flash_attention import flash_attention_plain
+    from xkv_tpu_torch.scripts import tp_serve
+
+    argv, world = TP15["a"]
+    args = tp_serve.parse_args(argv)
+    records = tp_serve.results(out_dir, world)
+    dev = torch.device(args.device)
+    got = torch.load(os.path.join(out_dir, "rank0.pt"), map_location=dev, weights_only=False)
+    calls = torch.load(os.path.join(out_dir, "kernels.pt"), weights_only=False)
+    cfg, xkv, params, prompt = tp_serve.model(args)
+    shared.update(cfg=cfg, xkv=xkv, params=params)
+    steps, layers, fails = args.new, args.layers, []
+    run = "pre:bf16"
+    mine = got[run]
+    for k in ("tokens", "logits", "next_logits"):
+        mine[k] = mine[k].cpu()
+    # The ring runs no K1; every decode step K3 a layer (generate's, the
+    # forced pass's and the step past it).
+    want = _want(K3=(2 * (steps - 1) + 1) * layers)
+    for rec in records:
+        _hold_counts(f"tp15 a rank {rec['rank']}", rec["runs"][run]["counts"], want)
+        for k in totals:
+            totals[k] += rec["runs"][run]["counts"][k]
+    row = dict(tokens=mine["tokens"].tolist(),
+               shard_kernels=_hold_calls("tp15 a rank 0's shard", calls[run], ("K3",), worst))
+    reset_counts()
+    eng = tp_serve.engine(args, cfg, xkv, params, run, dev)
+    row["same_factors_err"], row["tokens_shortfall"] = tp14_same_factors(
+        eng, mine, prompt, args.tail, steps)
+    s = prompt.shape[1]
+    k1, _ = llama.prefill(params, cfg, prompt, logits_position=s - 1)
+    plain, _ = llama.prefill(params, cfg, prompt, logits_position=s - 1,
+                             attention=flash_attention_plain)
+    row["control_plain_vs_k1"] = (k1 - plain).abs().max().item()
+    row["ring_prefill_err"] = row["same_factors_err"][0]
+    for k, n in read_counts().items():
+        totals[k] += n
+    del eng, k1, plain
+    row["ranks"] = _rank_rows(records, run, ("prefill_s", "decode_ms_per_token"))
+    row["card"] = smi
+    row["limits"] = dict(prefill=2 * row["control_plain_vs_k1"], steps=TOL_TP,
+                         shortfall=2 * TOL_TP)
+    log(f"tp15 a {run} " + json.dumps(row))
+    if row["ring_prefill_err"] > row["limits"]["prefill"]:
+        fails.append(f"a: the ring prefill {row['ring_prefill_err']} from one device's K1 "
+                     f"(limit {row['limits']['prefill']})")
+    if max(row["same_factors_err"][1:]) > TOL_TP:
+        fails.append(f"a: same factors {row['same_factors_err']} (limit {TOL_TP})")
+    if max(row["tokens_shortfall"]) > 2 * TOL_TP:
+        fails.append(f"a: the ranks' tokens' shortfall {row['tokens_shortfall']} "
+                     f"(limit {2 * TOL_TP})")
+    return {run: row}, fails
+
+
+def tp15_batched(out_dir, totals, smi, results, shared, worst) -> tuple:
+    """(b): every rank's tokens equal; each request's tokens teacher-forced
+    through one device's exact steps over its admitted factors; the runs'
+    kernels launched; rank 0's first K1-K4 calls."""
+    import glob
+    from types import SimpleNamespace
+
+    import torch
+
+    from xkv_tpu_torch.engine import InferenceEngine
+    from xkv_tpu_torch.scripts import tp_serve
+
+    argv, world = TP15["b"]
+    args = tp_serve.parse_args(argv)
+    records = tp_serve.results(out_dir, world)
+    calls = torch.load(os.path.join(out_dir, "kernels.pt"), weights_only=False)
+    cfg, xkv, params = shared["cfg"], shared["xkv"], shared["params"]
+    prompts = tp_serve.batched_prompts(args, cfg)
+    n_req = len(prompts)
+    rows, fails = {}, []
+    for run in args.runs.split(","):
+        spec = tp_serve.parse_run(run)
+        tokens = [rec["runs"][run]["tokens"] for rec in records]
+        row = dict(tokens=tokens[0])
+        if any(t != tokens[0] for t in tokens):
+            fails.append(f"b {run}: the ranks' tokens differ")
+        for rec in records:
+            launched = {k for k, v in rec["runs"][run]["counts"].items() if v}
+            if launched != TP15_BATCHED_KERNELS[run]:
+                fails.append(f"b {run} rank {rec['rank']}: launched {sorted(launched)}, "
+                             f"expected {sorted(TP15_BATCHED_KERNELS[run])}")
+            for k in totals:
+                totals[k] += rec["runs"][run]["counts"][k]
+        row["shard_kernels"] = _hold_calls(f"tp15 b {run} rank 0", calls[run],
+                                           sorted(TP15_BATCHED_KERNELS[run]), worst)
+        admitted = {}
+        for f in glob.glob(os.path.join(out_dir, f"admitted_{run.replace(':', '_')}_*.pt")):
+            admitted.update(tp_serve.to_device(torch.load(f, weights_only=False), "cuda"))
+        reset_counts()
+        single = InferenceEngine(params, cfg, xkv(spec["rope"]), tail_max=args.tail,
+                                 factor_dtype=tp_serve.factor_dtype(spec["fd"]),
+                                 prefill_logits="last", device="cuda")
+        view = SimpleNamespace(params=params, _mla=False, sparse_block=tp_serve.SPARSE_BLOCK,
+                               cfg=cfg, tail_max=args.tail, cache_dtype=params["embed"].dtype)
+        row["references"], counts = teacher_force(
+            f"tp15 b {run}", view, single, cfg, prompts, tokens[0], admitted,
+            list(range(n_req)), GAP_8B, refs=range(n_req))
+        for k, n in counts.items():
+            totals[k] += n
+        del single, admitted
+        row["ranks"] = _rank_rows(records, run, ("run_s", "admission_s", "steps", "step_ms",
+                                                 "spec_stats"))
+        row["card"] = smi
+        row["limit"] = GAP_8B
+        log(f"tp15 b {run} " + json.dumps(row))
+        rows[run] = row
+    return rows, fails
+
+
+def tp15_pipeline(out_dir, totals, smi, results, shared, worst) -> tuple:
+    """(c): the stages' launches; rank 0's K1 and K2 calls; its readings
+    against one device."""
+    import torch
+
+    from xkv_tpu_torch.scripts import tp_serve
+
+    argv, world = TP15["c"]
+    records = tp_serve.results(out_dir, world)
+    calls = torch.load(os.path.join(out_dir, "kernels.pt"), weights_only=False)
+    fails = []
+    steps = int(argv[argv.index("--steps") + 1])
+    lp = int(argv[argv.index("--layers") + 1]) // world
+    for rec in records:
+        _hold_counts(f"tp15 c stage {rec['stage']} forward", rec["forward_counts"],
+                     _want(K1=2 * lp))
+        for k in totals:
+            totals[k] += rec["forward_counts"][k]
+        for run, r in rec["runs"].items():
+            _hold_counts(f"tp15 c stage {rec['stage']} {run}", r["counts"],
+                         _want(K2=lp * (2 * (steps // 2) + 4 * (steps - steps // 2))))
+            for k in totals:
+                totals[k] += r["counts"][k]
+    readings = records[0]["readings"]
+    row = dict(readings=readings, limits=TOL_TP15_PP, card=smi,
+               shard_kernels=_hold_calls("tp15 c stage 0 forward", calls, ("K1",), worst))
+    for run in ("bf16", "int8"):
+        row["shard_kernels"][run] = _hold_calls(f"tp15 c stage 0 {run}", calls[run], ("K2",),
+                                                worst)
+    row["stages"] = [dict(stage=rec["stage"], layers=rec["layers"], peak_gb=rec.get("peak_gb"),
+                          forward_s=rec["forward_s"],
+                          ms_per_step={run: r["ms_per_step"] for run, r in rec["runs"].items()})
+                     for rec in records]
+    log("tp15 c " + json.dumps(row))
+    worst_step = {k: max(x[k] for run in ("bf16", "int8") for x in readings[run])
+                  for k in ("logits_err", "tail_err", "shortfall")}
+    for k, got, lim in (("forward", readings["forward_err"], TOL_TP15_PP["forward"]),
+                        ("logits", worst_step["logits_err"], TOL_TP15_PP["logits"]),
+                        ("tail", worst_step["tail_err"], TOL_TP15_PP["tail"]),
+                        ("shortfall", worst_step["shortfall"], 2 * TOL_TP15_PP["logits"])):
+        if got > lim:
+            fails.append(f"c: {k} {got} from one device (limit {lim})")
+    for run in ("bf16", "int8"):
+        if any(x["tail_count"][0] != x["tail_count"][1] for x in readings[run]):
+            fails.append(f"c {run}: the stages' tail fill differs from one device's")
+    return {"pipeline": row}, fails
+
+
+TP15_COMPARE = {"a": tp15_sp, "b": tp15_batched, "c": tp15_pipeline}
+
+
+def tp15_phase(results, ranks: RankWaves, order=("c", "a", "b")) -> dict:
+    """Phase 15: each wave's ranks waited for (``ranks`` launched them
+    beside earlier phases) and held against one device. Returns the launch
+    counts (every rank's and one device's)."""
+    import shutil
+
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    t_phase = time.time()
+    totals = {key: 0 for key in COUNTERS}
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rows, fails, shared, worst = {}, [], {}, {}
+    try:
+        for name in order:
+            ranks.wait(name)
+            t0 = time.time()
+            rows[name], failed = TP15_COMPARE[name](ranks.dirs[name], totals, smi, results,
+                                                    shared, worst)
+            fails.extend(failed)
+            results[f"tp15_compare_{name}_s"] = time.time() - t0
+            log(f"tp15 {name}: launched {t_phase - ranks.launched[name]:.1f} s before the "
+                f"phase, waited for {ranks.waited[name]:.1f} s, the comparisons "
+                f"{results[f'tp15_compare_{name}_s']:.1f} s")
+        if fails:
+            raise AssertionError("tp15 against one device: " + "; ".join(fails))
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+        shared.clear()
+    shutil.rmtree(ranks.root)
+    for key, w in worst.items():
+        results[key]["tp15_shard"] = w
+    results["tp15"] = dict(rows=rows, tol_steps=TOL_TP, tol_pp=TOL_TP15_PP, gap=GAP_8B)
+    results["tp15_phase_s"] = time.time() - t_phase
+    log(f"tp15 phase: {results['tp15_phase_s']:.1f} s (gloo on one card, not sequence, "
+        f"data or pipeline parallelism's speed; {smi})")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -5264,35 +5605,52 @@ def main() -> int:
     tool_counts = tools_path(results)
     log(f"tools phase: {time.time() - t0:.1f} s")
     mark("tools")
-    totals = main_path(results)
-    mark("main path")
-    torch.cuda.empty_cache()
-    counts_1b = llama_1b_path(results)
-    mark("1B")
-    t0 = time.time()
-    counts_small = small_engine_path(results)
-    log(f"tiny-engine phase: {time.time() - t0:.1f} s")
-    for key in totals:
-        totals[key] += tool_counts[key] + counts_1b[key] + counts_small[key]
-    mark("tiny")
-    anchor()
-    minicache_anchor(results)
-    mark("anchors")
-    torch.cuda.empty_cache()
-    mla_totals = mla_path(results)
-    for key in totals:
-        totals[key] += mla_totals[key]
-    mla_anchor()
-    mark("V2-Lite")
-    ckpt_counts = speculative_checkpoint(results)
-    for key in totals:
-        totals[key] += ckpt_counts[key]
-    torch.cuda.empty_cache()
-    # Phase 14's ranks run beside phase 11's host-bound eval_acc and
-    # eval_perplexity ((c)) and beside phase 13 ((a), (b)); phase 12's
-    # timed steps run with the card to themselves.
+    # Phase 15's waves run beside host-bound work, one wave at a time (the
+    # card holds ~20-34 GB a wave beside the main process): (a) beside
+    # phase 8's admissions, (b) from phase 9's persistence on, (c) beside
+    # the 1B, tiny-engine and anchor phases; each is waited for before the
+    # next is launched, and (c) before V2-Lite, which needs the card's
+    # memory. Phase 12's timed steps keep the card to themselves.
+    waves = RankWaves("tp15", TP15, TP15_MODULES)
     ranks = Tp14Ranks()
+
+    def beside_persistence():
+        waves.wait("a")
+        waves.launch(("b",), "phase 9's persistence")
+
     try:
+        totals = main_path(results, {
+            "batching": lambda: waves.launch(("a",), "phase 8's admissions"),
+            "persistence": beside_persistence})
+        mark("main path")
+        torch.cuda.empty_cache()
+        waves.wait("b")
+        waves.launch(("c",), "the 1B, tiny-engine and anchor phases")
+        counts_1b = llama_1b_path(results)
+        mark("1B")
+        t0 = time.time()
+        counts_small = small_engine_path(results)
+        log(f"tiny-engine phase: {time.time() - t0:.1f} s")
+        for key in totals:
+            totals[key] += tool_counts[key] + counts_1b[key] + counts_small[key]
+        mark("tiny")
+        anchor()
+        minicache_anchor(results)
+        mark("anchors")
+        waves.wait("c")
+        torch.cuda.empty_cache()
+        mla_totals = mla_path(results)
+        for key in totals:
+            totals[key] += mla_totals[key]
+        mla_anchor()
+        mark("V2-Lite")
+        ckpt_counts = speculative_checkpoint(results)
+        for key in totals:
+            totals[key] += ckpt_counts[key]
+        torch.cuda.empty_cache()
+        # Phase 14's ranks run beside phase 11's host-bound eval_acc and
+        # eval_perplexity ((c)) and beside phase 13 ((a), (b)); phase 12's
+        # timed steps run with the card to themselves.
         eval_counts = eval_path(
             results, lambda: ranks.launch(("c",), "eval_acc and eval_perplexity"))
         for key in totals:
@@ -5314,11 +5672,18 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         tp14_counts = tp14_phase(results, ranks)
+        for key in totals:
+            totals[key] += tp14_counts[key]
+        mark("tp14")
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp15_counts = tp15_phase(results, waves)
     finally:
         ranks.stop()
+        waves.stop()
     for key in totals:
-        totals[key] += tp14_counts[key]
-    mark("tp14")
+        totals[key] += tp15_counts[key]
+    mark("tp15")
     log(f"speculative-and-staged phase: {sum(results['spec_phase_s'].values()):.1f} s")
     log(f"batch phase: {sum(results['batch_phase_s'].values()):.1f} s")
     log(f"batched-speculation and persistence phase: "

@@ -257,7 +257,7 @@ SCOPE = [
     (dict(xkv=generate_consecutive_xkv_config(
         layer_merge_impl="slerp", num_layers=4, end_layer=-1, group_size=2, rank_k=None,
         rank_v=None)), "slerp"),
-    (dict(sequence_parallel=True), "sequence_parallel"),
+    (dict(sequence_parallel=True), None),
     (dict(cfg=MLA_CFG, xkv=None, mode="none"), None),
     (dict(cfg=tiny_llama_config(num_layers=4, num_q_heads=3, num_kv_heads=1)), "split"),
     (dict(cfg=dataclasses.replace(MLA_CFG, num_q_heads=3), xkv=None, mode="none"), "3 q heads"),
@@ -268,23 +268,30 @@ SCOPE = [
                                                "slerp", "sequence_parallel", "mla", "heads",
                                                "mla_heads"])
 def test_out_of_scope_tp_is_refused(kw, msg):
-    """Under a model axis of 2: sparse top-k, int4 factors and MLA are
-    served (a rank's share of the heads and experts); staged prefill and
-    ``sparse_topk_max`` are refused with the JAX engine's reasons, the
-    slerp scheme and sequence parallelism naming ROADMAP item 17, heads
+    """Under a model axis of 2: sparse top-k, int4 factors, MLA and
+    sequence parallelism (a ring of one data rank; its decode holds the
+    data rows as replicas) are served (a rank's share of the heads and
+    experts); staged prefill and ``sparse_topk_max`` are refused with the
+    JAX engine's reasons, the slerp scheme naming ROADMAP item 17, heads
     that do not split by the count."""
     if msg is None:
         eng = _engine(**kw)
-        assert eng.mesh is MESH2 and eng.shard_cfg.num_q_heads == eng.cfg.num_q_heads // 2
+        sp = kw.get("sequence_parallel", False)
+        assert eng.mesh == dataclasses.replace(MESH2, replicas=sp)
+        assert eng.mesh is MESH2 or sp
+        assert eng.shard_cfg.num_q_heads == eng.cfg.num_q_heads // 2
         return
     with pytest.raises(ValueError, match=msg) as err:
         _engine(**kw)
-    if msg in ("slerp", "sequence_parallel"):
+    if msg == "slerp":
         assert "ROADMAP item 17" in str(err.value)
 
 
 def test_graphs_and_batching_refuse_a_mesh():
-    from xkv_tpu_torch.engine.graphs import DecodeGraph, SpecRounds
+    """The captured steps refuse a mesh (gloo's collectives cannot be
+    captured); ``BatchedEngine`` under a mesh builds and steps eagerly."""
+    from xkv_tpu_torch.engine.graphs import (BatchedSpecRound, BatchedStep, DecodeGraph,
+                                             SpecRounds)
 
     class Eng:
         mesh = MESH2
@@ -293,6 +300,13 @@ def test_graphs_and_batching_refuse_a_mesh():
         DecodeGraph(Eng(), None, 0, 1, first_token=torch.zeros(1, 1))
     with pytest.raises(ValueError, match="ROADMAP item 17"):
         SpecRounds(Eng(), None, torch.zeros(1, 1), 0, 2)
+    with pytest.raises(ValueError, match="ROADMAP item 17"):
+        BatchedStep(Eng())
+    with pytest.raises(ValueError, match="ROADMAP item 17"):
+        BatchedSpecRound(Eng())
     cfg = tiny_llama_config(num_layers=4)
-    with pytest.raises(TypeError, match="ROADMAP item 17"):
-        BatchedEngine({}, cfg, None, mesh=MESH2)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
+    eng = BatchedEngine(params, cfg, None, num_slots=2, s_max=16, tail_max=4, device="cpu",
+                        mesh=MESH2)
+    assert eng.mesh is MESH2 and eng.step_graph is None and eng.spec_graph is None
+    assert eng.batch_cache.tail_k.shape[2] == cfg.num_kv_heads // 2

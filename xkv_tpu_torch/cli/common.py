@@ -75,8 +75,8 @@ def add_common_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "attention is the K1 kernel on the card and its plain "
                         "version on the CPU")
     parser.add_argument("--mesh_model", type=int, default=1,
-                        help="tensor-parallel width; only 1 (the CLIs start no "
-                        "ranks yet: ROADMAP item 17)")
+                        help="tensor-parallel width; only 1 (the engine serves a "
+                        "mesh, but the CLIs start no ranks yet: ROADMAP item 17)")
     parser.add_argument("--rope_mode", type=str, default="pre",
                         choices=["pre", "post"],
                         help="factored-key domain: 'pre' = reference "
@@ -119,8 +119,9 @@ def add_common_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "+ exception rows) for slerp groups")
     parser.add_argument("--slerp_keep_frac", type=float, default=0.125)
     parser.add_argument("--sequence_parallel", action="store_true",
-                        help="refused: ring-attention prefill over several "
-                        "GPUs is ROADMAP item 17")
+                        help="refused: the engine serves ring-attention prefill "
+                        "over a mesh's data axis, but the CLIs start no ranks "
+                        "yet (ROADMAP item 17)")
     return parser
 
 
@@ -129,11 +130,14 @@ def refusal(args) -> Optional[str]:
     it before any weight is loaded."""
     if args.mesh_model > 1:
         return (f"--mesh_model {args.mesh_model}: the CLIs have no launcher for "
-                "tensor-parallel ranks yet (ROADMAP item 17; the engine runs under a "
-                "mesh: InferenceEngine(mesh=...), scripts/tp_serve.py); use --mesh_model 1")
+                "tensor-parallel ranks yet (ROADMAP item 17; the engines serve a mesh: "
+                "InferenceEngine(mesh=...), BatchedEngine(mesh=...), "
+                "scripts/tp_serve.py); use --mesh_model 1")
     if args.sequence_parallel:
-        return ("--sequence_parallel: ring-attention prefill over several GPUs is "
-                "not ported yet (ROADMAP item 17)")
+        return ("--sequence_parallel: the engine serves ring-attention prefill over a "
+                "mesh's data axis (InferenceEngine(mesh=..., sequence_parallel=True), "
+                "scripts/tp_serve.py --sequence_parallel), but the CLIs start no ranks yet "
+                "(ROADMAP item 17)")
     if args.factor_dtype == "fp32" and torch.device(args.device).type == "cuda":
         return ("--factor_dtype fp32 on the card: the decode kernels take bf16, "
                 "int8 or int4 factors; use one of those, or --device cpu")

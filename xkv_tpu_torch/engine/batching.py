@@ -26,10 +26,30 @@ Port of ``xkv_tpu/engine/batching.py`` (``BatchedEngine``):
 
 Greedy decoding. The slot cache is written only in place (admission,
 refolds), never reallocated: the captured step reads it by address.
+
+Under a ``mesh`` (``parallel.mesh.make_mesh(data=d, model=m)``, one
+process a rank; JAX ``BatchedEngine(mesh=...)``): the slots split over the
+data axis (data rank i holds slots [i * B / d, (i + 1) * B / d), their rows
+of every cache leaf, ``parallel.sharding.shard_cache``'s layout), the
+weights and each slot's kv heads over the model axis, as
+``InferenceEngine(mesh=...)`` splits them. Every rank runs the same host
+scheduler over every request; a step's (or a round's) tokens of all slots
+are joined over the data axis before any host decision (a finish, a full
+tail, a refold, an acceptance), so the ranks decide alike and their
+collectives stay paired. An admission (monolithic or chunked: its prefill,
+build and insertion) and a slot's refold run on the data row that holds
+the slot, over that row's model group; the first tokens are joined after.
+Steps run eagerly there: gloo's collectives cannot be captured in a CUDA
+graph, so ``BatchedStep`` and ``BatchedSpecRound`` refuse a mesh. Every
+configuration of one device is served (pre / post, bf16 / int8 / int4
+factors, sparse drafts with speculation, MLA + MoE with ``draft_rank``),
+but the slerp scheme, refused under a mesh as ``InferenceEngine`` refuses
+it (ROADMAP item 17).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -45,11 +65,13 @@ from xkv_tpu_torch.engine.compression import (
     put_slot,
     refactorize_slot_cache,
 )
-from xkv_tpu_torch.engine.engine import check_mla_slerp
+from xkv_tpu_torch.engine.engine import check_mla_slerp, check_tp
 from xkv_tpu_torch.engine.graphs import BatchedSpecRound, BatchedStep
 from xkv_tpu_torch.models import deepseek, llama
 from xkv_tpu_torch.models.config import ModelConfig
 from xkv_tpu_torch.ops.rope import rope_cos_sin
+from xkv_tpu_torch.parallel.mesh import Mesh
+from xkv_tpu_torch.parallel.sharding import shard_params
 
 
 @dataclass
@@ -64,8 +86,8 @@ class Request:
 class BatchedEngine:
     """Slot-based continuous batching over the hybrid factored cache (the
     JAX constructor's surface without ``attention_impl``, plus ``device``;
-    a ``mesh`` is refused: ROADMAP item 17). ``xkv=None`` serves an
-    uncompressed cache."""
+    ``mesh`` a ``parallel.mesh.Mesh``, module docstring). ``xkv=None``
+    serves an uncompressed cache."""
 
     def __init__(
         self,
@@ -88,10 +110,9 @@ class BatchedEngine:
         device: str | torch.device = "cuda",
         mesh=None,
     ):
-        if mesh is not None:
-            # A TypeError, as a call with an argument the engine does not take.
-            raise TypeError("BatchedEngine(mesh=...): continuous batching under a mesh is "
-                            "not ported yet (ROADMAP item 17)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"BatchedEngine(mesh=...) takes a parallel.mesh.Mesh, not "
+                            f"{type(mesh).__name__}")
         mla = cfg.model_type == "deepseek_v2"
         if not mla and cfg.model_type not in ("llama", "mistral", "qwen2"):
             raise NotImplementedError(f"model_type {cfg.model_type!r}")
@@ -147,12 +168,29 @@ class BatchedEngine:
             if speculative_k + 1 > tail_max:
                 raise ValueError(f"speculative_k={speculative_k} needs tail_max > "
                                  f"speculative_k")
+        if mesh is not None and mesh.model * mesh.data == 1:
+            mesh = None
+        if mesh is not None:
+            if num_slots % mesh.data:
+                raise ValueError(f"num_slots={num_slots} must be a multiple of the mesh data "
+                                 f"axis ({mesh.data})")
+            check_tp(cfg, xkv, "factored", mesh, None, False, False)
         self._model = deepseek if mla else llama
         self._mla = mla
         self._quantized = factor_dtype in ("int8", torch.int8)
         self._mixed4 = factor_dtype == "int4"
         self.device = torch.device(device)
-        self.params = params
+        # Under a mesh: this rank's weights and share of the heads, and its
+        # data row's slots [_lo, _lo + local_slots).
+        self.mesh = mesh
+        self.params = params if mesh is None else shard_params(params, mesh)
+        self.shard_cfg = cfg if mesh is None else dataclasses.replace(
+            cfg, num_q_heads=cfg.num_q_heads // mesh.model,
+            num_kv_heads=cfg.num_kv_heads // mesh.model,
+            intermediate_size=cfg.intermediate_size // mesh.model)
+        self._mesh_kw = {} if mesh is None else {"mesh": mesh}
+        self.local_slots = num_slots if mesh is None else num_slots // mesh.data
+        self._lo = 0 if mesh is None else mesh.data_rank * self.local_slots
         self.cfg = cfg
         self.xkv = xkv
         self.num_slots = num_slots
@@ -200,8 +238,10 @@ class BatchedEngine:
         self._next_id = 0
         self._finished: List[Request] = []
         self._tail_capacity_finished: List[Request] = []
-        self.step_graph = BatchedStep(self)
-        self.spec_graph = None if speculative_k is None else BatchedSpecRound(self)
+        # Under a mesh the steps run eagerly (``_mesh_step``, ``_mesh_round``).
+        self.step_graph = None if mesh is not None else BatchedStep(self)
+        self.spec_graph = (None if speculative_k is None or mesh is not None
+                           else BatchedSpecRound(self))
 
     # ------------------------------------------------------------ structure
     def _empty_batch_cache(self) -> XKVCache:
@@ -210,9 +250,9 @@ class BatchedEngine:
         ``_empty_batch_cache``). A compact SLERP side holds a fixed
         exception budget per slot, D = max(1, int(slerp_keep_frac * s_max))
         + tail_max: an admission's kept rows and one fold's. A dense SLERP
-        group gets dense slots."""
-        cfg, xkv, dev = self.cfg, self.xkv, self.device
-        B, S = self.num_slots, self.s_max
+        group gets dense slots. Under a mesh: this rank's slots and heads."""
+        cfg, xkv, dev = self.shard_cfg, self.xkv, self.device
+        B, S = self.local_slots, self.s_max
 
         def zeros(*shape, dtype=self.cache_dtype):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -296,13 +336,13 @@ class BatchedEngine:
         kvs = [(k * mask, v * mask) for k, v in kvs]
         cos_p, sin_p = (None, None) if self._mla else (x[:bucket] for x in self._cos_sin)
         if self.xkv is None:
-            return build_uncompressed_cache(kvs, self.cfg, cos_p, sin_p, 1,
+            return build_uncompressed_cache(kvs, self.shard_cfg, cos_p, sin_p, 1,
                                             cache_dtype=self.cache_dtype)
         return build_cache(
-            kvs, self.xkv, self.cfg, cos_p, sin_p, 1, factor_dtype=self.factor_dtype,
+            kvs, self.xkv, self.shard_cfg, cos_p, sin_p, 1, factor_dtype=self.factor_dtype,
             cache_dtype=self.cache_dtype,
             sparse_block=self.sparse_block if self.sparse_topk is not None else None,
-            valid_len=true_len)
+            valid_len=true_len, **self._mesh_kw)
 
     def _pick_bucket(self, s: int) -> int:
         bucket = next((b for b in self.prefill_buckets if b >= s), None)
@@ -317,49 +357,97 @@ class BatchedEngine:
         bucket = self._pick_bucket(s)
         padded = torch.zeros((1, bucket), dtype=torch.long, device=self.device)
         padded[0, :s] = torch.as_tensor(tokens, device=self.device)
-        logits, kvs = self._model.prefill(self.params, self.cfg, padded, logits_position=s - 1)
+        logits, kvs = self._model.prefill(self.params, self.shard_cfg, padded,
+                                          logits_position=s - 1, **self._mesh_kw)
         cache1 = self._compress_kvs(kvs, bucket, s)
         return cache1, int(logits[0, 0].argmax()), s
 
     def _start_admission(self, req: Request, slot: int) -> None:
         s = int(req.tokens.shape[-1])
         bucket = self._pick_bucket(s)
-        L, dt = self.cfg.num_layers, self.params["embed"].dtype
+        self._admitting = dict(req=req, slot=slot, bucket=bucket, s=s, ci=0)
+        if not self._owns(slot):
+            return
+        cfg = self.shard_cfg
+        L, dt = cfg.num_layers, self.params["embed"].dtype
         if self._mla:
             # K scratch: the RoPE-free latent; V scratch: the rotated k_pe.
-            k_shape = (L, 1, 1, bucket, self.cfg.kv_lora_rank)
-            v_shape = (L, 1, 1, bucket, self.cfg.qk_rope_head_dim)
+            k_shape = (L, 1, 1, bucket, cfg.kv_lora_rank)
+            v_shape = (L, 1, 1, bucket, cfg.qk_rope_head_dim)
         else:
-            k_shape = v_shape = (L, 1, self.cfg.num_kv_heads, bucket, self.cfg.head_dim)
-        self._admitting = dict(
-            req=req, slot=slot, bucket=bucket, s=s, ci=0,
+            k_shape = v_shape = (L, 1, cfg.num_kv_heads, bucket, cfg.head_dim)
+        self._admitting.update(
             scratch_k=torch.zeros(k_shape, dtype=dt, device=self.device),
             scratch_v=torch.zeros(v_shape, dtype=dt, device=self.device))
 
     def _advance_admission(self) -> None:
-        """Run ONE prefill chunk; after the last, compress and insert."""
+        """Run ONE prefill chunk (on the data row that holds the slot);
+        after the last, compress and insert."""
         a = self._admitting
         C = self.prefill_chunk
         pos0 = a["ci"] * C
         s, bucket = a["s"], a["bucket"]
+        final = pos0 + C >= s
+        a["ci"] += 1
+        if not self._owns(a["slot"]):
+            if final:
+                self._admitting = None
+                self._admit_all([(a["slot"], a["req"], None)])
+            return
         valid = min(C, s - pos0)
         chunk = torch.zeros((1, C), dtype=torch.long, device=self.device)
         chunk[0, :valid] = torch.as_tensor(a["req"].tokens[pos0:pos0 + valid],
                                            device=self.device)
-        final = pos0 + C >= s
         cos_s, sin_s = (x[:bucket] for x in self._cos_sin)
         logits, _, _ = self._model.prefill_chunk(
-            self.params, self.cfg, chunk, a["scratch_k"], a["scratch_v"], pos0, cos_s, sin_s,
-            valid - 1 if final else C - 1)
-        a["ci"] += 1
+            self.params, self.shard_cfg, chunk, a["scratch_k"], a["scratch_v"], pos0, cos_s,
+            sin_s, valid - 1 if final else C - 1, **self._mesh_kw)
         if final:
             self._finish_admission(logits)
 
     def _finish_admission(self, logits: torch.Tensor) -> None:
         a, self._admitting = self._admitting, None
-        kvs = [(a["scratch_k"][l], a["scratch_v"][l]) for l in range(self.cfg.num_layers)]
-        cache1 = self._compress_kvs(kvs, a["bucket"], a["s"])
-        self._place(a["slot"], a["req"], cache1, int(logits[0, 0].argmax()), a["s"])
+
+        def admit():
+            kvs = [(a["scratch_k"][l], a["scratch_v"][l]) for l in range(self.cfg.num_layers)]
+            return self._compress_kvs(kvs, a["bucket"], a["s"]), int(logits[0, 0].argmax())
+
+        self._admit_all([(a["slot"], a["req"], admit)])
+
+    # ---------------------------------------------------------- mesh layout
+    def _owns(self, slot: int) -> bool:
+        """Whether this rank's data row holds ``slot`` (always on one
+        device)."""
+        return self._lo <= slot < self._lo + self.local_slots
+
+    def _local(self, slot: int) -> int:
+        """``slot``'s index in this rank's slot cache."""
+        return slot - self._lo
+
+    def _rows(self, arr: np.ndarray) -> torch.Tensor:
+        """This rank's slots of a host (num_slots,) array, on the device."""
+        return torch.as_tensor(arr[self._lo:self._lo + self.local_slots], dtype=torch.long,
+                               device=self.device)
+
+    def _admit_all(self, plan) -> None:
+        """Admit each (slot, request, admit) of ``plan`` in order; ``admit()``
+        -> (the request's batch-1 cache, its first token). Under a mesh the
+        data row that holds a slot admits it, and the first tokens are
+        joined over the data axis before the host records any (every rank
+        calls this with the same plan)."""
+        if self.mesh is None:
+            for slot, req, admit in plan:
+                cache1, first_token = admit()
+                self._place(slot, req, cache1, first_token, int(req.tokens.shape[-1]))
+            return
+        first = torch.zeros(self.local_slots, dtype=torch.long, device=self.device)
+        for slot, req, admit in plan:
+            if self._owns(slot):
+                cache1, first[self._local(slot)] = admit()
+                self._insert(cache1, self._local(slot))
+        first = self.mesh.gather_rows(first).tolist()
+        for slot, req, _ in plan:
+            self._record(slot, req, first[slot], int(req.tokens.shape[-1]))
 
     def _insert(self, cache1: XKVCache, slot: int) -> None:
         """Write one admitted sequence's cache into its slot IN PLACE
@@ -391,6 +479,10 @@ class BatchedEngine:
     def _place(self, slot: int, req: Request, cache1: XKVCache, first_token: int,
                s: int) -> None:
         self._insert(cache1, slot)
+        self._record(slot, req, first_token, s)
+
+    def _record(self, slot: int, req: Request, first_token: int, s: int) -> None:
+        """The host's record of an admitted request."""
         req.generated.append(first_token)
         self.slot_request[slot] = req
         self.prefill_len[slot] = s
@@ -408,14 +500,47 @@ class BatchedEngine:
         exact); ``token`` (B, ql) runs a multi-token pass. Each slot's tail
         is written in place. Returns logits (B, V), or (B, ql, V), fp32."""
         logits, _ = self._model.decode_step_batched(
-            self.params, self.cfg, self.xkv, self.batch_cache, token, pos, prefill_len,
-            tail_len, self._cos_sin, **(self._step_kw if step_kw is None else step_kw))
+            self.params, self.shard_cfg, self.xkv, self.batch_cache, token, pos, prefill_len,
+            tail_len, self._cos_sin, **(self._step_kw if step_kw is None else step_kw),
+            **self._mesh_kw)
         return logits
 
     def _refactor(self, slot: int, plen: int) -> None:
+        """Fold ``slot``'s full tail into its factors (under a mesh, on the
+        data row that holds it)."""
+        if not self._owns(slot):
+            return
         refactorize_slot_cache(
-            self.batch_cache, self.xkv, self.cfg, slot, plen,
-            sparse_block=self.sparse_block if self.sparse_topk is not None else None)
+            self.batch_cache, self.xkv, self.shard_cfg, self._local(slot), plen,
+            sparse_block=self.sparse_block if self.sparse_topk is not None else None,
+            **self._mesh_kw)
+
+    def _mesh_step(self) -> np.ndarray:
+        """One eager decode step of this rank's slots; every slot's tokens
+        (num_slots,), joined over the data axis, on the host."""
+        logits = self.step_logits(self._rows(self.token), self._rows(self.pos),
+                                  self._rows(self.prefill_len), self._rows(self.tail_len))
+        return self.mesh.gather_rows(logits.argmax(dim=-1)).cpu().numpy()
+
+    def _mesh_round(self):
+        """One eager speculative round of this rank's slots
+        (``BatchedSpecRound``'s draft and verify steps); every slot's (n_out
+        (num_slots,), the verify's tokens (num_slots, k + 1)), joined over
+        the data axis, on the host."""
+        token, pos, plen, tail = (self._rows(a) for a in (self.token, self.pos,
+                                                          self.prefill_len, self.tail_len))
+        tok, p, t, drafts = token, pos, tail, []
+        for _ in range(self.speculative_k):
+            tok = self.step_logits(tok, p, plen, t, self.draft_kw).argmax(dim=-1)
+            drafts.append(tok)
+            p, t = p + 1, t + 1
+        drafts = torch.stack(drafts, dim=1)
+        inputs = torch.cat([token[:, None], drafts], dim=1)
+        exact = self.step_logits(inputs, pos, plen, tail, {}).argmax(dim=-1)
+        n_acc = (drafts == exact[:, :-1]).long().cumprod(dim=1).sum(dim=1)
+        res = self.mesh.gather_rows(torch.cat([(n_acc + 1)[:, None], exact], dim=1))
+        res = res.cpu().numpy()
+        return res[:, 0], res[:, 1:]
 
     # ------------------------------------------------------------ public API
     def submit(self, tokens, max_new_tokens: int) -> int:
@@ -434,12 +559,13 @@ class BatchedEngine:
             if self._admitting is not None:
                 self._advance_admission()
             return
+        plan = []
         for slot in self._free_slots():
             if not self.queue:
                 break
             req = self.queue.pop(0)
-            cache1, first_token, s = self._prefill_one(req.tokens)
-            self._place(slot, req, cache1, first_token, s)
+            plan.append((slot, req, lambda req=req: self._prefill_one(req.tokens)[:2]))
+        self._admit_all(plan)
 
     def _maybe_finish(self, slot: int) -> None:
         req = self.slot_request.get(slot)
@@ -479,8 +605,11 @@ class BatchedEngine:
         own acceptance, 1 to k + 1 tokens, cut at EOS or
         ``max_new_tokens``."""
         g = self.spec_graph
-        g.load(self.token, self.pos, self.prefill_len, self.tail_len)
-        n_out, exact = g.run()
+        if g is None:
+            n_out, exact = self._mesh_round()
+        else:
+            g.load(self.token, self.pos, self.prefill_len, self.tail_len)
+            n_out, exact = g.run()
         self.spec_stats["rounds"] += 1
         emitted = 0
         for slot, req in list(self.slot_request.items()):
@@ -499,7 +628,8 @@ class BatchedEngine:
                     break
             if not req.done:
                 self._handle_full_tail(slot)
-        g.timing.emitted.append(emitted)
+        if g is not None:
+            g.timing.emitted.append(emitted)
 
     @torch.no_grad()
     def step(self) -> List[Request]:
@@ -517,8 +647,11 @@ class BatchedEngine:
         elif self.slot_request:
             if self.speculative_k is not None:
                 self.spec_stats["plain_steps"] += 1
-            self.step_graph.load(self.token, self.pos, self.prefill_len, self.tail_len)
-            next_tok = self.step_graph.run()
+            if self.step_graph is None:
+                next_tok = self._mesh_step()
+            else:
+                self.step_graph.load(self.token, self.pos, self.prefill_len, self.tail_len)
+                next_tok = self.step_graph.run()
             for slot, req in list(self.slot_request.items()):
                 self.tail_len[slot] += 1
                 self.pos[slot] += 1

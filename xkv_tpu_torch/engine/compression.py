@@ -22,8 +22,10 @@ also store ``k_rnorm``, the per-row inverse RMS of the latent that decode
 contracts against (``latent_rnorm``).
 
 Under a ``mesh`` (the svd scheme; any factor dtype, chunk bounds
-included) every rank holds its data rows and, for the Llama family, its
-kv heads' K/V, and ``cfg`` is its share of the heads. A group's SVD mixes
+included) every rank holds its data rows (every row, after a
+sequence-parallel prefill, whose K/V ``llama.prefill`` joins over the data
+axis) and, for the Llama family, its kv heads' K/V, and ``cfg`` is its
+share of the heads. A group's SVD mixes
 every head of the group, so the group's whole matrix is joined from the
 model group's columns (``Mesh.gather``), the model group's first rank
 computes the factors (at a build and at each refold) and broadcasts them,
@@ -98,8 +100,16 @@ def _whole_group(xs: List[torch.Tensor], mesh) -> List[torch.Tensor]:
 def _on_first_rank(mesh, compute: Callable[[], Dict[str, torch.Tensor]],
                    device: torch.device) -> Dict[str, torch.Tensor]:
     """``compute()``'s tensors, run on the model group's first rank and
-    broadcast to the group."""
-    return mesh.broadcast_tensors(compute() if mesh.model_rank == 0 else None, device)
+    broadcast to the group. When the data rows are replicas (sequence
+    parallelism), on the mesh's first rank alone: the first data row's
+    model group gets them so, and each data group then broadcasts its
+    first rank's, so every rank holds the same factors bitwise."""
+    if mesh.replicas and mesh.data_rank != 0:
+        return mesh.broadcast_tensors(None, device, axis="data")
+    out = mesh.broadcast_tensors(compute() if mesh.model_rank == 0 else None, device)
+    if mesh.replicas:
+        mesh.broadcast_tensors(out, device, axis="data")
+    return out
 
 
 def _compress_group_tp(ks, vs, layers, mesh, compress, heads: bool):
@@ -533,6 +543,29 @@ def _refolded_fields(gf: GroupFactors, grp, hkv: int, k_ext: Optional[torch.Tens
     return kw
 
 
+def _refold_group(gf: GroupFactors, grp, cfg: ModelConfig, k_ext, v_ext, store_k, store_v,
+                  svd_kw: dict, sparse_block, cos_f, sin_f, mesh, heads: bool,
+                  device: torch.device) -> dict:
+    """``_refolded_fields`` on one device, or under a ``mesh``: the model
+    group joins its columns of the extended matrices (``heads``; the MLA
+    latent is whole on every rank), its first rank refactorises and
+    broadcasts, and each rank keeps its shard of the fields."""
+    if mesh is None:
+        return _refolded_fields(gf, grp, cfg.num_kv_heads, k_ext, v_ext, store_k, store_v,
+                                svd_kw, sparse_block, cos_f, sin_f)
+    g = len(grp.layers)
+    if heads:
+        k_ext = None if k_ext is None else mesh.gather(k_ext, blocks=g)
+        v_ext = None if v_ext is None else mesh.gather(v_ext, blocks=g)
+    kw = _on_first_rank(mesh, lambda: _refolded_fields(
+        gf, grp, cfg.num_kv_heads * mesh.model, k_ext, v_ext, store_k, store_v, svd_kw,
+        sparse_block, cos_f, sin_f), device)
+    if heads:
+        kw = {k: v for k, v in vars(shard_group_factors(GroupFactors(**kw), g, mesh)).items()
+              if v is not None}
+    return kw
+
+
 def refactorize_cache(
     cache: XKVCache,
     xkv: XKVConfig,
@@ -596,21 +629,8 @@ def refactorize_cache(
             tail_v = _stack_group_matrix(
                 [cache.tail_v[l].to(torch.float32) for l in layers])
             v_ext = torch.cat([_v_matrix(gf), tail_v], dim=1)
-        if mesh is None:
-            kw = _refolded_fields(gf, grp, cfg.num_kv_heads, k_ext, v_ext, store_dtype,
-                                  store_dtype, svd_kw, sparse_block, cos_f, sin_f)
-        else:
-            g = len(layers)
-            if rope_keys:
-                k_ext = None if k_ext is None else mesh.gather(k_ext, blocks=g)
-                v_ext = None if v_ext is None else mesh.gather(v_ext, blocks=g)
-            kw = _on_first_rank(mesh, lambda: _refolded_fields(
-                gf, grp, cfg.num_kv_heads * mesh.model, k_ext, v_ext, store_dtype, store_dtype,
-                svd_kw, sparse_block, cos_f, sin_f), device)
-            if rope_keys:
-                kw = {k: v for k, v in vars(shard_group_factors(GroupFactors(**kw), g,
-                                                                mesh)).items()
-                      if v is not None}
+        kw = _refold_group(gf, grp, cfg, k_ext, v_ext, store_dtype, store_dtype, svd_kw,
+                           sparse_block, cos_f, sin_f, mesh, rope_keys, device)
         for side, tail in (("slerp_k", cache.tail_k), ("slerp_v", cache.tail_v)):
             sc = getattr(gf, side)
             if sc is not None:
@@ -686,6 +706,7 @@ def refactorize_slot_cache(
     slot: int,
     plen: int,
     sparse_block: Optional[int] = None,
+    mesh=None,
 ) -> XKVCache:
     """Fold ONE slot's full decode tail back into its factors, IN PLACE
     within the slot's static row capacity (continuous batching; JAX
@@ -705,7 +726,10 @@ def refactorize_slot_cache(
     the tail at rows [plen, plen + tail_max) and is compacted again at the
     slot's FIXED budget D (``BatchedEngine`` sizes it for the admission's
     rows and one fold): past it the rows of least angle are
-    re-approximated."""
+    re-approximated. Under a ``mesh`` the ranks of the data row that holds
+    the slot (``slot`` its index there) fold it: the model group joins its
+    columns of the slot's matrices, its first rank factorises and
+    broadcasts, each rank keeps its shard (``refactorize_cache``)."""
     t = cache.tail_max
     s_max = cache.prefill_len
     if plen + t > s_max:
@@ -744,8 +768,9 @@ def refactorize_slot_cache(
         # The slot's own storage dtypes (int8 scales mark quantised sides).
         store_k = "int8" if gf.k_scale is not None else getattr(gf.k_us, "dtype", None)
         store_v = "int8" if gf.v_scale is not None else getattr(gf.v_us, "dtype", None)
-        for name, src in _refolded_fields(gf, grp, cfg.num_kv_heads, k_ext, v_ext, store_k,
-                                          store_v, svd_kw, sparse_block, cos_f, sin_f).items():
+        kw = _refold_group(gf, grp, cfg, k_ext, v_ext, store_k, store_v, svd_kw, sparse_block,
+                           cos_f, sin_f, mesh, rope_keys, device)
+        for name, src in kw.items():
             put_slot(getattr(gf, name), slot, src)
         for side, tail in (("slerp_k", cache.tail_k), ("slerp_v", cache.tail_v)):
             sc = getattr(one, side)

@@ -56,13 +56,22 @@ serves its block of the batch rows (the batch must divide the axis, as
 the JAX engine's token sharding needs): ``prefill`` and ``decode_step``
 take and return every row, ``generate`` returns every row on every rank,
 and the cache a rank holds is its shard (its rows; ``engine.shard_cfg``
-is its share of the heads). Decode under a mesh runs eagerly: the
-collectives of the gloo backend cannot be captured in a CUDA graph, so
-``generate`` runs its steps one by one and ``DecodeGraph`` /
-``SpecRounds`` (``score``, speculation) refuse a mesh. Refused under a
-mesh: ``staged_prefill`` and ``sparse_topk_max`` (the JAX engine refuses
-them too), and, not ported yet (ROADMAP item 17), the slerp scheme,
-``sequence_parallel`` and ``BatchedEngine(mesh=...)``.
+is its share of the heads). With ``sequence_parallel`` (Llama family;
+the JAX engine's) the data axis splits the prompt's rows instead: each
+data rank runs its rows through every layer at their global positions,
+attention by ring attention over the data axis (``ops/ring_attention.py``,
+plain block products, as the JAX ring's), and the K/V rows and logits
+are joined over it; the mesh's first rank factorises (each data group
+then broadcasts its factors), so every rank holds the whole cache on its
+heads, and decode runs every batch row on every data rank (b = 1
+included; ``self.mesh`` is the mesh with ``replicas`` set). Decode under
+a mesh runs eagerly: the collectives of the gloo backend cannot be
+captured in a CUDA graph, so ``generate`` runs its steps one by one and
+``DecodeGraph`` / ``SpecRounds`` (``score``, speculation) refuse a mesh.
+Refused under a mesh: ``staged_prefill`` and ``sparse_topk_max`` (the JAX
+engine refuses them too), and, not ported yet (ROADMAP item 17), the
+slerp scheme. ``BatchedEngine(mesh=...)`` serves continuous batching
+under a mesh (``engine/batching.py``).
 """
 
 from __future__ import annotations
@@ -94,8 +103,11 @@ def check_tp(cfg: ModelConfig, xkv: Optional[XKVConfig], mode: str, mesh, sparse
     """Refuse what the engine does not serve under a mesh: the JAX engine's
     own refusals with its reasons, the rest naming ROADMAP item 17."""
     if sequence_parallel:
-        raise ValueError("sequence_parallel: ring-attention prefill over a mesh's data axis "
-                         "is not ported yet (ROADMAP item 17)")
+        if mesh is None:
+            raise ValueError("sequence_parallel requires a mesh with a 'data' axis")
+        if cfg.model_type == "deepseek_v2":
+            raise ValueError("sequence_parallel prefill is llama-family only (MLA "
+                             "prefill shards batch over data instead)")
     if mesh is None or mesh.model * mesh.data == 1:
         return
     if staged_prefill:
@@ -204,7 +216,14 @@ class InferenceEngine:
         check_tp(cfg, xkv, mode, mesh, sparse_topk_max, staged_prefill, sequence_parallel)
         self._mla = mla
         self.device = torch.device(device)
-        # Under a mesh: this rank's weights, its share of the heads.
+        # Under a mesh: this rank's weights, its share of the heads. Under
+        # sequence parallelism the data axis splits the prompt's rows at
+        # prefill (``_ring_mesh``) and carries replicas after it: every data
+        # row holds the whole cache on its heads and decodes every row.
+        self.sequence_parallel = sequence_parallel
+        self._ring_mesh = mesh if sequence_parallel else None
+        if sequence_parallel:
+            mesh = dataclasses.replace(mesh, replicas=True)
         self.mesh = mesh if mesh is not None and mesh.model * mesh.data > 1 else None
         self.params = params if self.mesh is None else shard_params(params, self.mesh)
         self.shard_cfg = cfg if self.mesh is None else dataclasses.replace(
@@ -249,7 +268,8 @@ class InferenceEngine:
     def prefill(self, tokens) -> Tuple[torch.Tensor, XKVCache]:
         """tokens (b, s) -> (logits (b, s, V) fp32, or (b, 1, V) with
         prefill_logits="last"; cache). Under a data axis the cache holds
-        this rank's rows, the logits every row."""
+        this rank's rows, the logits every row; under sequence parallelism
+        every rank's cache and logits hold every row."""
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
         if self.staged_prefill:
             return self._prefill_staged(tokens)
@@ -257,9 +277,11 @@ class InferenceEngine:
             tokens = self.mesh.rows(tokens)
         s = tokens.shape[1]
         model = deepseek if self._mla else llama
+        prefill_kw = (dict(mesh=self._ring_mesh, sequence_parallel=True)
+                      if self.sequence_parallel else self._mesh_kw)
         logits, kvs = model.prefill(
             self.params, self.shard_cfg, tokens,
-            logits_position=s - 1 if self.prefill_logits == "last" else None, **self._mesh_kw)
+            logits_position=s - 1 if self.prefill_logits == "last" else None, **prefill_kw)
         # The MLA latent is stored without RoPE: no tables (its RoPE key,
         # already rotated, is qk_rope_head_dim wide, not head_dim).
         cos_p, sin_p = (None, None) if self._mla else self._prefill_cos_sin(s)

@@ -77,12 +77,13 @@ def capture_step(body) -> Tuple[torch.cuda.CUDAGraph, dict, float]:
 
 def refuse_mesh(engine, what: str) -> None:
     """A graph of a step under a mesh is refused: the gloo backend's
-    collectives cannot be captured in a CUDA graph, and a captured TP step
-    on NCCL (two cards) is ROADMAP item 17. ``generate`` under a mesh runs
-    its steps eagerly."""
+    collectives (what ranks sharing one card use) cannot be captured in a
+    CUDA graph, and a captured tensor-parallel step on NCCL needs a card a
+    rank (ROADMAP item 17). Under a mesh ``InferenceEngine.generate`` and
+    ``BatchedEngine.step`` run their steps eagerly."""
     if getattr(engine, "mesh", None) is not None:
         raise ValueError(f"{what} under a mesh: a captured tensor-parallel step is not "
-                         "ported yet (ROADMAP item 17); generate decodes eagerly there")
+                         "ported yet (ROADMAP item 17); the engines decode eagerly there")
 
 
 @dataclass
@@ -379,9 +380,11 @@ class BatchedStep:
     read is the step's one sync. On CUDA the first ``run`` is the
     warm-up step, eager on a side stream, and then captures the step;
     every later ``run`` replays it, timed by CUDA events. A capture that
-    fails raises. On the CPU every ``run`` is the eager step."""
+    fails raises. On the CPU every ``run`` is the eager step. A mesh is
+    refused (``refuse_mesh``)."""
 
     def __init__(self, engine):
+        refuse_mesh(engine, "BatchedStep")
         dev = engine.device
         B = engine.num_slots
         self.engine = engine
@@ -457,9 +460,11 @@ class BatchedSpecRound(_CapturedRounds):
     cache has static shapes and is written only in place, so the draft
     and the verify step are captured once per engine, at its first round
     (``_CapturedRounds``), and replayed by every later one. A capture that
-    fails raises. On the CPU every round runs eagerly."""
+    fails raises. On the CPU every round runs eagerly. A mesh is refused
+    (``refuse_mesh``)."""
 
     def __init__(self, engine):
+        refuse_mesh(engine, "BatchedSpecRound")
         dev = engine.device
         B, k = engine.num_slots, engine.speculative_k
         self.engine = engine

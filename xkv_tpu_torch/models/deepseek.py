@@ -324,6 +324,7 @@ def prefill_chunk(
     cos_s: torch.Tensor,
     sin_s: torch.Tensor,
     last_idx: Union[int, torch.Tensor],
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One chunk of a chunked MLA prefill (JAX ``prefill_chunk``), with
     ``llama.prefill_chunk``'s contract: the chunk's RoPE-free latent and
@@ -332,7 +333,8 @@ def prefill_chunk(
     up-projected again, and attention is causal over [0, pos0 + C)
     (plain ``blockwise_causal_attention``). cos_s / sin_s: the
     interleaved-RoPE tables (S, rope). Returns (logits (b, 1, V) fp32 at
-    chunk row ``last_idx``, scratch_latent, scratch_kpe)."""
+    chunk row ``last_idx``, scratch_latent, scratch_kpe). Under a ``mesh``,
+    over the rank's q heads and experts (the latent is whole)."""
     b, C = chunk_tokens.shape
     scale = softmax_scale(cfg)
     rows = torch.arange(C, device=chunk_tokens.device) + pos0
@@ -356,10 +358,11 @@ def prefill_chunk(
         k_full = torch.cat([k_nope, k_pe_all.expand(-1, k_nope.shape[1], -1, -1)], dim=-1)
         attn = blockwise_causal_attention(q_full, k_full, v, scale, q_offset=pos0,
                                           kv_valid=kv_valid).to(h.dtype)
-        h = resid + attn.permute(0, 2, 1, 3).reshape(b, C, -1) @ ap["o_proj"]
-        h = h + _mlp(layer["mlp"], cfg, rms_norm(h, layer["post_norm"], cfg.rms_norm_eps))
+        h = resid + row_product(mesh, attn.permute(0, 2, 1, 3).reshape(b, C, -1), ap["o_proj"])
+        h = h + _mlp(layer["mlp"], cfg, rms_norm(h, layer["post_norm"], cfg.rms_norm_eps),
+                     mesh=mesh)
     idx = torch.as_tensor(last_idx, device=h.device).reshape(1)
-    return unembed(params, cfg, h.index_select(1, idx)), scratch_latent, scratch_kpe
+    return unembed(params, cfg, h.index_select(1, idx), mesh), scratch_latent, scratch_kpe
 
 
 # ----------------------------------------------------------------- decode
@@ -544,6 +547,7 @@ def decode_step_batched(
     tail_len: torch.Tensor,
     prefill_cos_sin=None,
     draft_rank: Optional[int] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, XKVCache]:
     """Absorbed MLA decode across B independent slots (continuous
     batching; JAX ``decode_step_batched``): per-slot positions, valid
@@ -554,8 +558,9 @@ def decode_step_batched(
     V); the batched speculative verify). ``draft_rank``: the batched
     speculative draft, over each slot's top ``draft_rank`` ranks of the
     factored latents (``decode_step``). ``prefill_cos_sin`` is unused (the
-    latent carries no RoPE); it keeps ``llama``'s signature. Returns
-    (logits (B, V) fp32, cache)."""
+    latent carries no RoPE); it keeps ``llama``'s signature. Under a
+    ``mesh``, a rank's q heads and experts over its slots (``decode_step``).
+    Returns (logits (B, V) fp32, cache)."""
     multi = tokens.dim() == 2
     tokens2 = tokens if multi else tokens[:, None]
     ql = tokens2.shape[1]
@@ -568,5 +573,5 @@ def decode_step_batched(
     logits = _decode_layers(
         params, cfg, xkv, cache, tokens2, cos, sin,
         lambda li, k, v: cache.append_slot_tails(li, k, v, tail_len), t_mask,
-        lengths=prefill_len, draft_rank=draft_rank)
+        lengths=prefill_len, draft_rank=draft_rank, mesh=mesh)
     return (logits if multi else logits[:, 0]), cache

@@ -174,12 +174,15 @@ def _prefill_layer(
     cos: torch.Tensor,
     sin: torch.Tensor,
     scale: float,
-    attention: Callable = flash_attention,
+    attention: Optional[Callable] = None,
     mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decoder layer of the causal prefill. Returns (h', k_pre_rope, v).
-    ``attention(q, k, v, scale=, window=)`` -> (b, s, hq, hd): K1 by
-    default, ``ops.attention.plain_prefill_attention`` to differentiate."""
+    ``attention(q, k, v, scale=, window=)`` -> (b, s, hq, hd): K1 (this
+    module's ``flash_attention``, looked up at the call) when None,
+    ``ops.attention.plain_prefill_attention`` to differentiate."""
+    if attention is None:
+        attention = flash_attention
     b, s = h.shape[0], h.shape[1]
     resid = h
     x = rms_norm(h, layer["input_norm"], cfg.rms_norm_eps)
@@ -198,7 +201,7 @@ def prefill_layer_span(
     h: torch.Tensor,
     cos: torch.Tensor,
     sin: torch.Tensor,
-    attention: Callable = flash_attention,
+    attention: Optional[Callable] = None,
     mesh=None,
 ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
     """A contiguous span of the prefill's decoder layers, entered with the
@@ -218,18 +221,47 @@ def prefill(
     cfg: ModelConfig,
     tokens: torch.Tensor,
     logits_position: Optional[int] = None,
-    attention: Callable = flash_attention,
+    attention: Optional[Callable] = None,
     mesh=None,
+    sequence_parallel: bool = False,
 ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
     """Causal forward over a prompt. tokens (b, s) -> (logits (b, s, V)
     fp32, or (b, 1, V) at ``logits_position``; [(k_pre_rope, v)] per layer,
     each (b, hkv, s, hd)). ``attention``: as ``_prefill_layer``'s (under a
-    ``mesh``, on the rank's heads)."""
+    ``mesh``, on the rank's heads).
+
+    ``sequence_parallel`` (JAX ``prefill(sequence_parallel=True)``): the
+    prompt's rows split over the ``mesh``'s data axis, data rank i running
+    rows [i * s / d, (i + 1) * s / d) through every layer at their global
+    RoPE positions, attention by ``ops.ring_attention`` over the data axis
+    on the rank's heads. The K/V rows and the final activations are joined
+    over the data axis in rank order, so every rank returns the whole
+    prompt's logits and K/V, as one device does."""
     b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device)[None, :]
+    lo = 0
+    if sequence_parallel:
+        from xkv_tpu_torch.ops.ring_attention import ring_attention
+
+        if mesh is None:
+            raise ValueError("sequence_parallel prefill needs a mesh with a 'data' axis")
+        if s % mesh.data:
+            raise ValueError(f"data axis size {mesh.data} must divide seq {s}")
+        s_local = s // mesh.data
+        lo = mesh.data_rank * s_local
+        tokens = tokens[:, lo:lo + s_local]
+
+        def attention(q, k, v, scale, window):
+            out = ring_attention(q, k, v, mesh=mesh, axis_name="data", scale=scale,
+                                 causal=True, window=window)
+            return out.transpose(1, 2)
+
+    positions = torch.arange(lo, lo + tokens.shape[1], device=tokens.device)[None, :]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
     h, kvs = prefill_layer_span(params["layers"], cfg, params["embed"][tokens], cos, sin,
                                 attention, mesh)
+    if sequence_parallel:
+        h = mesh.join_rows(h, dim=1)
+        kvs = [(mesh.join_rows(k, dim=2), mesh.join_rows(v, dim=2)) for k, v in kvs]
     if logits_position is not None:
         h = h[:, logits_position:logits_position + 1]
     return unembed(params, cfg, h, mesh), kvs
@@ -245,6 +277,7 @@ def prefill_chunk(
     cos_s: torch.Tensor,
     sin_s: torch.Tensor,
     last_idx: Union[int, torch.Tensor],
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One chunk of a chunked (incremental) prefill (JAX ``prefill_chunk``).
 
@@ -256,7 +289,8 @@ def prefill_chunk(
     rotated locally, as the monolithic prefill), so the chunk's logits and
     K/V equal the monolithic prefill's. ``pos0`` and ``last_idx`` are ints
     (the scratch is then read only up to pos0 + C) or 0-d tensors on the
-    device (every row read, those past pos0 + C masked). Returns (logits
+    device (every row read, those past pos0 + C masked). Under a ``mesh``,
+    on the rank's heads (the scratch holds its kv heads). Returns (logits
     (b, 1, V) fp32 at chunk row ``last_idx``, scratch_k, scratch_v)."""
     b, C = chunk_tokens.shape
     hd = cfg.head_dim
@@ -279,10 +313,11 @@ def prefill_chunk(
         attn = blockwise_causal_attention(
             q, k_all, scratch_v[li, :, :, :n_read].to(v.dtype), scale,
             window=cfg.sliding_window, q_offset=pos0, kv_valid=kv_valid)
-        h = resid + attn.permute(0, 2, 1, 3).reshape(b, C, -1) @ layer["attn"]["wo"]
-        h = h + mlp(layer["mlp"], rms_norm(h, layer["post_norm"], cfg.rms_norm_eps))
+        h = resid + row_product(mesh, attn.permute(0, 2, 1, 3).reshape(b, C, -1),
+                                layer["attn"]["wo"])
+        h = h + mlp(layer["mlp"], rms_norm(h, layer["post_norm"], cfg.rms_norm_eps), mesh)
     idx = torch.as_tensor(last_idx, device=h.device).reshape(1)
-    return unembed(params, cfg, h.index_select(1, idx)), scratch_k, scratch_v
+    return unembed(params, cfg, h.index_select(1, idx), mesh), scratch_k, scratch_v
 
 
 # ----------------------------------------------------------------- decode
@@ -572,9 +607,11 @@ def decode_step_batched(
     sparse_select: Optional[int] = None,
     sparse_block: int = 512,
     sparse_layers: Optional[frozenset] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, XKVCache]:
     """One decode step across B independent slots (continuous batching;
-    JAX ``decode_step_batched``).
+    JAX ``decode_step_batched``); under a ``mesh``, a rank's heads of its
+    slots, as ``decode_step``.
 
     tokens: (B,) one token per slot, or (B, ql) a multi-token pass (the
     batched speculative verify: ``ql`` exact K/V rows appended at each
@@ -606,5 +643,5 @@ def decode_step_batched(
         params, cfg, xkv, cache, tokens2, cos, sin, *prefill_cos_sin,
         lambda li, k, v: cache.append_slot_tails(li, k, v, tail_len), tail_valid,
         lengths=prefill_len, win_lo=win_lo, tail_lo=tail_lo, sparse_select=sparse_select,
-        sparse_block=sparse_block, sparse_layers=sparse_layers)
+        sparse_block=sparse_block, sparse_layers=sparse_layers, mesh=mesh)
     return (logits if multi else logits[:, 0]), cache
